@@ -9,9 +9,14 @@ prints no ``ok`` line):
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (all sources at once), and time the build;
 3. each kernel against its plain PyTorch version on the card, on ragged
-   inputs (fp32 with TF32 matmuls off, rtol = atol = 3e-5; bf16,
-   rtol = atol = 2e-2), then timed at the main path's decode shapes
-   beside its bound and the plain version's time;
+   inputs (fp32 with TF32 matmuls off, rtol = atol = 3e-5 for attention
+   and 3e-4 for the SSD scan; bf16, rtol = atol = 2e-2; length-0 decode
+   rows exactly zero, Sq != Sk flash, G > 1 SSD), then timed beside its
+   bound, its plain version's time and the library call's (SDPA for the
+   attention kernels; none for the paged and SSD kernels): paged decode
+   at the main path's decode shapes, flash at tinyllama-1.1b and gemma-7b
+   prefill widths (S 2048), dense decode at tinyllama's (B 8, S 1024),
+   the SSD scan at mamba2-780m's (L 2048);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -21,7 +26,14 @@ prints no ``ok`` line):
    decode steps run under ``torch.cuda.set_sync_debug_mode("error")``.
    One decode step's logits are held against the "gather" attention path,
    in bf16 (relative L2 2e-2) and in fp32 (1e-4); a third, profiled run
-   records where a decode step's time goes.
+   records where a decode step's time goes;
+6. the kernel API (``kernels.ops``) at full width, its launch counts
+   reset just before and read just after: flash at S 2000 and decode
+   against a 1000-position cache (both padded as the reference pads), the
+   SSD scan at L 2000, each within 2e-2 relative L2 of its plain version;
+   then one full-width mamba2-780m mixer layer (B 1, S 2048, random
+   weights) through the SSD kernel against the same layer through
+   ``ssd_chunked``, within 2e-2 relative L2 in bf16 and 1e-4 in fp32.
 
 It then prints a JSON line of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Longer
@@ -40,6 +52,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -117,10 +130,19 @@ def paged_inputs(gen, B, H, KV, D, bs, lengths, n_blocks, width, dtype, holes=Tr
     return q, k, v, torch.from_numpy(tables).to(dev), lens
 
 
+def least_time_ms(nbytes, flops, dtype):
+    """Least time for the work: the larger of the bytes over the memory
+    rate and the flops over the input type's peak; and which one it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
 def paged_bound_ms(q, k, lengths, bs):
-    """Least time for the work: K and V tiles of every valid block read
-    once, q read, out written, the table entries and lengths read; or
-    the 4*H*D flops per valid key over the input type's peak rate."""
+    """K and V tiles of every valid block read once, q read, out written,
+    the table entries and lengths read; 4*H*D flops per valid key."""
     B, H, D = q.shape
     KV = k.shape[1]
     lens = lengths.cpu().numpy().astype(np.int64)
@@ -128,11 +150,7 @@ def paged_bound_ms(q, k, lengths, bs):
     es = q.element_size()
     nbytes = blocks * bs * KV * D * 2 * es + 2 * q.numel() * es + blocks * 4 + B * 4
     flops = 4 * H * D * int(lens.sum())
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    if by_bytes >= by_ops:
-        return by_bytes, "bytes"
-    return by_ops, "operations"
+    return least_time_ms(nbytes, flops, q.dtype)
 
 
 def check_paged_decode(PD):
@@ -198,6 +216,243 @@ def time_paged_decode(PD, cfg, lengths, width, smi, n_sets=64):
         f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of bound [{smi}]"
     )
     return ms, plain_ms, bound_ms, bound_by
+
+
+# ------------------------------------------- flash, decode and SSD kernels
+TOLS = ((torch.float32, 3e-5), (torch.bfloat16, 2e-2))
+SSD_TOLS = ((torch.float32, 3e-4), (torch.bfloat16, 2e-2))
+
+
+def randn(gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def heads_view(gen, B, S, heads, D, dtype, bshd):
+    """A [B, heads, S, D] operand: contiguous, or (``bshd``) the
+    transposed view of a [B, S, heads, D] tensor, as the kernel API
+    passes the model's layout."""
+    if bshd:
+        return randn(gen, (B, S, heads, D), dtype).transpose(1, 2)
+    return randn(gen, (B, heads, S, D), dtype)
+
+
+def compare(name, out, ref, tol, what):
+    """Kernel output against its plain version: assert within ``tol``
+    (rtol = atol) and return the max abs error."""
+    torch.cuda.synchronize()
+    out, ref = out.float(), ref.float()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: non-finite output ({what})")
+    err = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    log(f"[kernel] {name} {what} max_abs_err={err:.3e} (tol {tol})")
+    return err
+
+
+def check_flash(FA):
+    """Ragged shapes, GQA and MQA, Sq != Sk both ways, D 64/128/256,
+    causal and not, contiguous and transposed-view operands."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = [  # (B, H, KV, Sq, Sk, D, causal, bshd)
+        (1, 8, 2, 200, 200, 64, True, True),
+        (2, 4, 4, 100, 300, 128, True, False),
+        (1, 4, 1, 300, 100, 256, True, True),
+        (1, 4, 2, 130, 130, 64, False, False),
+    ]
+    worst = 0.0
+    for dtype, tol in TOLS:
+        for B, H, KV, Sq, Sk, D, causal, bshd in cases:
+            q = heads_view(gen, B, Sq, H, D, dtype, bshd)
+            k = heads_view(gen, B, Sk, KV, D, dtype, bshd)
+            v = heads_view(gen, B, Sk, KV, D, dtype, bshd)
+            out = FA.flash_attention(q, k, v, causal=causal)
+            ref = FA.flash_attention_ref(q, k, v, causal=causal)
+            what = f"{dtype} B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} D={D} causal={causal}"
+            worst = max(worst, compare("flash_attention", out, ref, tol, what))
+    return worst
+
+
+def check_decode(DA):
+    """Ragged lengths with a length-0 row (exact zeros) and one past S,
+    GQA/MHA, D 64/128/256, contiguous and transposed-view caches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = [  # (H, KV, S, D, lengths, bshd)
+        (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
+        (8, 2, 200, 128, [20, 0, 199], False),
+        (16, 16, 300, 256, [300, 5], True),
+    ]
+    worst = 0.0
+    for dtype, tol in TOLS:
+        for H, KV, S, D, lens, bshd in cases:
+            B = len(lens)
+            q = randn(gen, (B, H, D), dtype)
+            k = heads_view(gen, B, S, KV, D, dtype, bshd)
+            v = heads_view(gen, B, S, KV, D, dtype, bshd)
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = DA.decode_attention(q, k, v, ln)
+            ref = DA.decode_attention_ref(q, k, v, ln)
+            what = f"{dtype} B={B} H={H} KV={KV} S={S} D={D} lengths={lens}"
+            worst = max(worst, compare("decode_attention", out, ref, tol, what))
+            zero_rows = [b for b, n in enumerate(lens) if n == 0]
+            if not bool((out[zero_rows] == 0).all()):
+                raise AssertionError("decode_attention: length-0 row is not zero")
+    return worst
+
+
+def ssd_inputs(gen, b, L, H, G, P, N, dtype):
+    """Inputs shaped like the reference's kernel tests: x * 0.5,
+    dt = softplus(randn) in fp32, A = -exp(0.3 randn), B and C * 0.3."""
+    x = randn(gen, (b, L, H, P), dtype, 0.5)
+    dt = torch.nn.functional.softplus(randn(gen, (b, L, H), torch.float32))
+    A = -torch.exp(randn(gen, (H,), torch.float32, 0.3))
+    Bm = randn(gen, (b, L, G, N), dtype, 0.3)
+    Cm = randn(gen, (b, L, G, N), dtype, 0.3)
+    return x, dt, A, Bm, Cm
+
+
+def check_ssd(SS):
+    """One and several chunks, G > 1, P 32/64, N 16/128, chunks 64-256;
+    y and the final state both held."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cases = [  # (b, L, H, G, P, N, Q)
+        (2, 256, 4, 2, 64, 128, 128),
+        (1, 192, 3, 1, 32, 16, 64),
+        (1, 512, 2, 1, 64, 128, 256),
+    ]
+    worst = 0.0
+    for dtype, tol in SSD_TOLS:
+        for b, L, H, G, P, N, Q in cases:
+            args = ssd_inputs(gen, b, L, H, G, P, N, dtype)
+            y, h = SS.ssd_scan(*args, chunk=Q)
+            yr, hr = SS.ssd_scan_ref(*args, chunk=Q)
+            if y.dtype != dtype or h.dtype != dtype:
+                raise AssertionError(f"ssd_scan: outputs in {y.dtype}/{h.dtype}")
+            what = f"{dtype} b={b} L={L} H={H} G={G} P={P} N={N} Q={Q}"
+            worst = max(worst, compare("ssd_scan", y, yr, tol, what + " y"))
+            worst = max(worst, compare("ssd_scan", h, hr, tol, what + " state"))
+    return worst
+
+
+def n_sets(per_call_bytes, least=2):
+    """Input sets whose operands together exceed the 50 MB L2 cache."""
+    return max(least, -(-64 * 2**20 // per_call_bytes))
+
+
+def time_calls(calls, kernel, plain, library=None):
+    """Kernel, plain version and library call (or None) over the same
+    argument sets, in ms per call."""
+
+    def over(fn):
+        return [functools.partial(fn, *args) for args in calls]
+
+    ms = graph_time_ms(over(kernel))
+    plain_ms = graph_time_ms(over(plain))
+    lib_ms = graph_time_ms(over(library)) if library is not None else None
+    return ms, plain_ms, lib_ms
+
+
+def report(name, what, ms, plain_ms, lib_ms, bound, smi):
+    lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "none"
+    log(
+        f"[kernel] {name} {what}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"library {lib}, bound {bound[0]:.5f} ms ({bound[1]}), "
+        f"{bound[0] / ms:.1%} of bound [{smi}]"
+    )
+
+
+def time_flash(FA, B, S, H, KV, D, smi):
+    """Causal bf16 self-attention at [B, S] with H query and KV heads of
+    dim D; the library call is SDPA with ``is_causal`` and GQA."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    dtype = torch.bfloat16
+    per_call = (2 * B * H * S * D + 2 * B * KV * S * D) * 2
+    calls = [
+        tuple(randn(gen, (B, n, S, D), dtype) for n in (H, KV, KV))
+        for _ in range(n_sets(per_call))
+    ]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    q, k, v = calls[0]
+    lib_err = (FA.flash_attention(q, k, v).float() - sdpa(q, k, v).float()).abs().max()
+    ms, plain_ms, lib_ms = time_calls(
+        calls, FA.flash_attention, FA.flash_attention_ref, sdpa
+    )
+    pairs = sum(min(i + 1, S) for i in range(S))
+    bound = least_time_ms(per_call, 4 * B * H * D * pairs, dtype)
+    what = (
+        f"bf16 causal B={B} S={S} H={H} KV={KV} D={D} "
+        f"(max abs vs library {lib_err.item():.3e})"
+    )
+    report("flash_attention", what, ms, plain_ms, lib_ms, bound, smi)
+    return ms, plain_ms, lib_ms, bound
+
+
+def time_decode(DA, cfg, lengths, S, smi):
+    """bf16 decode at tinyllama's heads against a dense [B, S, KV, D]
+    cache passed as the kernel API passes it (a transposed view); the
+    library call is SDPA with a [B, 1, 1, S] length mask and GQA."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dtype = torch.bfloat16
+    B, H, KV, D = len(lengths), cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+    per_call = (2 * B * KV * S * D + 2 * B * H * D) * 2
+    calls = [
+        (
+            randn(gen, (B, H, D), dtype),
+            heads_view(gen, B, S, KV, D, dtype, True),
+            heads_view(gen, B, S, KV, D, dtype, True),
+            ln,
+        )
+        for _ in range(n_sets(per_call))
+    ]
+
+    def sdpa(q, k, v, ln):
+        out = F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True
+        )
+        return out[:, :, 0]
+
+    ms, plain_ms, lib_ms = time_calls(
+        calls, DA.decode_attention, DA.decode_attention_ref, sdpa
+    )
+    keys = sum(min(n, S) for n in lengths)
+    nbytes = (keys * KV * D * 2 + 2 * B * H * D) * 2 + B * 4
+    bound = least_time_ms(nbytes, 4 * H * D * keys, dtype)
+    what = f"bf16 B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}"
+    report("decode_attention", what, ms, plain_ms, lib_ms, bound, smi)
+    return ms, plain_ms, lib_ms, bound
+
+
+def ssd_flops(b, L, H, G, P, N, Q):
+    """Least work of the chunked scan: C B^T once per group over each
+    chunk's causal pairs; per head the masked scores times x, then C h
+    and the state update (2 Q P N flops each)."""
+    nc, pairs = L // Q, Q * (Q + 1) // 2
+    return b * nc * (G * pairs * 2 * N + H * (pairs * 2 * P + 4 * Q * P * N))
+
+
+def time_ssd(SS, cfg, L, smi):
+    """bf16 SSD scan at the config's widths; no library call computes it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    dtype = torch.bfloat16
+    H, P, N, G, Q = (
+        cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_chunk
+    )
+    b = 1
+    per_call = (2 * b * L * H * P + 2 * b * L * G * N + b * H * P * N) * 2 + (
+        b * L * H + H
+    ) * 4
+    calls = [
+        ssd_inputs(gen, b, L, H, G, P, N, dtype) + (Q,) for _ in range(n_sets(per_call))
+    ]
+    ms, plain_ms, _ = time_calls(calls, SS.ssd_scan, SS.ssd_scan_ref)
+    bound = least_time_ms(per_call, ssd_flops(b, L, H, G, P, N, Q), dtype)
+    what = f"bf16 b={b} L={L} H={H} G={G} P={P} N={N} Q={Q}"
+    report("ssd_scan", what, ms, plain_ms, None, bound, smi)
+    return ms, plain_ms, None, bound
 
 
 # ---------------------------------------------------- small fp32 reference
@@ -377,6 +632,78 @@ def profile_decode(eng, out_dir, smi, n=4):
     log(f"[profile] {head}; idle share {idle:.3f}; top device time per step: {top5}")
 
 
+# ------------------------------------------------------------ kernel API
+def rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def kernel_api_phase(ops, FA, DA, ssm, get_config, mid_lens, smi):
+    """The three ``kernels.ops`` wrappers at full width, each on a shape
+    that needs the reference's padding, then one full-width mamba2-780m
+    mixer layer (B 1, S 2048) through the SSD kernel (``ssd_fn=ops.ssd``)
+    against the same layer through ``ssd_chunked``, in bf16 and in fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    tl = get_config("tinyllama-1.1b")
+    H, KV, D = tl.num_heads, tl.num_kv_heads, tl.resolved_head_dim
+
+    def check(name, got, want, shape, tol):
+        if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite")
+        rel = rel_l2(got, want)
+        if rel > tol:
+            raise AssertionError(f"{name}: relative L2 {rel:.3e} > {tol}")
+        log(f"[api] {name} {shape}: relative L2 {rel:.3e} (tol {tol})")
+
+    # flash at S = 2000 (padded to 2048, as the reference pads)
+    S = 2000
+    q = randn(gen, (1, S, H, D), bf)
+    k, v = randn(gen, (1, S, KV, D), bf), randn(gen, (1, S, KV, D), bf)
+    got = ops.flash_attention_bshd(q, k, v)
+    want = FA.flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)))
+    check("ops.flash_attention_bshd", got, want.transpose(1, 2), (1, S, H, D), 2e-2)
+
+    # decode against a dense cache of S = 1000 positions (padded to 1024)
+    B, S = len(mid_lens), 1000
+    qd = randn(gen, (B, 1, H, D), bf)
+    kc, vc = randn(gen, (B, S, KV, D), bf), randn(gen, (B, S, KV, D), bf)
+    ln = torch.tensor(mid_lens, dtype=torch.int32, device="cuda")
+    got = ops.decode_attention_bshd(qd, kc, vc, ln)
+    want = DA.decode_attention_ref(qd[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), ln)
+    check("ops.decode_attention_bshd", got, want[:, None], (B, 1, H, D), 2e-2)
+
+    # SSD at mamba2-780m's widths, L = 2000 (padded to a chunk multiple)
+    mc = get_config("mamba2-780m")
+    Hs, P, N = mc.ssm_heads, mc.ssm_head_dim, mc.ssm_state
+    G, Q = mc.ssm_ngroups, mc.ssm_chunk
+    args = ssd_inputs(gen, 1, 2000, Hs, G, P, N, bf)
+    y, h = ops.ssd(*args, chunk=Q)
+    yr, hr = ssm.ssd_chunked(*args, Q)
+    check("ops.ssd y", y, yr, (1, 2000, Hs, P), 2e-2)
+    check("ops.ssd state", h, hr, (1, Hs, P, N), 2e-2)
+
+    # one full-width Mamba2 mixer layer, kernel scan against ssd_chunked
+    params = ssm.init_mamba2(mc, gen, bf)
+    x = randn(gen, (1, 2048, mc.d_model), bf)
+    rels = {}
+    for dtype, tol in ((bf, 2e-2), (torch.float32, 1e-4)):
+        p = {name: t.to(dtype) if t.dtype == bf else t for name, t in params.items()}
+        xx = x.to(dtype)
+        out_k, st_k = ssm.apply_mamba2(p, xx, mc, ssd_fn=ops.ssd)
+        out_p, st_p = ssm.apply_mamba2(p, xx, mc)
+        check(f"apply_mamba2 {dtype} out", out_k, out_p, tuple(x.shape), tol)
+        state = (1, Hs, P, N)
+        check(f"apply_mamba2 {dtype} state", st_k["ssd"], st_p["ssd"], state, tol)
+        rels[dtype] = rel_l2(out_k, out_p)
+    log(
+        f"[api] {mc.name} mixer (d={mc.d_model}, H={Hs}, P={P}, N={N}, Q={Q}, "
+        f"S={x.shape[1]}): kernel scan vs ssd_chunked, relative L2 "
+        f"{rels[bf]:.3e} in bf16 (tol 2e-2), {rels[torch.float32]:.3e} in fp32 "
+        f"(tol 1e-4) [{smi}]"
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -384,8 +711,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import ssm
     from repro_torch.models import transformer as T
     from repro_torch.serving import paged_kv as PK
     from repro_torch.serving.engine import Engine
@@ -416,6 +747,16 @@ def main():
     mid_lens = [len(p) + 16 for p in prompts]  # halfway through decode
     width = 64  # pow2 bucket of the widest table prefix on the main path
     ms, plain_ms, bound_ms, bound_by = time_paged_decode(PD, cfg, mid_lens, width, smi)
+    errs = {"flash": check_flash(FA), "decode": check_decode(DA), "ssd": check_ssd(SS)}
+    gemma = get_config("gemma-7b")
+    timed = {
+        "flash": time_flash(FA, 1, 2048, cfg.num_heads, cfg.num_kv_heads, 64, smi),
+        "flash_gemma": time_flash(
+            FA, 1, 2048, gemma.num_heads, gemma.num_kv_heads, gemma.head_dim, smi
+        ),
+        "decode": time_decode(DA, cfg, mid_lens, 1024, smi),
+        "ssd": time_ssd(SS, get_config("mamba2-780m"), 2048, smi),
+    }
 
     # phase 4: small fp32 step, card vs CPU
     check_small_step(T, PK, get_config)
@@ -534,6 +875,23 @@ def main():
     profile = functools.partial(profile_decode, out_dir=out_dir, smi=smi)
     run_engine(*engine_args, "kernel", prompts, sampled, probe=profile)
 
+    # phase 6: the kernel API and the Mamba2 mixer at full width
+    t = time.perf_counter()
+    for kern in (FA.flash_attention, DA.decode_attention, SS.ssd_scan):
+        kern.launches = 0
+    kernel_api_phase(ops, FA, DA, ssm, get_config, mid_lens, smi)
+    api_launches = {
+        "flash": FA.flash_attention.launches,
+        "decode": DA.decode_attention.launches,
+        "ssd": SS.ssd_scan.launches,
+    }
+    if min(api_launches.values()) == 0:
+        raise AssertionError(f"a kernel API kernel never launched: {api_launches}")
+    log(
+        f"[api] kernel launches {api_launches} in {time.perf_counter() - t:.1f} s "
+        f"[{smi}]"
+    )
+
     kernels = [
         {
             "name": "paged_decode_attention",
@@ -549,6 +907,28 @@ def main():
             "library_ms": None,
         }
     ]
+    ported = [  # (name, key, source file, Pallas function)
+        ("flash_attention", "flash", "flash_attention", "flash_attention.py:71"),
+        ("decode_attention", "decode", "decode_attention", "decode_attention.py:62"),
+        ("ssd_scan", "ssd", "ssd_scan", "ssd_scan.py:75"),
+    ]
+    for name, key, src, replaces in ported:
+        k_ms, k_plain, k_lib, (k_bound, k_by) = timed[key]
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": api_launches[key],
+                "max_abs_err": errs[key],
+                "ms": k_ms,
+                "plain_ms": k_plain,
+                "bound_ms": k_bound,
+                "bound_by": k_by,
+                "library_ms": k_lib,
+            }
+        )
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

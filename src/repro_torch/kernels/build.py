@@ -23,7 +23,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"paged_decode": "paged_decode.cu"}
+SOURCES = {
+    "paged_decode": "paged_decode.cu",
+    "decode_attention": "decode_attention.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

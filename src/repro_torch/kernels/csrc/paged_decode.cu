@@ -31,65 +31,18 @@
 // launch-bound at decode batch sizes — and a chunk's loads do not
 // overlap the previous chunk's math. Split-K over blocks, cp.async / TMA
 // staging and a CUDA graph over the per-layer launches are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace repro;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 16-byte vector of pool elements: 4 fp32 or 8 bf16
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int n = 4;
-  __device__ static void unpack(const uint4& u, float* o) {
-    o[0] = __uint_as_float(u.x);
-    o[1] = __uint_as_float(u.y);
-    o[2] = __uint_as_float(u.z);
-    o[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ static void unpack(const uint4& u, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      o[2 * k] = f.x;
-      o[2 * k + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // One thread block per (row, KV head); it walks the row's valid blocks
 // in chunks of `cb` pool blocks (T = cb * bs tokens). Shared memory, fp32
@@ -248,12 +201,9 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   int cb = bs >= 64 ? 1 : 64 / bs;
   while (cb > 1 && smem_bytes(R, D, bs, cb) > 100 * 1024) cb /= 2;
   const size_t smem = smem_bytes(R, D, bs, cb);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  static size_t allowed = 48 * 1024;
+  cudaError_t err = allow_smem(paged_decode_kernel<T>, smem, &allowed);
+  if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
   paged_decode_kernel<T><<<B * KV, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),

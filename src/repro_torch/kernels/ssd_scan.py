@@ -1,0 +1,135 @@
+"""Mamba2 SSD chunked scan from a zero state: intra-chunk quadratic form
+plus a carried state h [P, N] in fp32.
+
+``ssd_scan`` is the wrapper. On CUDA tensors it launches the hand-written
+Hopper kernel (``csrc/ssd_scan.cu``, the port of the Pallas kernel
+``repro/kernels/ssd_scan.py``) on the current stream; on CPU tensors it
+runs ``ssd_scan_ref``, the plain PyTorch version beside it. There is no
+fallback: a kernel that fails to build or launch raises.
+``ssd_scan.launches`` counts kernel launches (plain-version calls do not
+count).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_P, MAX_N = 64, 128   # the kernel's largest head and state dims
+
+
+def _check(x, dt, A, B, C, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4:
+        raise ValueError(f"x must be [b,L,H,P], dt [b,L,H], A [H], B/C "
+                         f"[b,L,G,N]; got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(B.shape)}")
+    b, L, H, P = x.shape
+    G = B.shape[2]
+    if tuple(dt.shape) != (b, L, H) or tuple(A.shape) != (H,) \
+            or C.shape != B.shape or B.shape[:2] != (b, L) or G == 0 \
+            or H % G != 0:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if chunk <= 0 or L % min(chunk, L):
+        raise ValueError(f"L={L} must be a multiple of the chunk {chunk} "
+                         f"(the kernel API pads it)")
+    if x.dtype not in _DTYPE_CODES or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
+        raise TypeError(f"x, B and C must share float32 or bfloat16; got "
+                        f"{x.dtype}, {B.dtype}, {C.dtype}")
+    if not (dt.is_floating_point() and A.is_floating_point()):
+        raise TypeError("dt and A must be floating point")
+    tensors = (x, dt, A, B, C)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all operands must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all operands must be contiguous")
+
+
+def ssd_scan_ref(x, dt, A, B, C, chunk: int = 128):
+    """Plain PyTorch version, chunk by chunk as the kernel walks it:
+    the masked quadratic form inside a chunk, the carried state across."""
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    A = A.float()
+    h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for t0 in range(0, L, Q):
+        xc = x[:, t0:t0 + Q].float()                        # [b,Q,H,P]
+        dtc = dt[:, t0:t0 + Q].float()                      # [b,Q,H]
+        Bc = B[:, t0:t0 + Q].float()                        # [b,Q,G,N]
+        Cc = C[:, t0:t0 + Q].float()
+        cs = torch.cumsum(dtc * A, dim=1)                   # [b,Q,H]
+        seg = cs[:, :, None, :] - cs[:, None, :, :]         # [b,i,j,H]
+        decay = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        CB = torch.einsum("bign,bjgn->bgij", Cc, Bc)
+        CB = torch.repeat_interleave(CB, rep, dim=1)        # [b,H,i,j]
+        scores = CB * decay.permute(0, 3, 1, 2) \
+            * dtc.permute(0, 2, 1)[:, :, None, :]
+        y = torch.einsum("bhij,bjhp->bihp", scores, xc)
+        Ch = torch.repeat_interleave(Cc, rep, dim=2)        # [b,Q,H,N]
+        y = y + torch.einsum("bihn,bhpn->bihp", Ch, h) \
+            * torch.exp(cs)[..., None]
+        ys.append(y)
+        w = torch.exp(cs[:, -1:, :] - cs) * dtc             # [b,Q,H]
+        Bh = torch.repeat_interleave(Bc, rep, dim=2)        # [b,Q,H,N]
+        h = h * torch.exp(cs[:, -1, :])[:, :, None, None] \
+            + torch.einsum("bjhp,bjhn->bhpn", xc * w[..., None], Bh)
+    y = torch.cat(ys, dim=1)
+    return y.to(x.dtype), h.to(x.dtype)
+
+
+@functools.cache
+def _lib():
+    lib = build.load("ssd_scan")
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    lib.ssd_scan.restype = ctypes.c_int
+    lib.ssd_max_chunk.argtypes = []
+    lib.ssd_max_chunk.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int = 128):
+    """x: [b,L,H,P]; dt: [b,L,H] (softplus'd); A: [H] (negative); B, C:
+    [b,L,G,N] in x's type, G dividing H; L a multiple of min(chunk, L).
+    Returns (y [b,L,H,P], final_state [b,H,P,N]), both in x.dtype (as the
+    Pallas kernel gives them), starting from h = 0."""
+    _check(x, dt, A, B, C, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk, L)
+    lib = _lib()
+    if P > MAX_P or N > MAX_N or Q > lib.ssd_max_chunk():
+        raise ValueError(f"the kernel takes P <= {MAX_P}, N <= {MAX_N} and "
+                         f"chunks up to {lib.ssd_max_chunk()}; got P={P}, "
+                         f"N={N}, chunk {Q}")
+    dt32 = dt.float().contiguous()
+    A32 = A.float().contiguous()
+    y = torch.empty_like(x)
+    h = torch.empty((b, H, P, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan(
+            x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), h.data_ptr(), _DTYPE_CODES[x.dtype],
+            b, L, H, G, P, N, Q, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    ssd_scan.launches += 1
+    return y, h
+
+
+ssd_scan.launches = 0

@@ -12,9 +12,9 @@ reference's PRNG is reproduced here bit for bit: threefry2x32 (in int64
 tensors masked to 32 bits, since torch has no full uint32 arithmetic),
 ``fold_in``, ``random_bits`` for a 1-D uint32 draw as JAX computes it
 under ``jax_threefry_partitionable=True`` (its default), ``uniform``'s
-mantissa trick, and ``gumbel``'s ``-log(-log(u))`` on ``[tiny, 1)``.
-The integer bits and the uniforms are exact; the two ``log`` calls are
-the library's, so a Gumbel value may differ from XLA's in its last bits.
+mantissa trick, and ``gumbel``'s ``-log(-log(u))`` on ``[tiny, 1)``,
+whose two ``log`` calls are XLA's CPU float32 ``log`` written op for op
+(``_xla_log``), so the noise is exact too, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -82,10 +82,43 @@ def uniform(key, n: int, minval: float, maxval: float):
     return torch.clamp(floats * span + lo, min=lo)
 
 
+def _fma(a, b, c):
+    """float32 fused multiply-add (tensor a, constants or tensors b and
+    c): the product of two float32 values is exact in float64, so one
+    rounding to float32 remains."""
+    def f64(v):
+        return v.double() if torch.is_tensor(v) else float(np.float32(v))
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def _xla_log(x):
+    """XLA's CPU float32 ``log``, op for op: the Cephes ``logf``
+    polynomial in Estrin form, with the multiply-adds the backend fuses.
+    Bit-equal to ``jnp.log`` for positive finite x (torch's own ``log``
+    differs in ~14% of inputs); 0, inf and negatives are not handled —
+    ``gumbel`` never passes them."""
+    x = torch.clamp(x, min=torch.finfo(torch.float32).tiny)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x807FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    s = m < 0.70710677
+    t = (m - 1.0) + torch.where(s, m, 0.0)
+    e = e - s.float()
+    t2 = t * t
+    t3 = t2 * t
+    a = _fma(_fma(t, 7.0376836292e-2, -1.1514610310e-1), t, 1.1676998740e-1)
+    b = _fma(_fma(t, -1.2420140846e-1, 1.4249322787e-1), t, -1.6668057665e-1)
+    c = _fma(_fma(t, 2.0000714765e-1, -2.4999993993e-1), t, 3.3333331174e-1)
+    y = _fma(_fma(_fma(a, t3, b), t3, c), t3, -2.12194440e-4 * e)
+    r = (t - 0.5 * t2) + y
+    return r + 0.693359375 * e
+
+
 def gumbel(key, n: int):
-    """``jax.random.gumbel(key, (n,), float32)`` (low-precision mode)."""
+    """``jax.random.gumbel(key, (n,), float32)`` (low-precision mode),
+    bit for bit."""
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(uniform(key, n, tiny, 1.0)))
+    return -_xla_log(-_xla_log(uniform(key, n, tiny, 1.0)))
 
 
 def sample_tokens(logits, temps, top_ks, seeds, counters, vocab_size: int,

@@ -1,8 +1,8 @@
 """Port parity, sampling: the port reproduces jax.random's threefry bits
 (fold_in, random_bits, uniform) exactly, and the reference's
-sample_tokens on greedy, top-k and sampled rows. The Gumbel noise goes
-through two library logs, whose last bits differ between XLA and torch:
-it is held to 1e-6, not bit for bit (see ROADMAP, faults)."""
+sample_tokens on greedy, top-k and sampled rows. The Gumbel noise is
+exact too: the port's ``_xla_log`` is XLA's CPU float32 ``log`` op for
+op, held bit-equal to ``jnp.log`` on 2**22 inputs over each side of 1."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +52,8 @@ def test_fold_in_and_random_bits_bit_exact():
 
 
 def test_uniform_bit_exact_and_gumbel_close():
+    """Uniforms and Gumbel noise both bit-equal to jax.random's (the name
+    predates the exact log; the assertion is equality)."""
     tiny = float(np.finfo(np.float32).tiny)
     key = _torch_keys()
     u = TS.uniform(key, V, tiny, 1.0).numpy()
@@ -62,7 +64,25 @@ def test_uniform_bit_exact_and_gumbel_close():
         np.testing.assert_array_equal(u[i].view(np.int32),
                                       ju.view(np.int32))
         jg = np.asarray(jax.random.gumbel(jkey, (V,), jnp.float32))
-        np.testing.assert_allclose(g[i], jg, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(g[i].view(np.int32),
+                                      jg.view(np.int32))
+
+
+def test_xla_log_bit_equal_to_jnp_log():
+    """2**22 float32 inputs log-uniform over [FLT_MIN, 1) and as many over
+    (1, 3e38]; torch's own log differs from XLA's on a share of them."""
+    rng = np.random.default_rng(0)
+    tiny = np.finfo(np.float32).tiny
+    n = 1 << 22
+    below = np.exp(rng.uniform(np.log(tiny), 0.0, n)).astype(np.float32)
+    above = np.exp(rng.uniform(0.0, np.log(3e38), n)).astype(np.float32)
+    x = np.concatenate([np.clip(below, tiny, np.float32(1) - 2 ** -24),
+                        np.clip(above, 1 + 2 ** -23, np.float32(3e38))])
+    want = np.asarray(jax.jit(jnp.log)(x))
+    xt = torch.from_numpy(x)
+    got = TS._xla_log(xt).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (torch.log(xt).numpy() != want).any()
 
 
 @pytest.mark.parametrize("max_top_k", [-1, 0, 8, 600])
