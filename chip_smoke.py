@@ -11,12 +11,16 @@ prints no ``ok`` line):
 3. each kernel against its plain PyTorch version on the card, on ragged
    inputs (fp32 with TF32 matmuls off, rtol = atol = 3e-5 for attention
    and 3e-4 for the SSD scan; bf16, rtol = atol = 2e-2; length-0 decode
-   rows exactly zero, Sq != Sk flash, G > 1 SSD), then timed beside its
-   bound, its plain version's time and the library call's (SDPA for the
-   attention kernels; none for the paged and SSD kernels): paged decode
-   at the main path's decode shapes, flash at tinyllama-1.1b and gemma-7b
-   prefill widths (S 2048), dense decode at tinyllama's (B 8, S 1024),
-   the SSD scan at mamba2-780m's (L 2048);
+   rows exactly zero, Sq != Sk flash, G > 1 SSD; flash at Sq and Sk of 1
+   and of its tile sizes +-1; decode of one 30000-token row of a 32768
+   cache over many splits, and lengths on split boundaries), with the
+   count of tensor-core instructions (HGMMA, from ``cuobjdump -sass``) in
+   each bf16 flash kernel and the dense decode kernel's split grid; then
+   each timed beside its bound, its plain version's time and the library
+   call's (SDPA for the attention kernels; none for the paged and SSD
+   kernels): paged decode at the main path's decode shapes, flash at
+   tinyllama-1.1b and gemma-7b prefill widths (S 2048), dense decode at
+   tinyllama's (B 8, S 1024), the SSD scan at mamba2-780m's (L 2048);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -45,6 +49,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -251,13 +257,22 @@ def compare(name, out, ref, tol, what):
 
 def check_flash(FA):
     """Ragged shapes, GQA and MQA, Sq != Sk both ways, D 64/128/256,
-    causal and not, contiguous and transposed-view operands."""
+    causal and not, contiguous and transposed-view operands; Sq and Sk of
+    1, and of the bf16 kernel's tiles +-1 (128 query rows a block; 128
+    keys a tile at D 64, 64 at D 128 and 256)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = [  # (B, H, KV, Sq, Sk, D, causal, bshd)
         (1, 8, 2, 200, 200, 64, True, True),
         (2, 4, 4, 100, 300, 128, True, False),
         (1, 4, 1, 300, 100, 256, True, True),
         (1, 4, 2, 130, 130, 64, False, False),
+        (1, 2, 2, 1, 1, 64, True, False),
+        (1, 4, 2, 127, 129, 64, True, True),
+        (1, 4, 2, 129, 127, 64, False, False),
+        (2, 4, 1, 65, 63, 128, True, True),
+        (1, 2, 2, 128, 128, 128, False, True),
+        (1, 2, 1, 1, 300, 256, True, False),
+        (1, 2, 2, 300, 1, 64, True, True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -274,12 +289,17 @@ def check_flash(FA):
 
 def check_decode(DA):
     """Ragged lengths with a length-0 row (exact zeros) and one past S,
-    GQA/MHA, D 64/128/256, contiguous and transposed-view caches."""
+    GQA/MHA, D 64/128/256, contiguous and transposed-view caches; one
+    30000-token row of a 32768-position cache (132 splits of 256), and
+    lengths on and beside the split boundaries of B 8, S 1024 (16 splits
+    of 64)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [  # (H, KV, S, D, lengths, bshd)
         (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
         (8, 2, 200, 128, [20, 0, 199], False),
         (16, 16, 300, 256, [300, 5], True),
+        (32, 4, 32768, 64, [30000], True),
+        (32, 4, 1024, 64, [64, 256, 0, 65, 63, 640, 1, 1024], False),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -291,12 +311,40 @@ def check_decode(DA):
             ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
             out = DA.decode_attention(q, k, v, ln)
             ref = DA.decode_attention_ref(q, k, v, ln)
-            what = f"{dtype} B={B} H={H} KV={KV} S={S} D={D} lengths={lens}"
+            n_split, span = DA.plan_splits(B, KV, S, DA.sm_count(0))
+            what = (
+                f"{dtype} B={B} H={H} KV={KV} S={S} D={D} lengths={lens[:8]} "
+                f"grid {B * KV}x{n_split} (splits of {span})"
+            )
             worst = max(worst, compare("decode_attention", out, ref, tol, what))
             zero_rows = [b for b, n in enumerate(lens) if n == 0]
             if not bool((out[zero_rows] == 0).all()):
                 raise AssertionError("decode_attention: length-0 row is not zero")
     return worst
+
+
+def hgmma_counts(lib_path):
+    """Tensor-core (HGMMA) instructions in each bf16 flash kernel of the
+    built library, from ``cuobjdump -sass``; fails without cuobjdump or
+    when a kernel has none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"
+    )
+    sass = subprocess.run(
+        [tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
+        timeout=120,
+    ).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "flash_wgmma_kernel" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HGMMA" in line:
+            counts[fn] += 1
+    if len(counts) != 3 or min(counts.values()) == 0:
+        raise AssertionError(f"bf16 flash kernels without HGMMA: {counts}")
+    return {f"D={fn.split('ILi')[1].split('E')[0]}": n for fn, n in counts.items()}
 
 
 def ssd_inputs(gen, b, L, H, G, P, N, dtype):
@@ -421,7 +469,12 @@ def time_decode(DA, cfg, lengths, S, smi):
     keys = sum(min(n, S) for n in lengths)
     nbytes = (keys * KV * D * 2 + 2 * B * H * D) * 2 + B * 4
     bound = least_time_ms(nbytes, 4 * H * D * keys, dtype)
-    what = f"bf16 B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}"
+    n_split, span = DA.plan_splits(B, KV, S, DA.sm_count(0))
+    what = (
+        f"bf16 B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}, grid "
+        f"{B * KV}x{n_split} = {B * KV * n_split} blocks (splits of {span}) "
+        f"+ {B * H} combine blocks"
+    )
     report("decode_attention", what, ms, plain_ms, lib_ms, bound, smi)
     return ms, plain_ms, lib_ms, bound
 
@@ -748,6 +801,10 @@ def main():
     width = 64  # pow2 bucket of the widest table prefix on the main path
     ms, plain_ms, bound_ms, bound_by = time_paged_decode(PD, cfg, mid_lens, width, smi)
     errs = {"flash": check_flash(FA), "decode": check_decode(DA), "ssd": check_ssd(SS)}
+    log(
+        f"[kernel] flash_attention bf16 tensor-core instructions (cuobjdump -sass "
+        f"HGMMA count per kernel): {hgmma_counts(libs['flash_attention'])}"
+    )
     gemma = get_config("gemma-7b")
     timed = {
         "flash": time_flash(FA, 1, 2048, cfg.num_heads, cfg.num_kv_heads, 64, smi),

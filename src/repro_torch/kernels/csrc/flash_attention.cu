@@ -15,22 +15,45 @@
 // exactly as the reference does before calling either).
 //
 // Bound on an H100 SXM: at prefill lengths this is compute-bound. The
-// least work is 4 * B * H * D flops per unmasked (q, k) pair, about
+// least work is 4 * D flops per unmasked (q, k) pair and head, about
 // B * H * Sq * Sk / 2 pairs when causal, against the input type's peak
 // (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32); the bytes
 // (q, k, v read once, out written once) are far below it.
 //
-// What this design does about it, and what it does not: each thread
-// block owns 64 query rows of one head and walks the key tiles, keeping
-// the score and probability tiles in shared memory and the output
-// accumulator in registers, so nothing quadratic touches device memory;
-// causal key tiles wholly above the diagonal are skipped (the Pallas
-// kernel masks them; skipping gives the same result). The products run
-// as fp32 FMAs on the CUDA cores (no TF32, no tensor cores) from
-// register tiles over shared memory, so bf16 runs at the fp32 rate, far
-// below the tensor-core roof: wgmma / mma.sync on bf16 tiles is the lever.
-// Tiles are sized by D so that D = 256 fits in shared memory: 64 query
-// rows, 64 key rows up to D = 128 and 32 beyond.
+// bf16 (flash_wgmma_kernel): FlashAttention-3's layout without warp
+// specialisation. A thread block holds two consumer warpgroups of 128
+// threads; each owns 64 query rows of one (batch, head), so a block covers
+// 128 rows. The Q tile is copied once into shared memory; K and V tiles
+// (TK = 128 keys at D 64, 64 at D 128 and 256) go through a two-stage ring
+// in shared memory, filled by 16-byte cp.async copies, so tile j + 1 loads
+// while tile j computes. Every tile is stored in the 128-byte swizzled
+// layout the wgmma descriptors read. S = Q K^T is one wgmma m64nTKk16 per
+// 16 columns of D, Q and K both from shared memory; the online softmax
+// runs on the fp32 accumulator fragments in registers (row max and sum
+// are shuffles within a lane quad), with 1/sqrt(D) folded into the fp32
+// exponent (2^(s log2(e) / sqrt(D) - m log2(e) / sqrt(D)), one FMA and
+// one SFU exp2 per score) instead of a bf16
+// pre-scaled Q, which would round Q once more at D 128; O += P V is a
+// second wgmma with P converted to bf16 and passed in registers (the
+// accumulator layout of S is the A-fragment layout of the next product)
+// and V read transposed (MN-major) through its descriptor. O stays in
+// registers for the whole walk. Causal key tiles wholly above a
+// warpgroup's last row are skipped (the Pallas kernel masks them;
+// skipping gives the same result).
+//
+// Where the bf16 result differs from the Pallas kernel and the plain
+// version: P is rounded to bf16 before P V (they keep it fp32), a
+// relative error of at most 2^-9 per weight; the tolerance against the
+// plain version stays 2e-2 (PERF.md gives the error measured on the card).
+// The row sum l is taken over the fp32 P.
+//
+// fp32 (flash_kernel): the CUDA-core kernel. Tensor cores would mean
+// TF32, which keeps about three decimal digits and cannot meet the fp32
+// tolerance of 3e-5; fp32 is not a production type on the card. Each
+// thread block owns 64 query rows of one head and walks the key tiles,
+// keeping the score and probability tiles in shared memory and the output
+// accumulator in registers; products are fp32 FMAs on the CUDA cores from
+// register tiles over shared memory.
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -188,6 +211,226 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bf16: wgmma
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct WgTiles {
+  static constexpr int kWG = 2;             // consumer warpgroups
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int TQ = 64 * kWG;       // query rows per thread block
+  static constexpr int TK = D == 64 ? 128 : 64;  // keys per tile
+  static constexpr uint32_t q_bytes = TQ * D * 2;
+  static constexpr uint32_t kv_bytes = TK * D * 2;  // one K or V tile
+  // 1024 bytes of slack align the tiles to the swizzle's 1024-byte atoms
+  static constexpr size_t smem = 1024 + q_bytes + 4 * kv_bytes;
+};
+
+// Copy rows [row0, row0 + ROWS) of a [*, D] bf16 operand (row stride
+// `ld` elements) into the swizzled tile at shared address `dst`, 16 bytes
+// per cp.async; rows at or past `n_rows` are zero-filled.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long ld, int row0, int n_rows,
+                                          int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+#pragma unroll 4
+  for (int i = tid; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = i % CPR;
+    const bool in = row0 + r < n_rows;
+    const bf16* g = in ? src + (row0 + r) * ld + c * 8 : src;
+    cp_async16(dst + (c >> 3) * (ROWS * 128) + sw128_offset(r, c & 7), g,
+               in ? 16 : 0);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  else wgmma_rs_n256(d, a, db, 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WgTiles<D>::kThreads, 1)
+flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   Strides qs, Strides ks, Strides vs, Strides os, int H,
+                   int KV, int Sq, int Sk, int causal, float scale_log2) {
+  using Tl = WgTiles<D>;
+  constexpr int TQ = Tl::TQ, TK = Tl::TK, NT = Tl::kThreads;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + Tl::q_bytes;       // stage s at sK + s * kv_bytes
+  const uint32_t sV = sK + 2 * Tl::kv_bytes;  // likewise
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int q0 = blockIdx.x * TQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
+  const bf16* k_b = k + b * ks.b + kvh * ks.h;
+  const bf16* v_b = v + b * vs.b + kvh * vs.h;
+
+  // causal: keys past the block's last query row are masked for every
+  // row, so their tiles are not loaded
+  const int k_end = causal ? min(Sk, q0 + TQ) : Sk;
+  const int n_tiles = (k_end + TK - 1) / TK;
+  load_tile<TQ, D, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, tid);
+  load_tile<TK, D, NT>(sK, k_b, ks.s, 0, Sk, tid);
+  load_tile<TK, D, NT>(sV, v_b, vs.s, 0, Sk, tid);
+  cp_async_commit();
+
+  // this warpgroup's rows, and this thread's two rows of each fragment
+  const int wq0 = q0 + 64 * wg;
+  const int row_a = wq0 + 16 * warp + (lane >> 2), row_b = row_a + 8;
+  const int col0 = 2 * (lane & 3);
+  const int wk_end = causal ? min(Sk, wq0 + 64) : Sk;
+  const bool rows_live = wq0 < Sq;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    cp_async_wait<0>();   // this thread's copies of tile j have landed
+    fence_proxy_async();  // ... and are visible to wgmma
+    __syncthreads();      // everyone's have; tile j - 1's readers are done
+    if (j + 1 < n_tiles) {
+      const int nk = (j + 1) * TK;
+      load_tile<TK, D, NT>(sK + (st ^ 1) * Tl::kv_bytes, k_b, ks.s, nk, Sk,
+                           tid);
+      load_tile<TK, D, NT>(sV + (st ^ 1) * Tl::kv_bytes, v_b, vs.s, nk, Sk,
+                           tid);
+      cp_async_commit();
+    }
+    const int k0 = j * TK;
+    if (k0 >= wk_end || !rows_live) continue;
+
+    // S = Q K^T over D in steps of 16: K-major descriptors, each step 32
+    // bytes further along the 128-byte rows, 64-column blocks apart
+    float s[TK / 2];
+    const uint32_t kt = sK + st * Tl::kv_bytes;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qa = sQ + (kk >> 2) * (TQ * 128) + wg * (64 * 128) +
+                          (kk & 3) * 32;
+      const uint32_t ka = kt + (kk >> 2) * (TK * 128) + (kk & 3) * 32;
+      wgmma_ss<TK>(s, sw128_desc(qa, 16, 1024), sw128_desc(ka, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // mask (only tiles that cross Sk or the diagonal), then the online
+    // softmax with the Pallas kernel's -inf guards (_flash_kernel :52-58)
+    if (k0 + TK > Sk || (causal && k0 + TK - 1 > wq0)) {
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) {
+        const int col = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int row = (i & 2) ? row_b : row_a;
+        if (col >= Sk || (causal && col > row)) s[i] = -INFINITY;
+      }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < TK / 2; i += 4) {
+      mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float safe_a = isinf(mn_a) ? 0.f : mn_a;
+    const float safe_b = isinf(mn_b) ? 0.f : mn_b;
+    // alpha = 0 where m was -inf
+    const float alpha_a = exp2_approx((m_a - safe_a) * scale_log2);
+    const float alpha_b = exp2_approx((m_b - safe_b) * scale_log2);
+    const float off_a = safe_a * scale_log2, off_b = safe_b * scale_log2;
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t p[TK / 16][4];
+#pragma unroll
+    for (int i = 0; i < TK / 2; i += 2) {
+      const float off = (i & 2) ? off_b : off_a;
+      const float e0 = exp2_approx(fmaf(s[i], scale_log2, -off));  // 0 at -inf
+      const float e1 = exp2_approx(fmaf(s[i + 1], scale_log2, -off));
+      if (i & 2) sum_b += e0 + e1;
+      else sum_a += e0 + e1;
+      p[i >> 3][(i >> 1) & 3] = pack_bf16x2(e0, e1);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o_);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o_);
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? alpha_b : alpha_a;
+
+    // O += P V over the tile's keys in steps of 16: V is [TK][D] row-major
+    // in its tile, which is B = V read MN-major; a step is 16 rows (2048
+    // bytes) on, 64-column blocks TK * 128 bytes apart (leading offset)
+    const uint32_t vt = sV + st * Tl::kv_bytes;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_rs<D>(o, p[kk], sw128_desc(vt + kk * 2048, TK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  if (!rows_live) return;
+  bf16* o_bh = out + b * os.b + h * os.h;
+  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
+  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = (i & 2) ? row_b : row_a;
+    if (row >= Sq) continue;
+    const float inv = (i & 2) ? inv_b : inv_a;
+    const int col = 8 * (i >> 2) + col0;
+    *reinterpret_cast<uint32_t*>(o_bh + row * os.s + col) =
+        pack_bf16x2(o[i] * inv, o[i + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, Strides qs, Strides ks, Strides vs,
+                         Strides os, int B, int H, int KV, int Sq, int Sk,
+                         int causal, cudaStream_t stream) {
+  using Tl = WgTiles<D>;
+  static size_t allowed = 48 * 1024;
+  cudaError_t err = allow_smem(flash_wgmma_kernel<D>, Tl::smem, &allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + Tl::TQ - 1) / Tl::TQ, B * H);
+  flash_wgmma_kernel<D><<<grid, Tl::kThreads, Tl::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os, H,
+      KV, Sq, Sk, causal, 1.4426950408889634f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      Strides qs, Strides ks, Strides vs, Strides os, int B,
@@ -210,9 +453,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D one of 64, 128, 256. Strides are in
-// elements (batch, head, sequence); the head dim is contiguous. Returns
-// the cudaError_t of the launch (0 on success). Launches on `stream` and
-// does not synchronise.
+// elements (batch, head, sequence); the head dim is contiguous. bf16 needs
+// 16-byte rows: base pointers 16-byte aligned and strides multiples of 8
+// elements. Returns the cudaError_t of the launch (0 on success). Launches
+// on `stream` and does not synchronise.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int dtype, int B, int H, int KV,
                                int D, int Sq, int Sk, int causal,
@@ -227,8 +471,24 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return (int)launch_d<float>(q, k, v, out, qs, ks, vs, os, B, H, KV, D,
                                 Sq, Sk, causal, s);
-  if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(q, k, v, out, qs, ks, vs, os, B, H,
-                                        KV, D, Sq, Sk, causal, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+          16 !=
+      0)
+    return (int)cudaErrorMisalignedAddress;
+  switch (D) {
+    case 64:
+      return (int)launch_wgmma<64>(q, k, v, out, qs, ks, vs, os, B, H, KV,
+                                   Sq, Sk, causal, s);
+    case 128:
+      return (int)launch_wgmma<128>(q, k, v, out, qs, ks, vs, os, B, H, KV,
+                                    Sq, Sk, causal, s);
+    case 256:
+      return (int)launch_wgmma<256>(q, k, v, out, qs, ks, vs, os, B, H, KV,
+                                    Sq, Sk, causal, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,11 @@ version beside it. There is no fallback: a kernel that fails to build or
 launch raises. ``flash_attention.launches`` counts kernel launches
 (plain-version calls do not count).
 
+bf16 runs its products on the tensor cores (wgmma) and rounds the softmax
+weights P to bf16 before ``P @ V``, where the plain version keeps them in
+fp32; its operands need 16-byte rows (strides multiples of 8 elements,
+16-byte aligned data), or the wrapper raises. fp32 runs on the CUDA cores.
+
 The causal mask is the kernel's, not ``kernels/ref.py``'s: q and k
 positions both count from 0 (``k_pos <= q_pos``), as in
 ``torch.nn.functional.scaled_dot_product_attention(is_causal=True)``.
@@ -90,6 +95,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got {D}")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and (
+            any(t.stride(i) % 8 for t in (q, k, v, out) for i in (0, 1, 2))
+            or any(t.data_ptr() % 16 for t in (q, k, v, out))):
+        raise ValueError(f"bf16 operands must have 16-byte aligned rows for "
+                         f"the kernel (strides {q.stride()}, {k.stride()}, "
+                         f"{v.stride()})")
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
     strides = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):
