@@ -13,14 +13,19 @@ prints no ``ok`` line):
    and 3e-4 for the SSD scan; bf16, rtol = atol = 2e-2; length-0 decode
    rows exactly zero, Sq != Sk flash, G > 1 SSD; flash at Sq and Sk of 1
    and of its tile sizes +-1; decode of one 30000-token row of a 32768
-   cache over many splits, and lengths on split boundaries), with the
-   count of tensor-core instructions (HGMMA, from ``cuobjdump -sass``) in
-   each bf16 flash kernel and the dense decode kernel's split grid; then
-   each timed beside its bound, its plain version's time and the library
-   call's (SDPA for the attention kernels; none for the paged and SSD
-   kernels): paged decode at the main path's decode shapes, flash at
-   tinyllama-1.1b and gemma-7b prefill widths (S 2048), dense decode at
-   tinyllama's (B 8, S 1024), the SSD scan at mamba2-780m's (L 2048);
+   cache over many splits, and lengths on split boundaries; paged decode
+   with -1 table entries past and below a row's length, lengths on and
+   beside its split and block boundaries, block sizes 16, 32 and 128 and a
+   one-column table; the SSD scan at b 1 and 2, one chunk and several),
+   with the count of tensor-core instructions (``cuobjdump -sass``: HGMMA
+   in each bf16 flash kernel, HMMA in each bf16 SSD kernel with products)
+   and each split-K decode call's grid; then each timed beside its bound,
+   its plain version's time and the library call's (SDPA for the attention
+   kernels; none for the paged and SSD kernels), with each kernel's share
+   of a call's critical path from the profiler: paged decode at the main
+   path's decode shapes, flash at tinyllama-1.1b and gemma-7b prefill
+   widths (S 2048), dense decode at tinyllama's (B 8, S 1024), the SSD
+   scan at mamba2-780m's (L 2048);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -159,20 +164,34 @@ def paged_bound_ms(q, k, lengths, bs):
     return least_time_ms(nbytes, flops, q.dtype)
 
 
+def paged_grid(PD, B, KV, width, bs):
+    """The paged kernel's split grid for a [B, width] table of bs blocks."""
+    n_split, span = PD.plan_paged_splits(B, KV, width, bs, PD.sm_count(0))
+    return f"grid {B * KV}x{n_split} (splits of {span})"
+
+
 def check_paged_decode(PD):
-    """Kernel against plain version on ragged cases; returns the max
-    abs error seen."""
+    """Kernel against plain version on ragged cases: a length-0 row, -1
+    entries past every row's blocks and a -1 hole below one row's length
+    (it reads block 0); lengths on and beside the split and block
+    boundaries of the main path's grid (width 64, bs 16: 16 splits of
+    64); block sizes 16, 32 and 128 (spans of whole blocks). Returns the
+    max abs error seen."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    bs = 16
-    cases = [  # (B, H, KV, lengths)
-        (8, 32, 4, [37, 0, 16, 32, 1, 600, 17, 255]),
-        (3, 8, 2, [20, 7, 33]),
+    cases = [  # (B, H, KV, bs, lengths, table width or None: just enough + 2)
+        (8, 32, 4, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
+        (3, 8, 2, 16, [20, 7, 33], None),
+        (8, 32, 4, 16, [64, 128, 0, 65, 63, 640, 1, 1024], 64),
+        (4, 8, 2, 32, [32, 31, 0, 500], 32),
+        (2, 8, 2, 128, [130, 256], 4),
+        (1, 32, 4, 16, [1], 1),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
-        for B, H, KV, lens in cases:
-            width = max(-(-n // bs) for n in lens) + 2
-            args = paged_inputs(gen, B, H, KV, 64, bs, lens, 128, width, dtype)
+        for B, H, KV, bs, lens, width in cases:
+            width = width or max(-(-n // bs) for n in lens) + 2
+            n_blocks = max(128, sum(-(-n // bs) for n in lens) + 8)
+            args = paged_inputs(gen, B, H, KV, 64, bs, lens, n_blocks, width, dtype)
             out = PD.paged_decode_attention(*args).float()
             ref = PD.paged_decode_attention_ref(*args).float()
             torch.cuda.synchronize()
@@ -183,7 +202,8 @@ def check_paged_decode(PD):
                 raise AssertionError("length-0 row is not exactly zero")
             worst = max(worst, err)
             log(
-                f"[kernel] paged_decode {dtype} B={B} H={H} KV={KV} "
+                f"[kernel] paged_decode {dtype} B={B} H={H} KV={KV} bs={bs} "
+                f"width={width} lengths={lens} {paged_grid(PD, B, KV, width, bs)} "
                 f"max_abs_err={err:.3e} (tol {tol})"
             )
     return worst
@@ -216,9 +236,11 @@ def time_paged_decode(PD, cfg, lengths, width, smi, n_sets=64):
     ms = graph_time_ms(over_calls(PD.paged_decode_attention))
     plain_ms = graph_time_ms(over_calls(PD.paged_decode_attention_ref))
     bound_ms, bound_by = paged_bound_ms(q, k, ln, bs)
+    parts = split_parts(over_calls(PD.paged_decode_attention))
     log(
         f"[kernel] paged_decode bf16 B={B} H={H} KV={KV} lengths={lengths} "
-        f"width={width}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"width={width}, {paged_grid(PD, B, KV, width, bs)} + {B * H} combine "
+        f"blocks, profiled critical-path ms {parts}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of bound [{smi}]"
     )
     return ms, plain_ms, bound_ms, bound_by
@@ -323,10 +345,11 @@ def check_decode(DA):
     return worst
 
 
-def hgmma_counts(lib_path):
-    """Tensor-core (HGMMA) instructions in each bf16 flash kernel of the
-    built library, from ``cuobjdump -sass``; fails without cuobjdump or
-    when a kernel has none."""
+def tensor_core_counts(lib_path, tag, opcode):
+    """Tensor-core instructions (``opcode``: HGMMA for wgmma, HMMA for
+    mma.sync) in each kernel of the built library whose name holds
+    ``tag``, from ``cuobjdump -sass``; fails without cuobjdump or when a
+    kernel has none."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"
     )
@@ -338,13 +361,80 @@ def hgmma_counts(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "flash_wgmma_kernel" in fn:
+            if tag in fn:
                 counts[fn] = 0
-        elif fn in counts and "HGMMA" in line:
+        elif fn in counts and opcode in line:
             counts[fn] += 1
-    if len(counts) != 3 or min(counts.values()) == 0:
-        raise AssertionError(f"bf16 flash kernels without HGMMA: {counts}")
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f"kernels '{tag}' without {opcode}: {counts}")
+    return counts
+
+
+def hgmma_counts(lib_path):
+    """HGMMA count of each of the three bf16 flash kernels, by head dim."""
+    counts = tensor_core_counts(lib_path, "flash_wgmma_kernel", "HGMMA")
+    if len(counts) != 3:
+        raise AssertionError(f"expected 3 bf16 flash kernels: {counts}")
     return {f"D={fn.split('ILi')[1].split('E')[0]}": n for fn, n in counts.items()}
+
+
+def hmma_counts(lib_path):
+    """HMMA count of each bf16 SSD kernel with products (chunk states and
+    chunk scan; the state passing in between is elementwise fp32)."""
+    counts = tensor_core_counts(lib_path, "_mma_kernel", "HMMA")
+    if len(counts) != 2:
+        raise AssertionError(f"expected 2 bf16 SSD product kernels: {counts}")
+    return {("state" if "state_mma" in fn else "scan"): n for fn, n in counts.items()}
+
+
+def kernel_path_ms(fns, reps=3):
+    """Device time each CUDA kernel adds to the stream's critical path, per
+    call, by kernel name: torch.profiler traces ``reps`` rounds of the
+    calls (launched eagerly), and a kernel counts its end minus the later
+    of its start and the end of the kernel before it. A dependent launch
+    starts early and waits for its predecessor; only what it adds after
+    that end counts, so the parts of a call sum to its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for f in fns:
+                f()
+        torch.cuda.synchronize()
+    trace = ROOT / "chiprun_out" / "kernel_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    kernels = sorted(
+        (ev["ts"], ev["ts"] + ev["dur"], ev["name"])
+        for ev in events
+        if ev.get("cat") == "kernel" and "dur" in ev
+    )
+    out, prev_end = {}, float("-inf")
+    for start, end, name in kernels:
+        out[name] = out.get(name, 0.0) + max(0.0, end - max(start, prev_end))
+        prev_end = max(prev_end, end)
+    calls = reps * len(fns)
+    return {name: us / 1e3 / calls for name, us in out.items()}
+
+
+def split_parts(fns):
+    """Profiled critical-path ms per call of a split-K decode call's two
+    kernels."""
+    return short_names(kernel_path_ms(fns), ("split_kernel", "combine_kernel"))
+
+
+def short_names(times, tags):
+    """{tag: ms} for the first kernel name holding each tag."""
+    out = {}
+    for tag in tags:
+        hit = [ms for name, ms in times.items() if tag in name]
+        out[tag] = hit[0] if hit else None
+    return out
 
 
 def ssd_inputs(gen, b, L, H, G, P, N, dtype):
@@ -359,13 +449,17 @@ def ssd_inputs(gen, b, L, H, G, P, N, dtype):
 
 
 def check_ssd(SS):
-    """One and several chunks, G > 1, P 32/64, N 16/128, chunks 64-256;
-    y and the final state both held."""
+    """One and several chunks (one chunk of 96: a query tile of 64 rows and
+    one of 32), b 1 and 2, G > 1, P 32/64, N 16-128, chunks 64-256; y and
+    the final state both held."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     cases = [  # (b, L, H, G, P, N, Q)
         (2, 256, 4, 2, 64, 128, 128),
         (1, 192, 3, 1, 32, 16, 64),
         (1, 512, 2, 1, 64, 128, 256),
+        (2, 512, 4, 1, 64, 128, 256),
+        (1, 96, 2, 1, 32, 16, 128),
+        (2, 128, 4, 2, 64, 64, 128),
     ]
     worst = 0.0
     for dtype, tol in SSD_TOLS:
@@ -470,10 +564,11 @@ def time_decode(DA, cfg, lengths, S, smi):
     nbytes = (keys * KV * D * 2 + 2 * B * H * D) * 2 + B * 4
     bound = least_time_ms(nbytes, 4 * H * D * keys, dtype)
     n_split, span = DA.plan_splits(B, KV, S, DA.sm_count(0))
+    parts = split_parts([functools.partial(DA.decode_attention, *a) for a in calls])
     what = (
         f"bf16 B={B} S={S} H={H} KV={KV} D={D} lengths={lengths}, grid "
         f"{B * KV}x{n_split} = {B * KV * n_split} blocks (splits of {span}) "
-        f"+ {B * H} combine blocks"
+        f"+ {B * H} combine blocks, profiled critical-path ms {parts}"
     )
     report("decode_attention", what, ms, plain_ms, lib_ms, bound, smi)
     return ms, plain_ms, lib_ms, bound
@@ -503,7 +598,14 @@ def time_ssd(SS, cfg, L, smi):
     ]
     ms, plain_ms, _ = time_calls(calls, SS.ssd_scan, SS.ssd_scan_ref)
     bound = least_time_ms(per_call, ssd_flops(b, L, H, G, P, N, Q), dtype)
-    what = f"bf16 b={b} L={L} H={H} G={G} P={P} N={N} Q={Q}"
+    passes = short_names(
+        kernel_path_ms([functools.partial(SS.ssd_scan, *a) for a in calls]),
+        ("state_mma", "state_pass", "scan_mma"),
+    )
+    what = (
+        f"bf16 b={b} L={L} H={H} G={G} P={P} N={N} Q={Q}, profiled critical-path "
+        f"ms per pass {passes}"
+    )
     report("ssd_scan", what, ms, plain_ms, None, bound, smi)
     return ms, plain_ms, None, bound
 
@@ -804,6 +906,10 @@ def main():
     log(
         f"[kernel] flash_attention bf16 tensor-core instructions (cuobjdump -sass "
         f"HGMMA count per kernel): {hgmma_counts(libs['flash_attention'])}"
+    )
+    log(
+        f"[kernel] ssd_scan bf16 tensor-core instructions (cuobjdump -sass HMMA "
+        f"count per kernel): {hmma_counts(libs['ssd_scan'])}"
     )
     gemma = get_config("gemma-7b")
     timed = {

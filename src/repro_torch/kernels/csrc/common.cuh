@@ -2,7 +2,8 @@
 // element conversion, 16-byte vector unpacking, warp reductions, a
 // register-tiled fp32 product over operands staged in shared memory,
 // cp.async staging, the wgmma (Hopper tensor-core) building blocks, and
-// the partial layout and combine step of split-K decode attention.
+// the split-K decode attention walk (partials, split and combine kernels)
+// shared by dense and paged decode.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -332,7 +333,16 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 }
 
 
+
 // ------------------------------------------------------- split-K decode
+// One query token per (batch, query head) row against K/V rows that a
+// position maps to, cut into `n_split` ranges of `span` positions: the
+// walk shared by dense decode (decode_attention.cu: a strided row per
+// position) and paged decode (paged_decode.cu: a block-table lookup).
+// Each .cu file supplies that mapping as a `Rows` type and its own C
+// entry point; the split kernel, the combine kernel and their launch are
+// here.
+//
 // Partials of a split-K decode call, fp32, in a workspace of
 // rows * n_split * (D + 2) floats that the caller allocates. For each of
 // the `rows` (batch, query head) rows and each split:
@@ -413,5 +423,306 @@ __device__ __forceinline__ void combine_split_row(const SplitPartials& p,
     out[d] = from_f<T>(num * inv);
   }
 }
+
+namespace split_decode {
+
+constexpr int kThreads = 256;  // the split kernel's block
+constexpr int kWarps = kThreads / 32;
+constexpr int kCombineThreads = 128;
+constexpr int kQVecs = 2;  // 16-byte q vectors a lane keeps in registers
+
+struct SmemLayout {  // byte offsets into dynamic shared memory
+  size_t q, k, v, p, acc, m, l, ids, total;
+  __host__ __device__ SmemLayout(int R, int D, int Tc, int es, int n_ids) {
+    const size_t stage = (size_t)Tc * D * es;
+    q = 0;                                        // [R][D] fp32, pre-scaled
+    k = q + sizeof(float) * R * D;                // [2][Tc][D] T
+    v = k + 2 * stage;                            // [2][Tc][D] T
+    p = v + 2 * stage;                            // [kWarps][Tc] fp32
+    acc = p + sizeof(float) * kWarps * Tc;        // [R][D] fp32
+    const int items = R > kWarps ? R : kWarps;   // R * parts <= items
+    m = acc + sizeof(float) * R * D;              // [items] fp32
+    l = m + sizeof(float) * items;                // [items] fp32
+    ids = l + sizeof(float) * items;              // [n_ids] int: Rows' own
+    total = ids + sizeof(int) * n_ids;
+  }
+};
+
+// Issue the copies of `nt` tokens starting at position `s0` into stage
+// buffers kd and vd (16 bytes per cp.async); `rows` maps a position to
+// its K and V rows.
+template <typename T, typename Rows>
+__device__ __forceinline__ void load_chunk(T* kd, T* vd, const Rows& rows,
+                                           int s0, int nt, int D, int tid) {
+  constexpr int kVec = Vec16<T>::n;
+  const int row_vecs = D / kVec;
+  for (int i = tid; i < nt * row_vecs; i += kThreads) {
+    const int t = i / row_vecs;
+    const int d = (i - t * row_vecs) * kVec;
+    cp_async16(smem_addr(kd + t * D + d), rows.k_row(s0 + t) + d);
+    cp_async16(smem_addr(vd + t * D + d), rows.v_row(s0 + t) + d);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float2 pair_f(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Grid (B * KV, n_split): the block of (row, KV head, split) walks
+// positions [split * span, min((split + 1) * span, length, S)) through a
+// two-stage ring of Tc-token chunks and writes the partial of each of
+// its R query heads. `rows` is the caller's mapping: `bind` points it at
+// (row, KV head) and the split's positions, using `ids` (shared memory
+// of `n_ids` ints, which the launch sizes) if it needs to (then with
+// kUsesIds set, and a barrier follows); `k_row(pos)` / `v_row(pos)` give
+// a position's rows.
+template <typename T, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+split_kernel(const T* __restrict__ q, Rows rows,
+             const int* __restrict__ lengths, float* __restrict__ ws, int B,
+             int KV, int R, int D, int S, int Tc, int span, int n_split,
+             int n_ids, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const SmemLayout L(R, D, Tc, sizeof(T), n_ids);
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  T* k_s = reinterpret_cast<T*>(smem + L.k);
+  T* v_s = reinterpret_cast<T*>(smem + L.v);
+  float* p_s = reinterpret_cast<float*>(smem + L.p);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* l_s = reinterpret_cast<float*>(smem + L.l);
+  int* ids = reinterpret_cast<int*>(smem + L.ids);
+
+  // the combine kernel may be scheduled now: it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int row = blockIdx.x / KV;
+  const int kvh = blockIdx.x % KV;
+  const int split = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t head0 = ((size_t)row * KV + kvh) * R;  // first query head
+  const SplitPartials part(ws, (size_t)B * KV * R, n_split, D);
+
+  const int n = max(0, min(lengths[row], S));  // early stop
+  const int s0 = split * span;
+  const int s1 = min(s0 + span, n);
+  if (s0 >= s1) {
+    write_empty_partials(part, head0, R, split, tid, kThreads);
+    return;
+  }
+  rows.bind(row, kvh, s0, s1, ids, tid, kThreads);
+  if (Rows::kUsesIds) __syncthreads();
+  const int n_chunks = (s1 - s0 + Tc - 1) / Tc;
+  load_chunk(k_s, v_s, rows, s0, min(Tc, s1 - s0), D, tid);
+
+  const T* q_row = q + head0 * D;
+  for (int i = tid; i < R * D; i += kThreads) {
+    q_s[i] = to_f(q_row[i]) * scale;
+    acc[i] = 0.f;
+  }
+  // Work items of this warp: (head r, part of D). With R >= kWarps a warp
+  // owns whole heads w, w + kWarps, ...; with fewer heads, `parts` warps
+  // share one head, each computing its scores and softmax (identical) and
+  // accumulating its own part of D. Item state lives at index r * parts +
+  // part of m_s and l_s, touched by its warp only.
+  const int parts = R >= kWarps ? 1 : kWarps / R;
+  const int first = R >= kWarps ? warp : warp / parts;
+  const int step = R >= kWarps ? kWarps : R;  // a shared head is one item
+  const int pairs = D / 2;
+  const int part_pairs = (pairs + parts - 1) / parts;
+  const int my_part = R >= kWarps ? 0 : warp % parts;
+  const bool has_work = R >= kWarps || warp < R * parts;
+  if (has_work && lane == 0)
+    for (int r = first; r < R; r += step) {
+      m_s[r * parts + my_part] = -INFINITY;
+      l_s[r * parts + my_part] = 0.f;
+    }
+
+  // lanes per token in the score phase: a power of two <= 32 that covers
+  // the row's 16-byte vectors in as few passes as possible; lane `sub` of
+  // a token's group takes vectors sub, sub + lpt, ...
+  constexpr int kVec = Vec16<T>::n;
+  const int row_vecs = D / kVec;
+  int lpt = 1;
+  while (lpt < 32 && lpt < row_vecs) lpt <<= 1;
+  const int group = lane / lpt, sub = lane % lpt, groups = 32 / lpt;
+  float* p_w = p_s + warp * Tc;  // this warp's probability row
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c landed for all; chunk c - 1's readers done
+    const int c0 = s0 + c * Tc;
+    if (c + 1 < n_chunks) {
+      const int nx = c0 + Tc;
+      load_chunk(k_s + (st ^ 1) * Tc * D, v_s + (st ^ 1) * Tc * D, rows, nx,
+                 min(Tc, s1 - nx), D, tid);
+    }
+    if (!has_work) continue;
+    const int nt = min(Tc, s1 - c0);
+    const T* kc = k_s + st * Tc * D;
+    const T* vc = v_s + st * Tc * D;
+    for (int r = first; r < R; r += step) {
+      const float* qr = q_s + r * D;
+      // this lane's first kQVecs vectors of q in registers (the rest, for
+      // rows over 32 * kQVecs * 16 bytes, are read from shared memory)
+      float qv[kQVecs][kVec];
+#pragma unroll
+      for (int v_ = 0; v_ < kQVecs; ++v_) {
+        const int j = sub + v_ * lpt;
+#pragma unroll
+        for (int u = 0; u < kVec; ++u)
+          qv[v_][u] = j < row_vecs ? qr[j * kVec + u] : 0.f;
+      }
+      // scores: `lpt` lanes across D per token, `groups` tokens at a time
+#pragma unroll 2
+      for (int tb = 0; tb < nt; tb += groups) {
+        const int t = tb + group;
+        float s = 0.f;
+        if (t < nt) {
+          const T* kr = kc + t * D;
+#pragma unroll
+          for (int v_ = 0; v_ < kQVecs; ++v_) {
+            const int j = sub + v_ * lpt;
+            if (j < row_vecs) {
+              float kf[kVec];
+              Vec16<T>::unpack(
+                  *reinterpret_cast<const uint4*>(kr + j * kVec), kf);
+#pragma unroll
+              for (int u = 0; u < kVec; ++u) s += qv[v_][u] * kf[u];
+            }
+          }
+          for (int j = sub + kQVecs * lpt; j < row_vecs; j += lpt) {
+            float kf[kVec];
+            Vec16<T>::unpack(*reinterpret_cast<const uint4*>(kr + j * kVec),
+                             kf);
+#pragma unroll
+            for (int u = 0; u < kVec; ++u) s += qr[j * kVec + u] * kf[u];
+          }
+        }
+        for (int o = lpt >> 1; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (t < nt && sub == 0) p_w[t] = s;
+      }
+      __syncwarp();
+      // online softmax over the chunk, with the TPU kernels' -inf guards
+      float mx = -INFINITY;
+      for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, p_w[t]);
+      mx = warp_max(mx);
+      const int item = r * parts + my_part;
+      const float m_prev = m_s[item];
+      const float m_new = fmaxf(m_prev, mx);
+      const float safe = isinf(m_new) ? 0.f : m_new;
+      float sum = 0.f;
+      for (int t = lane; t < nt; t += 32) {
+        const float e = expf(p_w[t] - safe);
+        p_w[t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      const float alpha = isinf(m_prev) ? 0.f : expf(m_prev - safe);
+      __syncwarp();
+      if (lane == 0) {
+        m_s[item] = m_new;
+        l_s[item] = l_s[item] * alpha + sum;
+      }
+      // acc = acc * alpha + p @ v over this item's pairs of D
+      const int p_end = min(pairs, (my_part + 1) * part_pairs);
+      for (int pr = my_part * part_pairs + lane; pr < p_end; pr += 32) {
+        float2 a = pair_f(acc + r * D + 2 * pr);
+        a.x *= alpha;
+        a.y *= alpha;
+#pragma unroll 4
+        for (int t = 0; t < nt; ++t) {
+          const float w = p_w[t];
+          const float2 vv = pair_f(vc + t * D + 2 * pr);
+          a.x += w * vv.x;
+          a.y += w * vv.y;
+        }
+        *reinterpret_cast<float2*>(acc + r * D + 2 * pr) = a;
+      }
+      __syncwarp();  // p_w is rewritten by the next item
+    }
+  }
+
+  // this warp's items to the workspace
+  if (!has_work) return;
+  for (int r = first; r < R; r += step) {
+    const size_t at = part.at(head0 + r, split);
+    const int p_end = min(pairs, (my_part + 1) * part_pairs);
+    for (int pr = my_part * part_pairs + lane; pr < p_end; pr += 32)
+      *reinterpret_cast<float2*>(part.acc + at * D + 2 * pr) =
+          pair_f(acc + r * D + 2 * pr);
+    if (my_part == 0 && lane == 0) {
+      part.m[at] = m_s[r * parts];
+      part.l[at] = l_s[r * parts];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_kernel(float* __restrict__ ws, T* __restrict__ out, int rows,
+               int n_split, int D) {
+  extern __shared__ float w[];  // n_split + 1 weights
+  // launched early (programmatic dependent launch): wait until the split
+  // kernel has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const SplitPartials part(ws, rows, n_split, D);
+  const size_t row = blockIdx.x;  // (batch, query head)
+  combine_split_row(part, row, out + row * D, w, threadIdx.x,
+                    kCombineThreads);
+}
+
+// Tokens per chunk: 64, fewer where two stages of K and V and the
+// accumulators would not fit
+inline int chunk_tokens(int R, int D, int es, int n_ids) {
+  int Tc = 64;
+  while (Tc > 8 && SmemLayout(R, D, Tc, es, n_ids).total > 100 * 1024)
+    Tc /= 2;
+  return Tc;
+}
+
+// The two launches of a split-K decode call on `stream`: the split kernel
+// over (B * KV, n_split), then the combine over the B * KV * R rows as a
+// programmatic dependent launch, so that its launch and block scheduling
+// overlap the split kernel's run (it waits on griddepcontrol.wait).
+template <typename T, typename Rows>
+cudaError_t launch(const void* q, const Rows& rows, const int* lengths,
+                   void* out, float* ws, int B, int KV, int R, int D, int S,
+                   int n_split, int span, int n_ids, cudaStream_t stream) {
+  const int Tc = chunk_tokens(R, D, sizeof(T), n_ids);
+  const size_t smem = SmemLayout(R, D, Tc, sizeof(T), n_ids).total;
+  static size_t allowed = 48 * 1024;
+  cudaError_t err = allow_smem(split_kernel<T, Rows>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf((float)D);
+  split_kernel<T, Rows><<<dim3(B * KV, n_split), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), rows, lengths, ws, B, KV, R, D, S, Tc, span,
+      n_split, n_ids, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t w_smem = sizeof(float) * (n_split + 1);
+  static size_t w_allowed = 48 * 1024;
+  err = allow_smem(combine_kernel<T>, w_smem, &w_allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * KV * R);
+  cfg.blockDim = dim3(kCombineThreads);
+  cfg.dynamicSmemBytes = w_smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, combine_kernel<T>, ws,
+                            static_cast<T*>(out), B * KV * R, n_split, D);
+}
+
+}  // namespace split_decode
 
 }  // namespace repro

@@ -31,22 +31,24 @@ BLOCKS_PER_SM = 4      # split-K grid: at least this many blocks per SM
 H100_SMS = 132
 
 
-def plan_splits(B: int, KV: int, S: int, n_sm: int = H100_SMS):
+def plan_splits(B: int, KV: int, S: int, n_sm: int = H100_SMS,
+                multiple: int = SPLIT_CHUNK):
     """(n_split, span) for a [B, KV, S] cache: enough splits that the
     B * KV * n_split thread blocks cover ``n_sm`` SMs four times, at most
-    ceil(S / 64); each split takes ``span`` positions, ceil(S / n_split)
-    rounded up to a multiple of 64, so the last splits may start past S
-    (they, and every split past a row's length, are empty). Shapes only:
-    reading ``lengths`` would be a device-to-host sync.
+    ceil(S / multiple); each split takes ``span`` positions,
+    ceil(S / n_split) rounded up to a multiple of ``multiple`` (64, or for
+    a paged pool a multiple of its block size too), so the last splits may
+    start past S (they, and every split past a row's length, are empty).
+    Shapes only: reading ``lengths`` would be a device-to-host sync.
 
     Four blocks per SM rather than two: at decode lengths a block's
     serial walk over its span, not the SM count, sets the time; at B 8,
     S 1024 on an H100, chip_smoke.py timed 0.0177 ms with 9 splits of
     128 and 0.0146 ms with 16 of 64 (PERF.md)."""
-    cap = -(-S // SPLIT_CHUNK)
+    cap = -(-S // multiple)
     n_split = max(1, min(cap, -(-BLOCKS_PER_SM * n_sm // (B * KV))))
     per_split = -(-S // n_split)
-    span = SPLIT_CHUNK * -(-per_split // SPLIT_CHUNK)
+    span = multiple * -(-per_split // multiple)
     return n_split, span
 
 
@@ -102,13 +104,22 @@ def decode_attention_ref(q, k, v, lengths):
 
 def decode_attention_split_ref(q, k, v, lengths, n_sm: int = H100_SMS):
     """The kernel's algorithm in plain PyTorch (tests only): the splits of
-    ``plan_splits``, each one's fp32 partial (acc = p @ v unnormalised,
-    m, l) with an empty split at m = -inf, l = 0, then the combine
-    ``sum_i w_i acc_i / sum_i w_i l_i`` with w_i = exp(m_i - max m) and
-    the kernel's guards (all splits empty gives zeros)."""
+    ``plan_splits``, then ``split_attention``."""
+    B, _, S = k.shape[:3]
+    n_split, span = plan_splits(B, k.shape[1], S, n_sm)
+    return split_attention(q, k, v, lengths, n_split, span)
+
+
+def split_attention(q, k, v, lengths, n_split: int, span: int):
+    """The split-K walk of the decode kernels (dense and paged) in plain
+    PyTorch, for the tests: split i takes positions [i * span,
+    (i + 1) * span) below min(length, S); each split's fp32 partial
+    (acc = p @ v unnormalised, m, l), an empty split at m = -inf, l = 0;
+    then the combine ``sum_i w_i acc_i / sum_i w_i l_i`` with
+    w_i = exp(m_i - max m) and the kernels' guards (all splits empty
+    gives zeros). k, v: [B, KV, S, D]."""
     B, H, D = q.shape
     KV, S = k.shape[1], k.shape[2]
-    n_split, span = plan_splits(B, KV, S, n_sm)
     qg = q.float().reshape(B, KV, H // KV, D) * (1.0 / math.sqrt(D))
     n = lengths.long().clamp(0, S)[:, None]
     accs, ms, ls = [], [], []

@@ -7,8 +7,16 @@ tensors it launches the hand-written Hopper kernel
 ``repro/kernels/paged_decode.py``) on the current stream; on CPU tensors
 it runs ``paged_decode_attention_ref``, the plain PyTorch version beside
 it. There is no fallback: a kernel that fails to build or launch raises.
-``paged_decode_attention.launches`` counts kernel launches (plain-version
-calls do not count).
+``paged_decode_attention.launches`` counts calls that launched the kernel
+(plain-version calls do not count); each such call is two launches on
+the card, the split-K pass and the combine.
+
+The kernel cuts the table's capacity ``max_blocks * bs`` into ranges of
+whole pool blocks (``plan_paged_splits``: dense decode's ``plan_splits``
+with spans a multiple of 64 and of the block size, a pure function of
+the shapes and the SM count) and merges their partial softmax states in
+a second pass. ``paged_decode_attention_split_ref`` is that algorithm in
+plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -19,6 +27,9 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import (H100_SMS, SPLIT_CHUNK,
+                                                  plan_splits, sm_count,
+                                                  split_attention)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,6 +61,17 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError("all operands must be contiguous")
 
 
+def _gather(pool, block_tables):
+    """[n_blocks, KV, bs, D] pool -> [B, KV, max_blocks * bs, D] fp32,
+    entries outside [0, n_blocks) reading block 0."""
+    n_blocks, KV, bs, D = pool.shape
+    B, mb = block_tables.shape
+    tbl = block_tables.long()
+    tbl = torch.where((tbl >= 0) & (tbl < n_blocks), tbl, 0)
+    return pool[tbl].float().permute(0, 2, 1, 3, 4).reshape(B, KV, mb * bs,
+                                                            D)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
     """Plain PyTorch version: gather the table's blocks, masked fp32
     softmax (mirrors ``serving/paged_kv.paged_attention_ref``), with the
@@ -58,10 +80,8 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
     n_blocks, KV, bs, _ = k_pool.shape
     R = H // KV
     mb = block_tables.shape[1]
-    tbl = block_tables.long()
-    tbl = torch.where((tbl >= 0) & (tbl < n_blocks), tbl, 0)
-    k = k_pool[tbl].float().permute(0, 2, 1, 3, 4).reshape(B, KV, mb * bs, D)
-    v = v_pool[tbl].float().permute(0, 2, 1, 3, 4).reshape(B, KV, mb * bs, D)
+    k = _gather(k_pool, block_tables)
+    v = _gather(v_pool, block_tables)
     qg = q.float().reshape(B, KV, R, D) * (1.0 / math.sqrt(D))
     s = torch.einsum("bkrd,bksd->bkrs", qg, k)
     valid = (torch.arange(mb * bs, device=q.device)[None, :]
@@ -76,10 +96,35 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def plan_paged_splits(B: int, KV: int, max_blocks: int, bs: int,
+                      n_sm: int = H100_SMS):
+    """(n_split, span) over a [B, max_blocks] table of ``bs``-token blocks:
+    ``plan_splits`` over its capacity ``max_blocks * bs`` with spans a
+    multiple of lcm(64, bs), so that a split is a whole number of pool
+    blocks, and no split wholly past the table. Shapes only, never the
+    lengths."""
+    S = max_blocks * bs
+    _, span = plan_splits(B, KV, S, n_sm, math.lcm(SPLIT_CHUNK, bs))
+    return -(-S // span), span
+
+
+def paged_decode_attention_split_ref(q, k_pool, v_pool, block_tables,
+                                     lengths, n_sm: int = H100_SMS):
+    """The kernel's algorithm in plain PyTorch (tests only): the splits of
+    ``plan_paged_splits`` over the table, each one's partial, then the
+    combine (``decode_attention.split_attention``)."""
+    n_blocks, KV, bs, _ = k_pool.shape
+    B, mb = block_tables.shape
+    n_split, span = plan_paged_splits(B, KV, mb, bs, n_sm)
+    k = _gather(k_pool, block_tables)
+    v = _gather(v_pool, block_tables)
+    return split_attention(q, k, v, lengths, n_split, span)
+
+
 @functools.cache
 def _kernel():
     fn = build.load("paged_decode").paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -91,7 +136,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     [B, max_blocks] int32 (entries outside [0, n_blocks) read block 0 and
     are masked by length); lengths: [B] int32 (0 = inactive, output is
     zeros). All contiguous, on one device. Returns [B, H, D] in q.dtype.
-    """
+
+    On CUDA this is two launches (the split-K pass over
+    ``plan_paged_splits``'s grid, then the combine) into a workspace
+    allocated here; no host sync, so the call can be captured in a CUDA
+    graph."""
     _check(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
@@ -106,12 +155,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError(f"pool rows must be 16-byte aligned for the kernel "
                          f"(head dim {D} in {k_pool.dtype})")
     out = torch.empty_like(q)
+    mb = block_tables.shape[1]
+    n_split, span = plan_paged_splits(B, KV, mb, bs,
+                                      sm_count(q.device.index))
+    # partials: acc [B*H, n_split, D], then m and l [B*H, n_split], fp32
+    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, KV, D, bs, block_tables.shape[1],
-            n_blocks, torch.cuda.current_stream().cuda_stream)
+            ws.data_ptr(), _DTYPE_CODES[q.dtype], B, H, KV, D, bs, mb,
+            n_blocks, n_split, span, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: "
                            f"cudaError {err}")

@@ -6,8 +6,14 @@ Hopper kernel (``csrc/ssd_scan.cu``, the port of the Pallas kernel
 ``repro/kernels/ssd_scan.py``) on the current stream; on CPU tensors it
 runs ``ssd_scan_ref``, the plain PyTorch version beside it. There is no
 fallback: a kernel that fails to build or launch raises.
-``ssd_scan.launches`` counts kernel launches (plain-version calls do not
-count).
+``ssd_scan.launches`` counts calls that launched the kernel (plain-version
+calls do not count); each such call is three launches on the card, the
+passes of the chunk-parallel algorithm.
+
+The kernel computes each chunk's own state contribution in parallel,
+passes the states along the chunks, then each chunk's outputs in
+parallel. ``ssd_scan_chunked_ref`` is that algorithm in plain PyTorch,
+rounding to bf16 where the bf16 kernel rounds, for the tests.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P, MAX_N = 64, 128   # the kernel's largest head and state dims
+DIM_MULTIPLE = 16        # P and N: multiples of this (tensor-core tiles)
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -88,10 +95,67 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int = 128):
     return y.to(x.dtype), h.to(x.dtype)
 
 
+def ssd_scan_chunked_ref(x, dt, A, B, C, chunk: int = 128):
+    """The kernel's three passes in plain PyTorch (tests only), with cs the
+    in-chunk cumulative sum of dt * A:
+
+    1. each chunk's state contribution s_c = sum_j w_j x_j (x) B_j, with
+       w_j = exp(cs_last - cs_j) dt_j;
+    2. the states passed along: h_0 = 0, h_{c+1} = exp(cs_last,c) h_c + s_c;
+    3. y_i = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
+       + exp(cs_i) C_i . h_c.
+
+    For bf16 inputs it rounds to bf16 where the kernel does: the weighted
+    x before the product with B, the masked scaled scores before the
+    product with x, h_c before C . h_c (and y and the final state on
+    output); everything else is fp32. L must be a multiple of the chunk."""
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    nc = L // Q
+    if x.dtype == torch.bfloat16:
+        def rnd(t):
+            return t.to(torch.bfloat16).float()
+    else:
+        def rnd(t):
+            return t
+    xc = x.float().reshape(b, nc, Q, H, P)
+    dtc = dt.float().reshape(b, nc, Q, H)
+    Bc = B.float().reshape(b, nc, Q, G, N)
+    Cc = C.float().reshape(b, nc, Q, G, N)
+    cs = torch.cumsum(dtc * A.float(), dim=2)                  # [b,nc,Q,H]
+    # pass 1: chunk states
+    w = torch.exp(cs[:, :, -1:] - cs) * dtc
+    wx = rnd(xc * w[..., None])                                # [b,nc,Q,H,P]
+    Bh = torch.repeat_interleave(Bc, rep, dim=3)               # [b,nc,Q,H,N]
+    states = torch.einsum("bcjhp,bcjhn->bchpn", wx, Bh)
+    # pass 2: state passing
+    h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(cs[:, c, -1])[:, :, None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                            # [b,nc,H,P,N]
+    # pass 3: chunk scan
+    CB = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)
+    CB = torch.repeat_interleave(CB, rep, dim=2)               # [b,nc,H,i,j]
+    csh = cs.permute(0, 1, 3, 2)                               # [b,nc,H,Q]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(causal, torch.exp(csh[..., :, None]
+                                          - csh[..., None, :]), 0.0)
+    scores = rnd(CB * (decay * dtc.permute(0, 1, 3, 2)[..., None, :]))
+    y = torch.einsum("bchij,bcjhp->bcihp", scores, xc)
+    Ch = torch.repeat_interleave(Cc, rep, dim=3)               # [b,nc,Q,H,N]
+    off = torch.einsum("bcihn,bchpn->bcihp", Ch, rnd(h_in))
+    y = y + torch.exp(cs)[..., None] * off
+    return y.reshape(b, L, H, P).to(x.dtype), h.to(x.dtype)
+
+
 @functools.cache
 def _lib():
     lib = build.load("ssd_scan")
-    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     lib.ssd_scan.restype = ctypes.c_int
     lib.ssd_max_chunk.argtypes = []
@@ -103,7 +167,10 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """x: [b,L,H,P]; dt: [b,L,H] (softplus'd); A: [H] (negative); B, C:
     [b,L,G,N] in x's type, G dividing H; L a multiple of min(chunk, L).
     Returns (y [b,L,H,P], final_state [b,H,P,N]), both in x.dtype (as the
-    Pallas kernel gives them), starting from h = 0."""
+    Pallas kernel gives them), starting from h = 0.
+
+    On CUDA this is three launches (chunk states, state passing, chunk
+    scan) into a workspace allocated here; no host sync."""
     _check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk)
@@ -113,19 +180,24 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     G, N = B.shape[2], B.shape[3]
     Q = min(chunk, L)
     lib = _lib()
-    if P > MAX_P or N > MAX_N or Q > lib.ssd_max_chunk():
-        raise ValueError(f"the kernel takes P <= {MAX_P}, N <= {MAX_N} and "
-                         f"chunks up to {lib.ssd_max_chunk()}; got P={P}, "
-                         f"N={N}, chunk {Q}")
+    if P > MAX_P or N > MAX_N or P % DIM_MULTIPLE or N % DIM_MULTIPLE \
+            or Q > lib.ssd_max_chunk():
+        raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
+                         f"multiples of {DIM_MULTIPLE}, and chunks up to "
+                         f"{lib.ssd_max_chunk()}; got P={P}, N={N}, chunk {Q}")
     dt32 = dt.float().contiguous()
     A32 = A.float().contiguous()
     y = torch.empty_like(x)
     h = torch.empty((b, H, P, N), dtype=x.dtype, device=x.device)
+    # chunk states [b, H, nc, P, N], then cs_last [b, H, nc], fp32
+    ws = torch.empty(b * H * (-(-L // Q)) * (P * N + 1), dtype=torch.float32,
+                     device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan(
             x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), h.data_ptr(), _DTYPE_CODES[x.dtype],
-            b, L, H, G, P, N, Q, torch.cuda.current_stream().cuda_stream)
+            C.data_ptr(), y.data_ptr(), h.data_ptr(), ws.data_ptr(),
+            _DTYPE_CODES[x.dtype], b, L, H, G, P, N, Q,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     ssd_scan.launches += 1
