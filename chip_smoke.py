@@ -42,7 +42,25 @@ prints no ``ok`` line):
    SSD scan at L 2000, each within 2e-2 relative L2 of its plain version;
    then one full-width mamba2-780m mixer layer (B 1, S 2048, random
    weights) through the SSD kernel against the same layer through
-   ``ssd_chunked``, within 2e-2 relative L2 in bf16 and 1e-4 in fp32.
+   ``ssd_chunked``, within 2e-2 relative L2 in bf16 and 1e-4 in fp32;
+7. the module-scaling loop at full width: an ``Orchestrator`` of two
+   engines on the card (phase 5's bf16 weights and workload, all 8
+   requests on instance 0). Stop-the-world (``migrate_requests``) and
+   two-phase (``migrate_requests_overlapped``, 3 overlap steps) moves of
+   every decoding request to the empty instance 1, the moves themselves
+   under sync-debug "error" with only the counted syncs allowed: every
+   request resumed, every imported block bit-equal to its payload, the
+   source left with no block, nothing dropped, and the streams
+   token-identical to phase 5's unmigrated run (the stop-the-world moves
+   are then repeated 1 -> 0 -> 1, export and import timed apart); a
+   mixed, then an all-ones replication plan applied mid-decode on
+   instance 1 (streams unchanged, part of that gate); a violating
+   snapshot turned by the controller into a scale-down that migrates off
+   instance 0 (greedy agreement printed, not gated). The paged kernel's launches over the phase equal layers x
+   decode steps of every engine. It prints bytes moved, the
+   stop-the-world time and the two-phase stall per request, and
+   ``fit_migration_model`` on the card beside ``estimate_cost``'s
+   defaults.
 
 It then prints a JSON line of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Longer
@@ -51,6 +69,7 @@ logs go to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -859,6 +878,297 @@ def kernel_api_phase(ops, FA, DA, ssm, get_config, mid_lens, smi):
     )
 
 
+# ------------------------------------------------- module-scaling loop
+def capture(handle, op, sink):
+    """Record (result, host seconds) of every call of ``handle.op`` (a
+    migration step) in ``sink``; the handle works as before."""
+    orig = getattr(handle, op)
+
+    def wrapped(*args, **kwargs):
+        t = time.perf_counter()
+        out = orig(*args, **kwargs)
+        sink.append((out, time.perf_counter() - t))
+        return out
+
+    setattr(handle, op, wrapped)
+
+
+@contextlib.contextmanager
+def sync_errors(device):
+    """Any host sync but the counted ones (``instrument.fetch`` and
+    ``instrument.synchronize`` relax the mode) raises inside the block."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def pool_bits(eng, slot, cols):
+    """The K and V blocks of ``slot`` at table columns ``cols``, as the
+    raw bf16 bits the wire carries."""
+    ids = eng.pstate.block_tables[slot, cols].astype(np.int64)
+    ids = torch.from_numpy(ids).to(eng.device)
+    return [
+        t.index_select(1, ids).view(torch.int16).cpu().numpy().view(np.uint16)
+        for t in (eng.pstate.k, eng.pstate.v)
+    ]
+
+
+def shipped(payloads, into=None):
+    """Fold payload ``kv`` parts, in order, into rid -> {column: (k, v)}
+    (a later payload's column replaces an earlier one's: the delta over
+    the snapshot)."""
+    into = {} if into is None else into
+    for rid, kv in payloads:
+        if kv.get("kv_dtype") != "bfloat16":
+            raise AssertionError(f"rid={rid}: bf16 pool shipped {kv.get('kv_dtype')}")
+        by_col = into.setdefault(rid, {})
+        for i, c in enumerate(kv["cols"]):
+            by_col[int(c)] = (kv["k"][:, i], kv["v"][:, i])
+    return into
+
+
+def check_imported(eng, blocks):
+    """``blocks`` (from ``shipped``) must sit bit for bit in ``eng``'s pool
+    at their columns, and be all its live columns. Returns the count."""
+    slot_of = {rid: slot for slot, rid in eng.slot_rids().items()}
+    n = 0
+    for rid, by_col in blocks.items():
+        cols = np.asarray(sorted(by_col))
+        live = np.nonzero(eng.pstate.block_tables[slot_of[rid]] >= 0)[0]
+        if live.tolist() != cols.tolist():
+            raise AssertionError(f"rid={rid}: columns {live} vs shipped {cols}")
+        k, v = pool_bits(eng, slot_of[rid], cols)
+        want_k = np.stack([by_col[c][0] for c in cols], axis=1)
+        want_v = np.stack([by_col[c][1] for c in cols], axis=1)
+        if not (np.array_equal(k, want_k) and np.array_equal(v, want_v)):
+            raise AssertionError(f"rid={rid}: imported blocks differ from payload")
+        n += len(cols)
+    return n
+
+
+def scaling_setup(Orchestrator, RequestSpec, SamplingParams, work, device):
+    """Two engines, all the workload's requests on instance 0, stepped
+    until none is prefilling and each has at least 4 tokens."""
+    cfg, params, prompts, sampled = work
+    orch = Orchestrator(
+        cfg,
+        params,
+        n_instances=2,
+        max_batch=8,
+        max_len=1024,
+        block_size=16,
+        dtype="bfloat16",
+        telemetry_every=10_000,
+        device=device,
+    )
+    src = orch.engines[0]
+    reqs = []
+    for i, p in enumerate(prompts):
+        temp, top_k = (0.8, 8) if i in sampled else (0.0, 0)
+        sampling = SamplingParams(temperature=temp, top_k=top_k, seed=100 + i)
+        orch._home[i] = 0
+        spec = RequestSpec(rid=i, prompt=p, max_tokens=32, sampling=sampling)
+        reqs.append(src.submit(spec))
+    while src.queue or src.prefilling or min(len(r.generated) for r in reqs) < 4:
+        orch.step()
+    if len(src.active) != len(reqs) or any(r.done for r in reqs):
+        raise AssertionError(f"{len(src.active)} of {len(reqs)} requests decoding")
+    return orch, reqs
+
+
+def check_moved(orch, recs, reqs, what, src=0):
+    resumed = [r.resumed for r in recs]
+    if len(recs) != len(reqs) or not all(resumed):
+        raise AssertionError(f"{what}: {len(recs)} records, resumed {resumed}")
+    src = orch.engines[src]
+    held = src.pstate.blocks_in_use()
+    if src.active or src.prefilling or held:
+        raise AssertionError(f"{what}: source holds {held} blocks")
+
+
+def finished_streams(orch, reference, what):
+    orch.run_until_done()
+    got = {r.rid: r.generated for r in orch.finished}
+    if orch.dropped or sorted(got) != sorted(reference):
+        raise AssertionError(f"{what}: dropped {orch.dropped}, finished {sorted(got)}")
+    return got
+
+
+def check_streams(orch, reference, what):
+    got = finished_streams(orch, reference, what)
+    bad = [rid for rid in reference if got[rid] != reference[rid]]
+    if bad:
+        raise AssertionError(f"{what}: streams differ from the unmigrated run: {bad}")
+
+
+def ms_list(xs):
+    return "[" + ", ".join(f"{x * 1e3:.3f}" for x in xs) + "]"
+
+
+def scaling_phase(mods, work, reference, smi, device="cuda"):
+    """Phase 7 (module docstring). ``mods``: (paged_decode, instrument,
+    core.migration, MetricsSnapshot, Orchestrator, RequestSpec,
+    SamplingParams); ``work``: (cfg, params, prompts, sampled);
+    ``reference``: rid -> tokens of the unmigrated run (one engine, the
+    same max_batch)."""
+    PD, INS, MIG, MetricsSnapshot, Orchestrator, RS, SP = mods
+    cfg, sampled = work[0], work[3]
+    L = cfg.num_layers
+    engines = []
+    PD.paged_decode_attention.launches = 0
+
+    def setup():
+        orch, reqs = scaling_setup(Orchestrator, RS, SP, work, device)
+        engines.extend(orch.engines)
+        return orch, reqs
+
+    # 1. stop-the-world, then a plan applied mid-decode at the destination
+    orch, reqs = setup()
+    paused, resumed = [], []
+    for h in orch.instances:
+        capture(h, "pause_request", paused)
+        capture(h, "resume_request", resumed)
+    with sync_errors(device), INS.count_host_syncs() as syncs:
+        recs = orch.migrate_requests(0, 1)
+    check_moved(orch, recs, reqs, "stop-the-world")
+    want = (3 if torch.device(device).type == "cuda" else 2) * len(recs)
+    if syncs.n != want:
+        raise AssertionError(f"{syncs.n} host syncs for {len(recs)} moves, not {want}")
+    blocks = shipped([(p["request"].rid, p["kv"]) for p, _ in paused])
+    n_checked = check_imported(orch.engines[1], blocks)
+    stw = sorted(recs, key=lambda r: r.rid)
+    total = sum(r.bytes_moved for r in stw)
+    log(
+        f"[scaling] stop-the-world: {len(stw)} requests 0 -> 1, all resumed, "
+        f"{n_checked} imported blocks bit-equal to their payload, source empty; "
+        f"{syncs.n} host syncs, {syncs.uploads} uploads, under sync-debug error"
+    )
+    log(
+        f"[scaling] stop-the-world bytes per request "
+        f"{[r.bytes_moved for r in stw]}, total {total} B; wall per request "
+        f"(pause -> resume, after synchronize) ms {ms_list(r.seconds for r in stw)}, "
+        f"total {sum(r.seconds for r in stw) * 1e3:.3f} ms [{smi}]"
+    )
+    # the same moves twice more (1 -> 0 -> 1), each step timed: export
+    # (pause) and import (resume, after synchronize), in migration order
+    for src, dst, again in ((0, 1, False), (1, 0, True), (0, 1, True)):
+        if again:
+            paused.clear()
+            resumed.clear()
+            with sync_errors(device):
+                recs = orch.migrate_requests(src, dst)
+            check_moved(orch, recs, reqs, f"stop-the-world {src} -> {dst}", src)
+        log(
+            f"[scaling] stop-the-world {src} -> {dst}, in migration "
+            f"order: rids {[p['request'].rid for p, _ in paused]}, export ms "
+            f"{ms_list(dt for _, dt in paused)}, import ms "
+            f"{ms_list(dt for _, dt in resumed)}, total "
+            f"{sum(r.seconds for r in recs) * 1e3:.3f} ms [{smi}]"
+        )
+    mixed = [1 + i % 3 for i in range(L)]
+    for plan in (mixed, [1] * L):
+        for _ in range(2):
+            orch.step()
+        orch.instances[1].apply_plan(plan)
+        if orch.engines[1].replication_degrees != tuple(plan):
+            raise AssertionError("apply_plan did not reach the engine")
+    check_streams(orch, reference, "stop-the-world + apply_plan")
+    log(
+        "[scaling] stop-the-world streams token-identical to the unmigrated run "
+        "(a mixed, then the all-ones plan applied mid-decode at the "
+        "destination), dropped 0"
+    )
+
+    # 2. two-phase: snapshot + staging while the source decodes 3 steps
+    orch, reqs = setup()
+    snaps, paused = [], []
+    capture(orch.instances[0], "snapshot_request", snaps)
+    capture(orch.instances[0], "pause_request", paused)
+    before = {r.rid: len(r.generated) for r in reqs}
+    with sync_errors(device):
+        recs = orch.migrate_requests_overlapped(0, 1, overlap_steps=3)
+    check_moved(orch, recs, reqs, "two-phase")
+    gained = {r.rid: len(r.generated) - before[r.rid] for r in reqs}
+    if set(gained.values()) != {3}:
+        raise AssertionError(f"tokens gained during the overlap: {gained}")
+    deltas = [(r.delta_blocks, r.delta_bytes, r.bytes_moved) for r in recs]
+    if not all(n >= 1 and d < b for n, d, b in deltas):
+        raise AssertionError(f"two-phase deltas (blocks, bytes, moved): {deltas}")
+    blocks = shipped([(snap["rid"], snap["kv"]) for snap, _ in snaps])
+    blocks = shipped([(p["request"].rid, p["kv"]) for p, _ in paused], blocks)
+    n_checked = check_imported(orch.engines[1], blocks)
+    ov = sorted(recs, key=lambda r: r.rid)
+    log(
+        f"[scaling] two-phase: {len(ov)} requests 0 -> 1, each gained 3 tokens "
+        f"during the overlap, all resumed, {n_checked} imported blocks bit-equal "
+        f"to snapshot + delta, source empty"
+    )
+    log(
+        f"[scaling] two-phase bytes per request {[r.bytes_moved for r in ov]}, "
+        f"delta blocks {[r.delta_blocks for r in ov]}, delta bytes "
+        f"{[r.delta_bytes for r in ov]}; stall per request (phase-2 pause -> "
+        f"commit, after synchronize) ms {ms_list(r.stall_s for r in ov)}, whole "
+        f"move ms {ms_list(r.seconds for r in ov)} [{smi}]"
+    )
+    check_streams(orch, reference, "two-phase")
+    log("[scaling] two-phase streams token-identical to the unmigrated run, dropped 0")
+
+    # 3. a controller scale-down turned into block migrations
+    orch, reqs = setup()
+    snap = MetricsSnapshot(
+        t=orch.engines[0].clock,
+        slo_violation_rate=1.0,
+        device_util=[1.0, 0.0],
+        device_mem_frac=[0.9, 0.0],
+        block_vacancy=[0.1, 1.0],
+    )
+    orch.controller.observe(snap)
+    action = orch.controller.tick()
+    if not (action and action.startswith("scale-down")):
+        raise AssertionError(f"controller action {action!r}")
+    moved = orch._execute_scale_down()
+    from_0 = [m for m in orch.migrations if m.src == 0 and m.resumed]
+    if moved < 1 or not from_0:
+        raise AssertionError(f"scale-down moved {moved}: {orch.migrations}")
+    got = finished_streams(orch, reference, "scale-down")
+    greedy = [rid for rid in reference if rid not in sampled]
+    agree = sum(x == y for rid in greedy for x, y in zip(got[rid], reference[rid]))
+    n_greedy = sum(len(reference[rid]) for rid in greedy)
+    log(
+        f"[scaling] controller: {action}; {len(from_0)} requests migrated off "
+        f"instance 0 (two-phase), every request finished, dropped 0; greedy "
+        f"tokens equal to the unmigrated run {agree}/{n_greedy} (not gated)"
+    )
+
+    steps = sum(e._step_count for e in engines)
+    launches = PD.paged_decode_attention.launches
+    if torch.device(device).type == "cuda" and launches != L * steps:
+        raise AssertionError(f"{launches} paged launches for {steps} steps x {L}")
+    log(
+        f"[scaling] paged_decode_attention launches over phase 7: {launches} "
+        f"(= {L} layers x {steps} decode steps over {len(engines)} engines)"
+    )
+
+    # 4. the cost model fitted on the card
+    t = time.perf_counter()
+    fit = MIG.fit_migration_model(cfg, block_size=16, dtype="bfloat16", device=device)
+    bw, fixed = fit["bandwidth_Bps"], fit["fixed_overhead_s"]
+    per_req = sum(MIG.estimate_cost(r.bytes_moved, bw, fixed) for r in stw)
+    log(
+        f"[scaling] fit_migration_model({cfg.name}, block_size=16, bf16) on the "
+        f"card: fixed overhead {fixed * 1e3:.4f} ms, bandwidth {bw / 1e9:.3f} GB/s "
+        f"(probes {fit['probe_small']}, {fit['probe_large']}; "
+        f"{time.perf_counter() - t:.1f} s); estimate_cost defaults: 240 ms, "
+        f"50 GB/s; fitted estimate of the stop-the-world moves {per_req * 1e3:.3f} "
+        f"ms against {sum(r.seconds for r in stw) * 1e3:.3f} ms measured [{smi}]"
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -873,8 +1183,12 @@ def main():
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import ssm
     from repro_torch.models import transformer as T
+    from repro_torch.core import migration as MIG
+    from repro_torch.core.monitor import MetricsSnapshot
+    from repro_torch.serving import instrument as INS
     from repro_torch.serving import paged_kv as PK
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.orchestrator import Orchestrator
     from repro_torch.serving.request import RequestSpec, SamplingParams
 
     out_dir = ROOT / "chiprun_out"
@@ -1092,6 +1406,13 @@ def main():
                 "library_ms": k_lib,
             }
         )
+    # phase 7: the module-scaling loop at full width
+    t = time.perf_counter()
+    reference = {r.rid: r.generated for r in reqs}
+    mods = (PD, INS, MIG, MetricsSnapshot, Orchestrator, RequestSpec, SamplingParams)
+    scaling_phase(mods, (cfg, params, prompts, sampled), reference, smi)
+    log(f"[scaling] phase 7 in {time.perf_counter() - t:.1f} s")
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

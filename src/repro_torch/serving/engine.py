@@ -27,11 +27,21 @@ style, with TOKEN-BUDGET continuous batching as the default step loop.
   are bucketed to powers of two exactly as in the reference, so shapes
   (and, later, CUDA graphs) stay stable.
 
+The engine is also the unit live module scaling operates on:
+``pause_request`` / ``resume_request`` export and import one request's
+KV blocks, position and counter-based sampling state, so the
+orchestrator (serving/orchestrator.py) can migrate it mid-stream,
+token-identically; the two-phase variant is ``snapshot_request`` (bulk
+export, the stream keeps decoding) → destination ``prepare_resume``
+(staged import into an admission-excluded slot) → ``pause_request(...,
+since_epoch)`` (the dirty-set delta only) → ``commit_resume``.
+``apply_plan`` records a plan's replication degrees; on one card they
+all quantize to 1 and the step is unchanged.
+
 The pool is updated in place where the reference rebuilt it
 functionally. Not ported yet, and raising NotImplementedError: the dense
-cache (ROADMAP A9), ``apply_plan`` (A10) and the migration surface
-``pause_request`` / ``resume_request`` / ``snapshot_request`` /
-``prepare_resume`` / ``commit_resume`` / ``abort_resume`` (A6).
+cache (ROADMAP A9) and replication degrees above 1 across several cards
+(A10).
 """
 from __future__ import annotations
 
@@ -43,12 +53,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import replication as R
 from repro_torch.models import transformer as T
 from repro_torch.serving import paged_kv as PK
 from repro_torch.serving import sampling as SMP
 from repro_torch.serving import scheduler as SCH
 from repro_torch.serving.instrument import fetch
-from repro_torch.serving.request import RequestSpec
+from repro_torch.serving.request import MIGRATION_WIRE_VERSION, RequestSpec
 
 
 @dataclasses.dataclass
@@ -209,6 +220,10 @@ class Engine:
         # decode yet
         self.prefilling: Dict[int, Request] = {}
         self._prefill_matched: Dict[int, list] = {}  # slot -> prefix hit
+        # slots holding a STAGED phase-1 import (two-phase migration):
+        # blocks resident, request still decoding at the source —
+        # admission must not hand these slots out
+        self._staged: Dict[int, int] = {}      # slot -> rid
         self.queue: Deque[Request] = collections.deque()
         self.clock = 0.0
         self._step_count = 0
@@ -232,12 +247,15 @@ class Engine:
 
         self.sched = SCH.make_scheduler(scheduler, token_budget=token_budget,
                                         chunk_align=block_size)
+        self.token_budget = token_budget if self.sched.budgeted else 0
         self.last_step_packed: Optional[int] = None  # telemetry, per step
 
         self._paged_impl = paged_attn_impl
         # optional lifecycle span recorder (the observability slice fills
         # it); None keeps every hook site a falsy check
         self.span_hook = None
+        self.replication_degrees: Optional[tuple] = None  # plan intent
+        self._step_degrees: Optional[tuple] = None        # quantized
 
     # ------------------------------------------------------------- sampling
     def _sample_batch(self, logits, reqs) -> np.ndarray:
@@ -294,9 +312,19 @@ class Engine:
                 return
         raise ValueError(f"rid={req.rid} is not in the waiting queue")
 
+    def set_token_budget(self, budget: int) -> int:
+        """Retarget the per-step token budget LIVE. No-op on phase
+        engines. Returns the budget now in force."""
+        if self.sched.budgeted:
+            budget = max(int(budget), 1)
+            self.sched.token_budget = budget
+            self.token_budget = budget
+        return self.token_budget
+
     def _free_slots(self):
         return [s for s in range(self.max_batch)
-                if s not in self.active and s not in self.prefilling]
+                if s not in self.active and s not in self.prefilling
+                and s not in self._staged]
 
     def slot_rids(self) -> Dict[int, int]:
         """slot -> rid of every request holding a slot — decoding OR
@@ -899,6 +927,27 @@ class Engine:
         """Live prefix-sharing gauges (hit rate, CoW forks, blocks saved)."""
         return PK.prefix_stats(self.pstate)
 
+    @property
+    def block_size(self) -> int:
+        """Pool block granularity — what the pod router hashes incoming
+        prompts by (serving/router.py)."""
+        return self.pstate.block_size
+
+    def prefix_keys(self) -> set:
+        """Hex-encoded content-chain keys RESIDENT in this engine's
+        prefix cache — the router's affinity signal."""
+        if not self.prefix_sharing:
+            return set()
+        return {k.hex() for k in self.pstate.prefix_cache}
+
+    def stream_progress(self) -> Dict[int, List[int]]:
+        """rid -> tokens generated so far, for every SLOT-HOLDING
+        request (decoding or mid-prefill). Full lists, not deltas."""
+        out = {r.rid: list(r.generated) for r in self.active.values()}
+        out.update({r.rid: list(r.generated)
+                    for r in self.prefilling.values()})
+        return out
+
     def run_until_done(self, max_steps: int = 10_000):
         out = []
         steps = 0
@@ -909,16 +958,163 @@ class Engine:
             steps += 1
         return out
 
-    # ------------------------------------------- not ported in this slice
+    # ------------------------------------------- live module scaling API
     def apply_plan(self, plan):
-        raise NotImplementedError(
-            "apply_plan (live per-layer replication) is not ported yet "
-            "(ROADMAP A10)")
+        """Apply a PlacementPlan's per-layer replication degrees (P) to
+        the live decode step. Degrees are quantized to the replication
+        group (``core.replication.replication_group_size``): one device
+        on one card or on the CPU, where every degree becomes 1 and the
+        step — and so every token stream — is unchanged. A degree above
+        1 across several cards raises (ROADMAP A10)."""
+        p = tuple(plan.p) if hasattr(plan, "p") else tuple(plan)
+        if len(p) != self.cfg.num_layers:
+            raise ValueError(f"plan covers {len(p)} layers, "
+                             f"model has {self.cfg.num_layers}")
+        if all(d == 1 for d in p):
+            self.replication_degrees, self._step_degrees = p, None
+            return
+        q = tuple(R.quantize_degrees(
+            list(p), R.replication_group_size(self.device)))
+        if any(d > 1 for d in q):
+            raise NotImplementedError(
+                f"replication degrees {q} across several cards are not "
+                f"ported yet (ROADMAP A10)")
+        self.replication_degrees, self._step_degrees = p, q
 
-    def _migration_not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "request migration (pause/resume/snapshot/prepare/commit/abort) "
-            "is not ported yet (ROADMAP A6)")
+    # --------------------------------------- request migration (paged)
+    def pause_request(self, slot: int,
+                      since_epoch: Optional[int] = None) -> dict:
+        """Detach the request in ``slot`` (decoding, or mid-prefill) and
+        export its serving state: KV blocks (paged_kv.export_blocks wire
+        format), position, and the counter-based sampling state, which
+        the Request itself carries (seed, len(generated)). Shared blocks
+        are materialized into the payload with their prefix keys; the
+        slot then releases its claim. The payload is a finished host copy
+        before the blocks are freed. ``resume_request`` on any engine
+        with identical cfg/params continues the stream token-identically.
 
-    pause_request = resume_request = snapshot_request = \
-        prepare_resume = commit_resume = abort_resume = _migration_not_ported
+        ``since_epoch`` (a prior ``snapshot_request``'s ``epoch``) makes
+        this the phase-2 pause of an overlapped migration: the payload
+        carries only the blocks written since the snapshot."""
+        if slot in self.active:
+            req = self.active.pop(slot)
+            phase = "decode"
+        else:
+            # a MID-PREFILL request pauses too: the cursor (lengths ==
+            # prefill_pos) and the chunk-written blocks travel
+            req = self.prefilling.pop(slot)
+            self._prefill_matched.pop(slot, None)
+            phase = "prefill"
+        self._admit_order.remove(slot)
+        if self.span_hook:
+            self.span_hook.on_pause(req.rid)
+        payload = PK.export_blocks(self.pstate, slot,
+                                   since_epoch=since_epoch)
+        PK.free_slot(self.pstate, slot)
+        req.slot = None
+        # "position"/"counter" are informational mirrors: import_blocks
+        # restores the position from kv["length"], the sampler re-derives
+        # the counter from len(request.generated)
+        return {"v": MIGRATION_WIRE_VERSION, "request": req, "kv": payload,
+                "position": payload["length"],
+                "counter": len(req.generated),
+                "phase": phase}
+
+    @staticmethod
+    def _check_payload_version(payload: dict, op: str):
+        """Reject an old- or alien-shape migration payload with a clear
+        error rather than a KeyError deep inside the bind path."""
+        v = payload.get("v") if isinstance(payload, dict) else None
+        if v != MIGRATION_WIRE_VERSION:
+            raise ValueError(
+                f"{op}: migration payload version {v!r} unsupported "
+                f"(this engine speaks v{MIGRATION_WIRE_VERSION}; "
+                "re-export from a matching peer)")
+
+    def resume_request(self, payload: dict) -> bool:
+        """Rebind a paused request's blocks into this engine's pool and
+        put it back in rotation. Returns False — WITHOUT dropping the
+        request or touching the pool — when no slot or not enough blocks
+        are free (the caller re-queues it; counter-based sampling replays
+        the continuation deterministically)."""
+        self._check_payload_version(payload, "resume_request")
+        req = payload["request"]
+        free = self._free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        try:
+            PK.import_blocks(self.pstate, slot, payload["kv"])
+        except PK.OutOfBlocks:
+            return False
+        self._bind_resumed(req, slot, payload)
+        return True
+
+    def _bind_resumed(self, req: Request, slot: int, payload: dict):
+        """Place a migrated-in request: decode rotation, or — paused
+        MID-PREFILL — the prefilling set with its cursor restored from
+        the imported length."""
+        req.slot = slot
+        if payload.get("phase", "decode") == "prefill":
+            req.prefill_pos = int(payload["kv"]["length"])
+            self.prefilling[slot] = req
+        else:
+            self.active[slot] = req
+        self._admit_order.append(slot)  # migrated-in = youngest
+        if self.span_hook:
+            self.span_hook.on_resume(req, payload.get("phase", "decode"))
+
+    # ------------------------------- overlapped (two-phase) migration
+    def snapshot_request(self, slot: int) -> dict:
+        """Phase 1 of an overlapped migration: export the request in
+        ``slot`` WITHOUT detaching it — the payload is a host copy, so the
+        stream keeps decoding into its tail block meanwhile. The returned
+        ``epoch`` is the dirty-set cursor for the phase-2
+        ``pause_request(slot, since_epoch=epoch)``."""
+        req = (self.active.get(slot) or self.prefilling[slot])
+        payload = PK.export_blocks(self.pstate, slot)
+        return {"v": MIGRATION_WIRE_VERSION, "rid": req.rid, "kv": payload,
+                "epoch": payload["epoch"], "position": payload["length"]}
+
+    def prepare_resume(self, snap: dict) -> Optional[int]:
+        """Stage a phase-1 snapshot into a free slot that admission
+        cannot touch (``_staged``), activating nothing. Returns the
+        staging slot, or None (without mutating the pool) when no slot or
+        not enough blocks are free."""
+        self._check_payload_version(snap, "prepare_resume")
+        free = self._free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        try:
+            PK.import_blocks(self.pstate, slot, snap["kv"])
+        except PK.OutOfBlocks:
+            return None
+        self._staged[slot] = snap["rid"]
+        return slot
+
+    def commit_resume(self, slot: int, payload: dict) -> bool:
+        """Phase 2: apply the pause-time delta over the staged base and
+        put the request into rotation. On OutOfBlocks the staging is
+        rolled back and False returned — the caller re-queues the
+        request, which replays deterministically."""
+        assert slot in self._staged, f"slot {slot} holds no staged import"
+        self._check_payload_version(payload, "commit_resume")
+        req = payload["request"]
+        try:
+            PK.import_blocks_delta(self.pstate, slot, payload["kv"])
+        except PK.OutOfBlocks:
+            self.abort_resume(slot)
+            return False
+        del self._staged[slot]
+        # the phase is decided at PAUSE time: a request snapshotted
+        # mid-prefill may have finished its prompt during the overlap
+        self._bind_resumed(req, slot, payload)
+        return True
+
+    def abort_resume(self, slot: int):
+        """Drop a staged phase-1 import: free the staged blocks and
+        return the slot to admission."""
+        if slot in self._staged:
+            del self._staged[slot]
+            PK.free_slot(self.pstate, slot)

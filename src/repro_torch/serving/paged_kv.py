@@ -26,8 +26,19 @@ Pool writes are IN PLACE (``index_put_``) where the reference rebuilt the
 pool functionally. The reference's ``mode="drop"`` scatters push pad rows
 and holes to the out-of-range block ``n_blocks``; the port filters those
 rows on the host before the device write, since an out-of-range index on
-the card corrupts memory or traps. Block export/import (the migration
-wire format) belongs to a later slice (ROADMAP A6).
+the card corrupts memory or traps.
+
+Migration wire format (``export_blocks`` / ``import_blocks`` /
+``import_blocks_delta``): the reference's, host arrays of numpy. An
+export is one ``index_select`` over the pool's block axis and ONE
+device→host copy per array (``instrument.fetch``), finished before the
+caller frees the source blocks; an import is one host→device copy per
+array (``instrument.upload``) and an in-place ``index_copy_``. A bf16
+pool ships its blocks as their raw bits, ``np.uint16``, tagged
+``"kv_dtype": "bfloat16"`` (numpy has no bf16; ``nbytes`` stays the bf16
+byte count). An import also reads a payload whose arrays are float32 /
+float16, or of a numpy dtype named ``bfloat16`` (the reference's export
+of a bf16 pool), without importing that dtype's package.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import to_device, torch_dtype
+from repro_torch.serving.instrument import fetch, upload
 
 
 @dataclasses.dataclass
@@ -70,7 +82,7 @@ class PagedState:
     block_key: Dict[int, bytes] = dataclasses.field(default_factory=dict)
     cached_free: "OrderedDict[int, None]" = \
         dataclasses.field(default_factory=OrderedDict)
-    # --- write epochs (the dirty set two-phase migration will ship) ---
+    # --- dirty set for overlapped (two-phase) migration ---
     write_epoch: int = 0                       # bumps once per pool write
     block_epoch: Optional[np.ndarray] = None   # [n_blocks] int64 last write
     # --- counters (prefix-sharing gauges) ---
@@ -102,6 +114,20 @@ class PagedState:
         """Physical blocks the pool is saving RIGHT NOW through sharing:
         each block referenced r > 1 times stands in for r - 1 copies."""
         return int(np.maximum(self.refcount - 1, 0).sum())
+
+    def pool_bytes(self) -> int:
+        return int(self.k.numel() * self.k.element_size()
+                   + self.v.numel() * self.v.element_size())
+
+    def utilization(self) -> float:
+        """Fraction of allocated slots actually holding tokens (1 - frag),
+        capped at 1 (windowed requests count absolute ``lengths``; shared
+        blocks serve several requests' tokens at once)."""
+        used_blocks = self.blocks_in_use()
+        if used_blocks == 0:
+            return 1.0
+        toks = int(self.lengths.sum())
+        return min(1.0, toks / (used_blocks * self.block_size))
 
 
 def init_paged(cfg: ModelConfig, max_batch: int, n_blocks: int,
@@ -432,6 +458,207 @@ def write_tokens_batch(state: PagedState, slots, k_new, v_new,
     vf = v_new.reshape(L, G * S, *v_new.shape[3:]).transpose(0, 1)[rows]
     state.k[:, blk, :, off] = kf.to(state.k.dtype)
     state.v[:, blk, :, off] = vf.to(state.v.dtype)
+    return state
+
+
+# --------------------------------------------------- migration wire format
+def _to_wire(t: torch.Tensor):
+    """Pool blocks as a finished host array: (array, dtype tag). bf16
+    travels as its raw bits (``np.uint16``) under the tag "bfloat16"."""
+    if t.dtype == torch.bfloat16:
+        return fetch(t.view(torch.int16)).view(np.uint16), "bfloat16"
+    return fetch(t), None
+
+
+def _from_wire(a, tag, dtype, device) -> torch.Tensor:
+    """A payload array on ``device`` in the pool's ``dtype``: tagged bf16
+    bits, a numpy dtype named ``bfloat16`` (read as its bits), or a plain
+    float array."""
+    a = np.asarray(a)
+    if tag == "bfloat16" or a.dtype.name == "bfloat16":
+        t = upload(np.ascontiguousarray(a).view(np.int16), device)
+        t = t.view(torch.bfloat16)
+    else:
+        t = upload(np.ascontiguousarray(a), device)
+    return t.to(dtype)
+
+
+def export_blocks(state: PagedState, slot: int,
+                  since_epoch: Optional[int] = None) -> Dict:
+    """Serialize one request's KV to the block-granular migration wire
+    format: the live block-table COLUMNS (absolute position //
+    block_size; sliding-window holes are preserved), the pool blocks at
+    those columns as host arrays ``[L, n, KV, bs, hd]``, the token
+    count, and — for prefix-registered blocks — their content-chain
+    ``keys`` (hex, per column) so the destination can re-seed its own
+    prefix cache. SHARED blocks are materialized: refcounts never cross
+    pools, so the payload is self-contained. Does NOT free or decref the
+    source blocks; the arrays are finished host copies, so the caller may
+    ``free_slot`` (and the next step overwrite the blocks) right after.
+
+    ``since_epoch`` selects the DELTA wire format: only columns whose
+    current block was written after that epoch are shipped. The payload's
+    ``epoch`` is the pool's write epoch at export time."""
+    cols = np.nonzero(state.block_tables[slot] >= 0)[0].astype(np.int32)
+    if since_epoch is not None and len(cols):
+        ids_np = state.block_tables[slot, cols]
+        dirty = state.block_epoch[ids_np] > since_epoch
+        cols = cols[dirty]
+    ids = upload(state.block_tables[slot, cols].astype(np.int64),
+                 state.k.device)
+    k, tag = _to_wire(state.k.index_select(1, ids))   # [L, n, KV, bs, hd]
+    v, _ = _to_wire(state.v.index_select(1, ids))
+    keys = {}
+    for c in cols:
+        b = int(state.block_tables[slot, c])
+        if b in state.block_key:
+            keys[int(c)] = state.block_key[b].hex()
+    payload = {"cols": cols, "k": k, "v": v,
+               "length": int(state.lengths[slot]),
+               "block_size": state.block_size,
+               "keys": keys,
+               "epoch": state.write_epoch,
+               "nbytes": int(k.nbytes + v.nbytes)}
+    if tag is not None:
+        payload["kv_dtype"] = tag
+    return payload
+
+
+def _write_blocks(state: PagedState, ids, payload: Dict, sel=None):
+    """Copy the payload's blocks (all, or the indices ``sel``) into pool
+    blocks ``ids`` in place and stamp them written."""
+    dev = state.k.device
+    tag = payload.get("kv_dtype")
+    k, v = np.asarray(payload["k"]), np.asarray(payload["v"])
+    if sel is not None:
+        k, v = k[:, sel], v[:, sel]
+    idx = upload(np.asarray(ids, np.int64), dev)
+    state.k.index_copy_(1, idx, _from_wire(k, tag, state.k.dtype, dev))
+    state.v.index_copy_(1, idx, _from_wire(v, tag, state.v.dtype, dev))
+    mark_written(state, ids)
+
+
+def _register_carried_keys(state: PagedState, slot: int, payload: Dict):
+    """Re-seed this pool's prefix cache from a payload's carried keys —
+    first binding wins, so resident entries are never displaced."""
+    if not state.enable_prefix_cache:
+        return
+    for c, hexkey in payload.get("keys", {}).items():
+        key = bytes.fromhex(hexkey)
+        b = int(state.block_tables[slot, int(c)])
+        if b < 0 or key in state.prefix_cache or b in state.block_key:
+            continue                    # existing binding wins
+        state.prefix_cache[key] = b
+        state.block_key[b] = key
+
+
+def import_blocks(state: PagedState, slot: int, payload: Dict) -> PagedState:
+    """Materialize an exported request into ``slot`` of (another) pool:
+    allocate fresh OWNED (refcount-1) blocks, rebind them at the SAME
+    table columns (absolute positions are preserved, so RoPE, window
+    masking and the counter-based sampling replay are untouched), and
+    copy the block data in on this pool's device. Carried prefix ``keys``
+    are re-registered into this pool's cache (first binding wins).
+
+    CROSS-INSTANCE DEDUPE: a column whose carried key is already resident
+    in this pool's prefix cache ALIASES the resident block (incref —
+    possibly reviving it off ``cached_free``) instead of materializing a
+    duplicate: the content-chain key certifies the token prefix, and K/V
+    is a deterministic function of it.
+
+    Raises OutOfBlocks without mutating state when the pool or the table
+    row can't hold the payload."""
+    if payload["block_size"] != state.block_size:
+        raise ValueError(
+            f"block_size mismatch: payload {payload['block_size']} "
+            f"vs pool {state.block_size}")
+    if (state.block_tables[slot] >= 0).any():
+        raise ValueError(f"import into non-empty slot {slot}")
+    cols = np.asarray(payload["cols"], np.int64)
+    n = len(cols)
+    if n and int(cols.max()) >= state.block_tables.shape[1]:
+        raise OutOfBlocks(
+            f"import needs column {int(cols.max())}, table holds "
+            f"{state.block_tables.shape[1]}")
+    alias: Dict[int, int] = {}          # payload index -> resident block
+    if state.enable_prefix_cache:
+        for i, c in enumerate(cols):
+            hexkey = payload.get("keys", {}).get(int(c))
+            if hexkey is None:
+                continue
+            b = state.prefix_cache.get(bytes.fromhex(hexkey))
+            if b is not None:
+                alias[i] = b
+    fresh = [i for i in range(n) if i not in alias]
+    # reviving a cached-free resident consumes a unit of vacancy too —
+    # account for it so the no-mutation-on-raise contract holds exactly
+    revive = len({b for b in alias.values() if int(state.refcount[b]) == 0})
+    if len(fresh) > state.free_block_count() - revive:
+        raise OutOfBlocks(f"import needs {len(fresh)} blocks, "
+                          f"{state.free_block_count() - revive} free")
+    for i, b in alias.items():          # incref FIRST: aliased residents
+        _incref(state, b)               # must not be evicted by the pops
+        state.block_tables[slot, cols[i]] = b
+    ids = [_pop_block(state) for _ in fresh]
+    for b in ids:
+        state.refcount[b] = 1
+    if fresh:
+        state.block_tables[slot, cols[fresh]] = np.asarray(ids, np.int32)
+    state.lengths[slot] = payload["length"]
+    state.dedup_imports += len(alias)
+    state.blocks_saved_total += len(alias)
+    if fresh:
+        _write_blocks(state, ids, payload, np.asarray(fresh, np.int64))
+    _register_carried_keys(state, slot, payload)
+    return state
+
+
+def import_blocks_delta(state: PagedState, slot: int,
+                        payload: Dict) -> PagedState:
+    """Apply a DELTA export (``export_blocks(..., since_epoch=...)``) over
+    a previously imported phase-1 base in ``slot`` — the commit half of
+    two-phase migration. Columns already staged are overwritten in place
+    when the staged block is exclusively owned; a staged block that
+    became shared (an admission aliased it) or registered is REBOUND to a
+    fresh block instead — overwriting it would corrupt its co-holders /
+    its cache key. New columns (decode appends past the snapshot)
+    allocate fresh. ``lengths[slot]`` advances to the source's pause-time
+    length. Raises OutOfBlocks without mutating state when the pool can't
+    hold the new/rebound columns."""
+    if payload["block_size"] != state.block_size:
+        raise ValueError(
+            f"block_size mismatch: payload {payload['block_size']} "
+            f"vs pool {state.block_size}")
+    cols = np.asarray(payload["cols"], np.int64)
+    n = len(cols)
+    if n and int(cols.max()) >= state.block_tables.shape[1]:
+        raise OutOfBlocks(
+            f"delta needs column {int(cols.max())}, table holds "
+            f"{state.block_tables.shape[1]}")
+
+    def in_place(b):
+        return b >= 0 and int(state.refcount[b]) == 1 \
+            and b not in state.block_key
+    staged = [int(state.block_tables[slot, c]) for c in cols]
+    need = sum(0 if in_place(b) else 1 for b in staged)
+    if need > state.free_block_count():
+        raise OutOfBlocks(f"delta needs {need} blocks, "
+                          f"{state.free_block_count()} free")
+    ids = []
+    for c, b in zip(cols, staged):
+        if in_place(b):
+            ids.append(b)
+            continue
+        nb = _pop_block(state)
+        state.refcount[nb] = 1
+        if b >= 0:
+            _decref(state, b)           # co-holders / cache keep the old one
+        state.block_tables[slot, c] = nb
+        ids.append(nb)
+    state.lengths[slot] = payload["length"]
+    if n:
+        _write_blocks(state, ids, payload)
+    _register_carried_keys(state, slot, payload)
     return state
 
 

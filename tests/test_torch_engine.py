@@ -21,6 +21,7 @@ from repro.serving.request import RequestSpec as JaxSpec
 from repro.serving.request import SamplingParams as JaxSampling
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
+from repro_torch.core import replication as R
 from repro_torch.serving import paged_kv as PK
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.instrument import count_host_syncs
@@ -191,7 +192,7 @@ def test_device_rules(tiny, monkeypatch):
         eng.submit({"rid": 0, "prompt": [1, 2]})
 
 
-def test_uncovered_options_raise(tiny):
+def test_uncovered_options_raise(tiny, monkeypatch):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         Engine(tcfg, tp, device="cpu", cache_kind="dense")
@@ -199,19 +200,24 @@ def test_uncovered_options_raise(tiny):
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Engine(moe, tp, device="cpu")
     eng = Engine(tcfg, tp, device="cpu")
+    # replication degrees above 1 across several cards wait for A10; on
+    # one device (here the CPU) a plan quantizes to all ones
+    eng.apply_plan([2] * tcfg.num_layers)
+    monkeypatch.setattr(R, "replication_group_size", lambda device: 4)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.apply_plan([1] * tcfg.num_layers)
-    for op in ("pause_request", "resume_request", "snapshot_request",
-               "prepare_resume", "commit_resume", "abort_resume"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            getattr(eng, op)(0)
+        eng.apply_plan([2] * tcfg.num_layers)
     with pytest.raises(PK.OutOfBlocks):     # never-fits rejection
         eng.submit(RequestSpec(rid=1, prompt=np.full(200, 3, np.int32)))
         eng.run_until_done()
 
 
 def test_engine_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch.serving.engine, repro_torch.bridge; "
+    code = ("import sys, repro_torch.serving.engine, repro_torch.bridge, "
+            "repro_torch.core.controller, repro_torch.core.migration, "
+            "repro_torch.core.replication, repro_torch.core.scale_up, "
+            "repro_torch.core.scale_down, repro_torch.serving.instance, "
+            "repro_torch.serving.orchestrator, "
+            "repro_torch.serving.transport; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
