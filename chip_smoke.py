@@ -30,12 +30,20 @@ prints no ``ok`` line):
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
    weights from a seeded torch.Generator, 22 layers), the paged engine
-   with the token-budget scheduler and prefix sharing, serving 8 requests.
-   The launch counts are reset just before and read just after; steady
-   decode steps run under ``torch.cuda.set_sync_debug_mode("error")``.
-   One decode step's logits are held against the "gather" attention path,
-   in bf16 (relative L2 2e-2) and in fp32 (1e-4); a third, profiled run
-   records where a decode step's time goes;
+   with the token-budget scheduler and prefix sharing, serving 8 requests,
+   its steps as CUDA graphs (the default), then again with
+   ``cuda_graphs=False`` (eager); each engine then serves 8 more requests
+   of the same lengths, warm. The launch counts are reset just before and
+   read just after each engine's runs (a graph replay counts the launches
+   its capture recorded: ``serving.graphs.launches_run``); steady decode
+   steps run under ``torch.cuda.set_sync_debug_mode("error")`` and make
+   one host sync each, but for a step that captured a graph, which is
+   reported apart. Gates: the graph and eager streams token-identical,
+   launches = layers x decode steps, replays = decode steps less
+   captures, no capture in the warm run. One decode step's logits are
+   held against the "gather" attention path, in bf16 (relative L2 2e-2)
+   and in fp32 (1e-4); two more runs, profiled (graphs and eager), record
+   where a decode step's time goes and the device's idle share;
 6. the kernel API (``kernels.ops``) at full width, its launch counts
    reset just before and read just after: flash at S 2000 and decode
    against a 1000-position cache (both padded as the reference pads), the
@@ -56,8 +64,11 @@ prints no ``ok`` line):
    mixed, then an all-ones replication plan applied mid-decode on
    instance 1 (streams unchanged, part of that gate); a violating
    snapshot turned by the controller into a scale-down that migrates off
-   instance 0 (greedy agreement printed, not gated). The paged kernel's launches over the phase equal layers x
-   decode steps of every engine. It prints bytes moved, the
+   instance 0 (greedy agreement printed, not gated). The engines run their
+   steps as CUDA graphs; no move captures a graph or rebinds a pool tensor
+   (counts and addresses before and after each move). The paged kernel's
+   launches over the phase equal layers x decode steps of every engine.
+   It prints bytes moved, the
    stop-the-world time and the two-phase stall per request, and
    ``fit_migration_model`` on the card beside ``estimate_cost``'s
    defaults.
@@ -69,6 +80,7 @@ logs go to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -653,17 +665,17 @@ def check_small_step(T, PK, get_config):
             max_len=64,
             device=dev,
         )
-        st.k.copy_(torch.from_numpy(pool))
-        st.v.copy_(torch.from_numpy(pool * 0.5))
+        st.k[:, :n_blocks].copy_(torch.from_numpy(pool))  # the real blocks
+        st.v[:, :n_blocks].copy_(torch.from_numpy(pool * 0.5))
         for slot, n in enumerate(lens):
             PK.allocate(st, slot, n + 1)
             st.lengths[slot] = n
         handle = {
             "k": st.k,
             "v": st.v,
-            "block_tables": torch.from_numpy(st.block_tables),
-            "lengths": torch.from_numpy(st.lengths),
-            "active": torch.tensor([n > 0 for n in lens]),
+            "block_tables": torch.from_numpy(st.block_tables).to(dev),
+            "lengths": torch.from_numpy(st.lengths).to(dev),
+            "active": torch.tensor([n > 0 for n in lens], device=dev),
         }
         toks = torch.tensor([[3], [5], [7], [11]], device=dev)
         out, _, _ = T.forward_paged(params, cfg, toks, handle, attn_impl="kernel")
@@ -685,11 +697,12 @@ def _tree_map(fn, tree):
 
 
 # ------------------------------------------------------------- main path
-def workload(cfg):
+def workload(cfg, seed=SEED):
     """8 requests: prompt lengths from 32 to 600 (four longer than the
     default token budget of 128, so they are chunked), two sharing a
-    64-token prefix, 32 new tokens each; greedy but for one sampled."""
-    rng = np.random.default_rng(SEED)
+    64-token prefix, 32 new tokens each; greedy but for one sampled.
+    Another ``seed`` gives other tokens at the same lengths."""
+    rng = np.random.default_rng(seed)
     lens = [600, 32, 200, 96, 130, 64, 300, 80]
     prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
     # the second holder of the prefix is admitted after the first has
@@ -712,11 +725,20 @@ def run_engine(
     sampled,
     strict_sync=False,
     probe=None,
+    cuda_graphs=True,
+    eng=None,
 ):
-    """Serve the workload once. ``strict_sync`` runs the steady decode
-    steps (empty queue, nothing mid-prefill) under sync-debug "error";
-    ``probe(engine)`` runs once, just before the first steady step."""
-    eng = Engine(
+    """Serve the workload once, through the engine's CUDA graphs or, with
+    ``cuda_graphs=False``, its eager steps. ``strict_sync`` runs the
+    steady decode steps (empty queue, nothing mid-prefill) under
+    sync-debug "error". Every steady step's host syncs are counted; a
+    steady step that captured a graph is kept apart (``capture_steps``:
+    step, ms, syncs) from the steps that replayed or ran eagerly.
+    ``probe(engine)`` runs once, just before the first steady step.
+    ``eng`` serves the workload again on an engine that already ran."""
+    from repro_torch.serving import instrument as INS
+
+    eng = eng or Engine(
         cfg,
         params,
         max_batch=8,
@@ -727,6 +749,7 @@ def run_engine(
         scheduler="budget",
         prefix_sharing=True,
         device="cuda",
+        cuda_graphs=cuda_graphs,
     )
     reqs = []
     for i, p in enumerate(prompts):
@@ -735,24 +758,32 @@ def run_engine(
         spec = RequestSpec(rid=i, prompt=p, max_tokens=32, sampling=sampling)
         reqs.append(eng.submit(spec))
     torch.cuda.synchronize()
+    captures0 = dict(eng.graphs.counts.captures)
     t0 = time.perf_counter()
     ttft = {}
-    steady_ms = []
+    steady_ms, steady_syncs, capture_steps = [], [], []
     steps0 = eng._step_count
     while eng.queue or eng.active or eng.prefilling:
         steady = not eng.queue and not eng.prefilling
         if steady and probe is not None:
             probe(eng)
             probe = None
+        captures = sum(eng.graphs.counts.captures.values())
         ts = time.perf_counter()
         if steady and strict_sync:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            eng.step()
+            with INS.count_host_syncs() as syncs:
+                eng.step()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+        ms = (time.perf_counter() - ts) * 1e3
         if steady:
-            steady_ms.append((time.perf_counter() - ts) * 1e3)
+            if sum(eng.graphs.counts.captures.values()) > captures:
+                capture_steps.append((eng._step_count, round(ms, 3), syncs.n))
+            else:
+                steady_ms.append(ms)
+                steady_syncs.append(syncs.n)
         now = time.perf_counter() - t0
         for r in reqs:
             if r.generated and r.rid not in ttft:
@@ -762,19 +793,70 @@ def run_engine(
         "wall_s": time.perf_counter() - t0,
         "ttft_s": sorted(ttft.values()),
         "steady_step_ms": sorted(steady_ms),
+        "steady_syncs": steady_syncs,
+        "capture_steps": capture_steps,
         "decode_steps": eng._step_count - steps0,
+        "captures": dict(eng.graphs.counts.captures - collections.Counter(captures0)),
     }
     return eng, reqs, stats
 
 
-def profile_decode(eng, out_dir, smi, n=4):
-    """``n`` steady decode steps under torch.profiler: device busy time
-    (union of kernel / copy / memset intervals in the trace) against the
-    host wall time of the same steps, and device time by kernel name.
-    The table goes to ``out_dir/decode_profile.txt``."""
+def capture_report(graphs):
+    """Per step kind: captures, and the median warm-up and capture ms."""
+    by_kind = {}
+    for kind, warm, cap in graphs.capture_seconds:
+        by_kind.setdefault(kind, []).append((warm * 1e3, cap * 1e3))
+    out = {}
+    for kind, xs in by_kind.items():
+        warm, cap = sorted(x[0] for x in xs), sorted(x[1] for x in xs)
+        out[kind] = (len(xs), round(warm[len(xs) // 2], 3), round(cap[len(xs) // 2], 3))
+    return out
+
+
+def engine_report(what, eng, reqs, stats, launches, raw, smi):
+    """Print one phase-5 run: tokens, launches, the graphs' captures in
+    the run, the engine's captures, replays and pool so far, the steady
+    step and TTFT."""
+    n_tok = sum(len(r.generated) for r in reqs)
+    ttft, step_ms = stats["ttft_s"], stats["steady_step_ms"]
+    counts = eng.graphs.counts
+    log(
+        f"[engine] {what}: {len(reqs)} requests, {n_tok} tokens, "
+        f"{stats['decode_steps']} decode steps, paged kernel launches "
+        f"{launches} (= {eng.cfg.num_layers} x {stats['decode_steps']}; "
+        f"wrapper calls {raw}); graph captures in this run "
+        f"{stats['captures']}; the engine's so far: captures "
+        f"{dict(counts.captures)}, replays {dict(counts.replays)}, graph pool "
+        f"{eng.graphs.pool_bytes()} B; chunk keys (G, cb, Sb, cache_len) "
+        f"{sorted(k[1:] for k in eng.graphs.keys if k[0] == 'chunk')}; per "
+        f"kind (captures, median warm-up ms, median capture ms) "
+        f"{capture_report(eng.graphs)} [{smi}]"
+    )
+    log(
+        f"[engine] {what}: wall {stats['wall_s']:.3f} s, output "
+        f"{n_tok / stats['wall_s']:.1f} tok/s, first token median "
+        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
+        f"steady decode step median {step_ms[len(step_ms) // 2]:.3f} ms, min "
+        f"{step_ms[0]:.3f} ms, max {step_ms[-1]:.3f} ms over {len(step_ms)} "
+        f"steps, host syncs per step {sorted(set(stats['steady_syncs']))}; "
+        f"steady steps that captured (step, ms, syncs): "
+        f"{stats['capture_steps']} [{smi}]"
+    )
+
+
+def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None):
+    """``n`` steady decode steps under torch.profiler, after two that are
+    not profiled (so the window replays graphs that exist): device busy
+    time (union of kernel / copy / memset intervals in the trace) against
+    the host wall time of the same steps, and device time by kernel name.
+    The table goes to ``out_dir/decode_profile{tag}.txt``; ``sink[tag]``
+    gets the device busy ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        eng.step()
     torch.cuda.synchronize()
+    captures = sum(eng.graphs.counts.captures.values())
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t = time.perf_counter()
@@ -782,7 +864,8 @@ def profile_decode(eng, out_dir, smi, n=4):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    trace = out_dir / "decode_trace.json"
+    captures = sum(eng.graphs.counts.captures.values()) - captures
+    trace = out_dir / f"decode_trace{tag}.json"
     prof.export_chrome_trace(str(trace))
     spans, by_name = [], {}
     for ev in json.loads(trace.read_text())["traceEvents"]:
@@ -795,15 +878,19 @@ def profile_decode(eng, out_dir, smi, n=4):
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    mode = "CUDA graphs" if eng.graphs.enabled else "eager"
     head = (
-        f"{n} steady decode steps, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, {len(spans)} device ops [{smi}]"
+        f"{n} steady decode steps ({mode}, {captures} captures in the window), "
+        f"wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+        f"{len(spans)} device ops [{smi}]"
     )
     rows = [f"{us / 1e3 / n:10.4f} ms/step  {name[:110]}" for name, us in top]
-    (out_dir / "decode_profile.txt").write_text("\n".join([head, *rows]) + "\n")
+    (out_dir / f"decode_profile{tag}.txt").write_text("\n".join([head, *rows]) + "\n")
     top5 = "; ".join(f"{name[:60]} {us / 1e3 / n:.4f} ms" for name, us in top[:5])
     idle = 1 - busy_us / 1e3 / wall_ms
     log(f"[profile] {head}; idle share {idle:.3f}; top device time per step: {top5}")
+    if sink is not None:
+        sink[tag] = busy_us / 1e3 / n
 
 
 # ------------------------------------------------------------ kernel API
@@ -1006,17 +1093,32 @@ def check_streams(orch, reference, what):
         raise AssertionError(f"{what}: streams differ from the unmigrated run: {bad}")
 
 
+def graph_state(orch):
+    """Captures summed over the orchestrator's engines, and the address
+    of every pool tensor (a move must leave both as they were)."""
+    captures = sum(sum(e.graphs.counts.captures.values()) for e in orch.engines)
+    ptrs = [(e.pstate.k.data_ptr(), e.pstate.v.data_ptr()) for e in orch.engines]
+    return captures, ptrs
+
+
+def check_no_capture(before, after, what):
+    log(f"[scaling] {what}: graph captures before {before[0]}, after {after[0]}")
+    if before != after:
+        raise AssertionError(f"{what}: the move captured or rebound a pool: "
+                             f"{before} -> {after}")
+
+
 def ms_list(xs):
     return "[" + ", ".join(f"{x * 1e3:.3f}" for x in xs) + "]"
 
 
 def scaling_phase(mods, work, reference, smi, device="cuda"):
-    """Phase 7 (module docstring). ``mods``: (paged_decode, instrument,
+    """Phase 7 (module docstring). ``mods``: (paged_decode, graphs, instrument,
     core.migration, MetricsSnapshot, Orchestrator, RequestSpec,
     SamplingParams); ``work``: (cfg, params, prompts, sampled);
     ``reference``: rid -> tokens of the unmigrated run (one engine, the
     same max_batch)."""
-    PD, INS, MIG, MetricsSnapshot, Orchestrator, RS, SP = mods
+    PD, GR, INS, MIG, MetricsSnapshot, Orchestrator, RS, SP = mods
     cfg, sampled = work[0], work[3]
     L = cfg.num_layers
     engines = []
@@ -1033,8 +1135,10 @@ def scaling_phase(mods, work, reference, smi, device="cuda"):
     for h in orch.instances:
         capture(h, "pause_request", paused)
         capture(h, "resume_request", resumed)
+    before = graph_state(orch)
     with sync_errors(device), INS.count_host_syncs() as syncs:
         recs = orch.migrate_requests(0, 1)
+    check_no_capture(before, graph_state(orch), "stop-the-world 0 -> 1")
     check_moved(orch, recs, reqs, "stop-the-world")
     want = (3 if torch.device(device).type == "cuda" else 2) * len(recs)
     if syncs.n != want:
@@ -1060,8 +1164,10 @@ def scaling_phase(mods, work, reference, smi, device="cuda"):
         if again:
             paused.clear()
             resumed.clear()
+            before = graph_state(orch)
             with sync_errors(device):
                 recs = orch.migrate_requests(src, dst)
+            check_no_capture(before, graph_state(orch), f"stop-the-world {src} -> {dst}")
             check_moved(orch, recs, reqs, f"stop-the-world {src} -> {dst}", src)
         log(
             f"[scaling] stop-the-world {src} -> {dst}, in migration "
@@ -1090,8 +1196,10 @@ def scaling_phase(mods, work, reference, smi, device="cuda"):
     capture(orch.instances[0], "snapshot_request", snaps)
     capture(orch.instances[0], "pause_request", paused)
     before = {r.rid: len(r.generated) for r in reqs}
+    state = graph_state(orch)
     with sync_errors(device):
         recs = orch.migrate_requests_overlapped(0, 1, overlap_steps=3)
+    check_no_capture(state, graph_state(orch), "two-phase 0 -> 1 (3 overlap steps)")
     check_moved(orch, recs, reqs, "two-phase")
     gained = {r.rid: len(r.generated) - before[r.rid] for r in reqs}
     if set(gained.values()) != {3}:
@@ -1131,7 +1239,9 @@ def scaling_phase(mods, work, reference, smi, device="cuda"):
     action = orch.controller.tick()
     if not (action and action.startswith("scale-down")):
         raise AssertionError(f"controller action {action!r}")
+    state = graph_state(orch)
     moved = orch._execute_scale_down()
+    check_no_capture(state, graph_state(orch), "controller scale-down")
     from_0 = [m for m in orch.migrations if m.src == 0 and m.resumed]
     if moved < 1 or not from_0:
         raise AssertionError(f"scale-down moved {moved}: {orch.migrations}")
@@ -1146,12 +1256,16 @@ def scaling_phase(mods, work, reference, smi, device="cuda"):
     )
 
     steps = sum(e._step_count for e in engines)
-    launches = PD.paged_decode_attention.launches
+    launches = GR.launches_run(PD.paged_decode_attention, [e.graphs for e in engines])
     if torch.device(device).type == "cuda" and launches != L * steps:
         raise AssertionError(f"{launches} paged launches for {steps} steps x {L}")
+    captures = sum(sum(e.graphs.counts.captures.values()) for e in engines)
+    replays = sum(sum(e.graphs.counts.replays.values()) for e in engines)
     log(
         f"[scaling] paged_decode_attention launches over phase 7: {launches} "
-        f"(= {L} layers x {steps} decode steps over {len(engines)} engines)"
+        f"(= {L} layers x {steps} decode steps over {len(engines)} engines; "
+        f"wrapper calls {PD.paged_decode_attention.launches}); graph captures "
+        f"{captures}, replays {replays}"
     )
 
     # 4. the cost model fitted on the card
@@ -1185,6 +1299,7 @@ def main():
     from repro_torch.models import transformer as T
     from repro_torch.core import migration as MIG
     from repro_torch.core.monitor import MetricsSnapshot
+    from repro_torch.serving import graphs as GR
     from repro_torch.serving import instrument as INS
     from repro_torch.serving import paged_kv as PK
     from repro_torch.serving.engine import Engine
@@ -1250,38 +1365,69 @@ def main():
     )
     engine_args = (Engine, RequestSpec, SamplingParams, cfg, params)
 
-    PD.paged_decode_attention.launches = 0
-    eng, reqs, stats = run_engine(
-        *engine_args, "kernel", prompts, sampled, strict_sync=True
-    )
-    launches = PD.paged_decode_attention.launches
-    steps = stats["decode_steps"]
-    for r in reqs:
-        if len(r.generated) != 32 or not r.done:
-            raise AssertionError(f"rid={r.rid}: {len(r.generated)} tokens")
-        if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
-            raise AssertionError(f"rid={r.rid}: token out of range")
-    if launches != cfg.num_layers * steps or steps == 0:
-        raise AssertionError(
-            f"{launches} kernel launches for {steps} decode steps x "
-            f"{cfg.num_layers} layers"
+    # the main path: the engine's steps as CUDA graphs (the default on the
+    # card), then the same workload through its eager steps; each engine
+    # then serves a second workload of the same lengths (other tokens),
+    # warm: every graph key it needs is captured already
+    warm_prompts, _ = workload(cfg, seed=SEED + 1)
+    runs = {}
+    for what, graphs in (("graphs", True), ("eager", False)):
+        PD.paged_decode_attention.launches = 0
+        eng, reqs, stats = run_engine(
+            *engine_args, "kernel", prompts, sampled, strict_sync=True,
+            cuda_graphs=graphs
         )
-    pstats = eng.prefix_stats()
-    if pstats["hits"] < 1:
-        raise AssertionError(f"no prefix-cache hit: {pstats}")
-    n_tok = sum(len(r.generated) for r in reqs)
-    ttft, step_ms = stats["ttft_s"], stats["steady_step_ms"]
+        raw = PD.paged_decode_attention.launches
+        launches = GR.launches_run(PD.paged_decode_attention, [eng.graphs])
+        steps = stats["decode_steps"]
+        engine_report(what, eng, reqs, stats, launches, raw, smi)
+        _, wreqs, wstats = run_engine(
+            *engine_args, "kernel", warm_prompts, sampled, strict_sync=True, eng=eng
+        )
+        wlaunches = GR.launches_run(PD.paged_decode_attention, [eng.graphs]) - launches
+        wraw = PD.paged_decode_attention.launches - raw
+        wsteps = wstats["decode_steps"]
+        for r in reqs + wreqs:
+            if len(r.generated) != 32 or not r.done:
+                raise AssertionError(f"{what} rid={r.rid}: {len(r.generated)} tokens")
+            if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
+                raise AssertionError(f"{what} rid={r.rid}: token out of range")
+        L = cfg.num_layers
+        if launches != L * steps or steps == 0 or wlaunches != L * wsteps:
+            raise AssertionError(
+                f"{what}: {launches} / {wlaunches} kernel launches for {steps} / "
+                f"{wsteps} decode steps x {L} layers"
+            )
+        counts = eng.graphs.counts
+        if graphs and (
+            counts.replays["decode"] != steps + wsteps - counts.captures["decode"]
+            or wstats["captures"]
+        ):
+            raise AssertionError(
+                f"decode replays {dict(counts.replays)} for {steps} + {wsteps} "
+                f"steps, captures {dict(counts.captures)}, in the warm run "
+                f"{wstats['captures']}"
+            )
+        if not graphs and (counts.captures or counts.replays):
+            raise AssertionError(f"eager run captured {dict(counts.captures)}")
+        for st in (stats, wstats):
+            if set(st["steady_syncs"]) != {1}:
+                raise AssertionError(
+                    f"{what}: host syncs per steady step {st['steady_syncs']}"
+                )
+        pstats = eng.prefix_stats()
+        if pstats["hits"] < 2:
+            raise AssertionError(f"prefix-cache hits: {pstats}")
+        engine_report(f"{what}, warm", eng, wreqs, wstats, wlaunches, wraw, smi)
+        runs[what] = (reqs, wreqs, stats, launches)
+    reqs, wreqs, stats, launches = runs["graphs"]
+    for a, b in zip(reqs + wreqs, runs["eager"][0] + runs["eager"][1]):
+        if a.generated != b.generated:
+            raise AssertionError(f"graph and eager streams differ: rid {a.rid}")
     log(
-        f"[engine] {len(reqs)} requests, {n_tok} tokens, {steps} decode steps, "
-        f"{launches} kernel launches (= {cfg.num_layers} x {steps}), prefix hits "
-        f"{pstats['hits']}, cow forks {pstats['cow_forks']} [{smi}]"
-    )
-    log(
-        f"[engine] wall {stats['wall_s']:.3f} s, output "
-        f"{n_tok / stats['wall_s']:.1f} tok/s, first token median "
-        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
-        f"steady decode step median {step_ms[len(step_ms) // 2]:.2f} ms over "
-        f"{len(step_ms)} steps (batch {len(reqs)} at start) [{smi}]"
+        f"[engine] graph and eager runs token-identical for all {len(reqs)} "
+        f"requests of each workload (the sampled ones included); prefix hits "
+        f"{pstats['hits']}, cow forks {pstats['cow_forks']}"
     )
 
     # kernel vs gather: one decode step's logits, and whole greedy streams
@@ -1305,9 +1451,9 @@ def main():
         handle = {
             "k": st.k,
             "v": st.v,
-            "block_tables": torch.from_numpy(tables),
-            "lengths": torch.from_numpy(st.lengths.copy()),
-            "active": torch.from_numpy(act),
+            "block_tables": torch.from_numpy(tables).cuda(),
+            "lengths": torch.from_numpy(st.lengths.copy()).cuda(),
+            "active": torch.from_numpy(act).cuda(),
         }
         tk = torch.from_numpy(toks).cuda()
 
@@ -1348,9 +1494,25 @@ def main():
         f"{agree}/{total} (bf16; near-ties may flip, not gated)"
     )
 
-    # a third run, profiled over a few steady decode steps (not counted)
-    profile = functools.partial(profile_decode, out_dir=out_dir, smi=smi)
-    run_engine(*engine_args, "kernel", prompts, sampled, probe=profile)
+    # two more runs, each profiled over a few steady decode steps (not
+    # counted): through the graphs, and eager
+    busy = {}
+    for graphs, tag in ((True, ""), (False, "_eager")):
+        profile = functools.partial(
+            profile_decode, out_dir=out_dir, smi=smi, tag=tag, sink=busy
+        )
+        run_engine(
+            *engine_args, "kernel", prompts, sampled, probe=profile, cuda_graphs=graphs
+        )
+    for what, tag in (("graphs", ""), ("eager", "_eager")):
+        step_ms = runs[what][2]["steady_step_ms"]
+        median = step_ms[len(step_ms) // 2]
+        log(
+            f"[profile] {what}: device busy {busy[tag]:.3f} ms per steady step "
+            f"(profiled) against the unprofiled steady step's median "
+            f"{median:.3f} ms: idle share outside the profiler "
+            f"{1 - busy[tag] / median:.3f} [{smi}]"
+        )
 
     # phase 6: the kernel API and the Mamba2 mixer at full width
     t = time.perf_counter()
@@ -1409,7 +1571,7 @@ def main():
     # phase 7: the module-scaling loop at full width
     t = time.perf_counter()
     reference = {r.rid: r.generated for r in reqs}
-    mods = (PD, INS, MIG, MetricsSnapshot, Orchestrator, RequestSpec, SamplingParams)
+    mods = (PD, GR, INS, MIG, MetricsSnapshot, Orchestrator, RequestSpec, SamplingParams)
     scaling_phase(mods, (cfg, params, prompts, sampled), reference, smi)
     log(f"[scaling] phase 7 in {time.perf_counter() - t:.1f} s")
 

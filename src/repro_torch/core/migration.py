@@ -151,7 +151,7 @@ def fit_migration_model(cfg, *, block_size: int = 8, small_tokens: int = 16,
 def migrate_blocks(src_state, dst_state, src_slot: int, dst_slot: int, *,
                    link_bandwidth: float = 50e9,
                    fixed_overhead_s: float = 0.24,
-                   measure: bool = False):
+                   measure: bool = False, wire: str = "bits"):
     """Block-granular migration of ONE live request between two engines'
     pools (CoCoServe scale-down / rebalance): export the request's blocks
     from ``src_state`` (serving/paged_kv.export_blocks wire format), bind
@@ -161,11 +161,13 @@ def migrate_blocks(src_state, dst_state, src_slot: int, dst_slot: int, *,
     source blocks are materialized by the wire format itself.
 
     ``measure=True`` waits for the destination's device before reading
-    the clock. Returns (payload, MigrationCost). Raises
+    the clock. ``wire`` is ``export_blocks``' choice for the payload
+    (``"float32"`` for a destination that reads arrays by value); the
+    cost counts the bytes shipped. Returns (payload, MigrationCost). Raises
     paged_kv.OutOfBlocks without touching the source when the
     destination can't hold the payload."""
     t0 = time.perf_counter()
-    payload = PK.export_blocks(src_state, src_slot)
+    payload = PK.export_blocks(src_state, src_slot, wire=wire)
     PK.import_blocks(dst_state, dst_slot, payload)   # raises before mutation
     PK.free_slot(src_state, src_slot)
     if measure:

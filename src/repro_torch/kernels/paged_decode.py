@@ -9,7 +9,10 @@ it runs ``paged_decode_attention_ref``, the plain PyTorch version beside
 it. There is no fallback: a kernel that fails to build or launch raises.
 ``paged_decode_attention.launches`` counts calls that launched the kernel
 (plain-version calls do not count); each such call is two launches on
-the card, the split-K pass and the combine.
+the card, the split-K pass and the combine. Inside a CUDA-graph capture
+a call records its launches instead of running them, and a replay runs
+them without calling the wrapper: ``serving.graphs.launches_run``
+accounts a replay as the launches its capture recorded.
 
 The kernel cuts the table's capacity ``max_blocks * bs`` into ranges of
 whole pool blocks (``plan_paged_splits``: dense decode's ``plan_splits``

@@ -7,11 +7,19 @@ from an explicit ``torch.Generator``. Attention is the same chunked fp32
 path with GQA head grouping and the same masks.
 
 Where JAX scatters with ``mode="drop"`` (an out-of-range index is
-silently skipped), the port filters those rows before ``index_put_``:
-on the card an out-of-range index corrupts memory or traps. Cache and
-pool writes here are IN PLACE (the reference rebuilt the arrays
-functionally); the updated tensors are also returned, so call sites read
-like the reference.
+silently skipped), the port writes at a fixed shape instead: the paged
+pool holds a scratch block at index ``n_blocks`` that takes the dropped
+rows (on the card an out-of-range index corrupts memory or traps; a
+dense-cache write keeps only the rows that land). Cache and pool writes
+here are IN PLACE (the reference rebuilt the arrays functionally); the
+updated tensors are also returned, so call sites read like the
+reference.
+
+What depends on a step's inputs but not on the layer — rope's ``cos`` /
+``sin`` (``rope_tables``) and the paged write index, lengths and int32
+tables (``paged_step_meta``) — is computed once per step by the caller
+and passed down, the same ops on the same inputs, where XLA's CSE
+removes the per-layer repeats in the reference.
 """
 from __future__ import annotations
 
@@ -75,13 +83,23 @@ def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: [..., S, H, D] (D even); positions: [..., S] int."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                     # [D/2]
+def rope_tables(positions, dim: int, theta: float):
+    """(cos, sin) of rope's angles for ``positions`` [..., S] int, each
+    [..., S, 1, dim/2] (broadcast over heads). A function of the step's
+    positions only: callers compute it once per step for every layer."""
+    freqs = rope_freqs(dim, theta, positions.device)           # [D/2]
     angles = positions[..., :, None].float() * freqs           # [..., S, D/2]
     angles = angles[..., :, None, :]                           # over heads
-    cos, sin = torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """x: [..., S, H, D] (D even); positions: [..., S] int. ``tables``
+    is ``rope_tables(positions, D, theta)`` computed beforehand (then
+    ``positions`` and ``theta`` are not read)."""
+    if tables is None:
+        tables = rope_tables(positions, x.shape[-1], theta)
+    cos, sin = tables
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -178,21 +196,21 @@ def init_gqa(cfg: ModelConfig, gen, dtype, *, lead=()):
     }
 
 
-def _qkv(p, x, cfg: ModelConfig, positions):
+def _qkv(p, x, cfg: ModelConfig, positions, rope=None):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.use_qk_norm:
         q, k = rms_norm_dim(q), rms_norm_dim(k)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 
 def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
               k_positions=None, window=None, causal=True,
-              attend_fresh=False):
+              attend_fresh=False, rope=None):
     """GQA/MQA attention with optional KV-cache write-then-attend.
 
     x: [B,S,d]; positions [B,S] absolute. ``cache`` is None (train) or a
@@ -203,11 +221,13 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     reference drops. ``k_positions`` [B,M] is the (already-updated)
     absolute position of each cache row. ``attend_fresh`` (prefill)
     attends this call's own K/V while the cache write happens on the side.
+    ``rope`` is ``rope_tables(positions, ...)``, computed once per call of
+    the stack (None computes it here).
     Returns (out [B,S,d], cache_or_None).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, rope)
     if cache is None:
         out = attention(q, k, v, q_positions=positions, window=window,
                         causal=causal, softcap=cfg.logit_softcap)
@@ -229,40 +249,46 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     return torch.einsum("bsh,hd->bsd", out, p["wo"]), cache
 
 
-def paged_write_plan(positions, block_tables, active, n_blocks: int,
-                     block_size: int):
-    """Rows of a single-token paged write that actually land: (rows,
-    blocks, offsets). The reference pushes inactive rows and unallocated
-    or out-of-range table entries to block ``n_blocks`` and drops them;
-    here they are filtered out. Computed where the inputs live — the
-    engine passes host tensors, so no device sync is involved."""
-    pos = positions[:, 0].long()
-    col = torch.clamp(pos // block_size, 0, block_tables.shape[1] - 1)
-    blk = block_tables.long().gather(1, col[:, None])[:, 0]
-    valid = active.bool() & (blk >= 0) & (blk < n_blocks)
-    rows = valid.nonzero()[:, 0]
-    return rows, blk[rows], (pos % block_size)[rows]
+def paged_step_meta(positions, block_tables, active, n_blocks: int,
+                    block_size: int):
+    """The per-step operands of every paged layer, at a fixed shape on
+    the inputs' device: ``write`` — (blocks, offsets) [B] of each row's
+    new token, where an inactive row, an unallocated (-1) or out-of-range
+    table entry sends the row to the scratch block ``n_blocks``, as the
+    reference sends it to its drop index (a position past the table
+    clamps to the last column, as there); ``kv_len`` [B] int32 (0 for
+    inactive rows); ``tables`` the block tables as contiguous int32."""
+    pos = positions[:, 0]
+    tables = block_tables.to(torch.int32).contiguous()
+    col = torch.clamp(pos.long() // block_size, 0, tables.shape[1] - 1)
+    blk = tables.long().gather(1, col[:, None])[:, 0]
+    blk = torch.where(active & (blk >= 0) & (blk < n_blocks), blk, n_blocks)
+    kv_len = torch.where(active, pos + 1, 0).to(torch.int32)
+    return {"write": (blk, pos.long() % block_size), "kv_len": kv_len,
+            "tables": tables}
 
 
 def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
                     block_tables, active, window=None, impl="gather",
-                    write=None):
+                    meta=None, rope=None):
     """GQA decode attention against a paged block pool (write-then-attend).
 
     Single-token decode only: x [B,1,d]. ``pool_k/v`` are ONE layer's pool
-    slices [n_blocks, KV, bs, hd] (KV-head-major), updated IN PLACE;
+    slices [n_blocks + 1, KV, bs, hd] (KV-head-major; the last block is
+    the scratch block that takes dropped writes), updated IN PLACE;
     ``block_tables`` [B, max_blocks] int (-1 = unallocated, masked);
     ``positions`` [B,1] are the pre-write token counts; ``active`` [B]
-    bool — inactive rows write nothing and attend an empty context
-    (garbage logits the engine ignores). ``write`` is the precomputed
-    ``paged_write_plan`` on x's device (``forward_paged`` computes it once
-    per step on the host); None computes it here.
+    bool — inactive rows write into the scratch block and attend an empty
+    context (garbage logits the engine ignores). All on x's device.
+    ``meta`` is ``paged_step_meta`` and ``rope`` is ``rope_tables``, both
+    computed once per step by ``forward_paged``; None computes them here.
 
     ``impl``: "gather" materialises the table's blocks and reuses the
     chunked fp32 attention; "kernel" calls the paged-decode kernel
-    (kernels/paged_decode.py), whose traffic stops at each request's true
-    length. The kernel implements plain causal GQA only, so logit-softcap
-    archs and sliding windows route back to "gather".
+    (kernels/paged_decode.py) on the real blocks, whose traffic stops at
+    each request's true length. The kernel implements plain causal GQA
+    only, so logit-softcap archs and sliding windows route back to
+    "gather".
 
     Returns (out [B,1,d], pool_k, pool_v).
     """
@@ -271,26 +297,27 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
         raise ValueError("paged path is decode-only (one token per step)")
     hd = cfg.resolved_head_dim
     n_blocks, KV, bs, _ = pool_k.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    n_blocks -= 1                                   # the scratch block
+    if meta is None:
+        meta = paged_step_meta(positions, block_tables, active, n_blocks, bs)
+    q, k, v = _qkv(p, x, cfg, positions, rope)
 
-    # ---- write the new token's K/V into its block (dropped rows filtered)
-    if write is None:
-        write = [t.to(x.device) for t in paged_write_plan(
-            positions, block_tables, active, n_blocks, bs)]
-    rows, blk, off = write
-    pool_k[blk, :, off] = k[rows, 0].to(pool_k.dtype)
-    pool_v[blk, :, off] = v[rows, 0].to(pool_v.dtype)
+    # ---- write the new token's K/V into its block (dropped rows land in
+    # the scratch block)
+    blk, off = meta["write"]
+    pool_k[blk, :, off] = k[:, 0].to(pool_k.dtype)
+    pool_v[blk, :, off] = v[:, 0].to(pool_v.dtype)
 
-    kv_len = torch.where(active, positions[:, 0] + 1, 0).to(torch.int32)
+    kv_len = meta["kv_len"]
     if impl == "kernel" and (cfg.logit_softcap or window is not None):
         impl = "gather"  # kernel has no softcap/window support
     if impl == "kernel":
         out = paged_decode_attention(
-            q[:, 0].contiguous(), pool_k, pool_v,
-            block_tables.to(torch.int32).contiguous(), kv_len)[:, None]
+            q[:, 0].contiguous(), pool_k[:n_blocks], pool_v[:n_blocks],
+            meta["tables"], kv_len)[:, None]
     else:
         max_blocks = block_tables.shape[1]
-        tbl = torch.clamp(block_tables.long(), min=0)
+        tbl = torch.clamp(meta["tables"].long(), min=0)
         # gathered blocks are [B, mb, KV, bs, hd]; only the gathered
         # context is re-laid token-major, never the whole pool
         kk = pool_k[tbl].permute(0, 1, 3, 2, 4).reshape(

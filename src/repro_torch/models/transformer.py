@@ -161,6 +161,8 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
     slots = kpos = None
     if has_cache:
         slots, kpos = _cache_meta(cache, positions)
+    rope = (L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+            if cfg.use_rope else None)
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         lc = ({"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i]}
@@ -168,7 +170,8 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
         h = L.apply_norm(lp["norm1"], x, cfg)
         h, _ = L.apply_gqa(lp["attn"], h, cfg, positions=positions,
                            cache=lc, slots=slots, k_positions=kpos,
-                           window=window, attend_fresh=(mode == "prefill"))
+                           window=window, attend_fresh=(mode == "prefill"),
+                           rope=rope)
         x = x + h
         h = L.apply_norm(lp["norm2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)
@@ -194,44 +197,49 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
 
     tokens: [B, 1] on the pool's device. ``cache`` is the paged handle:
 
-    * ``k``/``v``: [L, n_blocks, KV, bs, hd] block pools on the device
-      (KV-head-major), updated in place
+    * ``k``/``v``: [L, n_blocks + 1, KV, bs, hd] block pools on the
+      device (KV-head-major; the last block is the scratch block that
+      takes dropped writes), updated in place
     * ``block_tables``: [B, max_blocks] int (-1 = unallocated)
     * ``lengths``: [B] int tokens already in the pool per slot
-    * ``active``: [B] bool (inactive slots decode garbage that is masked
-      out of every pool write)
+    * ``active``: [B] bool (inactive slots decode garbage; their pool
+      writes land in the scratch block)
 
-    ``block_tables``/``lengths``/``active`` may live on the host (the
-    engine passes host tensors): the pool-write plan is computed there
-    once per step and the step's small operands are uploaded once,
-    without a device sync. Returns (logits [B, Vpad], new_cache, aux).
+    Every operand lies on the pool's device, and the step takes no host
+    array and makes no host sync, so a CUDA graph can capture it
+    (serving/graphs.py). The pool-write index, lengths, int32 tables and
+    rope's tables are computed once per step, at fixed shapes, for every
+    layer. Returns (logits [B, Vpad], new_cache, aux).
     """
     if not cfg.supports_paged_kv:
         raise ValueError(f"paged decode needs a GQA attention decoder "
                          f"(family={cfg.family}, attn={cfg.attention_kind})")
     check_supported(cfg)
     dev = cache["k"].device
-    n_blocks, bs = cache["k"].shape[1], cache["k"].shape[3]
+    operands = (tokens, cache["block_tables"], cache["lengths"],
+                cache["active"])
+    if any(t.device != dev for t in operands):
+        raise ValueError(f"forward_paged: tokens, block_tables, lengths and "
+                         f"active must lie on the pool's device {dev}")
+    n_blocks, bs = cache["k"].shape[1] - 1, cache["k"].shape[3]
     lengths = cache["lengths"].to(torch.int32)
     active = cache["active"].bool()
     positions = lengths[:, None]                       # [B, 1]
-    write = [to_device(t, dev) for t in L.paged_write_plan(
-        positions, cache["block_tables"], active, n_blocks, bs)]
-    positions_d = to_device(positions, dev)
-    tables_d = to_device(cache["block_tables"].to(torch.int32).contiguous(),
-                         dev)
-    active_d = to_device(active, dev)
+    meta = L.paged_step_meta(positions, cache["block_tables"], active,
+                             n_blocks, bs)
+    rope = (L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+            if cfg.use_rope else None)
 
     x = embed_tokens(params, cfg, tokens)
     if not cfg.use_rope:
-        x = x + L.sinusoidal_positions(positions_d, cfg.d_model).to(x.dtype)
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         h = L.apply_norm(lp["norm1"], x, cfg)
         h, _, _ = L.apply_gqa_paged(
-            lp["attn"], h, cfg, positions=positions_d, pool_k=cache["k"][i],
-            pool_v=cache["v"][i], block_tables=tables_d, active=active_d,
-            window=window, impl=attn_impl, write=write)
+            lp["attn"], h, cfg, positions=positions, pool_k=cache["k"][i],
+            pool_v=cache["v"][i], block_tables=meta["tables"], active=active,
+            window=window, impl=attn_impl, meta=meta, rope=rope)
         x = x + h
         h = L.apply_norm(lp["norm2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)

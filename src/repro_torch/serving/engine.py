@@ -13,7 +13,7 @@ style, with TOKEN-BUDGET continuous batching as the default step loop.
 * **Prefill** runs whole prompts over a throwaway dense cache sized to
   the prompt's POWER-OF-TWO length bucket, then scatters each request's
   true-length K/V into the block pool; chunk continuations and
-  prefix-cache hits run the fused ``_chunk_prefill`` (pool context
+  prefix-cache hits run the fused ``_chunk_step`` (pool context
   gather → splice → decode-mode extend → suffix scatter). Prefix sharing
   (on by default) aliases cached full prompt blocks, refcounted and
   copy-on-write. Admission applies backpressure when the pool is out of
@@ -25,7 +25,17 @@ style, with TOKEN-BUDGET continuous batching as the default step loop.
   (``instrument.fetch``); every other operand is uploaded from host
   state without a sync. Table width, prefill length and hit-group size
   are bucketed to powers of two exactly as in the reference, so shapes
-  (and, later, CUDA graphs) stay stable.
+  stay stable.
+* **Compiled steps.** Where the reference jits its steps, the port
+  captures them as CUDA graphs (serving/graphs.py), one per static key:
+  the decode step (``_decode_step``: ``forward_paged`` plus sampling,
+  keyed like ``_jitted_steps()``), the fused chunk prefill
+  (``_chunk_step``, keyed by its pow2 bucket like ``_chunk_prefill_fn``)
+  and the sampling after a prefill (``_sample_step``, keyed like
+  ``_sample_fn``). A step's host operands travel as one packed upload.
+  Whole-prompt prefill waves (``_run_prefill``) stay eager.
+  ``cuda_graphs=False`` runs the same functions eagerly on the card; on
+  the CPU they always run eagerly.
 
 The engine is also the unit live module scaling operates on:
 ``pause_request`` / ``resume_request`` export and import one request's
@@ -47,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
@@ -55,6 +66,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import replication as R
 from repro_torch.models import transformer as T
+from repro_torch.serving import graphs as G_
 from repro_torch.serving import paged_kv as PK
 from repro_torch.serving import sampling as SMP
 from repro_torch.serving import scheduler as SCH
@@ -118,17 +130,26 @@ class _ChunkSpec:
 
 
 # ----------------------------------------------------------------- steps
-def _chunk_prefill(params, pool_k, pool_v, tbl, suffix, spos, pos, last_idx,
-                   write, *, cfg, window, cache_len, dtype):
-    """FUSED chunk/suffix prefill: pool context gather -> throwaway dense
-    cache splice -> decode-mode extension over the suffix bucket ->
-    suffix K/V scatter back into the pool (in place). ``write`` is
-    ``paged_kv.landing_rows`` of the suffix's scatter plan: the rows of
-    the flattened [G*Sb] suffix that land, with their blocks and
-    offsets (pad rows are already filtered out)."""
+# The step functions below are what the engine's CUDA graphs hold
+# (serving/graphs.py): each takes its host operands as one packed int32
+# buffer (``graphs.pack`` order) and touches no host array, so a capture
+# records all of it. On the CPU, and with ``cuda_graphs=False``, they run
+# eagerly on the same inputs.
+def _chunk_step(params, pool_k, pool_v, buf, *, cfg, window, G, n_blk, Sb,
+                cache_len, dtype):
+    """FUSED chunk/suffix prefill, a chunk graph's function: pool context
+    gather -> throwaway dense cache splice -> decode-mode extension over
+    the suffix bucket -> suffix K/V scatter back into the pool (in
+    place). The operands come packed as (tbl, suffix, spos, pos,
+    last_idx, bidx, oidx); ``bidx``/``oidx`` [G*Sb] are the suffix's
+    scatter plan (``paged_kv.scatter_plan``), whose pad rows carry the
+    scratch block, so the write has a fixed shape."""
+    tbl, suffix, spos, pos, last_idx, bidx, oidx = G_.unpack(
+        buf, (G, n_blk), (G, Sb), (G, Sb), (G, cache_len), (G,), (G * Sb,),
+        (G * Sb,))
     L, _, KV, bs, hd = pool_k.shape
-    G, n_blk = tbl.shape
     cb = n_blk * bs
+    tbl = tbl.long()
     cache = T.init_cache(cfg, G, cache_len, dtype, pool_k.device)
     ck, cv = cache["layers"]["k"], cache["layers"]["v"]
     ck[:, :, :cb] = pool_k[:, tbl].permute(0, 1, 2, 4, 3, 5).reshape(
@@ -138,42 +159,43 @@ def _chunk_prefill(params, pool_k, pool_v, tbl, suffix, spos, pos, last_idx,
     cache["positions"] = pos
     logits, cache, _ = T.forward(params, cfg, suffix, positions=spos,
                                  mode="decode", cache=cache, window=window,
-                                 last_idx=last_idx)
-    Sb = suffix.shape[1]
+                                 last_idx=last_idx.long())
     idx = spos.long()[None, :, :, None, None].expand(L, G, Sb, KV, hd)
     k_sfx = cache["layers"]["k"].gather(2, idx)      # [L, G, Sb, KV, hd]
     v_sfx = cache["layers"]["v"].gather(2, idx)
-    rows, bidx, oidx = write
-    kf = k_sfx.reshape(L, G * Sb, KV, hd).transpose(0, 1)[rows]
-    vf = v_sfx.reshape(L, G * Sb, KV, hd).transpose(0, 1)[rows]
-    pool_k[:, bidx, :, oidx] = kf.to(pool_k.dtype)
-    pool_v[:, bidx, :, oidx] = vf.to(pool_v.dtype)
+    PK.scatter_rows(pool_k, pool_v, bidx.long(), oidx.long(),
+                    k_sfx.reshape(L, G * Sb, KV, hd),
+                    v_sfx.reshape(L, G * Sb, KV, hd))
     return logits
 
 
-def _sample(logits, temps, topks, seeds, ctrs, *, vocab_size):
-    """Upload the host sampling arrays and sample on logits' device."""
-    dev = logits.device
-    return SMP.sample_tokens(
-        logits, T.to_device(temps, dev), T.to_device(topks, dev),
-        T.to_device(seeds.astype(np.int64), dev),
-        T.to_device(ctrs.astype(np.int64), dev), vocab_size,
-        stochastic=bool((temps > 0).any()), max_top_k=int(topks.max()))
+def _sample_step(logits, buf, *, vocab_size, stochastic, max_top_k):
+    """A sample graph's function: sample [G] tokens from [G, Vpad]
+    logits, the operands packed as (temps, top-ks, seeds, counters)."""
+    G = logits.shape[0]
+    temps, topks, seeds, ctrs = G_.unpack(buf, (G,), (G,), (G,), (G,))
+    return SMP.sample_tokens(logits, temps.view(torch.float32), topks,
+                             G_.as_uint32(seeds), G_.as_uint32(ctrs),
+                             vocab_size, stochastic=stochastic,
+                             max_top_k=max_top_k)
 
 
-def _paged_step(params, k, v, tables, lengths, active, tokens, temps, topks,
-                seeds, ctrs, *, cfg, window, impl):
-    """One fused decode step: forward over the pool + sampling. The
-    table, lengths and active mask stay host tensors (forward_paged plans
-    the pool write on the host and uploads once)."""
-    handle = {"k": k, "v": v, "block_tables": torch.from_numpy(tables),
-              "lengths": torch.from_numpy(lengths),
-              "active": torch.from_numpy(active)}
-    logits, _, _ = T.forward_paged(params, cfg,
-                                   T.to_device(tokens[:, None], k.device),
-                                   handle, window=window, attn_impl=impl)
-    return _sample(logits, temps, topks, seeds, ctrs,
-                   vocab_size=cfg.vocab_size)
+def _decode_step(params, k, v, buf, *, cfg, nb, width, window, impl,
+                 stochastic, max_top_k):
+    """One fused decode step, a decode graph's function: forward over the
+    pool + ``_sample_step``, the operands packed as (tokens, lengths,
+    active, then the sampling operands, then the block tables
+    [B, width]) — the whole tables, so the graphs of every table width
+    ``nb`` share one input buffer; the step reads ``tables[:, :nb]``."""
+    B = buf.numel() // (7 + width)
+    tokens, lengths, active, sampling, tables = G_.unpack(
+        buf, (B,), (B,), (B,), (4 * B,), (B, width))
+    handle = {"k": k, "v": v, "block_tables": tables[:, :nb],
+              "lengths": lengths, "active": active != 0}
+    logits, _, _ = T.forward_paged(params, cfg, tokens[:, None], handle,
+                                   window=window, attn_impl=impl)
+    return _sample_step(logits, sampling, vocab_size=cfg.vocab_size,
+                        stochastic=stochastic, max_top_k=max_top_k)
 
 
 def _default_device():
@@ -191,7 +213,7 @@ class Engine:
                  paged_attn_impl: str = "kernel",
                  prefix_sharing: bool = True, scheduler: str = "budget",
                  token_budget: int = 128,
-                 device=None):
+                 device=None, cuda_graphs: bool = True):
         if cache_kind != "paged":
             raise NotImplementedError(
                 f"cache_kind={cache_kind!r}: the dense cache is not ported "
@@ -256,6 +278,9 @@ class Engine:
         self.span_hook = None
         self.replication_degrees: Optional[tuple] = None  # plan intent
         self._step_degrees: Optional[tuple] = None        # quantized
+        # the compiled steps: one CUDA graph per static key on the card
+        # (eager with cuda_graphs=False, and on the CPU)
+        self.graphs = G_.StepGraphs(self.device, enabled=cuda_graphs)
 
     # ------------------------------------------------------------- sampling
     def _sample_batch(self, logits, reqs) -> np.ndarray:
@@ -265,8 +290,14 @@ class Engine:
         topks = np.asarray([r.top_k for r in reqs], np.int32)
         seeds = np.asarray([r.seed for r in reqs], np.uint32)
         ctrs = np.asarray([len(r.generated) for r in reqs], np.uint32)
-        return fetch(_sample(logits, temps, topks, seeds, ctrs,
-                             vocab_size=self.cfg.vocab_size))
+        # the key of the reference's _sample_fn: shapes, stochastic,
+        # max_top_k
+        stochastic, max_top_k = bool((temps > 0).any()), int(topks.max())
+        fn = functools.partial(_sample_step, vocab_size=self.cfg.vocab_size,
+                               stochastic=stochastic, max_top_k=max_top_k)
+        return fetch(self.graphs.run(
+            ("sample", len(reqs), stochastic, max_top_k), fn, logits,
+            G_.pack(temps, topks, seeds, ctrs)))
 
     def _sampling_arrays(self):
         B = self.max_batch
@@ -610,17 +641,19 @@ class Engine:
             pos[i, :ctx] = np.arange(ctx)
             suffix[i, :n_new] = toks[ctx:ctx + n_new]
             spos[i] = np.arange(ctx, ctx + Sb)
-        # host half of the pool append (advances lengths, stamps epoch)
+        # host half of the pool append (advances lengths, stamps epoch);
+        # pad rows carry the scratch block
         bidx, oidx = PK.scatter_plan(st, slots, Sb, lengths=n_news)
-        dev = self.device
-        return _chunk_prefill(
-            self.params, st.k, st.v, T.to_device(tbl.astype(np.int64), dev),
-            T.to_device(suffix, dev), T.to_device(spos, dev),
-            T.to_device(pos, dev),
-            T.to_device(np.asarray(n_news, np.int64) - 1, dev),
-            PK.landing_rows(st, bidx, oidx, dev),
-            cfg=self.cfg, window=self.window, cache_len=cache_len,
-            dtype=self.dtype)
+        # the key of the reference's _chunk_prefill_fn: the pow2 (group,
+        # context, suffix) bucket and the dense cache's length
+        fn = functools.partial(_chunk_step, self.params, st.k, st.v,
+                               cfg=self.cfg, window=self.window, G=G,
+                               n_blk=n_blk, Sb=Sb, cache_len=cache_len,
+                               dtype=self.dtype)
+        return self.graphs.run(
+            ("chunk", G, cb, Sb, cache_len), fn,
+            G_.pack(tbl, suffix, spos, pos, np.asarray(n_news) - 1, bidx,
+                    oidx))
 
     def _admit(self):
         if self.sched.budgeted:
@@ -887,11 +920,24 @@ class Engine:
         # from LENGTHS (window-freed rows have leading holes)
         need = int(st.lengths[active_mask].max()) // bs + 1
         nb = min(_pow2_at_least(max(need, 1)), st.block_tables.shape[1])
-        tables = np.ascontiguousarray(st.block_tables[:, :nb])
-        toks_dev = _paged_step(
-            self.params, st.k, st.v, tables, st.lengths.astype(np.int32),
-            active_mask, tokens, temps, topks, seeds, ctrs, cfg=self.cfg,
-            window=self.window, impl=self._paged_impl)
+        # the key of the reference's _jitted_steps() paged step (cfg is
+        # the engine's): table width, sampling's static arguments,
+        # replication degrees (all ones run the plain step), attention
+        # impl, window. Lengths, tokens and sampling values never re-key.
+        stochastic, max_top_k = bool((temps > 0).any()), int(topks.max())
+        degrees = self._step_degrees
+        if degrees is not None and all(d == 1 for d in degrees):
+            degrees = None
+        key = ("decode", nb, stochastic, max_top_k, degrees,
+               self._paged_impl, self.window)
+        fn = functools.partial(_decode_step, self.params, st.k, st.v,
+                               cfg=self.cfg, nb=nb,
+                               width=st.block_tables.shape[1],
+                               window=self.window, impl=self._paged_impl,
+                               stochastic=stochastic, max_top_k=max_top_k)
+        toks_dev = self.graphs.run(key, fn, G_.pack(
+            tokens, st.lengths, active_mask, temps, topks, seeds, ctrs,
+            st.block_tables))
         toks = fetch(toks_dev)     # the ONE host sync
         st.lengths[active_mask] += 1
         # dirty-set bookkeeping: the step wrote each active slot's token
@@ -982,8 +1028,8 @@ class Engine:
         self.replication_degrees, self._step_degrees = p, q
 
     # --------------------------------------- request migration (paged)
-    def pause_request(self, slot: int,
-                      since_epoch: Optional[int] = None) -> dict:
+    def pause_request(self, slot: int, since_epoch: Optional[int] = None,
+                      wire: str = "bits") -> dict:
         """Detach the request in ``slot`` (decoding, or mid-prefill) and
         export its serving state: KV blocks (paged_kv.export_blocks wire
         format), position, and the counter-based sampling state, which
@@ -995,7 +1041,10 @@ class Engine:
 
         ``since_epoch`` (a prior ``snapshot_request``'s ``epoch``) makes
         this the phase-2 pause of an overlapped migration: the payload
-        carries only the blocks written since the snapshot."""
+        carries only the blocks written since the snapshot. ``wire`` is
+        ``paged_kv.export_blocks``' choice: ``"bits"`` for a port peer,
+        ``"float32"`` for a peer that reads arrays by value (the JAX
+        package)."""
         if slot in self.active:
             req = self.active.pop(slot)
             phase = "decode"
@@ -1009,7 +1058,7 @@ class Engine:
         if self.span_hook:
             self.span_hook.on_pause(req.rid)
         payload = PK.export_blocks(self.pstate, slot,
-                                   since_epoch=since_epoch)
+                                   since_epoch=since_epoch, wire=wire)
         PK.free_slot(self.pstate, slot)
         req.slot = None
         # "position"/"counter" are informational mirrors: import_blocks
@@ -1065,14 +1114,14 @@ class Engine:
             self.span_hook.on_resume(req, payload.get("phase", "decode"))
 
     # ------------------------------- overlapped (two-phase) migration
-    def snapshot_request(self, slot: int) -> dict:
+    def snapshot_request(self, slot: int, wire: str = "bits") -> dict:
         """Phase 1 of an overlapped migration: export the request in
         ``slot`` WITHOUT detaching it — the payload is a host copy, so the
         stream keeps decoding into its tail block meanwhile. The returned
         ``epoch`` is the dirty-set cursor for the phase-2
-        ``pause_request(slot, since_epoch=epoch)``."""
+        ``pause_request(slot, since_epoch=epoch)``; ``wire`` as there."""
         req = (self.active.get(slot) or self.prefilling[slot])
-        payload = PK.export_blocks(self.pstate, slot)
+        payload = PK.export_blocks(self.pstate, slot, wire=wire)
         return {"v": MIGRATION_WIRE_VERSION, "rid": req.rid, "kv": payload,
                 "epoch": payload["epoch"], "position": payload["length"]}
 

@@ -11,11 +11,17 @@ active ``count_host_syncs`` context counts:
 * ``upload`` — a host→device copy through pinned memory, non-blocking,
   so no sync: a migration import's block data and indices;
 * ``synchronize`` — wait for the card (a migration's wall time is read
-  after it).
+  after it);
+* ``graph_capture`` — the one host sync of a CUDA-graph capture
+  (``torch.cuda.graph`` synchronizes on entry; serving/graphs.py).
 
-On the card, ``fetch`` and ``synchronize`` relax
-``torch.cuda.set_sync_debug_mode`` around themselves, so a run under
-``"error"`` mode fails on any other sync.
+On the card, these relax ``torch.cuda.set_sync_debug_mode`` around
+themselves, so a run under ``"error"`` mode fails on any other sync.
+
+``GraphCounter`` counts one engine's graph captures and replays, by the
+kind of step (``"decode"``, ``"chunk"``, ``"sample"``), beside the sync
+counter: a steady decode step replays its graph and makes one host sync,
+the fetch; the first step of each static key captures instead.
 
 ``FaultCounters``, ``EngineTelemetry`` and ``timed_step`` are copies of
 the reference's: the orchestrator folds them into
@@ -23,6 +29,7 @@ the reference's: the orchestrator folds them into
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -40,6 +47,15 @@ from repro_torch.models.transformer import to_device
 class SyncCounter:
     n: int = 0          # host syncs: fetches and synchronizes
     uploads: int = 0    # host→device copies (not syncs)
+
+
+@dataclasses.dataclass
+class GraphCounter:
+    """One engine's CUDA-graph captures and replays, by step kind."""
+    captures: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    replays: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
 
 @dataclasses.dataclass
@@ -333,6 +349,20 @@ def synchronize(device):
     torch.cuda.set_sync_debug_mode(0)
     try:
         torch.cuda.synchronize(device)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+@contextlib.contextmanager
+def graph_capture():
+    """Around a CUDA-graph capture: counted as one host sync (the
+    capture synchronizes the device on entry), with sync-debug mode
+    relaxed inside."""
+    _count("n")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
     finally:
         torch.cuda.set_sync_debug_mode(mode)
 

@@ -24,21 +24,32 @@ content chain hash (``_chain_keys``), byte-identical to the reference's.
 
 Pool writes are IN PLACE (``index_put_``) where the reference rebuilt the
 pool functionally. The reference's ``mode="drop"`` scatters push pad rows
-and holes to the out-of-range block ``n_blocks``; the port filters those
-rows on the host before the device write, since an out-of-range index on
-the card corrupts memory or traps.
+and holes to the out-of-range block ``n_blocks``; here the pool tensors
+hold one more block, the SCRATCH block at index ``n_blocks``, and the
+dropped rows land there (on the card an out-of-range index corrupts
+memory or traps). So every write has a fixed shape, as a CUDA graph
+needs. Nothing reads the scratch block: no block table holds its index,
+and allocation, ``pool_bytes``, ``utilization`` and export/import see the
+``n_blocks`` real blocks only. Many dropped rows may share a scratch
+index (torch leaves the order of duplicate index writes undefined, which
+is harmless there); a dropped row never shares an index with a live row.
 
 Migration wire format (``export_blocks`` / ``import_blocks`` /
 ``import_blocks_delta``): the reference's, host arrays of numpy. An
 export is one ``index_select`` over the pool's block axis and ONE
 device→host copy per array (``instrument.fetch``), finished before the
 caller frees the source blocks; an import is one host→device copy per
-array (``instrument.upload``) and an in-place ``index_copy_``. A bf16
-pool ships its blocks as their raw bits, ``np.uint16``, tagged
-``"kv_dtype": "bfloat16"`` (numpy has no bf16; ``nbytes`` stays the bf16
-byte count). An import also reads a payload whose arrays are float32 /
-float16, or of a numpy dtype named ``bfloat16`` (the reference's export
-of a bf16 pool), without importing that dtype's package.
+array (``instrument.upload``) and an in-place ``index_copy_``. numpy has
+no bf16, so a bf16 pool's blocks travel on one of two wires
+(``export_blocks(wire=...)``): ``"bits"`` (the default, between port
+engines) ships their raw bits, ``np.uint16``, tagged ``"kv_dtype":
+"bfloat16"``; ``"float32"`` ships them widened to float32 with no tag,
+for a peer that does not read the tag (the reference's ``import_blocks``
+converts by value). bf16 -> float32 -> bf16 is exact; the float32 wire
+ships twice the bytes, and ``nbytes`` counts the bytes shipped. An import
+reads either, a float16 array, or one of a numpy dtype named
+``bfloat16`` (the reference's export of a bf16 pool), without importing
+that dtype's package.
 """
 from __future__ import annotations
 
@@ -69,8 +80,8 @@ class PagedState:
     * blocks on ``free`` are never registered; blocks on ``cached_free``
       always are (their cache entry is dropped when they are evicted).
     """
-    k: torch.Tensor           # [L, n_blocks, KV, bs, hd] (KV-head-major)
-    v: torch.Tensor
+    k: torch.Tensor           # [L, n_blocks + 1, KV, bs, hd] (KV-head-
+    v: torch.Tensor           # major; the last block is the scratch block)
     block_tables: np.ndarray  # [B, max_blocks] int32 host array (-1 empty)
     lengths: np.ndarray       # [B] int32 host array
     free: List[int]
@@ -94,13 +105,15 @@ class PagedState:
 
     def __post_init__(self):
         if self.refcount is None:     # direct constructions (tests, tools)
-            self.refcount = np.zeros((self.k.shape[1],), np.int32)
+            self.refcount = np.zeros((self.n_blocks,), np.int32)
         if self.block_epoch is None:
-            self.block_epoch = np.zeros((self.k.shape[1],), np.int64)
+            self.block_epoch = np.zeros((self.n_blocks,), np.int64)
 
     @property
     def n_blocks(self) -> int:
-        return self.k.shape[1]
+        """Real blocks: the pool tensors' block axis less the scratch
+        block."""
+        return self.k.shape[1] - 1
 
     def free_block_count(self) -> int:
         """Blocks allocatable right now: the plain free list plus the
@@ -116,8 +129,9 @@ class PagedState:
         return int(np.maximum(self.refcount - 1, 0).sum())
 
     def pool_bytes(self) -> int:
-        return int(self.k.numel() * self.k.element_size()
-                   + self.v.numel() * self.v.element_size())
+        """Bytes of the real blocks (the scratch block left out)."""
+        per_block = self.k[:, 0].numel() * self.k.element_size()
+        return int(2 * per_block * self.n_blocks)
 
     def utilization(self) -> float:
         """Fraction of allocated slots actually holding tokens (1 - frag),
@@ -134,13 +148,14 @@ def init_paged(cfg: ModelConfig, max_batch: int, n_blocks: int,
                block_size: int = 16, dtype="bfloat16",
                max_len: int = 4096, prefix_cache: bool = False,
                device="cuda") -> PagedState:
-    """Build a pool on ``device``. ``prefix_cache=True`` enables prompt-
-    prefix sharing (the Engine turns it on by default)."""
+    """Build a pool of ``n_blocks`` blocks (and the scratch block) on
+    ``device``. ``prefix_cache=True`` enables prompt-prefix sharing (the
+    Engine turns it on by default)."""
     dtype = torch_dtype(dtype)
     hd = cfg.resolved_head_dim
     L, KV = cfg.num_layers, cfg.num_kv_heads
     max_blocks = -(-max_len // block_size)
-    shape = (L, n_blocks, KV, block_size, hd)
+    shape = (L, n_blocks + 1, KV, block_size, hd)
     return PagedState(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -403,10 +418,10 @@ def scatter_plan(state: PagedState, slots, S: int,
                  lengths: Optional[Sequence[int]] = None):
     """Host half of a batched S-token append for G slots: per-token
     (block, offset) scatter indices, flattened [G*S]. Pad positions
-    (``>= lengths[i]``) and unallocated columns point at the out-of-range
-    block ``n_blocks`` (the reference's drop index; ``landing_rows``
-    filters them). ADVANCES ``state.lengths`` and stamps the write epoch
-    — callers must execute the device scatter they planned."""
+    (``>= lengths[i]``) and unallocated columns point at block
+    ``n_blocks`` (the reference's drop index; here the scratch block).
+    ADVANCES ``state.lengths`` and stamps the write epoch — callers must
+    execute the device scatter they planned."""
     bs = state.block_size
     if lengths is None:
         lengths = [S] * len(slots)
@@ -427,15 +442,16 @@ def scatter_plan(state: PagedState, slots, S: int,
     return bidx, np.concatenate(offs)
 
 
-def landing_rows(state: PagedState, bidx, oidx, device):
-    """Filter a ``scatter_plan`` to the rows that land (block <
-    n_blocks), on ``device``: (rows, blocks, offsets). The filtering
-    also removes duplicate indices — every dropped row points at the
-    same block — whose write order torch leaves undefined."""
-    rows = np.nonzero(np.asarray(bidx) < state.n_blocks)[0]
-    return (to_device(rows.astype(np.int64), device),
-            to_device(np.asarray(bidx)[rows].astype(np.int64), device),
-            to_device(np.asarray(oidx)[rows].astype(np.int64), device))
+def scatter_rows(pool_k, pool_v, bidx, oidx, k_rows, v_rows):
+    """Write N token rows into the pool in place, at a fixed shape:
+    ``k_rows``/``v_rows`` [L, N, KV, hd] land at blocks ``bidx`` and
+    offsets ``oidx`` ([N] long tensors on the pool's device); dropped rows
+    carry the scratch block's index. Shared by ``write_tokens_batch`` and
+    the engine's chunk prefill."""
+    # pool is [L, n_blocks + 1, KV, bs, hd]: advanced indices at axes 1
+    # and 3 move to the front, so updates are laid out [N, L, KV, hd]
+    pool_k[:, bidx, :, oidx] = k_rows.transpose(0, 1).to(pool_k.dtype)
+    pool_v[:, bidx, :, oidx] = v_rows.transpose(0, 1).to(pool_v.dtype)
 
 
 def write_tokens_batch(state: PagedState, slots, k_new, v_new,
@@ -444,27 +460,34 @@ def write_tokens_batch(state: PagedState, slots, k_new, v_new,
 
     k_new/v_new: [L, G, S, KV, hd] — S is the (possibly padded) group
     length; ``lengths`` gives each request's TRUE new-token count (default
-    S for all). Pad positions are filtered out. Requires allocate() first,
-    and every written column must be OWNED by its slot (the engine forks
-    shared columns via ``ensure_writable`` before). Writes the pool in
-    place and returns ``state``.
+    S for all). Pad positions land in the scratch block. Requires
+    allocate() first, and every written column must be OWNED by its slot
+    (the engine forks shared columns via ``ensure_writable`` before).
+    Writes the pool in place and returns ``state``.
     """
     L, G, S = k_new.shape[:3]
     bidx, oidx = scatter_plan(state, slots, S, lengths)
-    rows, blk, off = landing_rows(state, bidx, oidx, state.k.device)
-    # pool is [L, n_blocks, KV, bs, hd]: advanced indices at axes 1 and 3
-    # move to the front, so updates are laid out [N, L, KV, hd]
-    kf = k_new.reshape(L, G * S, *k_new.shape[3:]).transpose(0, 1)[rows]
-    vf = v_new.reshape(L, G * S, *v_new.shape[3:]).transpose(0, 1)[rows]
-    state.k[:, blk, :, off] = kf.to(state.k.dtype)
-    state.v[:, blk, :, off] = vf.to(state.v.dtype)
+    dev = state.k.device
+    scatter_rows(state.k, state.v, to_device(bidx.astype(np.int64), dev),
+                 to_device(oidx.astype(np.int64), dev),
+                 k_new.reshape(L, G * S, *k_new.shape[3:]),
+                 v_new.reshape(L, G * S, *v_new.shape[3:]))
     return state
 
 
 # --------------------------------------------------- migration wire format
-def _to_wire(t: torch.Tensor):
-    """Pool blocks as a finished host array: (array, dtype tag). bf16
-    travels as its raw bits (``np.uint16``) under the tag "bfloat16"."""
+WIRES = ("bits", "float32")
+
+
+def _to_wire(t: torch.Tensor, wire: str = "bits"):
+    """Pool blocks as a finished host array: (array, dtype tag). On the
+    ``"bits"`` wire bf16 travels as its raw bits (``np.uint16``) under
+    the tag "bfloat16"; on the ``"float32"`` wire every pool type
+    travels as float32, untagged."""
+    if wire not in WIRES:
+        raise ValueError(f"unknown migration wire {wire!r} (one of {WIRES})")
+    if wire == "float32":
+        return fetch(t.float()), None
     if t.dtype == torch.bfloat16:
         return fetch(t.view(torch.int16)).view(np.uint16), "bfloat16"
     return fetch(t), None
@@ -484,7 +507,8 @@ def _from_wire(a, tag, dtype, device) -> torch.Tensor:
 
 
 def export_blocks(state: PagedState, slot: int,
-                  since_epoch: Optional[int] = None) -> Dict:
+                  since_epoch: Optional[int] = None,
+                  wire: str = "bits") -> Dict:
     """Serialize one request's KV to the block-granular migration wire
     format: the live block-table COLUMNS (absolute position //
     block_size; sliding-window holes are preserved), the pool blocks at
@@ -498,7 +522,9 @@ def export_blocks(state: PagedState, slot: int,
 
     ``since_epoch`` selects the DELTA wire format: only columns whose
     current block was written after that epoch are shipped. The payload's
-    ``epoch`` is the pool's write epoch at export time."""
+    ``epoch`` is the pool's write epoch at export time. ``wire`` picks
+    how the block arrays travel (module docstring): ``"bits"`` for a port
+    peer, ``"float32"`` for a peer that converts arrays by value."""
     cols = np.nonzero(state.block_tables[slot] >= 0)[0].astype(np.int32)
     if since_epoch is not None and len(cols):
         ids_np = state.block_tables[slot, cols]
@@ -506,8 +532,8 @@ def export_blocks(state: PagedState, slot: int,
         cols = cols[dirty]
     ids = upload(state.block_tables[slot, cols].astype(np.int64),
                  state.k.device)
-    k, tag = _to_wire(state.k.index_select(1, ids))   # [L, n, KV, bs, hd]
-    v, _ = _to_wire(state.v.index_select(1, ids))
+    k, tag = _to_wire(state.k.index_select(1, ids), wire)  # [L,n,KV,bs,hd]
+    v, _ = _to_wire(state.v.index_select(1, ids), wire)
     keys = {}
     for c in cols:
         b = int(state.block_tables[slot, c])

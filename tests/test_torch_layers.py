@@ -176,8 +176,11 @@ def test_apply_gqa(mode, dtype):
 
 
 def _pool_pair(jcfg, dtype, rng, n_blocks=12, bs=4, B=3, width=5):
+    """Pools of ``n_blocks`` real blocks and the port's scratch block
+    last (the reference takes ``pool[:, :n_blocks]``)."""
     KV, hd = jcfg.num_kv_heads, jcfg.resolved_head_dim
-    pool = rng.standard_normal((2, n_blocks, KV, bs, hd)).astype(np.float32)
+    pool = rng.standard_normal((2, n_blocks + 1, KV, bs, hd)).astype(
+        np.float32)
     tables = np.full((B, width), -1, np.int32)
     tables[0, :3] = [4, 7, 1]
     tables[1, :1] = [9]
@@ -206,7 +209,7 @@ def test_apply_gqa_paged(gqa, impl, dtype):
     want, wk, wv = jit(
         JL.apply_gqa_paged,
         jp, _j(x, dtype), jcfg, positions=jnp.asarray(positions),
-        pool_k=_j(pool[0], dtype), pool_v=_j(pool[1], dtype),
+        pool_k=_j(pool[0, :-1], dtype), pool_v=_j(pool[1, :-1], dtype),
         block_tables=jnp.asarray(tables), active=jnp.asarray(active),
         impl=impl, interpret=True)
     got, gk, gv = TL.apply_gqa_paged(
@@ -216,8 +219,8 @@ def test_apply_gqa_paged(gqa, impl, dtype):
         active=torch.from_numpy(active), impl=impl)
     _close(got[torch.from_numpy(active)], np.asarray(want, np.float32)[active],
            tol)
-    _close(gk, wk, tol)
-    _close(gv, wv, tol)
+    _close(gk[:-1], wk, tol)
+    _close(gv[:-1], wv, tol)
 
 
 def test_apply_gqa_paged_softcap_window_route_to_gather():
@@ -234,7 +237,8 @@ def test_apply_gqa_paged_softcap_window_route_to_gather():
         want, _, _ = jit(
             JL.apply_gqa_paged,
             jp, jnp.asarray(x), jcfg, positions=jnp.asarray(lengths[:, None]),
-            pool_k=jnp.asarray(pool[0]), pool_v=jnp.asarray(pool[1]),
+            pool_k=jnp.asarray(pool[0, :-1]),
+            pool_v=jnp.asarray(pool[1, :-1]),
             block_tables=jnp.asarray(tables), active=jnp.asarray(active),
             window=window, impl="gather")
         got, _, _ = TL.apply_gqa_paged(

@@ -77,8 +77,10 @@ def _book(st):
 
 def _assert_same_pool(j, t):
     assert _book(j) == _book(t)
-    np.testing.assert_array_equal(_bits(np.asarray(j.k)), _bits(t.k))
-    np.testing.assert_array_equal(_bits(np.asarray(j.v)), _bits(t.v))
+    # the real blocks: the port's pool also holds its scratch block
+    n = t.n_blocks
+    np.testing.assert_array_equal(_bits(np.asarray(j.k)), _bits(t.k[:, :n]))
+    np.testing.assert_array_equal(_bits(np.asarray(j.v)), _bits(t.v[:, :n]))
 
 
 def _assert_same_payload(jp, tp):
@@ -239,6 +241,69 @@ def test_bf16_blocks_cross_framework(tiny):
     jids = jnp.asarray(jd.block_tables[1, :2])
     np.testing.assert_array_equal(_bits(np.asarray(jd.k[:, jids])),
                                   tpay["k"])
+
+
+def test_bf16_float32_wire_reference_import(tiny):
+    """The float32 wire (fault C4): a port bf16 pool exported as plain
+    float32 arrays, untagged, at twice the bytes of the bits wire; the
+    reference's ``import_blocks`` (which converts arrays by value) lands
+    it bit-equal to the source pool, and so does the port's own import.
+    A bf16 -> float32 -> bf16 round trip is exact."""
+    kv = _kv(tiny, 13, 6)
+    js, ts = _pools(tiny, 16, dtype="bfloat16")
+    _write(js, ts, 0, kv)
+    bits = PK.export_blocks(ts, 0)
+    wide = PK.export_blocks(ts, 0, wire="float32")
+    assert wide["k"].dtype == np.float32 and "kv_dtype" not in wide
+    assert wide["nbytes"] == 2 * bits["nbytes"] == wide["k"].nbytes * 2
+    ids = torch.from_numpy(ts.block_tables[0, :2].astype(np.int64))
+    src_k, src_v = _bits(ts.k[:, ids]), _bits(ts.v[:, ids])
+    jd, td = _pools(tiny, 8, dtype="bfloat16")
+    JPK.import_blocks(jd, 1, wide)
+    jids = jnp.asarray(jd.block_tables[1, :2])
+    np.testing.assert_array_equal(_bits(np.asarray(jd.k[:, jids])), src_k)
+    np.testing.assert_array_equal(_bits(np.asarray(jd.v[:, jids])), src_v)
+    PK.import_blocks(td, 1, wide)
+    tids = torch.from_numpy(td.block_tables[1, :2].astype(np.int64))
+    np.testing.assert_array_equal(_bits(td.k[:, tids]), src_k)
+    np.testing.assert_array_equal(_bits(td.v[:, tids]), src_v)
+    with pytest.raises(ValueError, match="wire"):
+        PK.export_blocks(ts, 0, wire="uint16")
+
+
+def test_float32_wire_through_the_engine_and_migrate_blocks(tiny):
+    """The wire choice reaches the callers that build payloads: a bf16
+    port engine's pause and snapshot payloads on the float32 wire resume
+    on another port engine token-identically to the bits wire, and
+    ``core.migration.migrate_blocks`` counts the bytes it shipped."""
+    _, _, tcfg, tp = tiny
+
+    def bf16(tree):
+        return ({k: bf16(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.to(torch.bfloat16))
+    tp = bf16(tp)
+    rows = [(0, _prompts()[0], 8, 0.8, 16, 3)]
+    kw = dict(max_batch=1, max_len=64, block_size=8, dtype="bfloat16")
+    out = {}
+    for wire in ("bits", "float32"):
+        a, b = (Engine(tcfg, tp, device="cpu", **kw) for _ in range(2))
+        req = a.submit(specs(rows, jax_side=False)[0])
+        for _ in range(2):
+            a.step()
+        snap = a.snapshot_request(req.slot, wire=wire)
+        assert (snap["kv"]["k"].dtype == np.float32) == (wire == "float32")
+        payload = a.pause_request(req.slot, wire=wire)
+        assert b.resume_request(payload)
+        out[wire] = b.run_until_done()[0].generated
+    assert out["bits"] == out["float32"]
+    src, dst = _pools(tiny, 8, dtype="bfloat16")[1], _pools(
+        tiny, 8, dtype="bfloat16")[1]
+    PK.allocate(src, 0, 13)
+    PK.write_tokens(src, 0, torch.from_numpy(_kv(tiny, 13, 7)),
+                    torch.from_numpy(_kv(tiny, 13, 8)))
+    payload, cost = MIG.migrate_blocks(src, dst, 0, 0, wire="float32")
+    assert cost.bytes_moved == payload["nbytes"] == 2 * 2 * 2 * (
+        tcfg.num_layers * tcfg.num_kv_heads * 8 * tcfg.resolved_head_dim * 2)
 
 
 def _cross_payload(payload, req_cls):

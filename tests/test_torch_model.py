@@ -201,8 +201,9 @@ def test_forward_paged(variant, dtype, impl):
     got, tn, _ = TT.forward_paged(tp, tcfg, torch.from_numpy(toks), th,
                                   attn_impl=impl)
     _close(got[torch.from_numpy(active)], np.asarray(want)[active], tol)
-    _close(tn["k"], jn["k"], tol)
-    _close(tn["v"], jn["v"], tol)
+    # the real blocks: the port's pool also holds its scratch block
+    _close(tn["k"][:, :-1], jn["k"], tol)
+    _close(tn["v"][:, :-1], jn["v"], tol)
     np.testing.assert_array_equal(tn["lengths"].numpy(), jn["lengths"])
 
 
