@@ -71,7 +71,26 @@ prints no ``ok`` line):
    It prints bytes moved, the
    stop-the-world time and the two-phase stall per request, and
    ``fit_migration_model`` on the card beside ``estimate_cost``'s
-   defaults.
+   defaults;
+8. the remote plane at full width: two engine-server processes brought
+   up by ``launch.pod.launch_pod`` on the one card (each its own CUDA
+   context, phase 5's engine settings, phase 5's weights sent over the
+   wire as the init stream), driven by an ``Orchestrator`` over TCP
+   loopback. First an ``Ingress`` in front: 8 prompts (phase 5's
+   lengths, other tokens) as HTTP completions, the even ones streamed,
+   every stream token-identical to the same requests on an in-process
+   engine per server (same weights and ``max_batch``); then phase 5's
+   workload on server 0 moved to server 1 stop-the-world, and its warm
+   workload moved two-phase (3 overlap steps), over the RPC wire: every
+   moved block read back bit-equal from server 1 and every stream
+   token-identical to phase 5's. Each server reports through ``info``
+   its pid and device (gated to be a CUDA child, not this process), its
+   paged launches (gated: layers x its decode steps) and its host syncs
+   per steady step (gated: 1); nothing dropped; both servers are joined
+   and must exit 0. It prints each server's bring-up (spawn to
+   connection, weight bytes and seconds, first ready), TTFT and tok/s
+   over HTTP, each server's steady step, and bytes and ms per request
+   moved over RPC beside phase 7's in-process figures.
 
 It then prints a JSON line of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Longer
@@ -87,8 +106,10 @@ import functools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -714,6 +735,11 @@ def workload(cfg, seed=SEED):
     return prompts, sampled
 
 
+#: phase 5's engine settings, shared by phase 8's engine servers
+ENGINE_KW = dict(max_batch=8, max_len=1024, block_size=16, dtype="bfloat16",
+                 scheduler="budget", prefix_sharing=True)
+
+
 def run_engine(
     Engine,
     RequestSpec,
@@ -739,17 +765,8 @@ def run_engine(
     from repro_torch.serving import instrument as INS
 
     eng = eng or Engine(
-        cfg,
-        params,
-        max_batch=8,
-        max_len=1024,
-        block_size=16,
-        dtype="bfloat16",
-        paged_attn_impl=impl,
-        scheduler="budget",
-        prefix_sharing=True,
-        device="cuda",
-        cuda_graphs=cuda_graphs,
+        cfg, params, paged_attn_impl=impl, device="cuda", cuda_graphs=cuda_graphs,
+        **ENGINE_KW
     )
     reqs = []
     for i, p in enumerate(prompts):
@@ -1281,6 +1298,320 @@ def scaling_phase(mods, work, reference, smi, device="cuda"):
         f"50 GB/s; fitted estimate of the stop-the-world moves {per_req * 1e3:.3f} "
         f"ms against {sum(r.seconds for r in stw) * 1e3:.3f} ms measured [{smi}]"
     )
+    return stw, ov
+
+
+# ------------------------------------------------------- the remote plane
+def http_send(port, body):
+    """Open a connection and POST ``body`` to /v1/completions."""
+    s = socket.create_connection(("127.0.0.1", port), timeout=600)
+    payload = json.dumps(body).encode()
+    s.sendall(
+        b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+        b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n"
+        % len(payload) + payload
+    )
+    return s
+
+
+def http_read(s, out):
+    """Read one response to its end into ``out``: the raw bytes, and the
+    host time of the first token event of a stream."""
+    data, first = b"", None
+    try:
+        while chunk := s.recv(65536):
+            data += chunk
+            if first is None and b'"token":' in data:
+                first = time.perf_counter()
+    finally:
+        s.close()
+    out.update(raw=data, first=first, end=time.perf_counter())
+
+
+def http_result(raw):
+    """(status, instance, tokens) of a unary or an SSE completion."""
+    head, _, body = raw.partition(b"\r\n\r\n")
+    status = int(head.split(b" ")[1])
+    if b"transfer-encoding: chunked" not in head.lower():
+        obj = json.loads(body)
+        return status, obj.get("routing", {}).get("instance"), obj.get("tokens")
+    events, rest = [], body
+    while rest:
+        size, _, rest = rest.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        events.append(rest[:n].removeprefix(b"data: ").strip())
+        rest = rest[n + 2:]
+    if events[-1] != b"[DONE]":
+        raise AssertionError(f"stream ended with {events[-1][:80]!r}")
+    first = json.loads(events[0])
+    toks = [json.loads(e)["token"] for e in events[1:-1]]
+    return status, first["instance"], toks
+
+
+def serve_http(Ingress, orch, cfg, prompts, sampled, smi):
+    """Phase 8's HTTP part: the prompts as completions through an
+    ``Ingress`` in front of ``orch`` over loopback, the even ones
+    streamed. The pump is held until every request is accepted, so each
+    server admits its share, in acceptance order, before its first step.
+    Returns [(instance, tokens)] in prompt order."""
+    ing = Ingress(orch, model_id=cfg.name, govern_budget=False).start()
+    try:
+        ing.hold_pump.set()
+        outs, threads = [], []
+        for i, p in enumerate(prompts):
+            temp, top_k = (0.8, 8) if i in sampled else (0.0, 0)
+            body = {"prompt": [int(t) for t in p], "max_tokens": 32,
+                    "temperature": temp, "top_k": top_k, "seed": 100 + i,
+                    "stream": i % 2 == 0}
+            s = http_send(ing.port, body)
+            deadline = time.monotonic() + 60
+            while ing.counters.requests < i + 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"request {i} never accepted")
+                time.sleep(0.002)
+            out = {}
+            th = threading.Thread(target=http_read, args=(s, out), daemon=True)
+            th.start()
+            outs.append(out)
+            threads.append(th)
+        t0 = time.perf_counter()
+        ing.hold_pump.clear()
+        for th in threads:
+            th.join(timeout=600)
+            if th.is_alive():
+                raise AssertionError("an HTTP completion never finished")
+    finally:
+        ing.close()
+    results = []
+    for i, out in enumerate(outs):
+        status, inst, toks = http_result(out["raw"])
+        if status != 200 or len(toks) != 32:
+            raise AssertionError(f"request {i}: HTTP {status}, {toks}")
+        results.append((inst, toks))
+    ttft = sorted(o["first"] - t0 for o in outs if o["first"] is not None)
+    wall = max(o["end"] for o in outs) - t0
+    n_tok = sum(len(t) for _, t in results)
+    log(
+        f"[remote] HTTP: {len(prompts)} completions ({len(ttft)} streamed) "
+        f"routed to servers {[inst for inst, _ in results]}; from the pump's "
+        f"release: first streamed token median {ttft[len(ttft) // 2] * 1e3:.1f} "
+        f"ms, max {ttft[-1] * 1e3:.1f} ms; output {n_tok / wall:.1f} tok/s "
+        f"({n_tok} tokens in {wall:.3f} s); ingress counters "
+        f"{ing.counters.as_dict()} [{smi}]"
+    )
+    return results
+
+
+def engine_streams(Engine, RS, SP, cfg, params, prompts, sampled, order, kw):
+    """rid -> tokens of ``order``'s prompts submitted together to one
+    fresh in-process engine (phase 8's reference)."""
+    eng = Engine(cfg, params, **kw)
+    for i in order:
+        temp, top_k = (0.8, 8) if i in sampled else (0.0, 0)
+        sampling = SP(temperature=temp, top_k=top_k, seed=100 + i)
+        eng.submit(RS(rid=i, prompt=prompts[i], max_tokens=32, sampling=sampling))
+    return {r.rid: r.generated for r in eng.run_until_done()}
+
+
+def remote_setup(orch, RS, SP, prompts, sampled, base):
+    """The prompts submitted to server 0 as rids ``base + i``, stepped
+    until none prefills and every stream has at least 4 tokens."""
+    src = orch.instances[0]
+    orch.finished.clear()
+    rids = [base + i for i in range(len(prompts))]
+    for i, p in enumerate(prompts):
+        temp, top_k = (0.8, 8) if i in sampled else (0.0, 0)
+        sampling = SP(temperature=temp, top_k=top_k, seed=100 + i)
+        orch._home[rids[i]] = 0
+        src.submit(RS(rid=rids[i], prompt=p, max_tokens=32, sampling=sampling))
+    while True:
+        orch.step()
+        streams = orch.stream_view()
+        if (not src.queue_len() and len(src.active_rids()) == len(rids)
+                and all(len(streams.get(r, ())) >= 4 for r in rids)):
+            return
+
+
+def check_remote_imported(dst, payloads):
+    """Every block shipped in ``payloads`` (snapshot parts first, then the
+    pause deltas) must sit bit for bit in ``dst``'s pool, read back with
+    the server's own export (``snapshot_request``) of each moved slot.
+    Returns the count of blocks checked."""
+    blocks = shipped(payloads)
+    slot_of = {rid: slot for slot, rid in dst.active_rids().items()}
+    n = 0
+    for rid, by_col in blocks.items():
+        back = dst.snapshot_request(slot_of[rid])["kv"]
+        if back.get("kv_dtype") != "bfloat16":
+            raise AssertionError(f"rid={rid}: read back {back.get('kv_dtype')}")
+        cols = [int(c) for c in back["cols"]]
+        if cols != sorted(by_col):
+            raise AssertionError(
+                f"rid={rid}: columns {cols} vs shipped {sorted(by_col)}"
+            )
+        for j, c in enumerate(cols):
+            k, v = by_col[c]
+            same_k = np.array_equal(back["k"][:, j], k)
+            if not (same_k and np.array_equal(back["v"][:, j], v)):
+                raise AssertionError(f"rid={rid} column {c}: imported block differs")
+        n += len(cols)
+    return n
+
+
+def remote_streams(orch, reference, base, what):
+    """Run ``orch`` to the end; stream ``base + i`` must equal
+    ``reference[i]``."""
+    orch.run_until_done()
+    got = {r.rid - base: r.generated for r in orch.finished}
+    if orch.dropped or sorted(got) != sorted(reference):
+        raise AssertionError(f"{what}: dropped {orch.dropped}, finished {sorted(got)}")
+    bad = [i for i in reference if got[i] != reference[i]]
+    if bad:
+        raise AssertionError(f"{what}: streams differ from the in-process run: {bad}")
+
+
+def remote_phase(mods, work, references, in_process, smi, device="cuda", kw=ENGINE_KW):
+    """Phase 8 (module docstring). ``mods``: (launch_pod, Node, Orchestrator,
+    Ingress, transport, Engine, RequestSpec, SamplingParams); ``work``:
+    (cfg, params, sampled); ``references``: {"http": prompts, "stw": (prompts,
+    rid -> tokens), "two-phase": (prompts, rid -> tokens)}, each rid -> tokens
+    of an unmigrated in-process engine with all the prompts at ``max_batch``;
+    ``in_process``: phase 7's (stop-the-world, two-phase) records."""
+    launch_pod, Node, Orchestrator, Ingress, TR, Engine, RS, SP = mods
+    cfg, params, sampled = work
+    L = cfg.num_layers
+    ports = [int(TR.free_tcp_endpoint().rsplit(":", 1)[1]) for _ in range(2)]
+    nodes = [Node(host="127.0.0.1", port=p, capacity=1, spawn=True) for p in ports]
+    t = time.perf_counter()
+    handles = launch_pod(cfg, params, nodes, pod_timeout=600, device=device, **kw)
+    log(f"[remote] launch_pod: 2 engine servers up in {time.perf_counter() - t:.3f} s")
+    procs = [h.process for h in handles]
+    orch = None
+    try:
+        for k, h in enumerate(handles):
+            info, b = h.info(), h.bringup
+            if info["pid"] == os.getpid() or not info["device"].startswith(device):
+                raise AssertionError(
+                    f"server {k}: pid {info['pid']} on {info['device']}"
+                )
+            log(
+                f"[remote] server {k}: pid {info['pid']} on {info['device']} "
+                f"({info['device_name']}), {h.endpoint}; bring-up: spawn to "
+                f"connection {b['connect_s']:.3f} s, weights {b['weight_bytes']} B "
+                f"in {b['weights_s']:.3f} s "
+                f"({b['weight_bytes'] / b['weights_s'] / 1e9:.3f} GB/s), first "
+                f"ready {b['ready_s']:.3f} s [{smi}]"
+            )
+        orch = Orchestrator(cfg, params, handles=handles, telemetry_every=10_000)
+
+        # 1. HTTP completions through the ingress
+        prompts = references["http"]
+        results = serve_http(Ingress, orch, cfg, prompts, sampled, smi)
+        for k in (0, 1):
+            order = [i for i, (inst, _) in enumerate(results) if inst == k]
+            if not order:
+                continue
+            want = engine_streams(Engine, RS, SP, cfg, params, prompts, sampled,
+                                  order, dict(kw, device=device))
+            bad = [i for i in order if results[i][1] != want[i]]
+            if bad:
+                raise AssertionError(f"HTTP streams of server {k} differ: {bad}")
+        log(
+            "[remote] HTTP streams token-identical to the same requests on an "
+            "in-process engine per server (same weights, max_batch "
+            f"{kw['max_batch']}), dropped {orch.dropped}"
+        )
+
+        # 2. stop-the-world 0 -> 1 over the RPC wire
+        prompts, want = references["stw"]
+        remote_setup(orch, RS, SP, prompts, sampled, base=100)
+        paused = []
+        capture(orch.instances[0], "pause_request", paused)
+        recs = orch.migrate_requests(0, 1)
+        if len(recs) != len(prompts) or not all(r.resumed for r in recs):
+            raise AssertionError(
+                f"stop-the-world: {[(r.rid, r.resumed) for r in recs]}"
+            )
+        n = check_remote_imported(
+            orch.instances[1], [(p["request"].rid, p["kv"]) for p, _ in paused]
+        )
+        if orch.instances[0].blocks_in_use() or orch.instances[0].active_rids():
+            raise AssertionError("stop-the-world: the source server still holds blocks")
+        stw = sorted(recs, key=lambda r: r.rid)
+        remote_streams(orch, want, 100, "stop-the-world over RPC")
+        log(
+            f"[remote] stop-the-world 0 -> 1 over RPC: {len(stw)} requests resumed, "
+            f"{n} imported blocks bit-equal to the payloads (read back from "
+            f"server 1), streams token-identical, dropped 0; bytes per request "
+            f"{[r.bytes_moved for r in stw]}, ms per request (pause -> resume) "
+            f"{ms_list(r.seconds for r in stw)}; phase 7 in-process: bytes "
+            f"{[r.bytes_moved for r in in_process[0]]}, ms "
+            f"{ms_list(r.seconds for r in in_process[0])} [{smi}]"
+        )
+
+        # 3. two-phase 0 -> 1 over the RPC wire
+        prompts, want = references["two-phase"]
+        remote_setup(orch, RS, SP, prompts, sampled, base=200)
+        snaps, paused = [], []
+        capture(orch.instances[0], "snapshot_request", snaps)
+        capture(orch.instances[0], "pause_request", paused)
+        recs = orch.migrate_requests_overlapped(0, 1, overlap_steps=3)
+        if len(recs) != len(prompts) or not all(r.resumed for r in recs):
+            raise AssertionError(f"two-phase: {[(r.rid, r.resumed) for r in recs]}")
+        n = check_remote_imported(
+            orch.instances[1],
+            [(s["rid"], s["kv"]) for s, _ in snaps]
+            + [(p["request"].rid, p["kv"]) for p, _ in paused],
+        )
+        ov = sorted(recs, key=lambda r: r.rid)
+        remote_streams(orch, want, 200, "two-phase over RPC")
+        log(
+            f"[remote] two-phase 0 -> 1 over RPC (3 overlap steps): {len(ov)} "
+            f"requests resumed, {n} imported blocks bit-equal to snapshot + delta, "
+            f"streams token-identical, dropped 0; bytes per request "
+            f"{[r.bytes_moved for r in ov]}, delta bytes "
+            f"{[r.delta_bytes for r in ov]}, "
+            f"stall ms {ms_list(r.stall_s for r in ov)}, whole move ms "
+            f"{ms_list(r.seconds for r in ov)}; phase 7 in-process: stall ms "
+            f"{ms_list(r.stall_s for r in in_process[1])} [{smi}]"
+        )
+
+        # 4. each server's own counters
+        for k, h in enumerate(handles):
+            h.refresh_info()
+            info = h.info()
+            steps, launches = info["decode_steps"], info["paged_launches"]
+            syncs = info["steady_syncs"]
+            cuda = device == "cuda"
+            if cuda and (launches != L * steps or steps == 0):
+                raise AssertionError(
+                    f"server {k}: {launches} paged launches for {steps} steps"
+                )
+            if set(syncs) != {"1"}:
+                raise AssertionError(f"server {k}: host syncs per steady step {syncs}")
+            med, lo, hi, n_steady = info["steady_ms"]
+            log(
+                f"[remote] server {k}: {steps} decode steps, paged_decode_attention "
+                f"launches {launches} (= {L} x {steps}); graph captures "
+                f"{info['graph_captures']}, replays {info['graph_replays']}; host "
+                f"syncs per steady step {syncs}; steady step median {med:.3f} ms, "
+                f"min {lo:.3f}, max {hi:.3f} over {n_steady} steps (two servers "
+                f"time-slice one card) [{smi}]"
+            )
+        if orch.dropped:
+            raise AssertionError(f"dropped {orch.dropped}")
+    finally:
+        if orch is not None:
+            orch.close()
+        else:
+            for h in handles:
+                h.close()
+    codes = [(p.pid, p.exitcode) for p in procs]
+    if any(p.is_alive() for p in procs) or any(c != 0 for _, c in codes):
+        raise AssertionError(f"engine servers (pid, exit code): {codes}")
+    log(f"[remote] engine servers joined, (pid, exit code) {codes}")
 
 
 def main():
@@ -1302,7 +1633,10 @@ def main():
     from repro_torch.serving import graphs as GR
     from repro_torch.serving import instrument as INS
     from repro_torch.serving import paged_kv as PK
+    from repro_torch.launch.pod import Node, launch_pod
+    from repro_torch.serving import transport as TR
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.ingress import Ingress
     from repro_torch.serving.orchestrator import Orchestrator
     from repro_torch.serving.request import RequestSpec, SamplingParams
 
@@ -1572,8 +1906,23 @@ def main():
     t = time.perf_counter()
     reference = {r.rid: r.generated for r in reqs}
     mods = (PD, GR, INS, MIG, MetricsSnapshot, Orchestrator, RequestSpec, SamplingParams)
-    scaling_phase(mods, (cfg, params, prompts, sampled), reference, smi)
+    work = (cfg, params, prompts, sampled)
+    in_process = scaling_phase(mods, work, reference, smi)
     log(f"[scaling] phase 7 in {time.perf_counter() - t:.1f} s")
+
+    # phase 8: the remote plane at full width
+    del eng
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    references = {
+        "http": workload(cfg, seed=SEED + 2)[0],
+        "stw": (prompts, reference),
+        "two-phase": (warm_prompts, {r.rid: r.generated for r in wreqs}),
+    }
+    mods = (launch_pod, Node, Orchestrator, Ingress, TR, Engine, RequestSpec,
+            SamplingParams)
+    remote_phase(mods, (cfg, params, sampled), references, in_process, smi)
+    log(f"[remote] phase 8 in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,11 +33,10 @@ all:
   handle's ``inflight_requests`` mirror.
 
 Counterpart of ``repro.serving.instance`` for the port: ``pristine``,
-``Completed``, ``InstanceHandle`` and ``LocalInstance``. The remote
-handle (``remote_engine.EngineProxy``) is not ported yet (ROADMAP A7,
-remote half). Where the reference waits for its pool arrays after an
-import, ``LocalInstance`` waits for the engine's device
-(``instrument.synchronize``: a no-op on the CPU).
+``Completed``, ``InstanceHandle`` and ``LocalInstance``; the remote
+handle is ``remote_engine.EngineProxy``. Where the reference waits for
+its pool arrays after an import, ``LocalInstance`` waits for the
+engine's device (``instrument.synchronize``: a no-op on the CPU).
 """
 from __future__ import annotations
 

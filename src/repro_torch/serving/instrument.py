@@ -23,9 +23,10 @@ kind of step (``"decode"``, ``"chunk"``, ``"sample"``), beside the sync
 counter: a steady decode step replays its graph and makes one host sync,
 the fetch; the first step of each static key captures instead.
 
-``FaultCounters``, ``EngineTelemetry`` and ``timed_step`` are copies of
-the reference's: the orchestrator folds them into
-``core.monitor.MetricsSnapshot``.
+``FaultCounters``, ``IngressCounters``, ``EngineTelemetry`` and
+``timed_step`` are copies of the reference's: the orchestrator folds
+them into ``core.monitor.MetricsSnapshot``, the ingress serves its
+counters at ``GET /stats``.
 """
 from __future__ import annotations
 
@@ -88,6 +89,25 @@ class FaultCounters:
                 "evictions": self.evictions,
                 "detect_p50_s": self.detect_quantile(0.50),
                 "detect_p95_s": self.detect_quantile(0.95)}
+
+
+@dataclasses.dataclass
+class IngressCounters:
+    """Front-door counters, owned by ``serving.ingress.Ingress`` (one
+    per server). Surfaced by ``GET /stats`` next to the orchestrator's
+    MetricsSnapshot (routed_prefix vs routed_vacancy is the
+    affinity-hit ledger; rejected_429 the backpressure one)."""
+    requests: int = 0         # completions requests accepted
+    streamed: int = 0         # of those, served with stream=true
+    rejected_429: int = 0     # admissions shed by backpressure
+    bad_requests: int = 0     # malformed -> HTTP 400
+    tokens_out: int = 0       # tokens flushed to clients
+    routed_prefix: int = 0    # admissions routed by chain affinity
+    routed_vacancy: int = 0   # admissions routed by vacancy fallback
+    aborted_streams: int = 0  # streams cut by shutdown / client hangup
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 class EngineTelemetry:

@@ -54,13 +54,13 @@ The telemetry -> controller -> operation dataflow, the block-migration
 wire format, and the two-phase migration timeline are documented in
 DESIGN.md (§3, §4, §7).
 
-Counterpart of ``repro.serving.orchestrator`` for the port, over
-``LocalInstance``s (or the ``handles=[...]`` it is given): the same
+Counterpart of ``repro.serving.orchestrator`` for the port: the same
 control loop, with ``**engine_kw`` (``device`` among them) passed to
-each ``Engine``, so without ``device="cpu"`` it needs a CUDA card. The
-instances share the card, and migration moves blocks between their
-pools on it. ``remote=True`` raises: the engine server and its proxy
-are not ported yet (ROADMAP A7, remote half).
+each ``Engine``, so without ``device="cpu"`` it needs a CUDA card.
+In-process instances share the card, and migration moves blocks between
+their pools on it; with ``remote=True`` each instance is an engine-server
+process (``remote_engine.EngineProxy``) with its own CUDA context on the
+same card, and the ``device`` travels in its init stream.
 """
 from __future__ import annotations
 
@@ -167,10 +167,13 @@ class Orchestrator:
         if handles is not None:
             self.instances: List[InstanceHandle] = list(handles)
         elif remote:
-            raise NotImplementedError(
-                "remote=True needs the engine server and its proxy "
-                "(serving/remote_engine.py), not ported yet (ROADMAP A7, "
-                "remote half)")
+            from repro_torch.serving.remote_engine import EngineProxy
+            self.instances = [
+                EngineProxy(cfg, params, max_batch=max_batch,
+                            max_len=max_len, dtype=dtype,
+                            block_size=block_size, n_blocks=n_blocks,
+                            **engine_kw)
+                for _ in range(n_instances)]
         else:
             self.instances = [
                 LocalInstance(Engine(cfg, params, max_batch=max_batch,

@@ -60,8 +60,8 @@ catches its exception types and waits on its ``Pending`` /
 ``drain_pendings``. The msgpack hook rebuilds the port's ``Request`` and
 ``RequestSpec``. A migration payload is numpy throughout — a bf16 pool
 ships its blocks as raw ``uint16`` bits (``paged_kv.export_blocks``) — so
-it needs no framework type on the wire. The engine-server side
-(``remote_engine.py``) is not ported yet (ROADMAP A7, remote half).
+it needs no framework type on the wire. The engine server and its
+proxy (``remote_engine.py``) serve and call over it.
 """
 from __future__ import annotations
 

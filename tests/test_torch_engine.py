@@ -217,7 +217,9 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.core.replication, repro_torch.core.scale_up, "
             "repro_torch.core.scale_down, repro_torch.serving.instance, "
             "repro_torch.serving.orchestrator, "
-            "repro_torch.serving.transport; "
+            "repro_torch.serving.transport, "
+            "repro_torch.serving.remote_engine, repro_torch.serving.ingress, "
+            "repro_torch.launch.pod, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")

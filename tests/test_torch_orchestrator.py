@@ -310,13 +310,31 @@ def test_apply_plan_is_token_invariant(tiny, monkeypatch):
         e.apply_plan([2])
 
 
+class _ProxyRecorder(LocalInstance):
+    """Stands in for ``remote_engine.EngineProxy``: records the keywords
+    the remote branch passes and serves from an in-process engine."""
+    calls = []
+
+    def __init__(self, cfg, params, **kw):
+        _ProxyRecorder.calls.append(kw)
+        super().__init__(Engine(cfg, params, cache_kind="paged", **kw))
+
+
 def test_device_and_remote_rules(tiny, monkeypatch):
-    """No device and no CUDA: the orchestrator refuses; remote
-    instances wait for the remote half of A7."""
+    """No device and no CUDA: the orchestrator refuses. ``remote=True``
+    builds one ``EngineProxy`` per instance, the engine settings and the
+    device passed to each."""
     _, _, tcfg, tp = tiny
     assert R.replication_group_size("cpu") == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Orchestrator(tcfg, tp, remote=True, device="cpu")
+    monkeypatch.setattr("repro_torch.serving.remote_engine.EngineProxy",
+                        _ProxyRecorder)
+    monkeypatch.setattr(_ProxyRecorder, "calls", [])
+    orch = Orchestrator(tcfg, tp, remote=True, device="cpu", max_len=64,
+                        n_instances=2)
+    assert [type(h) for h in orch.instances] == [_ProxyRecorder] * 2
+    assert _ProxyRecorder.calls == [dict(
+        max_batch=4, max_len=64, dtype="float32", block_size=16,
+        n_blocks=None, device="cpu")] * 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Orchestrator(tcfg, tp, max_len=64)
