@@ -15,15 +15,18 @@ prints no ``ok`` line):
    and of its tile sizes +-1; decode of one 30000-token row of a 32768
    cache over many splits, and lengths on split boundaries; paged decode
    with -1 table entries past and below a row's length, lengths on and
-   beside its split and block boundaries, block sizes 16, 32 and 128 and a
-   one-column table; the SSD scan at b 1 and 2, one chunk and several),
+   beside its split and block boundaries, block sizes 16, 32 and 128, a
+   one-column table, and qwen2-moe-a2.7b's MHA shape (H = KV = 16, D 128)
+   at the main path's mid-decode lengths and on ragged lengths with a
+   length-0 row; the SSD scan at b 1 and 2, one chunk and several),
    with the count of tensor-core instructions (``cuobjdump -sass``: HGMMA
    in each bf16 flash kernel, HMMA in each bf16 SSD kernel with products)
    and each split-K decode call's grid; then each timed beside its bound,
    its plain version's time and the library call's (SDPA for the attention
    kernels; none for the paged and SSD kernels), with each kernel's share
    of a call's critical path from the profiler: paged decode at the main
-   path's decode shapes, flash at tinyllama-1.1b and gemma-7b prefill
+   path's decode shapes (tinyllama-1.1b's heads, and qwen2-moe-a2.7b's
+   for phase 9), flash at tinyllama-1.1b and gemma-7b prefill
    widths (S 2048), dense decode at tinyllama's (B 8, S 1024), the SSD
    scan at mamba2-780m's (L 2048);
 4. a small fp32 decode step on the card (kernel) against the same step on
@@ -90,7 +93,26 @@ prints no ``ok`` line):
    and must exit 0. It prints each server's bring-up (spawn to
    connection, weight bytes and seconds, first ready), TTFT and tok/s
    over HTTP, each server's steady step, and bytes and ms per request
-   moved over RPC beside phase 7's in-process figures.
+   moved over RPC beside phase 7's in-process figures;
+9. qwen2-moe-a2.7b at full width, after phases 5-8's weights and engines
+   are freed: random bf16 weights (fp32 router) from a seeded
+   torch.Generator, 60 routed experts padded to 64, top-4, 4 shared,
+   every MoE layer through the scatter dispatch; phase 5's engine
+   settings and workload (prompts below qwen's vocab), once through CUDA
+   graphs and once eager, each cold and then warm, with phase 5's gates
+   (streams token-identical, launches = layers x decode steps, replays =
+   steps - captures, no capture in the warm run, one host sync per
+   steady step under sync-debug "error"); one decode step's logits
+   through the kernel against the gather path (relative L2 2e-2, bf16);
+   a profiled window of 4 steady graph steps; then one stop-the-world
+   move of all 8 decoding requests to a second engine sharing the
+   weights dict (every imported block bit-equal to its payload, 3 host
+   syncs per move, streams token-identical to the unmigrated graph run).
+   It prints the weight bytes held and the peak memory, the steady step
+   beside the weight-read bound (every weight but the embedding over
+   3.35 TB/s), TTFT and tok/s, the captures, and the move's bytes and ms.
+   The paged kernel's launches in the JSON line add phase 9's to phase
+   5's.
 
 It then prints a JSON line of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Longer
@@ -103,6 +125,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -222,28 +245,32 @@ def paged_grid(PD, B, KV, width, bs):
     return f"grid {B * KV}x{n_split} (splits of {span})"
 
 
-def check_paged_decode(PD):
+def check_paged_decode(PD, mid_lens):
     """Kernel against plain version on ragged cases: a length-0 row, -1
     entries past every row's blocks and a -1 hole below one row's length
     (it reads block 0); lengths on and beside the split and block
     boundaries of the main path's grid (width 64, bs 16: 16 splits of
-    64); block sizes 16, 32 and 128 (spans of whole blocks). Returns the
-    max abs error seen."""
+    64); block sizes 16, 32 and 128 (spans of whole blocks); and
+    qwen2-moe-a2.7b's decode shape (MHA, H = KV = 16, D 128) at the main
+    path's mid-decode lengths ``mid_lens`` and on ragged lengths with a
+    length-0 row. Returns the max abs error seen."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [  # (B, H, KV, bs, lengths, table width or None: just enough + 2)
-        (8, 32, 4, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
-        (3, 8, 2, 16, [20, 7, 33], None),
-        (8, 32, 4, 16, [64, 128, 0, 65, 63, 640, 1, 1024], 64),
-        (4, 8, 2, 32, [32, 31, 0, 500], 32),
-        (2, 8, 2, 128, [130, 256], 4),
-        (1, 32, 4, 16, [1], 1),
+    cases = [  # (B, H, KV, D, bs, lengths, table width or None: just enough + 2)
+        (8, 32, 4, 64, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
+        (3, 8, 2, 64, 16, [20, 7, 33], None),
+        (8, 32, 4, 64, 16, [64, 128, 0, 65, 63, 640, 1, 1024], 64),
+        (4, 8, 2, 64, 32, [32, 31, 0, 500], 32),
+        (2, 8, 2, 64, 128, [130, 256], 4),
+        (1, 32, 4, 64, 16, [1], 1),
+        (8, 16, 16, 128, 16, mid_lens, 64),
+        (8, 16, 16, 128, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
-        for B, H, KV, bs, lens, width in cases:
+        for B, H, KV, D, bs, lens, width in cases:
             width = width or max(-(-n // bs) for n in lens) + 2
             n_blocks = max(128, sum(-(-n // bs) for n in lens) + 8)
-            args = paged_inputs(gen, B, H, KV, 64, bs, lens, n_blocks, width, dtype)
+            args = paged_inputs(gen, B, H, KV, D, bs, lens, n_blocks, width, dtype)
             out = PD.paged_decode_attention(*args).float()
             ref = PD.paged_decode_attention_ref(*args).float()
             torch.cuda.synchronize()
@@ -254,7 +281,7 @@ def check_paged_decode(PD):
                 raise AssertionError("length-0 row is not exactly zero")
             worst = max(worst, err)
             log(
-                f"[kernel] paged_decode {dtype} B={B} H={H} KV={KV} bs={bs} "
+                f"[kernel] paged_decode {dtype} B={B} H={H} KV={KV} D={D} bs={bs} "
                 f"width={width} lengths={lens} {paged_grid(PD, B, KV, width, bs)} "
                 f"max_abs_err={err:.3e} (tol {tol})"
             )
@@ -263,7 +290,7 @@ def check_paged_decode(PD):
 
 def time_paged_decode(PD, cfg, lengths, width, smi, n_sets=64):
     """Kernel, plain version and bound at the main path's decode shapes:
-    bf16, tinyllama's heads, the engine's block size and table width,
+    bf16, ``cfg``'s heads, the engine's block size and table width,
     and the row lengths halfway through the engine run's decode. Each of
     ``n_sets`` calls reads its own blocks of one large pool."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -818,6 +845,128 @@ def run_engine(
     return eng, reqs, stats
 
 
+def serve_graphs_and_eager(engine_args, PD, GR, work, smi):
+    """The main path's gated runs: the workload through a fresh engine's
+    CUDA graphs, then its warm workload (same lengths, other tokens) on
+    the same engine; the same two through a fresh eager engine. The
+    launch counts are reset just before and read just after each engine's
+    runs. Gates: every request 32 in-vocab tokens, launches = layers x
+    decode steps, decode replays = steps - captures and no capture in the
+    warm run, one host sync per steady step, prefix hits, and the graph
+    and eager streams token-identical. ``work``: (prompts, warm prompts,
+    sampled). Returns {"graphs" / "eager": (reqs, warm reqs, stats,
+    launches)}."""
+    prompts, warm_prompts, sampled = work
+    cfg = engine_args[3]
+    runs = {}
+    for what, graphs in (("graphs", True), ("eager", False)):
+        PD.paged_decode_attention.launches = 0
+        eng, reqs, stats = run_engine(
+            *engine_args, "kernel", prompts, sampled, strict_sync=True,
+            cuda_graphs=graphs
+        )
+        raw = PD.paged_decode_attention.launches
+        launches = GR.launches_run(PD.paged_decode_attention, [eng.graphs])
+        steps = stats["decode_steps"]
+        engine_report(what, eng, reqs, stats, launches, raw, smi)
+        _, wreqs, wstats = run_engine(
+            *engine_args, "kernel", warm_prompts, sampled, strict_sync=True, eng=eng
+        )
+        wlaunches = GR.launches_run(PD.paged_decode_attention, [eng.graphs]) - launches
+        wraw = PD.paged_decode_attention.launches - raw
+        wsteps = wstats["decode_steps"]
+        for r in reqs + wreqs:
+            if len(r.generated) != 32 or not r.done:
+                raise AssertionError(f"{what} rid={r.rid}: {len(r.generated)} tokens")
+            if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
+                raise AssertionError(f"{what} rid={r.rid}: token out of range")
+        L = cfg.num_layers
+        if launches != L * steps or steps == 0 or wlaunches != L * wsteps:
+            raise AssertionError(
+                f"{what}: {launches} / {wlaunches} kernel launches for {steps} / "
+                f"{wsteps} decode steps x {L} layers"
+            )
+        counts = eng.graphs.counts
+        if graphs and (
+            counts.replays["decode"] != steps + wsteps - counts.captures["decode"]
+            or wstats["captures"]
+        ):
+            raise AssertionError(
+                f"decode replays {dict(counts.replays)} for {steps} + {wsteps} "
+                f"steps, captures {dict(counts.captures)}, in the warm run "
+                f"{wstats['captures']}"
+            )
+        if not graphs and (counts.captures or counts.replays):
+            raise AssertionError(f"eager run captured {dict(counts.captures)}")
+        for st in (stats, wstats):
+            if set(st["steady_syncs"]) != {1}:
+                raise AssertionError(
+                    f"{what}: host syncs per steady step {st['steady_syncs']}"
+                )
+        pstats = eng.prefix_stats()
+        if pstats["hits"] < 2:
+            raise AssertionError(f"prefix-cache hits: {pstats}")
+        engine_report(f"{what}, warm", eng, wreqs, wstats, wlaunches, wraw, smi)
+        runs[what] = (reqs, wreqs, stats, launches)
+        del eng
+    reqs, wreqs = runs["graphs"][:2]
+    for a, b in zip(reqs + wreqs, runs["eager"][0] + runs["eager"][1]):
+        if a.generated != b.generated:
+            raise AssertionError(f"graph and eager streams differ: rid {a.rid}")
+    log(
+        f"[engine] {cfg.name}: graph and eager runs token-identical for all "
+        f"{len(reqs)} requests of each workload (the sampled ones included); "
+        f"prefix hits {pstats['hits']}, cow forks {pstats['cow_forks']}"
+    )
+    return runs
+
+
+def logit_probe(T, cfg, out, fp32):
+    """A ``run_engine`` probe: one decode step's logits through the kernel
+    and through the gather path, on the engine's live pool (both write
+    the same new K/V at the same place, so the state is unchanged), in
+    bf16 (``out["rel_err"]``, ``out["max_abs"]``, ``out["finite"]``) and,
+    with ``fp32``, again with weights and pool widened (TF32 off), where
+    the two paths differ only by summation order (``out["rel_err32"]``)."""
+
+    def probe(eng):
+        st = eng.pstate
+        toks = np.zeros((eng.max_batch, 1), np.int64)
+        act = np.zeros((eng.max_batch,), bool)
+        for s, r in eng.active.items():
+            toks[s, 0] = r.generated[-1]
+            act[s] = True
+        need = int(st.lengths[act].max()) // st.block_size + 1
+        nb = 1 << (need - 1).bit_length()  # the engine's pow2 table width
+        tables = np.ascontiguousarray(st.block_tables[:, :nb])
+        handle = {
+            "k": st.k,
+            "v": st.v,
+            "block_tables": torch.from_numpy(tables).cuda(),
+            "lengths": torch.from_numpy(st.lengths.copy()).cuda(),
+            "active": torch.from_numpy(act).cuda(),
+        }
+        tk = torch.from_numpy(toks).cuda()
+
+        def rel_err(params, h):
+            got = {
+                impl: T.forward_paged(params, cfg, tk, h, attn_impl=impl)[0][act]
+                for impl in ("kernel", "gather")
+            }
+            out["finite"] = bool(torch.isfinite(got["kernel"]).all())
+            d = got["kernel"].float() - got["gather"].float()
+            rel = (d.norm() / got["gather"].float().norm()).item()
+            return rel, d.abs().max().item()
+
+        out["rel_err"], out["max_abs"] = rel_err(eng.params, handle)
+        if fp32:
+            p32 = _tree_map(lambda t: t.float(), eng.params)
+            h32 = dict(handle, k=st.k.float(), v=st.v.float())
+            out["rel_err32"], _ = rel_err(p32, h32)
+
+    return probe
+
+
 def capture_report(graphs):
     """Per step kind: captures, and the median warm-up and capture ms."""
     by_kind = {}
@@ -908,6 +1057,157 @@ def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None):
     log(f"[profile] {head}; idle share {idle:.3f}; top device time per step: {top5}")
     if sink is not None:
         sink[tag] = busy_us / 1e3 / n
+
+
+# ------------------------------------------------ qwen2-moe at full width
+MOE_ARCH = "qwen2-moe-a2.7b"
+
+
+def moe_phase(mods, get_config, out_dir, smi):
+    """Phase 9 (module docstring): qwen2-moe-a2.7b at full width through
+    the paged engine. Returns the paged kernel's launches in the graph
+    engine's cold run (the main path's run of this phase)."""
+    Engine, RS, SP, PD, GR, INS, T, Orchestrator, MIG, MOE = mods
+    cfg = get_config(MOE_ARCH)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, gen, "bfloat16")
+    torch.cuda.synchronize()
+    weight_bytes = MIG.tree_bytes(params)
+    # the scatter dispatch's bytes: a decode step reads every weight but
+    # the embedding table (8 rows of it), for it runs every expert's
+    # buffer, padding experts included
+    step_bytes = weight_bytes - MIG.tree_bytes(params, "^embed")
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    moe = params["layers"]["moe"]
+    expert_bytes = sum(  # one routed expert's weights in one layer
+        w[0, 0].numel() * w.element_size()
+        for w in (moe["w_gate"], moe["w_up"], moe["w_down"])
+    )
+    log(
+        f"[moe] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"H={cfg.num_heads}, KV={cfg.num_kv_heads}, {cfg.num_experts} experts "
+        f"padded to {moe['w_gate'].shape[1]}, top-{cfg.num_experts_per_tok}, "
+        f"{cfg.num_shared_experts} shared, d_ff={cfg.d_ff}, "
+        f"vocab={cfg.vocab_size}; router {moe['router'].dtype}, experts "
+        f"{moe['w_gate'].dtype}; weights {weight_bytes} B in "
+        f"{time.perf_counter() - t:.1f} s (device memory held before: {before} B); "
+        f"weight bytes the scatter dispatch's decode step reads {step_bytes} B, "
+        f"bound {bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s [{smi}]"
+    )
+    prompts, sampled = workload(cfg)
+    warm_prompts, _ = workload(cfg, seed=SEED + 1)
+    engine_args = (Engine, RS, SP, cfg, params)
+    runs = serve_graphs_and_eager(
+        engine_args, PD, GR, (prompts, warm_prompts, sampled), smi
+    )
+    reqs, wreqs, stats, launches = runs["graphs"]
+    for what, (_, _, st, _) in runs.items():
+        ms = st["steady_step_ms"]
+        log(
+            f"[moe] {what}, cold: steady decode step median "
+            f"{ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max {ms[-1]:.3f}) "
+            f"against the scatter dispatch's weight-read bound {bound_ms:.3f} ms "
+            f"({bound_ms / ms[len(ms) // 2]:.1%} of bound) [{smi}]"
+        )
+
+    # kernel vs gather (bf16) on a fresh graph engine's live pool, then a
+    # profiled window of 4 steady steps on the same engine
+    probe_out, busy, routed, rows = {}, {}, [], []
+    check = logit_probe(T, cfg, probe_out, fp32=False)
+    profile = functools.partial(
+        profile_decode, out_dir=out_dir, smi=smi, tag="_moe", sink=busy
+    )
+
+    def probe(eng):
+        # record each layer's routing in the probe's first (kernel) step
+        act = sorted(eng.active)
+        rows.append(len(act))
+        route = MOE.route
+
+        def recording(p, x, c):
+            out = route(p, x, c)
+            if len(routed) < c.num_layers:
+                routed.append(out[1][act].unique().numel())
+            return out
+
+        MOE.route = recording
+        try:
+            check(eng)
+        finally:
+            MOE.route = route
+        profile(eng)
+
+    run_engine(*engine_args, "kernel", prompts, sampled, probe=probe)
+    rel = probe_out["rel_err"]
+    if not probe_out.get("finite") or rel > 2e-2:
+        raise AssertionError(
+            f"{cfg.name} kernel vs gather logits: relative error {rel:.3e} "
+            f"(tol 2e-2), finite {probe_out.get('finite')}"
+        )
+    log(
+        f"[moe] one decode step, kernel vs gather logits: relative L2 error "
+        f"{rel:.3e} in bf16 (tol 2e-2), max abs {probe_out['max_abs']:.3e}"
+    )
+    ms = stats["steady_step_ms"]
+    median = ms[len(ms) // 2]
+    E = moe["w_gate"].shape[1]
+    routed_bytes = step_bytes - (E * cfg.num_layers - sum(routed)) * expert_bytes
+    routed_ms = routed_bytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"[moe] routed-only bound: one decode step's {rows[0]} rows "
+        f"route to {sum(routed)} of {E * cfg.num_layers} (layer, expert) pairs "
+        f"(per layer {routed}); those experts' weights plus the rest of the "
+        f"step's weights are {routed_bytes} B, bound {routed_ms:.3f} ms; the "
+        f"graph step's median {median:.3f} ms runs at {routed_ms / median:.1%} "
+        f"of this bound [{smi}]"
+    )
+    log(
+        f"[moe] graphs: device busy {busy['_moe']:.3f} ms per steady step "
+        f"(profiled) against the unprofiled steady step's median {median:.3f} "
+        f"ms: idle share outside the profiler {1 - busy['_moe'] / median:.3f} "
+        f"[{smi}]"
+    )
+
+    # one stop-the-world move of all 8 decoding requests to a second
+    # engine that shares the weights dict
+    reference = {r.rid: r.generated for r in reqs}
+    orch, oreqs = scaling_setup(
+        Orchestrator, RS, SP, (cfg, params, prompts, sampled), "cuda"
+    )
+    if orch.engines[0].params is not orch.engines[1].params:
+        raise AssertionError("the two engines do not share one weights dict")
+    paused = []
+    for h in orch.instances:
+        capture(h, "pause_request", paused)
+    with sync_errors("cuda"), INS.count_host_syncs() as syncs:
+        recs = orch.migrate_requests(0, 1)
+    check_moved(orch, recs, oreqs, f"{cfg.name} stop-the-world")
+    if syncs.n != 3 * len(recs):
+        raise AssertionError(f"{syncs.n} host syncs for {len(recs)} moves")
+    blocks = shipped([(p["request"].rid, p["kv"]) for p, _ in paused])
+    n_checked = check_imported(orch.engines[1], blocks)
+    block_bytes = cfg.num_layers * 2 * cfg.num_kv_heads * 16 * cfg.resolved_head_dim * 2
+    recs = sorted(recs, key=lambda r: r.rid)
+    total = sum(r.bytes_moved for r in recs)
+    check_streams(orch, reference, f"{cfg.name} stop-the-world")
+    log(
+        f"[moe] stop-the-world: {len(recs)} requests 0 -> 1, {n_checked} imported "
+        f"blocks ({block_bytes} B of K/V each) bit-equal to their payload, "
+        f"{syncs.n} host syncs under sync-debug error; streams token-identical "
+        f"to the unmigrated graph run, dropped 0; bytes per request "
+        f"{[r.bytes_moved for r in recs]}, total {total} B; wall per request "
+        f"(pause -> resume) ms {ms_list(r.seconds for r in recs)}, total "
+        f"{sum(r.seconds for r in recs) * 1e3:.3f} ms [{smi}]"
+    )
+    peak = torch.cuda.max_memory_allocated()
+    log(
+        f"[moe] weights held {weight_bytes} B; peak device memory allocated in "
+        f"phase 9 {peak} B [{smi}]"
+    )
+    return launches
 
 
 # ------------------------------------------------------------ kernel API
@@ -1626,6 +1926,7 @@ def main():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import moe as MOE
     from repro_torch.models import ssm
     from repro_torch.models import transformer as T
     from repro_torch.core import migration as MIG
@@ -1659,12 +1960,14 @@ def main():
     (out_dir / "chip_smoke_build.log").write_text(build_log)
 
     # phase 3: kernels against their plain versions
-    err = check_paged_decode(PD)
     cfg = get_config("tinyllama-1.1b")
     prompts, sampled = workload(cfg)
     mid_lens = [len(p) + 16 for p in prompts]  # halfway through decode
+    err = check_paged_decode(PD, mid_lens)
     width = 64  # pow2 bucket of the widest table prefix on the main path
     ms, plain_ms, bound_ms, bound_by = time_paged_decode(PD, cfg, mid_lens, width, smi)
+    # phase 9's shape: qwen2-moe-a2.7b's heads, the same lengths
+    moe_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens, width, smi)
     errs = {"flash": check_flash(FA), "decode": check_decode(DA), "ssd": check_ssd(SS)}
     log(
         f"[kernel] flash_attention bf16 tensor-core instructions (cuobjdump -sass "
@@ -1704,108 +2007,14 @@ def main():
     # then serves a second workload of the same lengths (other tokens),
     # warm: every graph key it needs is captured already
     warm_prompts, _ = workload(cfg, seed=SEED + 1)
-    runs = {}
-    for what, graphs in (("graphs", True), ("eager", False)):
-        PD.paged_decode_attention.launches = 0
-        eng, reqs, stats = run_engine(
-            *engine_args, "kernel", prompts, sampled, strict_sync=True,
-            cuda_graphs=graphs
-        )
-        raw = PD.paged_decode_attention.launches
-        launches = GR.launches_run(PD.paged_decode_attention, [eng.graphs])
-        steps = stats["decode_steps"]
-        engine_report(what, eng, reqs, stats, launches, raw, smi)
-        _, wreqs, wstats = run_engine(
-            *engine_args, "kernel", warm_prompts, sampled, strict_sync=True, eng=eng
-        )
-        wlaunches = GR.launches_run(PD.paged_decode_attention, [eng.graphs]) - launches
-        wraw = PD.paged_decode_attention.launches - raw
-        wsteps = wstats["decode_steps"]
-        for r in reqs + wreqs:
-            if len(r.generated) != 32 or not r.done:
-                raise AssertionError(f"{what} rid={r.rid}: {len(r.generated)} tokens")
-            if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
-                raise AssertionError(f"{what} rid={r.rid}: token out of range")
-        L = cfg.num_layers
-        if launches != L * steps or steps == 0 or wlaunches != L * wsteps:
-            raise AssertionError(
-                f"{what}: {launches} / {wlaunches} kernel launches for {steps} / "
-                f"{wsteps} decode steps x {L} layers"
-            )
-        counts = eng.graphs.counts
-        if graphs and (
-            counts.replays["decode"] != steps + wsteps - counts.captures["decode"]
-            or wstats["captures"]
-        ):
-            raise AssertionError(
-                f"decode replays {dict(counts.replays)} for {steps} + {wsteps} "
-                f"steps, captures {dict(counts.captures)}, in the warm run "
-                f"{wstats['captures']}"
-            )
-        if not graphs and (counts.captures or counts.replays):
-            raise AssertionError(f"eager run captured {dict(counts.captures)}")
-        for st in (stats, wstats):
-            if set(st["steady_syncs"]) != {1}:
-                raise AssertionError(
-                    f"{what}: host syncs per steady step {st['steady_syncs']}"
-                )
-        pstats = eng.prefix_stats()
-        if pstats["hits"] < 2:
-            raise AssertionError(f"prefix-cache hits: {pstats}")
-        engine_report(f"{what}, warm", eng, wreqs, wstats, wlaunches, wraw, smi)
-        runs[what] = (reqs, wreqs, stats, launches)
-    reqs, wreqs, stats, launches = runs["graphs"]
-    for a, b in zip(reqs + wreqs, runs["eager"][0] + runs["eager"][1]):
-        if a.generated != b.generated:
-            raise AssertionError(f"graph and eager streams differ: rid {a.rid}")
-    log(
-        f"[engine] graph and eager runs token-identical for all {len(reqs)} "
-        f"requests of each workload (the sampled ones included); prefix hits "
-        f"{pstats['hits']}, cow forks {pstats['cow_forks']}"
+    runs = serve_graphs_and_eager(
+        engine_args, PD, GR, (prompts, warm_prompts, sampled), smi
     )
+    reqs, wreqs, stats, launches = runs["graphs"]
 
     # kernel vs gather: one decode step's logits, and whole greedy streams
     probe_out = {}
-
-    def probe(eng):
-        """One decode step's logits through the kernel and through the
-        gather path, on the engine's live pool (both write the same new
-        K/V at the same place, so the state is unchanged); in bf16, and
-        again in fp32 (weights and pool widened, TF32 off), where the two
-        paths differ only by summation order."""
-        st = eng.pstate
-        toks = np.zeros((eng.max_batch, 1), np.int64)
-        act = np.zeros((eng.max_batch,), bool)
-        for s, r in eng.active.items():
-            toks[s, 0] = r.generated[-1]
-            act[s] = True
-        need = int(st.lengths[act].max()) // st.block_size + 1
-        nb = 1 << (need - 1).bit_length()  # the engine's pow2 table width
-        tables = np.ascontiguousarray(st.block_tables[:, :nb])
-        handle = {
-            "k": st.k,
-            "v": st.v,
-            "block_tables": torch.from_numpy(tables).cuda(),
-            "lengths": torch.from_numpy(st.lengths.copy()).cuda(),
-            "active": torch.from_numpy(act).cuda(),
-        }
-        tk = torch.from_numpy(toks).cuda()
-
-        def rel_err(params, h):
-            got = {
-                impl: T.forward_paged(params, cfg, tk, h, attn_impl=impl)[0][act]
-                for impl in ("kernel", "gather")
-            }
-            probe_out["finite"] = bool(torch.isfinite(got["kernel"]).all())
-            d = got["kernel"].float() - got["gather"].float()
-            rel = (d.norm() / got["gather"].float().norm()).item()
-            return rel, d.abs().max().item()
-
-        probe_out["rel_err"], probe_out["max_abs"] = rel_err(eng.params, handle)
-        p32 = _tree_map(lambda t: t.float(), eng.params)
-        h32 = dict(handle, k=st.k.float(), v=st.v.float())
-        probe_out["rel_err32"], _ = rel_err(p32, h32)
-
+    probe = logit_probe(T, cfg, probe_out, fp32=True)
     _, greqs, _ = run_engine(*engine_args, "gather", prompts, sampled, probe=probe)
     if not probe_out.get("finite"):
         raise AssertionError("non-finite logits on the kernel path")
@@ -1878,6 +2087,15 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            # launches sum both paths; ms .. bound_by above are the first
+            # shape's, and each shape's own numbers follow
+            "shapes": [
+                {"model": cfg.name, "launches": launches, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+                {"model": MOE_ARCH, "launches": None, "ms": moe_paged[0],
+                 "plain_ms": moe_paged[1], "bound_ms": moe_paged[2],
+                 "bound_by": moe_paged[3]},
+            ],
         }
     ]
     ported = [  # (name, key, source file, Pallas function)
@@ -1911,7 +2129,6 @@ def main():
     log(f"[scaling] phase 7 in {time.perf_counter() - t:.1f} s")
 
     # phase 8: the remote plane at full width
-    del eng
     torch.cuda.empty_cache()
     t = time.perf_counter()
     references = {
@@ -1923,6 +2140,19 @@ def main():
             SamplingParams)
     remote_phase(mods, (cfg, params, sampled), references, in_process, smi)
     log(f"[remote] phase 8 in {time.perf_counter() - t:.1f} s")
+
+    # phase 9: qwen2-moe-a2.7b at full width, after phases 5-8's weights
+    # and engines are freed
+    del params, engine_args, work, runs, reqs, wreqs, greqs, greedy, references
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    mods = (Engine, RequestSpec, SamplingParams, PD, GR, INS, T, Orchestrator,
+            MIG, MOE)
+    moe_launches = moe_phase(mods, get_config, out_dir, smi)
+    kernels[0]["launches"] += moe_launches
+    kernels[0]["shapes"][1]["launches"] = moe_launches
+    log(f"[moe] phase 9 in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,9 @@
-"""Decoder stack of the dense GQA family, prefill/decode over a dense cache
-and single-token decode over a paged block pool.
+"""Decoder stack of the dense and MoE GQA families, prefill/decode over a
+dense cache and single-token decode over a paged block pool.
 
 PyTorch counterpart of ``repro.models.transformer`` for the families this
-port covers so far (``dense`` and ``vlm`` decoders with GQA attention).
+port covers so far (``dense``, ``moe`` and ``vlm`` decoders with GQA
+attention; an MoE layer takes the MLP's place, ``models/moe.py``).
 Parameters are a nested dict with the reference's keys and the stacked
 ``[L, ...]`` layer layout, so ``bridge.params_from_numpy`` maps the JAX
 tree key for key; the stack runs as a Python loop over layers.
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 BIG_POS = 2 ** 30
 
@@ -44,10 +46,7 @@ def to_device(a, device) -> torch.Tensor:
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError, naming the ROADMAP item, for what this
     slice of the port does not cover yet."""
-    if cfg.family == "moe" or cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A8)")
-    if cfg.family not in ("dense", "vlm") or cfg.attention_kind != "gqa":
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.attention_kind != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family} attention={cfg.attention_kind} "
             f"is not ported yet (ROADMAP A9: dense cache and other families)")
@@ -57,7 +56,9 @@ def check_supported(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     """Random weights from ``gen`` (on ``gen.device``), with the reference
     tree's keys and shapes; the same distributions as the reference
-    (scaled normal embedding, truncated-normal fan-in dense layers)."""
+    (scaled normal embedding, truncated-normal fan-in dense layers). An
+    MoE config gets ``layers["moe"]`` in place of ``layers["mlp"]``, as
+    the reference's ``_init_decoder_layer`` builds it."""
     check_supported(cfg)
     dtype = torch_dtype(dtype)
     dev = gen.device
@@ -75,8 +76,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
         "norm1": L.init_norm(cfg, dtype, dev, lead=lead),
         "attn": L.init_gqa(cfg, gen, dtype, lead=lead),
         "norm2": L.init_norm(cfg, dtype, dev, lead=lead),
-        "mlp": L.init_mlp(cfg, gen, dtype, lead=lead),
     }
+    if cfg.num_experts > 0:
+        params["layers"]["moe"] = MOE.init_moe(cfg, gen, dtype, lead=lead)
+    else:
+        params["layers"]["mlp"] = L.init_mlp(cfg, gen, dtype, lead=lead)
     return params
 
 
@@ -126,6 +130,17 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 # ================================================================== forwards
+def _mlp_sublayer(lp, x, cfg):
+    """norm2, then the MLP or the MoE layer, then the residual. Returns
+    (x, aux): the MoE's load-balance loss, 0.0 for an MLP."""
+    h = L.apply_norm(lp["norm2"], x, cfg)
+    if "moe" in lp:
+        h, aux = MOE.apply_moe(lp["moe"], h, cfg)
+    else:
+        h, aux = L.apply_mlp(lp["mlp"], h, cfg), 0.0
+    return x + h, aux
+
+
 def _layer_slice(tree, i):
     return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
@@ -152,8 +167,10 @@ def _cache_meta(cache, positions):
 
 def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
                      last_idx=None):
-    """Dense / vlm decoder: train, prefill (attend fresh, write the cache
-    on the side) or decode (write, then attend the cache)."""
+    """Dense / moe / vlm decoder: train, prefill (attend fresh, write the
+    cache on the side) or decode (write, then attend the cache). An MoE
+    layer dispatches over all B x S tokens, a bucket's padding included,
+    as the reference does."""
     has_cache = cache is not None
     x = embed_tokens(params, cfg, tokens)
     if not cfg.use_rope:
@@ -163,6 +180,7 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
         slots, kpos = _cache_meta(cache, positions)
     rope = (L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
             if cfg.use_rope else None)
+    aux = 0.0
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         lc = ({"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i]}
@@ -173,22 +191,22 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
                            window=window, attend_fresh=(mode == "prefill"),
                            rope=rope)
         x = x + h
-        h = L.apply_norm(lp["norm2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+        x, a = _mlp_sublayer(lp, x, cfg)
+        aux = aux + a
 
     new_cache = None
     if has_cache:
         new_cache = dict(cache, positions=kpos,
                          length=(positions[:, -1] + 1).to(torch.int32))
     if mode == "train":
-        return unembed(params, cfg, x), None, 0.0
+        return unembed(params, cfg, x), None, aux
     if last_idx is not None:
         # per-row last REAL token (power-of-two padded prefill buckets:
         # causality keeps positions <= last_idx untouched by the padding)
         x_last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
     else:
         x_last = x[:, -1]
-    return unembed(params, cfg, x_last), new_cache, 0.0
+    return unembed(params, cfg, x_last), new_cache, aux
 
 
 def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
@@ -209,7 +227,8 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
     array and makes no host sync, so a CUDA graph can capture it
     (serving/graphs.py). The pool-write index, lengths, int32 tables and
     rope's tables are computed once per step, at fixed shapes, for every
-    layer. Returns (logits [B, Vpad], new_cache, aux).
+    layer. An MoE layer dispatches ``"auto"``, as the reference's paged
+    step does. Returns (logits [B, Vpad], new_cache, aux).
     """
     if not cfg.supports_paged_kv:
         raise ValueError(f"paged decode needs a GQA attention decoder "
@@ -233,6 +252,7 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
     x = embed_tokens(params, cfg, tokens)
     if not cfg.use_rope:
         x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    aux = 0.0
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         h = L.apply_norm(lp["norm1"], x, cfg)
@@ -241,17 +261,18 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
             pool_v=cache["v"][i], block_tables=meta["tables"], active=active,
             window=window, impl=attn_impl, meta=meta, rope=rope)
         x = x + h
-        h = L.apply_norm(lp["norm2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+        x, a = _mlp_sublayer(lp, x, cfg)
+        aux = aux + a
     new_cache = dict(cache, lengths=lengths + active.to(torch.int32))
-    return unembed(params, cfg, x[:, -1]), new_cache, 0.0
+    return unembed(params, cfg, x[:, -1]), new_cache, aux
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             mode="train", window=None, last_idx=None):
     """Dense-cache entry point (the paged decode step is
     ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
-    (default arange). Returns (logits, new_cache, aux_loss):
+    (default arange). An MoE layer dispatches ``"auto"``.
+    Returns (logits, new_cache, aux_loss):
     train -> full-seq logits [B,S,Vpad]; prefill/decode -> last-token
     [B,Vpad]. ``last_idx`` [B] selects each row's last REAL token instead
     of column -1."""

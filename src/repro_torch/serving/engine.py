@@ -71,6 +71,7 @@ from repro_torch.serving import paged_kv as PK
 from repro_torch.serving import sampling as SMP
 from repro_torch.serving import scheduler as SCH
 from repro_torch.serving.instrument import fetch
+from repro_torch.serving.kvcache import cache_capacity
 from repro_torch.serving.request import MIGRATION_WIRE_VERSION, RequestSpec
 
 
@@ -109,13 +110,6 @@ def _pow2_at_least(n: int) -> int:
     while p < n:
         p <<= 1
     return p
-
-
-def cache_capacity(cfg: ModelConfig, logical_len: int, *, swa: bool = False):
-    """Rows to allocate per request: full length, or the ring window."""
-    if swa and cfg.sliding_window:
-        return min(logical_len, cfg.sliding_window)
-    return logical_len
 
 
 @dataclasses.dataclass(eq=False)  # identity equality: Request holds arrays

@@ -196,9 +196,9 @@ def test_uncovered_options_raise(tiny, monkeypatch):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         Engine(tcfg, tp, device="cpu", cache_kind="dense")
-    moe = get_config("qwen2-moe-a2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Engine(moe, tp, device="cpu")
+    ssm = get_config("mamba2-780m").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        Engine(ssm, tp, device="cpu")
     eng = Engine(tcfg, tp, device="cpu")
     # replication degrees above 1 across several cards wait for A10; on
     # one device (here the CPU) a plan quantizes to all ones
@@ -219,7 +219,9 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.serving.orchestrator, "
             "repro_torch.serving.transport, "
             "repro_torch.serving.remote_engine, repro_torch.serving.ingress, "
-            "repro_torch.launch.pod, repro_torch.launch.serve; "
+            "repro_torch.launch.pod, repro_torch.launch.serve, "
+            "repro_torch.models.moe, repro_torch.serving.kvcache, "
+            "repro_torch.serving.workload, repro_torch.serving.simulator; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -104,6 +104,26 @@ def test_split_model_matches_pallas_and_plain(case):
             assert bool((got[b] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens,n_sm", [([130, 0, 17, 64], 132),
+                                       ([300, 48, 1], 2)])
+def test_split_model_mha_head_dim_128(lens, n_sm, dtype):
+    """qwen2-moe's decode shape: MHA (H = KV = 16, one query head per KV
+    head) at head_dim 128, bs 16, a length-0 row; on a tiny card the
+    splits span several 64-position chunks."""
+    q, pool, tables, ln = _case(lens, 16, 16, 16, 1, False, hd=128)
+    args = _torch(q, pool, tables, ln, dtype)
+    got = PD.paged_decode_attention_split_ref(*args, n_sm=n_sm).float()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.numpy(), _pallas(q, pool, tables, ln, dtype),
+                               rtol=tol, atol=tol)
+    plain = PD.paged_decode_attention_ref(*args).float().numpy()
+    np.testing.assert_allclose(got.numpy(), plain, rtol=tol, atol=tol)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+
+
 @pytest.mark.parametrize("bs", [8, 16, 48, 128])
 @pytest.mark.parametrize("shape", [
     (8, 4, 64),        # chip_smoke's decode step: 16 splits of 64 at bs 16
@@ -133,6 +153,8 @@ def test_plan_values():
     assert PD.plan_paged_splits(8, 4, 1, 16) == (1, 64)
     assert PD.plan_paged_splits(8, 4, 4, 128) == (4, 128)
     assert PD.plan_paged_splits(8, 4, 64, 32) == (16, 128)   # not 17
+    # qwen2-moe's decode step (KV 16): 4 splits of 256
+    assert PD.plan_paged_splits(8, 16, 64, 16) == (4, 256)
     # the engine's pow2 width bucket changes the grid, from shapes alone
     assert [PD.plan_paged_splits(8, 4, w, 16)[0] for w in (8, 16, 32)] \
         == [2, 4, 8]
