@@ -18,7 +18,11 @@ prints no ``ok`` line):
    beside its split and block boundaries, block sizes 16, 32 and 128, a
    one-column table, and qwen2-moe-a2.7b's MHA shape (H = KV = 16, D 128)
    at the main path's mid-decode lengths and on ragged lengths with a
-   length-0 row; the SSD scan at b 1 and 2, one chunk and several),
+   length-0 row; dense decode at zamba2-7b's shared block, H = KV = 32,
+   D 112, the same way; the SSD scan at b 1 and 2, one chunk and
+   several, and at the shapes phase 10's prefills give it: mamba2-780m's
+   and zamba2-7b's heads at each workload prompt length, padded as
+   ``kernels.ops.ssd`` pads it),
    with the count of tensor-core instructions (``cuobjdump -sass``: HGMMA
    in each bf16 flash kernel, HMMA in each bf16 SSD kernel with products)
    and each split-K decode call's grid; then each timed beside its bound,
@@ -27,8 +31,9 @@ prints no ``ok`` line):
    of a call's critical path from the profiler: paged decode at the main
    path's decode shapes (tinyllama-1.1b's heads, and qwen2-moe-a2.7b's
    for phase 9), flash at tinyllama-1.1b and gemma-7b prefill
-   widths (S 2048), dense decode at tinyllama's (B 8, S 1024), the SSD
-   scan at mamba2-780m's (L 2048);
+   widths (S 2048), dense decode at tinyllama's and zamba2-7b's (B 8,
+   S 1024), the SSD scan at mamba2-780m's (L 2048 and 768) and
+   zamba2-7b's (L 768);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -112,7 +117,40 @@ prints no ``ok`` line):
    beside the weight-read bound (every weight but the embedding over
    3.35 TB/s), TTFT and tok/s, the captures, and the move's bytes and ms.
    The paged kernel's launches in the JSON line add phase 9's to phase
-   5's.
+   5's;
+10. the dense-cache engine (``Engine(cache_kind="dense")``), after phase
+   9's weights are freed, at phase 5's engine settings (``max_batch`` 8,
+   ``max_len`` 1024, bf16) and workload (prompts below each model's
+   vocab), each model through graphs and eagerly, cold then warm, with
+   phase 9's gates (streams token-identical, replays = steps - captures,
+   no capture warm, one host sync per steady step) and launch gates
+   (dense decode = attention applications x decode steps, the SSD scan
+   = Mamba2 layers x prefills):
+   a. tinyllama-1.1b (phase 5's weights drawn again): the dense-decode
+      kernel against the gather route on the first steady step (relative
+      L2 2e-2) and whole greedy streams (agreement printed); a dense and
+      a paged engine that each prefilled the 8 prompts whole, one decode
+      step fed the same tokens (2e-2), and the dense streams' agreement
+      with phase 5's;
+   b. the sliding-window ring at the config's own window W = 8192: 2
+      requests of W + W / 64 = 8320-token prompts, 16 new tokens,
+      ``max_len`` W + W / 16 = 8704 (capacity W), once in one shot and
+      once with ``prefill_chunk`` W / 4; the ring wrapped (no row holds
+      position 0); first-token and decode logits against the paged
+      engine with ``swa=True`` on the same requests (2e-2);
+   c. mamba2-780m and d. zamba2-7b at full width, random bf16 weights
+      from a seeded generator (their bytes equal to the reference's
+      ``init_params``): the kernel routes against the plain ones (the
+      SSD kernel against ``ssd_chunked`` on every prompt's first-token
+      logits; the dense-decode kernel against the gather route on the
+      first steady step), ``prefill_chunk=256`` against the one-shot
+      prefill (the last chunk's logits of every prompt, 2e-2; greedy
+      agreement printed), a profiled window of 4 steady graph steps, the
+      steady step beside its weight-read bound (every weight once over
+      3.35 TB/s), the cache bytes and the peak device memory.
+   The dense-decode and SSD rows of the JSON line add the graph runs'
+   cold launches (a: 22 a step, d: 13; c: 48 a prefill, d: 81) to their
+   kernel-API launches, with each timed shape in ``shapes``.
 
 It then prints a JSON line of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Longer
@@ -388,12 +426,16 @@ def check_flash(FA):
     return worst
 
 
-def check_decode(DA):
+def check_decode(DA, mid_lens):
     """Ragged lengths with a length-0 row (exact zeros) and one past S,
     GQA/MHA, D 64/128/256, contiguous and transposed-view caches; one
     30000-token row of a 32768-position cache (132 splits of 256), and
     lengths on and beside the split boundaries of B 8, S 1024 (16 splits
-    of 64)."""
+    of 64); zamba2-7b's shared block (H = KV = 32, D 112, the first head
+    dim that is not a multiple of 32) at the main path's mid-decode
+    lengths and on ragged lengths with a length-0 row, against a
+    transposed view of a [B, 1024, KV, D] cache as the dense engine
+    passes it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [  # (H, KV, S, D, lengths, bshd)
         (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
@@ -401,6 +443,8 @@ def check_decode(DA):
         (16, 16, 300, 256, [300, 5], True),
         (32, 4, 32768, 64, [30000], True),
         (32, 4, 1024, 64, [64, 256, 0, 65, 63, 640, 1, 1024], False),
+        (32, 32, 1024, 112, list(mid_lens), True),
+        (32, 32, 1024, 112, [0, 1, 63, 64, 65, 640, 1023, 1024], True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -527,10 +571,23 @@ def ssd_inputs(gen, b, L, H, G, P, N, dtype):
     return x, dt, A, Bm, Cm
 
 
-def check_ssd(SS):
+def serving_ssd_shapes(cfg, prompt_lens):
+    """The (b, L, H, G, P, N, Q) shapes the dense engine's prefills give
+    the SSD kernel: each prompt alone, L padded as ``kernels.ops.ssd``
+    pads it (to a multiple of Q = min(chunk, L))."""
+    out = []
+    for n in prompt_lens:
+        Q = min(cfg.ssm_chunk, n)
+        out.append((1, -(-n // Q) * Q, cfg.ssm_heads, cfg.ssm_ngroups,
+                    cfg.ssm_head_dim, cfg.ssm_state, Q))
+    return out
+
+
+def check_ssd(SS, serving=()):
     """One and several chunks (one chunk of 96: a query tile of 64 rows and
-    one of 32), b 1 and 2, G > 1, P 32/64, N 16-128, chunks 64-256; y and
-    the final state both held."""
+    one of 32), b 1 and 2, G > 1, P 32/64, N 16-128, chunks 64-256; then
+    the ``serving`` shapes (phase 10's prefills); y and the final state
+    both held."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     cases = [  # (b, L, H, G, P, N, Q)
         (2, 256, 4, 2, 64, 128, 128),
@@ -539,6 +596,7 @@ def check_ssd(SS):
         (2, 512, 4, 1, 64, 128, 256),
         (1, 96, 2, 1, 32, 16, 128),
         (2, 128, 4, 2, 64, 64, 128),
+        *serving,
     ]
     worst = 0.0
     for dtype, tol in SSD_TOLS:
@@ -662,7 +720,8 @@ def ssd_flops(b, L, H, G, P, N, Q):
 
 
 def time_ssd(SS, cfg, L, smi):
-    """bf16 SSD scan at the config's widths; no library call computes it."""
+    """bf16 SSD scan at the config's widths (b 1, L a multiple of the
+    chunk); no library call computes it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     dtype = torch.bfloat16
     H, P, N, G, Q = (
@@ -1010,13 +1069,14 @@ def engine_report(what, eng, reqs, stats, launches, raw, smi):
     )
 
 
-def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None):
+def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None, keep_trace=True):
     """``n`` steady decode steps under torch.profiler, after two that are
     not profiled (so the window replays graphs that exist): device busy
     time (union of kernel / copy / memset intervals in the trace) against
     the host wall time of the same steps, and device time by kernel name.
-    The table goes to ``out_dir/decode_profile{tag}.txt``; ``sink[tag]``
-    gets the device busy ms per step."""
+    The table goes to ``out_dir/decode_profile{tag}.txt`` (the trace to
+    ``decode_trace{tag}.json`` with ``keep_trace``); ``sink[tag]`` gets the
+    device busy ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -1038,6 +1098,8 @@ def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None):
         if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
             spans.append((ev["ts"], ev["ts"] + ev["dur"]))
             by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    if not keep_trace:
+        trace.unlink()
     busy_us, end = 0.0, -1.0
     for a, b in sorted(spans):
         if b > end:
@@ -1914,6 +1976,581 @@ def remote_phase(mods, work, references, in_process, smi, device="cuda", kw=ENGI
     log(f"[remote] engine servers joined, (pid, exit code) {codes}")
 
 
+# ------------------------------------------------ the dense-cache engine
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "zamba2-7b"
+#: phase 10's engine settings: phase 5's batch and length, dense cache
+DENSE_KW = dict(max_batch=8, max_len=1024, dtype="bfloat16", cache_kind="dense")
+#: the weight bytes of the reference's init_params at full width in bf16
+#: (jax.eval_shape of repro.models.transformer.init_params)
+REFERENCE_WEIGHT_BYTES = {SSM_ARCH: 1_560_778_752, HYBRID_ARCH: 13_272_940_096}
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def dense_decode_logits(T, eng, toks=None, params=None, cache=None, **routes):
+    """One decode step's logits for the engine's active rows on its live
+    dense cache (or on ``cache``, a copy of it, with ``params``), through
+    ``routes`` (``attn_impl`` / ``ssd_impl``); the cache is restored after
+    (the step advances the SSM states in place). ``toks`` [B]: the tokens
+    fed (default: each active request's last)."""
+    if toks is None:
+        toks = np.zeros((eng.max_batch,), np.int64)
+        for s, r in eng.active.items():
+            toks[s] = r.generated[-1]
+    cache = eng.cache if cache is None else cache
+    snap = [(t, t.clone()) for t in tree_leaves(cache)]
+    act = sorted(eng.active)
+    pos = torch.from_numpy(eng._host_lengths[:, None].astype(np.int32)).cuda()
+    tk = torch.from_numpy(np.asarray(toks, np.int64)[:, None]).cuda()
+    logits = T.forward(
+        params or eng.params, eng.cfg, tk, pos, cache, mode="decode",
+        window=eng.window, **routes
+    )[0]
+    for t, c in snap:
+        t.copy_(c)
+    return logits[act]
+
+
+def widened(tree):
+    """A copy of a weights or cache tree with every floating leaf in fp32."""
+    return _tree_map(lambda t: t.float() if t.is_floating_point() else t.clone(), tree)
+
+
+@contextlib.contextmanager
+def checked_kernel_calls(out):
+    """Inside, every SSD-kernel call from the zero state (``ops.ssd``) and
+    every dense-decode call (``layers.decode_attention``) is held against
+    its plain version on the same inputs: ``out["ssd"]`` / ``out["decode"]``
+    collect each call's relative L2 (the SSD scan's larger of y and the
+    final state)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.ssm import ssd_chunked
+
+    ssd, dec = ops.ssd, L.decode_attention
+
+    def ssd_checked(x, dt, A, B, C, chunk=128, initial_state=None):
+        y, h = ssd(x, dt, A, B, C, chunk, initial_state)
+        if initial_state is None:
+            yr, hr = ssd_chunked(x, dt, A, B, C, chunk)
+            out.setdefault("ssd", []).append(max(rel_l2(y, yr), rel_l2(h, hr)))
+        return y, h
+
+    def dec_checked(q, k, v, lengths):
+        o = dec(q, k, v, lengths)
+        out.setdefault("decode", []).append(
+            rel_l2(o, decode_attention_ref(q, k, v, lengths)))
+        return o
+
+    ops.ssd, L.decode_attention = ssd_checked, dec_checked
+    try:
+        yield out
+    finally:
+        ops.ssd, L.decode_attention = ssd, dec
+
+
+def paged_decode_logits(T, eng, toks):
+    """One decode step's logits for a paged engine's active rows, fed
+    ``toks`` [B], through the paged kernel (the window's gather where the
+    engine has a window), after the engine's own pre-step allocation of
+    each row's write block."""
+    eng._ensure_decode_room()
+    st = eng.pstate
+    act = np.zeros((eng.max_batch,), bool)
+    act[list(eng.active)] = True
+    handle = {
+        "k": st.k,
+        "v": st.v,
+        "block_tables": torch.from_numpy(st.block_tables.copy()).cuda(),
+        "lengths": torch.from_numpy(st.lengths.copy()).cuda(),
+        "active": torch.from_numpy(act).cuda(),
+    }
+    tk = torch.from_numpy(np.asarray(toks, np.int64)[:, None]).cuda()
+    out = T.forward_paged(eng.params, eng.cfg, tk, handle, window=eng.window,
+                          attn_impl="kernel")[0]
+    return out[sorted(eng.active)]
+
+
+def prefill_logits(T, cfg, params, prompts, max_len, dtype="bfloat16", **routes):
+    """First-token logits [n, Vpad] of each prompt prefilled alone over a
+    fresh batch-1 dense cache of ``max_len`` (the dense engine's
+    admission), through ``routes``."""
+    rows = []
+    for p in prompts:
+        cache = T.init_cache(cfg, 1, max_len, dtype, "cuda")
+        tk = torch.from_numpy(np.asarray(p, np.int64)[None]).cuda()
+        rows.append(T.forward(params, cfg, tk, mode="prefill", cache=cache,
+                              **routes)[0])
+    return torch.cat(rows)
+
+
+def no_worse_than_plain(what, got, plain, truth, tol=2e-2):
+    """bf16 logits of a route (``got``) and of the plain route (``plain``)
+    against the plain route in fp32 (``truth``): the route's relative L2
+    error may exceed the plain route's own by at most ``tol``. Returns
+    both errors."""
+    err, floor = rel_l2(got, truth), rel_l2(plain, truth)
+    if not bool(torch.isfinite(got).all()) or err > floor + tol:
+        raise AssertionError(
+            f"{what}: relative L2 {err:.3e} against fp32, the plain route's "
+            f"{floor:.3e} + {tol}")
+    return err, floor
+
+
+def gate_rel(what, got, want, tol=2e-2):
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    rel = rel_l2(got, want)
+    if rel > tol:
+        raise AssertionError(f"{what}: relative L2 {rel:.3e} > {tol}")
+    return rel
+
+
+def agreement(a_reqs, b_streams):
+    """Greedy tokens equal between requests and rid -> tokens."""
+    pairs = [(r.generated, b_streams[r.rid]) for r in a_reqs if r.temperature == 0]
+    same = sum(x == y for a, b in pairs for x, y in zip(a, b))
+    return same, sum(len(a) for a, _ in pairs)
+
+
+def submit_all(eng, RS, SP, prompts, sampled, max_tokens):
+    reqs = []
+    for i, p in enumerate(prompts):
+        temp, top_k = (0.8, 8) if i in sampled else (0.0, 0)
+        sp = SP(temperature=temp, top_k=top_k, seed=100 + i)
+        reqs.append(eng.submit(RS(rid=i, prompt=p, max_tokens=max_tokens, sampling=sp)))
+    return reqs
+
+
+def serve_dense(mods, cfg, params, work, smi, per_step, per_prefill, tag, **kw):
+    """Phase 5's gated runs on the dense engine: the workload through a
+    fresh engine's CUDA graphs, then its warm workload on the same engine;
+    the same two eagerly. The launch counts are reset just before and read
+    just after each engine's runs. Gates: every request 32 in-vocab
+    tokens, dense-decode launches = ``per_step`` x decode steps, SSD
+    launches = ``per_prefill`` x prefills, dense replays = steps -
+    captures and no capture in the warm run, one host sync per steady
+    step, and the graph and eager streams token-identical. Returns
+    {"graphs" / "eager": (reqs, warm reqs, stats, {"decode", "ssd"}
+    launches of the cold run)}."""
+    Engine, RS, SP, DA, SS, GR = mods
+    prompts, warm_prompts, sampled = work
+    runs = {}
+    for what, graphs in (("graphs", True), ("eager", False)):
+        DA.decode_attention.launches = 0
+        SS.ssd_scan.launches = 0
+        eng = Engine(cfg, params, device="cuda", cuda_graphs=graphs, **DENSE_KW, **kw)
+        counted = []
+        for wl in (prompts, warm_prompts):
+            dec0 = GR.launches_run(DA.decode_attention, [eng.graphs])
+            ssd0 = SS.ssd_scan.launches
+            _, reqs, stats = run_engine(
+                Engine, RS, SP, cfg, params, None, wl, sampled, strict_sync=True, eng=eng
+            )
+            dec = GR.launches_run(DA.decode_attention, [eng.graphs]) - dec0
+            ssd = SS.ssd_scan.launches - ssd0
+            steps = stats["decode_steps"]
+            for r in reqs:
+                if len(r.generated) != 32 or not r.done:
+                    raise AssertionError(f"{what} rid={r.rid}: {len(r.generated)} tokens")
+                if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
+                    raise AssertionError(f"{what} rid={r.rid}: token out of range")
+            if steps == 0 or dec != per_step * steps or ssd != per_prefill * len(wl):
+                raise AssertionError(
+                    f"{cfg.name} {what}: dense-decode launches {dec} for {steps} "
+                    f"steps x {per_step}, SSD launches {ssd} for {len(wl)} "
+                    f"prefills x {per_prefill}"
+                )
+            if set(stats["steady_syncs"]) != {1}:
+                raise AssertionError(f"{what}: host syncs per steady step {stats['steady_syncs']}")
+            counted.append((reqs, stats, dec, ssd))
+        (reqs, stats, dec, ssd), (wreqs, wstats, wdec, wssd) = counted
+        counts = eng.graphs.counts
+        steps, wsteps = stats["decode_steps"], wstats["decode_steps"]
+        if graphs and (
+            counts.replays["dense"] != steps + wsteps - counts.captures["dense"]
+            or wstats["captures"]
+        ):
+            raise AssertionError(
+                f"dense replays {dict(counts.replays)} for {steps} + {wsteps} steps, "
+                f"captures {dict(counts.captures)}, in the warm run {wstats['captures']}"
+            )
+        if not graphs and (counts.captures or counts.replays):
+            raise AssertionError(f"eager run captured {dict(counts.captures)}")
+        for label, rs, st, d, n in (
+            (what, reqs, stats, dec, ssd), (f"{what}, warm", wreqs, wstats, wdec, wssd)
+        ):
+            n_tok = sum(len(r.generated) for r in rs)
+            ttft, ms = st["ttft_s"], st["steady_step_ms"]
+            log(
+                f"[{tag}] {label}: {len(rs)} requests, {n_tok} tokens, "
+                f"{st['decode_steps']} decode steps, dense-decode launches {d} "
+                f"(= {per_step} x {st['decode_steps']}), SSD launches {n} (= "
+                f"{per_prefill} x {len(rs)} prefills); captures in this run "
+                f"{st['captures']}, the engine's so far {dict(counts.captures)}, "
+                f"replays {dict(counts.replays)}, graph pool {eng.graphs.pool_bytes()} "
+                f"B; wall {st['wall_s']:.3f} s, {n_tok / st['wall_s']:.1f} tok/s, "
+                f"first token median {ttft[len(ttft) // 2] * 1e3:.1f} ms max "
+                f"{ttft[-1] * 1e3:.1f} ms; steady step median {ms[len(ms) // 2]:.3f} "
+                f"ms, min {ms[0]:.3f}, max {ms[-1]:.3f} over {len(ms)} steps, host "
+                f"syncs per step {sorted(set(st['steady_syncs']))}; steady steps "
+                f"that captured {st['capture_steps']} [{smi}]"
+            )
+        runs[what] = (reqs, wreqs, stats, {"decode": dec, "ssd": ssd})
+        del eng
+    reqs, wreqs = runs["graphs"][:2]
+    for a, b in zip(reqs + wreqs, runs["eager"][0] + runs["eager"][1]):
+        if a.generated != b.generated:
+            raise AssertionError(f"{cfg.name}: graph and eager streams differ: rid {a.rid}")
+    log(
+        f"[{tag}] {cfg.name}: graph and eager runs token-identical for all "
+        f"{len(reqs)} requests of each workload (the sampled ones included)"
+    )
+    return runs
+
+
+def dense_tinyllama(mods, cfg, params, work, reference, smi):
+    """Phase 10 a: tinyllama-1.1b through the dense cache. Returns the
+    dense-decode launches of the graph engine's cold run."""
+    from repro_torch.core.migration import tree_bytes
+
+    Engine, RS, SP, DA, SS, GR, T, PK = mods
+    prompts, _, sampled = work
+    runs = serve_dense(mods[:6], cfg, params, work, smi, cfg.num_layers, 0, "dense")
+    reqs, _, _, launches = runs["graphs"]
+    eng = Engine(cfg, params, device="cuda", **DENSE_KW)
+    log(
+        f"[dense] {cfg.name}: cache {tree_bytes(eng.cache)} B "
+        f"(K/V [L, B, S, KV, D] = {list(eng.cache['layers']['k'].shape)} bf16, positions, "
+        f"length) [{smi}]"
+    )
+    # kernel vs gather on the first steady step's live cache, in bf16 and
+    # with weights and cache widened to fp32
+    out = {}
+    p32 = widened(params)
+
+    def probe(e):
+        for impl in ("kernel", "gather"):
+            out[impl] = dense_decode_logits(T, e, attn_impl=impl)
+        c32 = widened(e.cache)
+        for impl in ("kernel", "gather"):
+            out[impl, 32] = dense_decode_logits(T, e, params=p32, cache=c32, attn_impl=impl)
+
+    run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, probe=probe, eng=eng)
+    del p32
+    rel = gate_rel("dense kernel vs gather", out["kernel"], out["gather"])
+    rel32 = gate_rel("dense kernel vs gather in fp32", out["kernel", 32], out["gather", 32],
+                     tol=1e-4)
+    gather_eng = Engine(cfg, params, device="cuda", dense_attn_impl="gather", **DENSE_KW)
+    _, gather_reqs, _ = run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled,
+                                   eng=gather_eng)
+    same, total = agreement(reqs, {r.rid: r.generated for r in gather_reqs})
+    log(
+        f"[dense] first steady decode step, kernel vs gather logits: relative L2 "
+        f"{rel:.3e} in bf16 (tol 2e-2), {rel32:.3e} in fp32 (tol 1e-4); greedy tokens "
+        f"equal between the kernel and gather runs {same}/{total} (bf16; not gated) "
+        f"[{smi}]"
+    )
+    del gather_eng, eng
+    # against the paged engine: both admit the 8 prompts (whole-prompt
+    # prefill), then one decode step fed the same tokens
+    paged = Engine(cfg, params, device="cuda", max_batch=8, max_len=1024,
+                   dtype="bfloat16", scheduler="phase", prefix_sharing=False)
+    dense = Engine(cfg, params, device="cuda", **DENSE_KW)
+    for e in (paged, dense):
+        submit_all(e, RS, SP, prompts, sampled, 32)
+        e._admit()
+    toks = np.zeros((8,), np.int64)
+    first = {}
+    for e, name in ((dense, "dense"), (paged, "paged")):
+        first[name] = {s: r.generated[0] for s, r in e.active.items()}
+    for s, r in dense.active.items():
+        toks[s] = r.generated[-1]
+    rel_p = gate_rel(
+        "dense vs paged decode logits",
+        dense_decode_logits(T, dense, toks, attn_impl="kernel"),
+        paged_decode_logits(T, paged, toks),
+    )
+    first_same = sum(first["dense"][s] == first["paged"].get(s) for s in first["dense"])
+    same, total = agreement(reqs, reference)
+    log(
+        f"[dense] dense vs paged engine (phase 5's settings, each prompt "
+        f"prefilled whole): one decode step fed the same tokens, relative L2 "
+        f"{rel_p:.3e} (tol 2e-2); first tokens equal {first_same}/8; greedy "
+        f"tokens of the dense graph run equal to phase 5's paged run "
+        f"{same}/{total} (bf16; not gated) [{smi}]"
+    )
+    del paged, dense
+    return launches["decode"]
+
+
+def dense_ring(mods, cfg, params, smi):
+    """Phase 10 b: tinyllama-1.1b's sliding-window ring at the config's
+    own window W = 8192 (W rows of a W + W / 16 = 8704-token logical
+    length), 2 requests of W + W / 64 = 8320-token prompts and 16 new
+    tokens, one-shot and with ``prefill_chunk`` = W / 4 = 2048, against
+    the paged engine with ``swa=True`` on the same requests."""
+    Engine, RS, SP, DA, SS, GR, T, PK = mods
+    W = cfg.sliding_window
+    S = W + W // 64
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(2, cfg.vocab_size, size=S).astype(np.int32) for _ in range(2)]
+    max_len = W + max(W // 16, 32)
+    kw = dict(max_batch=2, max_len=max_len, dtype="bfloat16", swa=True, device="cuda")
+    first_logits = {}
+
+    def recording(eng, name):
+        orig = eng._sample_batch
+
+        def sample(logits, reqs):
+            first_logits.setdefault(name, []).append(logits.float().clone())
+            return orig(logits, reqs)
+
+        eng._sample_batch = sample
+
+    engines = {
+        "one-shot": Engine(cfg, params, cache_kind="dense", **kw),
+        "chunked": Engine(cfg, params, cache_kind="dense", prefill_chunk=W // 4, **kw),
+        # the oracle: paged, each prompt prefilled whole at its exact length
+        "paged": Engine(cfg, params, scheduler="phase", prefix_sharing=False,
+                        prefill_chunk=S, **kw),
+    }
+    t = time.perf_counter()
+    for name, e in engines.items():
+        recording(e, name)
+        submit_all(e, RS, SP, prompts, set(), 16)
+        e._admit()
+        if len(e.active) != 2:
+            raise AssertionError(f"ring {name}: {len(e.active)} admitted")
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t
+    for name in ("one-shot", "chunked"):
+        e = engines[name]
+        if e.max_len != W:
+            raise AssertionError(f"ring capacity {e.max_len}")
+        pos = e.cache["positions"][:2]
+        if bool((pos == 0).any()) or int(pos.max()) != S - 1 or int(pos.min()) != S - W:
+            raise AssertionError(f"ring {name}: positions did not wrap")
+    want_first = torch.cat(first_logits["paged"])
+    toks = np.zeros((2,), np.int64)
+    for s, r in engines["one-shot"].active.items():
+        toks[s] = r.generated[-1]
+    want_dec = paged_decode_logits(T, engines["paged"], toks)
+    rels = {}
+    for name in ("one-shot", "chunked"):
+        e = engines[name]
+        rels[name] = (
+            gate_rel(f"ring {name} first-token logits", torch.cat(first_logits[name]), want_first),
+            gate_rel(f"ring {name} decode logits",
+                     dense_decode_logits(T, e, toks, attn_impl="kernel"), want_dec),
+        )
+    streams = {}
+    for name in ("one-shot", "chunked"):
+        e = engines[name]
+        done = []
+        while e.active:
+            done += e.step() or []
+        streams[name] = {r.rid: r.generated for r in done}
+        if sorted(len(g) for g in streams[name].values()) != [16, 16]:
+            raise AssertionError(f"ring {name}: {streams[name]}")
+    same = sum(x == y for rid in (0, 1)
+               for x, y in zip(streams["one-shot"][rid], streams["chunked"][rid]))
+    log(
+        f"[dense] ring: {cfg.name} swa, window {W} = cache rows, logical max_len "
+        f"{max_len}, 2 prompts of {S} tokens: positions wrapped (rows hold "
+        f"{S - W}..{S - 1}, none holds 0); against the paged engine with "
+        f"swa (relative L2, tol 2e-2) first-token / decode logits: one-shot "
+        f"{rels['one-shot'][0]:.3e} / {rels['one-shot'][1]:.3e}, prefill_chunk={W // 4} "
+        f"{rels['chunked'][0]:.3e} / {rels['chunked'][1]:.3e}; 16 tokens each, "
+        f"one-shot and chunked streams equal {same}/32 (not gated); the three "
+        f"admissions took {admit_s:.2f} s [{smi}]"
+    )
+
+
+def dense_ssm(mods, cfg, work, out_dir, smi, per_step):
+    """Phase 10 c and d: an SSM or hybrid model at full width in bf16
+    through the dense engine. Returns the {"decode", "ssd"} launches of
+    the graph engine's cold run."""
+    from repro_torch.core.migration import tree_bytes
+
+    Engine, RS, SP, DA, SS, GR, T, PK = mods
+    prompts, _, sampled = work
+    tag = "mamba2" if cfg.family == "ssm" else "zamba2"
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, gen, "bfloat16")
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    if weight_bytes != REFERENCE_WEIGHT_BYTES[cfg.name]:
+        raise AssertionError(f"{cfg.name}: {weight_bytes} B of weights")
+    # a decode step reads every weight once (the tied embedding is the
+    # unembedding's matrix; the shared block's weights count once)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    nb = cfg.num_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    log(
+        f"[{tag}] {cfg.name}: {cfg.num_layers} Mamba2 layers, d={cfg.d_model}, "
+        f"d_inner={cfg.ssm_d_inner}, SSD H={cfg.ssm_heads} P={cfg.ssm_head_dim} "
+        f"N={cfg.ssm_state} Q={cfg.ssm_chunk}"
+        + (f", shared block applied {nb} times (H = KV = {cfg.num_heads}, D "
+           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff})" if nb else "")
+        + f", vocab={cfg.vocab_size}; weights {weight_bytes} B in "
+        f"{time.perf_counter() - t:.1f} s; decode-step weight-read bound "
+        f"{bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s [{smi}]"
+    )
+    runs = serve_dense(mods[:6], cfg, params, work, smi, per_step, cfg.num_layers, tag)
+    reqs, _, stats, launches = runs["graphs"]
+    eng = Engine(cfg, params, device="cuda", **DENSE_KW)
+    cache_bytes = tree_bytes(eng.cache)
+    # both kernel routes against both plain routes, on every prompt's
+    # first-token logits and on one decode step of the first steady
+    # step's cache: in fp32 (weights and cache widened, TF32 off) the
+    # logits within 1e-4; in bf16 each kernel call against its plain
+    # version on the same inputs within 2e-2, and the logits through
+    # no_worse_than_plain (bf16's own error at full depth is larger than
+    # 2e-2, so bf16 logits of two routes that round differently differ by
+    # more than that)
+    plain = dict(attn_impl="gather", ssd_impl="chunked")
+    kern = dict(attn_impl="kernel", ssd_impl="kernel")
+    p32 = widened(params)
+    calls, logits, busy = {}, {}, {}
+    with checked_kernel_calls(calls):
+        logits["first", "kernel"] = prefill_logits(T, cfg, params, prompts, 1024, **kern)
+    logits["first", "plain"] = prefill_logits(T, cfg, params, prompts, 1024, **plain)
+    for route, kw in (("kernel32", kern), ("plain32", plain)):
+        logits["first", route] = prefill_logits(T, cfg, p32, prompts, 1024, "float32", **kw)
+    # the table only: the SSM steps' traces (~40k events each) would pass
+    # the size of what a run may bring back
+    profile = functools.partial(profile_decode, out_dir=out_dir, smi=smi, tag=f"_{tag}",
+                                sink=busy, keep_trace=False)
+
+    def probe(e):
+        with checked_kernel_calls(calls):
+            logits["decode", "kernel"] = dense_decode_logits(T, e, **kern)
+        logits["decode", "plain"] = dense_decode_logits(T, e, **plain)
+        c32 = widened(e.cache)
+        for route, kw in (("kernel32", kern), ("plain32", plain)):
+            logits["decode", route] = dense_decode_logits(T, e, params=p32, cache=c32, **kw)
+        del c32
+        profile(e)
+
+    run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, probe=probe, eng=eng)
+    del eng
+    worst = {k: max(v) for k, v in calls.items()}
+    if len(calls.get("ssd", ())) != cfg.num_layers * len(prompts) or (
+        nb and len(calls.get("decode", ())) != nb
+    ) or max(worst.values()) > 2e-2:
+        raise AssertionError(
+            f"{cfg.name}: kernel calls against their plain versions: "
+            f"{ {k: len(v) for k, v in calls.items()} } calls, worst {worst}"
+        )
+    rel = {}
+    for what in ("first", "decode"):
+        rel[what, "32"] = gate_rel(
+            f"{cfg.name} {what} logits, kernel vs plain routes in fp32",
+            logits[what, "kernel32"], logits[what, "plain32"], tol=1e-4,
+        )
+        rel[what, "16"] = rel_l2(logits[what, "kernel"], logits[what, "plain"])
+        rel[what, "k16"], rel[what, "p16"] = no_worse_than_plain(
+            f"{cfg.name} {what} logits, kernel route in bf16", logits[what, "kernel"],
+            logits[what, "plain"], logits[what, "plain32"])
+    routes = "the SSD kernel vs ssd_chunked" + (
+        ", the dense-decode kernel vs gather" if nb else "")
+    log(
+        f"[{tag}] cache {cache_bytes} B; kernel routes vs plain routes ({routes}): "
+        f"each bf16 kernel call against its plain version on the same inputs, worst "
+        f"relative L2 {worst} over { {k: len(v) for k, v in calls.items()} } calls "
+        f"(tol 2e-2); logits relative L2, first token of the 8 prompts / first steady "
+        f"decode step: fp32 {rel['first', '32']:.3e} / {rel['decode', '32']:.3e} "
+        f"(tol 1e-4); bf16 {rel['first', '16']:.3e} / {rel['decode', '16']:.3e}, "
+        f"against fp32 plain: kernel route {rel['first', 'k16']:.3e} / "
+        f"{rel['decode', 'k16']:.3e}, plain route {rel['first', 'p16']:.3e} / "
+        f"{rel['decode', 'p16']:.3e} (bf16's own error; the kernel route's may "
+        f"exceed it by 2e-2) [{smi}]"
+    )
+    # prefill_chunk=256 against one shot: the last chunk's logits of every
+    # prompt through each engine's own prefill (fp32, 1e-4; bf16 printed),
+    # and the greedy streams of a chunked engine against phase 10's run
+    last = {}
+    for dtype, w in (("bfloat16", params), ("float32", p32)):
+        for chunk in (256, 0):
+            e = Engine(cfg, w, device="cuda", prefill_chunk=chunk,
+                       **dict(DENSE_KW, dtype=dtype, max_batch=1))
+            last[dtype, chunk] = torch.cat(
+                [e._run_prefill(p[None], cache_len=1024)[0] for p in prompts])
+            del e
+    del p32
+    rel_chunk = gate_rel(
+        f"{cfg.name} prefill_chunk=256 vs one-shot last-chunk logits in fp32",
+        last["float32", 256], last["float32", 0], tol=1e-4,
+    )
+    rel_chunk16 = rel_l2(last["bfloat16", 256], last["bfloat16", 0])
+    chunk16, one16 = no_worse_than_plain(
+        f"{cfg.name} prefill_chunk=256 last-chunk logits in bf16",
+        last["bfloat16", 256], last["bfloat16", 0], last["float32", 0])
+    chunked = Engine(cfg, params, device="cuda", prefill_chunk=256, **DENSE_KW)
+    _, creqs, _ = run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, eng=chunked)
+    same, total = agreement(creqs, {r.rid: r.generated for r in reqs})
+    step_ms = stats["steady_step_ms"]
+    median = step_ms[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    log(
+        f"[{tag}] prefill_chunk=256 vs one-shot: last-chunk logits relative L2 "
+        f"{rel_chunk:.3e} in fp32 (tol 1e-4), {rel_chunk16:.3e} in bf16; against "
+        f"one shot in fp32, chunked {chunk16:.3e} and one-shot {one16:.3e} in bf16 "
+        f"(the first may exceed the second by 2e-2); "
+        f"greedy tokens equal {same}/{total} (bf16; not "
+        f"gated); graphs, cold: steady step median {median:.3f} ms against the "
+        f"weight-read bound {bound_ms:.3f} ms ({bound_ms / median:.1%} of bound); "
+        f"device busy {busy[f'_{tag}']:.3f} ms per steady step (profiled), idle "
+        f"share outside the profiler {1 - busy[f'_{tag}'] / median:.3f}; peak device "
+        f"memory allocated {peak} B [{smi}]"
+    )
+    return launches
+
+
+def dense_phase(mods, get_config, reference, out_dir, smi):
+    """Phase 10 (module docstring). Returns the launches of the graph
+    engines' cold runs: {"decode": {model: n}, "ssd": {model: n}}."""
+    Engine, RS, SP, DA, SS, GR, T, PK = mods
+    cfg = get_config("tinyllama-1.1b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, gen, "bfloat16")   # phase 5's weights
+    work = (workload(cfg)[0], workload(cfg, seed=SEED + 1)[0], workload(cfg)[1])
+    t = time.perf_counter()
+    dec_tl = dense_tinyllama(mods, cfg, params, work, reference, smi)
+    log(f"[dense] 10a in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dense_ring(mods, cfg, params, smi)
+    log(f"[dense] 10b in {time.perf_counter() - t:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"decode": {cfg.name: dec_tl}, "ssd": {}}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        t = time.perf_counter()
+        c = get_config(arch)
+        per_step = c.num_layers // c.hybrid_attn_every if c.hybrid_attn_every else 0
+        prompts, sampled = workload(c)
+        work = (prompts, workload(c, seed=SEED + 1)[0], sampled)
+        got = dense_ssm(mods, c, work, out_dir, smi, per_step)
+        launches["ssd"][arch] = got["ssd"]
+        if per_step:
+            launches["decode"][arch] = got["decode"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[dense] {arch} in {time.perf_counter() - t:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1968,7 +2605,17 @@ def main():
     ms, plain_ms, bound_ms, bound_by = time_paged_decode(PD, cfg, mid_lens, width, smi)
     # phase 9's shape: qwen2-moe-a2.7b's heads, the same lengths
     moe_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens, width, smi)
-    errs = {"flash": check_flash(FA), "decode": check_decode(DA), "ssd": check_ssd(SS)}
+    # phase 10's serving shapes: mamba2-780m's and zamba2-7b's prefills
+    mamba, zamba = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
+    serving_ssd = [
+        shape for c in (mamba, zamba)
+        for shape in serving_ssd_shapes(c, sorted({len(p) for p in prompts}))
+    ]
+    errs = {
+        "flash": check_flash(FA),
+        "decode": check_decode(DA, mid_lens),
+        "ssd": check_ssd(SS, serving_ssd),
+    }
     log(
         f"[kernel] flash_attention bf16 tensor-core instructions (cuobjdump -sass "
         f"HGMMA count per kernel): {hgmma_counts(libs['flash_attention'])}"
@@ -1984,7 +2631,12 @@ def main():
             FA, 1, 2048, gemma.num_heads, gemma.num_kv_heads, gemma.head_dim, smi
         ),
         "decode": time_decode(DA, cfg, mid_lens, 1024, smi),
-        "ssd": time_ssd(SS, get_config("mamba2-780m"), 2048, smi),
+        "ssd": time_ssd(SS, mamba, 2048, smi),
+        # phase 10's shapes: zamba2's shared block against its dense cache;
+        # the longest prompt (600, padded to 768) of mamba2 and zamba2
+        "decode_zamba": time_decode(DA, zamba, mid_lens, 1024, smi),
+        "ssd_mamba_768": time_ssd(SS, mamba, 768, smi),
+        "ssd_zamba_768": time_ssd(SS, zamba, 768, smi),
     }
 
     # phase 4: small fp32 step, card vs CPU
@@ -2153,6 +2805,32 @@ def main():
     kernels[0]["launches"] += moe_launches
     kernels[0]["shapes"][1]["launches"] = moe_launches
     log(f"[moe] phase 9 in {time.perf_counter() - t:.1f} s")
+
+    # phase 10: the dense-cache engine, after phase 9's weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    mods = (Engine, RequestSpec, SamplingParams, DA, SS, GR, T, PK)
+    served = dense_phase(mods, get_config, reference, out_dir, smi)
+    # the dense-decode and SSD rows gain the serving launches (each
+    # engine's graph run, cold), and each timed shape's own numbers with
+    # the launches of the model it stands for (a model's SSD launches span
+    # all its prompt lengths; L 2048 serves none)
+    for row, key, shapes in (
+        (kernels[2], "decode", (("tinyllama-1.1b", "decode"), (HYBRID_ARCH, "decode_zamba"))),
+        (kernels[3], "ssd", ((None, "ssd"), (SSM_ARCH, "ssd_mamba_768"),
+                             (HYBRID_ARCH, "ssd_zamba_768"))),
+    ):
+        row["launches"] += sum(served[key].values())
+        row["shapes"] = []
+        for model, timed_key in shapes:
+            k_ms, k_plain, k_lib, (k_bound, k_by) = timed[timed_key]
+            row["shapes"].append({
+                "model": model, "timed": timed_key, "launches": served[key].get(model),
+                "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+                "bound_by": k_by, "library_ms": k_lib,
+            })
+    log(f"[dense] phase 10 in {time.perf_counter() - t:.1f} s; serving launches {served}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

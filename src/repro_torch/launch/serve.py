@@ -8,11 +8,13 @@ unless ``--device cpu`` is given, with the reference's reduced config by
 default (fp32 weights and pool) or, with ``--no-reduced``, the published
 widths (bf16 weights and pool). Weights come from
 ``models.transformer.init_params`` with a ``torch.Generator`` seeded 0
-on the chosen device. Families without paged support need the dense
-cache, which is not ported yet (ROADMAP A9).
+on the chosen device. Families without paged support (``--cache auto``
+picks for them, or ``--cache dense``) run one dense-cache engine, as the
+reference's fallback does:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 24 --rps 4 --instances 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
 
 Every flag lives on ``ServeConfig`` — one dataclass, built either from
 the command line (``ServeConfig.from_args``) or from a TOML file
@@ -279,10 +281,20 @@ def run(args: ServeConfig):
                          "(prefix-affinity routing keys on the paged "
                          "pool's content chains)")
 
-    if kind == "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the dense-cache engine is not ported yet "
-            "(ROADMAP A9)")
+    if kind == "dense":  # single-engine fallback (no paged pool)
+        from repro_torch.serving.engine import Engine
+        eng = Engine(cfg, params, max_batch=args.max_batch, max_len=128,
+                     cache_kind="dense", dtype=dtype, device=args.device)
+        submitted, finished, step = 0, [], 0
+        while len(finished) < args.requests and step < 5000:
+            while submitted < args.requests and \
+                    submitted <= eng.clock * args.rps:
+                eng.submit(make_request(submitted))
+                submitted += 1
+            finished.extend(eng.step() or [])
+            step += 1
+        _report(finished, time.time() - t_start)
+        return len(finished)
 
     from repro_torch.serving.orchestrator import Orchestrator, RespawnPolicy
     policy = RespawnPolicy() if args.supervise else None

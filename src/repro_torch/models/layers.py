@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_decode import paged_decode_attention
 
 NEG_INF = -2.0 ** 20  # large-negative that is safe in bf16 softmax
@@ -210,7 +211,7 @@ def _qkv(p, x, cfg: ModelConfig, positions, rope=None):
 
 def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
               k_positions=None, window=None, causal=True,
-              attend_fresh=False, rope=None):
+              attend_fresh=False, rope=None, impl="gather"):
     """GQA/MQA attention with optional KV-cache write-then-attend.
 
     x: [B,S,d]; positions [B,S] absolute. ``cache`` is None (train) or a
@@ -223,6 +224,16 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     attends this call's own K/V while the cache write happens on the side.
     ``rope`` is ``rope_tables(positions, ...)``, computed once per call of
     the stack (None computes it here).
+
+    ``impl="kernel"`` sends a single-token decode's attention through the
+    decode-attention kernel (kernels/decode_attention.py) on a transposed
+    VIEW of the cache (``[B, M, KV, hd]`` as ``[B, KV, M, hd]``, no copy),
+    with lengths = position + 1: the kernel's guards of the reference's
+    paged path (causal, no window, no logit softcap). Without a window
+    the cache is no ring (its capacity is the logical length), so a row's
+    slot is its position and the rows below the length are exactly the
+    keys the mask keeps. Every other call attends with ``attention``
+    ("gather"), as the reference does.
     Returns (out [B,S,d], cache_or_None).
     """
     B, S, _ = x.shape
@@ -240,6 +251,12 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
         if attend_fresh:  # prefill: full fresh sequence, windowed mask
             out = attention(q, k, v, q_positions=positions, window=window,
                             causal=causal, softcap=cfg.logit_softcap)
+        elif (impl == "kernel" and S == 1 and causal and window is None
+              and not cfg.logit_softcap):
+            lengths = (positions[:, 0] + 1).to(torch.int32)
+            out = decode_attention(q[:, 0].to(ck.dtype).contiguous(),
+                                   ck.transpose(1, 2), cv.transpose(1, 2),
+                                   lengths)[:, None].to(q.dtype)
         else:  # decode: attend the updated cache
             out = attention(q, ck, cv, q_positions=positions,
                             k_positions=k_positions, window=window,

@@ -1,26 +1,43 @@
-"""Decoder stack of the dense and MoE GQA families, prefill/decode over a
-dense cache and single-token decode over a paged block pool.
+"""Decoder stacks of the GQA decoder (dense, MoE, VLM), SSM (Mamba2) and
+hybrid (Zamba2) families: prefill/decode over a dense cache, and the
+decoders' single-token decode over a paged block pool.
 
 PyTorch counterpart of ``repro.models.transformer`` for the families this
-port covers so far (``dense``, ``moe`` and ``vlm`` decoders with GQA
-attention; an MoE layer takes the MLP's place, ``models/moe.py``).
-Parameters are a nested dict with the reference's keys and the stacked
-``[L, ...]`` layer layout, so ``bridge.params_from_numpy`` maps the JAX
-tree key for key; the stack runs as a Python loop over layers.
+port covers so far: ``dense``, ``moe`` and ``vlm`` decoders with GQA
+attention (an MoE layer takes the MLP's place, ``models/moe.py``),
+``ssm`` (a stack of Mamba2 mixers, ``models/ssm.py``) and ``hybrid``
+(blocks of Mamba2 layers, each block followed by one SHARED attention
++ MLP block, then a tail of Mamba2 layers). Parameters are a nested dict
+with the reference's keys and the stacked ``[L, ...]`` layer layout (the
+hybrid's ``blocks`` are ``[nb, every, ...]``), so
+``bridge.params_from_numpy`` maps the JAX tree key for key; the stacks
+run as Python loops over layers.
 
-Cache tensors (the dense cache's K/V and positions, the paged pool) are
-updated IN PLACE, where the reference rebuilt them functionally.
+Cache tensors (the dense cache's K/V, positions, length and SSM states,
+the paged pool) are updated IN PLACE, where the reference rebuilt them
+functionally.
+
+Two routes pick kernels where the reference computes plainly, the same
+function held to the same computation: ``attn_impl="kernel"`` sends a
+dense-cache decode step's attention through the decode-attention kernel
+(``layers.apply_gqa``), and ``ssd_impl="kernel"`` a prefill's SSD scan
+from the zero state through the SSD kernel (``kernels.ops.ssd``). Their
+defaults, ``"gather"`` and ``"chunked"``, are the reference's plain
+computations.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 BIG_POS = 2 ** 30
 
@@ -45,20 +62,63 @@ def to_device(a, device) -> torch.Tensor:
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError, naming the ROADMAP item, for what this
-    slice of the port does not cover yet."""
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.attention_kind != "gqa":
+    slice of the port does not cover yet: MLA attention (A9.3) and the
+    audio encoder-decoder (A9.5)."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family} attention={cfg.attention_kind} "
-            f"is not ported yet (ROADMAP A9: dense cache and other families)")
+            f"{cfg.name}: the audio encoder-decoder is not ported yet "
+            f"(ROADMAP A9.5)")
+    if cfg.attention_kind == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A9.3)")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 # ======================================================================= init
+def _stacked(lead, make):
+    """``make()`` drawn once per index of ``lead`` and stacked into
+    ``[*lead, ...]`` leaves, one layer at a time: a full-width stack
+    drawn whole would need fp32 temporaries of its size."""
+    n = math.prod(lead)
+    first = make()
+    out = _tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                          device=t.device), first)
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    put(out, first, 0)
+    for i in range(1, n):
+        put(out, make(), i)
+    return _tree_map(lambda t: t.view(*lead, *t.shape[1:]), out)
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _init_mamba_layer(cfg, gen, dtype):
+    return {"norm": L.init_norm(cfg, dtype, gen.device),
+            "mixer": SSM.init_mamba2(cfg, gen, dtype)}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     """Random weights from ``gen`` (on ``gen.device``), with the reference
     tree's keys and shapes; the same distributions as the reference
     (scaled normal embedding, truncated-normal fan-in dense layers). An
     MoE config gets ``layers["moe"]`` in place of ``layers["mlp"]``, as
-    the reference's ``_init_decoder_layer`` builds it."""
+    the reference's ``_init_decoder_layer`` builds it. An SSM config gets
+    ``layers`` of Mamba2 layers (``norm``, ``mixer``); a hybrid config
+    ``blocks`` ``[nb, every, ...]`` of them, a ``tail`` of the
+    remaining ``num_layers % every`` where there are any, and the
+    ``shared`` attention block (with its ``mlp`` when the config has a
+    ``d_ff``). Mamba2 layers are drawn one at a time into ``dtype``."""
     check_supported(cfg)
     dtype = torch_dtype(dtype)
     dev = gen.device
@@ -72,6 +132,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                          dtype)
+    mamba = functools.partial(_init_mamba_layer, cfg, gen, dtype)
+    if cfg.family == "ssm":
+        params["layers"] = _stacked(lead, mamba)
+        return params
+    if cfg.family == "hybrid":
+        nb, rem = divmod(cfg.num_layers, cfg.hybrid_attn_every)
+        params["blocks"] = _stacked((nb, cfg.hybrid_attn_every), mamba)
+        if rem:
+            params["tail"] = _stacked((rem,), mamba)
+        params["shared"] = {
+            "norm1": L.init_norm(cfg, dtype, dev),
+            "attn": L.init_gqa(cfg, gen, dtype),
+            "norm2": L.init_norm(cfg, dtype, dev),
+        }
+        if cfg.d_ff:
+            params["shared"]["mlp"] = L.init_mlp(cfg, gen, dtype)
+        return params
     params["layers"] = {
         "norm1": L.init_norm(cfg, dtype, dev, lead=lead),
         "attn": L.init_gqa(cfg, gen, dtype, lead=lead),
@@ -87,19 +164,54 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
 # ====================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype="bfloat16",
                device="cuda"):
-    """Dense serving cache: K/V ``[L, B, max_len, KV, hd]``, per-row
-    absolute positions (unwritten rows hold BIG_POS so they mask out)."""
+    """Dense serving cache. ``max_len`` is the capacity per request; a
+    sliding-window arch may pass ``min(logical_len, window)`` to get a
+    ring buffer. Decoders: K/V ``[L, B, max_len, KV, hd]`` and per-row
+    absolute positions (unwritten rows hold BIG_POS so they mask out).
+    SSM: the Mamba2 states ``[L, B, ...]`` (the conv histories and the
+    SSD state, in ``dtype`` as the reference keeps them), O(1) in
+    sequence length. Hybrid: those states as ``blocks`` ``[nb, every,
+    B, ...]`` and ``tail`` ``[rem, B, ...]``, the shared block's K/V
+    ``[nb, B, max_len, KV, hd]`` (one per application) and positions."""
     check_supported(cfg)
     dtype = torch_dtype(dtype)
     hd = cfg.resolved_head_dim
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
-    return {
-        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "positions": torch.full((batch, max_len), BIG_POS,
-                                dtype=torch.int32, device=device),
-        "layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device)},
-    }
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(n_layers):
+        shape = (n_layers, batch, max_len, cfg.num_kv_heads, hd)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
+    def ssm_state(*lead):
+        K1 = cfg.ssm_conv_dim - 1
+        gN = cfg.ssm_ngroups * cfg.ssm_state
+        return {"conv_x": zeros(*lead, batch, K1, cfg.ssm_d_inner),
+                "conv_B": zeros(*lead, batch, K1, gN),
+                "conv_C": zeros(*lead, batch, K1, gN),
+                "ssd": zeros(*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state)}
+
+    def positions():
+        return torch.full((batch, max_len), BIG_POS, dtype=torch.int32,
+                          device=device)
+
+    cache = {"length": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+    if cfg.family == "ssm":
+        cache["layers"] = ssm_state(cfg.num_layers)
+    elif cfg.family == "hybrid":
+        nb, rem = divmod(cfg.num_layers, cfg.hybrid_attn_every)
+        cache["positions"] = positions()
+        cache["blocks"] = ssm_state(nb, cfg.hybrid_attn_every)
+        if rem:
+            cache["tail"] = ssm_state(rem)
+        cache["shared"] = kv(nb)
+    else:
+        cache["positions"] = positions()
+        cache["layers"] = kv(cfg.num_layers)
+    return cache
 
 
 # ================================================================= embeddings
@@ -142,8 +254,19 @@ def _mlp_sublayer(lp, x, cfg):
 
 
 def _layer_slice(tree, i):
-    return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+    return _tree_map(lambda t: t[i], tree)
+
+
+def _write_state(lc, new):
+    """A Mamba2 layer's new states into its cache leaves, in place (the
+    mixer returns new tensors; the cache's tensors never move)."""
+    for k, t in new.items():
+        lc[k].copy_(t)
+
+
+def _set_length(cache, positions):
+    cache["length"].copy_(positions[:, -1] + 1)
+    return cache
 
 
 def _cache_meta(cache, positions):
@@ -166,7 +289,7 @@ def _cache_meta(cache, positions):
 
 
 def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
-                     last_idx=None):
+                     last_idx=None, attn_impl="gather"):
     """Dense / moe / vlm decoder: train, prefill (attend fresh, write the
     cache on the side) or decode (write, then attend the cache). An MoE
     layer dispatches over all B x S tokens, a bucket's padding included,
@@ -189,15 +312,12 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
         h, _ = L.apply_gqa(lp["attn"], h, cfg, positions=positions,
                            cache=lc, slots=slots, k_positions=kpos,
                            window=window, attend_fresh=(mode == "prefill"),
-                           rope=rope)
+                           rope=rope, impl=attn_impl)
         x = x + h
         x, a = _mlp_sublayer(lp, x, cfg)
         aux = aux + a
 
-    new_cache = None
-    if has_cache:
-        new_cache = dict(cache, positions=kpos,
-                         length=(positions[:, -1] + 1).to(torch.int32))
+    new_cache = _set_length(cache, positions) if has_cache else None
     if mode == "train":
         return unembed(params, cfg, x), None, aux
     if last_idx is not None:
@@ -207,6 +327,88 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
     else:
         x_last = x[:, -1]
     return unembed(params, cfg, x_last), new_cache, aux
+
+
+def _mamba_layer(lp, x, cfg, lc, mode, ssd_fn):
+    """One Mamba2 layer (norm, mixer, residual). A single-token decode
+    steps the recurrence; a prefill scans from the zero state (the
+    engine's prefill cache is fresh, so its states are zero: ``state=
+    None`` is the same scan, and the SSD kernel's case); a multi-token
+    decode (a chunked prefill's extension) continues from the cache's
+    states. New states are written into ``lc`` in place."""
+    h = L.apply_norm(lp["norm"], x, cfg)
+    if mode == "decode" and x.shape[1] == 1:
+        h, ns = SSM.apply_mamba2_decode(lp["mixer"], h, cfg, state=lc)
+    else:
+        state = lc if mode == "decode" else None
+        h, ns = SSM.apply_mamba2(lp["mixer"], h, cfg, state=state,
+                                 ssd_fn=ssd_fn)
+    if lc is not None:
+        _write_state(lc, ns)
+    return x + h
+
+
+def _ssd_fn(ssd_impl):
+    if ssd_impl not in ("kernel", "chunked"):
+        raise ValueError(f"unknown ssd_impl {ssd_impl!r}")
+    return ops.ssd if ssd_impl == "kernel" else SSM.ssd_chunked
+
+
+def _last(params, cfg, x, mode):
+    if mode == "train":
+        return unembed(params, cfg, x)
+    return unembed(params, cfg, x[:, -1])
+
+
+def _forward_ssm(params, cfg, tokens, positions, cache, mode, ssd_fn):
+    x = embed_tokens(params, cfg, tokens)
+    for i in range(cfg.num_layers):
+        lc = _layer_slice(cache["layers"], i) if cache is not None else None
+        x = _mamba_layer(_layer_slice(params["layers"], i), x, cfg, lc, mode,
+                         ssd_fn)
+    new_cache = _set_length(cache, positions) if cache is not None else None
+    return _last(params, cfg, x, mode), new_cache, 0.0
+
+
+def _forward_hybrid(params, cfg, tokens, positions, cache, mode, window,
+                    ssd_fn, attn_impl):
+    """Blocks of ``every`` Mamba2 layers, each followed by the SHARED
+    attention (+ MLP) block (the same parameters every time, its own K/V
+    per application), then the tail of Mamba2 layers."""
+    every = cfg.hybrid_attn_every
+    nb, rem = divmod(cfg.num_layers, every)
+    has_cache = cache is not None
+    x = embed_tokens(params, cfg, tokens)
+    slots = kpos = None
+    if has_cache:
+        slots, kpos = _cache_meta(cache, positions)
+    rope = (L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+            if cfg.use_rope else None)
+    shared = params["shared"]
+
+    def mamba(x, part, idx):
+        lc = _layer_slice(cache[part], idx) if has_cache else None
+        return _mamba_layer(_layer_slice(params[part], idx), x, cfg, lc,
+                            mode, ssd_fn)
+
+    for b in range(nb):
+        for j in range(every):
+            x = mamba(x, "blocks", (b, j))
+        h = L.apply_norm(shared["norm1"], x, cfg)
+        skv = ({"k": cache["shared"]["k"][b], "v": cache["shared"]["v"][b]}
+               if has_cache else None)
+        h, _ = L.apply_gqa(shared["attn"], h, cfg, positions=positions,
+                           cache=skv, slots=slots, k_positions=kpos,
+                           window=window, attend_fresh=(mode == "prefill"),
+                           rope=rope, impl=attn_impl)
+        x = x + h
+        if "mlp" in shared:
+            h = L.apply_norm(shared["norm2"], x, cfg)
+            x = x + L.apply_mlp(shared["mlp"], h, cfg)
+    for i in range(rem):
+        x = mamba(x, "tail", i)
+    new_cache = _set_length(cache, positions) if has_cache else None
+    return _last(params, cfg, x, mode), new_cache, 0.0
 
 
 def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
@@ -268,18 +470,39 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
-            mode="train", window=None, last_idx=None):
+            mode="train", window=None, last_idx=None, attn_impl="gather",
+            ssd_impl="chunked"):
     """Dense-cache entry point (the paged decode step is
     ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
     (default arange). An MoE layer dispatches ``"auto"``.
     Returns (logits, new_cache, aux_loss):
     train -> full-seq logits [B,S,Vpad]; prefill/decode -> last-token
-    [B,Vpad]. ``last_idx`` [B] selects each row's last REAL token instead
-    of column -1."""
+    [B,Vpad]. ``last_idx`` [B] (decoders only, as in the reference)
+    selects each row's last REAL token instead of column -1. The cache
+    is updated in place and returned. ``attn_impl`` / ``ssd_impl``: the
+    kernel routes of the module docstring.
+
+    Prefill mode starts a sequence: the SSM and hybrid families scan
+    from the ZERO state and ignore the states ``cache`` holds (the
+    attention already ignores its earlier K/V there). This equals the
+    reference, which scans from the cache's states, for a fresh
+    (zeroed) cache, the only one the engine prefills; to continue from a
+    used cache, call decode mode with the new tokens."""
     check_supported(cfg)
+    if attn_impl not in ("kernel", "gather"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
-    return _forward_decoder(params, cfg, tokens, positions, cache, mode,
-                            window, last_idx=last_idx)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _forward_decoder(params, cfg, tokens, positions, cache, mode,
+                                window, last_idx=last_idx,
+                                attn_impl=attn_impl)
+    if last_idx is not None:
+        raise ValueError(f"last_idx unsupported for family {cfg.family}")
+    if cfg.family == "ssm":
+        return _forward_ssm(params, cfg, tokens, positions, cache, mode,
+                            _ssd_fn(ssd_impl))
+    return _forward_hybrid(params, cfg, tokens, positions, cache, mode,
+                           window, _ssd_fn(ssd_impl), attn_impl)

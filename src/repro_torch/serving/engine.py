@@ -1,8 +1,10 @@
-"""Continuous-batching inference engine over a paged KV pool (PyTorch).
+"""Continuous-batching inference engine over a paged KV pool or a dense
+cache (PyTorch).
 
-Counterpart of ``repro.serving.engine`` for its primary path,
-``cache_kind="paged"``: iteration-level scheduling in the Orca/vLLM
-style, with TOKEN-BUDGET continuous batching as the default step loop.
+Counterpart of ``repro.serving.engine``: its primary path,
+``cache_kind="paged"``, iteration-level scheduling in the Orca/vLLM
+style with TOKEN-BUDGET continuous batching as the default step loop;
+and its dense path, ``cache_kind="dense"`` (below).
 
 * **Scheduling** comes from the copied policy registry
   (``serving/scheduler.py``): ``budget`` packs decode tokens first, then
@@ -48,10 +50,30 @@ since_epoch)`` (the dirty-set delta only) → ``commit_resume``.
 ``apply_plan`` records a plan's replication degrees; on one card they
 all quantize to 1 and the step is unchanged.
 
-The pool is updated in place where the reference rebuilt it
-functionally. Not ported yet, and raising NotImplementedError: the dense
-cache (ROADMAP A9) and replication degrees above 1 across several cards
-(A10).
+**The dense path** (``cache_kind="dense"``) serves the families the
+pool cannot hold — SSM (Mamba2) and hybrid (Zamba2) states — and
+sliding-window decoders as a ring buffer of the window's capacity: a
+``[B, max_len]`` cache (``models.transformer.init_cache``). It runs the
+``phase`` scheduler whatever ``scheduler`` says, as the reference forces
+it, without prefix sharing: each admission prefills one request over a
+throwaway batch-1 cache of the engine's capacity (in ``prefill_chunk``
+slices when that is set: the first slice as a prefill, the rest as
+multi-token decode extensions), samples its first token and inserts it
+into its slot (``kvcache.insert_request``, in place); each step is one
+decode+sample call over all slots (``_dense_step``), captured as a CUDA
+graph keyed like the reference's ``_dense_step_impl`` jit. A prefill
+from the zero state scans through the SSD kernel (``ops.ssd``; an
+extension continues through ``ssd_chunked``, the op's own rule), and
+``dense_attn_impl="kernel"`` sends a decode step's attention through the
+decode-attention kernel where the reference's paged guards allow it (no
+window, no softcap); ``"gather"`` is the plain computation. Module scaling
+and migration target the pool: a dense engine refuses them with the
+reference's ValueErrors.
+
+The pool and the dense cache are updated in place where the reference
+rebuilt them functionally. Not ported yet, and raising
+NotImplementedError: replication degrees above 1 across several cards
+(ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -70,8 +92,8 @@ from repro_torch.serving import graphs as G_
 from repro_torch.serving import paged_kv as PK
 from repro_torch.serving import sampling as SMP
 from repro_torch.serving import scheduler as SCH
+from repro_torch.serving import kvcache as KV
 from repro_torch.serving.instrument import fetch
-from repro_torch.serving.kvcache import cache_capacity
 from repro_torch.serving.request import MIGRATION_WIRE_VERSION, RequestSpec
 
 
@@ -192,6 +214,22 @@ def _decode_step(params, k, v, buf, *, cfg, nb, width, window, impl,
                         stochastic=stochastic, max_top_k=max_top_k)
 
 
+def _dense_step(params, cache, buf, *, cfg, window, attn_impl, stochastic,
+                max_top_k):
+    """One dense decode step, a dense graph's function: ``forward`` in
+    decode mode over the whole batch (the cache updated in place: K/V,
+    positions, length and the SSM states at fixed addresses) +
+    ``_sample_step``, the operands packed as (tokens, pre-step
+    positions, then the sampling operands)."""
+    B = buf.numel() // 6
+    tokens, positions, sampling = G_.unpack(buf, (B,), (B,), (4 * B,))
+    logits, _, _ = T.forward(params, cfg, tokens[:, None], positions[:, None],
+                             cache, mode="decode", window=window,
+                             attn_impl=attn_impl)
+    return _sample_step(logits, sampling, vocab_size=cfg.vocab_size,
+                        stochastic=stochastic, max_top_k=max_top_k)
+
+
 def _default_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
@@ -202,34 +240,42 @@ def _default_device():
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  max_len: int = 128, dtype="float32", swa: bool = False,
+                 prefill_chunk: int = 0,
                  cache_kind: str = "paged", block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  paged_attn_impl: str = "kernel",
+                 dense_attn_impl: str = "kernel",
                  prefix_sharing: bool = True, scheduler: str = "budget",
                  token_budget: int = 128,
                  device=None, cuda_graphs: bool = True):
-        if cache_kind != "paged":
-            raise NotImplementedError(
-                f"cache_kind={cache_kind!r}: the dense cache is not ported "
-                f"yet (ROADMAP A9)")
+        if cache_kind not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_kind {cache_kind!r}")
         T.check_supported(cfg)
-        if not cfg.supports_paged_kv:
+        if cache_kind == "paged" and not cfg.supports_paged_kv:
             raise ValueError(
                 f"cache_kind='paged' needs a GQA attention decoder "
                 f"(family={cfg.family}, attn={cfg.attention_kind})")
-        if paged_attn_impl not in ("kernel", "gather"):
-            raise ValueError(f"unknown paged_attn_impl {paged_attn_impl!r}")
+        for name, impl, allowed in (
+                ("paged_attn_impl", paged_attn_impl, ("kernel", "gather")),
+                ("dense_attn_impl", dense_attn_impl, ("kernel", "gather"))):
+            if impl not in allowed:
+                raise ValueError(f"unknown {name} {impl!r}")
         self.device = (torch.device(device) if device is not None
                        else _default_device())
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
-        # the paged path keeps the logical length (block-table columns are
-        # absolute positions) and FREES leading blocks as they leave a
-        # sliding window
-        self.max_len = max_len
+        self.cache_kind = cache_kind
+        dense = cache_kind == "dense"
+        # the dense cache ring-buffers down to a sliding window; the
+        # paged path keeps the logical length (block-table columns are
+        # absolute positions) and FREES leading blocks as they leave it
+        self.max_len = (KV.cache_capacity(cfg, max_len, swa=swa) if dense
+                        else max_len)
+        self.logical_max = max_len
         self.window = cfg.sliding_window if swa else None
         self.dtype = T.torch_dtype(dtype)
+        self.prefill_chunk = prefill_chunk  # 0 = one-shot prefill
         self.active: Dict[int, Request] = {}   # slot -> request
         # slots whose prompt is only PARTIALLY written (chunked prefill):
         # they hold blocks and an admission-order position but do not
@@ -246,20 +292,32 @@ class Engine:
         self.preempt_count = 0   # pool-pressure evictions
         self._admit_order: List[int] = []      # slots, oldest first
         self._admit_finished: List[Request] = []  # done at admission
-        self.prefix_sharing = bool(prefix_sharing)
+        # host mirror of the dense cache's per-slot lengths (the paged
+        # path's live in pstate.lengths): a decode step reads no device
+        # state
+        self._host_lengths = np.zeros((max_batch,), np.int64)
+        self.prefix_sharing = bool(prefix_sharing) and not dense
 
-        if n_blocks is None:
-            # SWA pools only need the live window (+1 block of write
-            # headroom per slot); the table still spans max_len columns
-            live = cache_capacity(cfg, max_len, swa=swa)
-            n_blocks = -(-max_batch * live // block_size)
-            if self.window:
-                n_blocks += max_batch
-        self.pstate = PK.init_paged(cfg, max_batch, n_blocks,
-                                    block_size=block_size, dtype=self.dtype,
-                                    max_len=self.max_len,
-                                    prefix_cache=self.prefix_sharing,
-                                    device=self.device)
+        if dense:
+            self.cache = T.init_cache(cfg, max_batch, self.max_len,
+                                      self.dtype, self.device)
+            self.pstate = None
+            scheduler = "phase"   # chunking targets the pool's allocation
+        else:
+            if n_blocks is None:
+                # SWA pools only need the live window (+1 block of write
+                # headroom per slot); the table still spans max_len columns
+                live = KV.cache_capacity(cfg, max_len, swa=swa)
+                n_blocks = -(-max_batch * live // block_size)
+                if self.window:
+                    n_blocks += max_batch
+            self.pstate = PK.init_paged(cfg, max_batch, n_blocks,
+                                        block_size=block_size,
+                                        dtype=self.dtype,
+                                        max_len=self.max_len,
+                                        prefix_cache=self.prefix_sharing,
+                                        device=self.device)
+            self.cache = None
 
         self.sched = SCH.make_scheduler(scheduler, token_budget=token_budget,
                                         chunk_align=block_size)
@@ -267,6 +325,7 @@ class Engine:
         self.last_step_packed: Optional[int] = None  # telemetry, per step
 
         self._paged_impl = paged_attn_impl
+        self._dense_impl = dense_attn_impl
         # optional lifecycle span recorder (the observability slice fills
         # it); None keeps every hook site a falsy check
         self.span_hook = None
@@ -375,17 +434,45 @@ class Engine:
                                    np.asarray(req.generated[:-1], np.int32)])
         return np.asarray(req.prompt, np.int32)
 
-    def _run_prefill(self, tokens_2d, last_idx=None):
-        """Batched one-shot prefill over a throwaway cache sized exactly
-        to the (bucket-padded) prompt — its K/V is scattered into the
-        block pool right after. ``last_idx`` [G] selects each row's last
-        REAL token for the returned logits. Returns (logits, cache)."""
+    def _run_prefill(self, tokens_2d, cache_len: Optional[int] = None,
+                     last_idx=None):
+        """Batched (possibly chunked) prefill over a throwaway cache.
+
+        The paged path sizes the cache exactly to the (bucket-padded)
+        prompt — its K/V is scattered into the block pool right after;
+        the dense path passes ``cache_len`` = its capacity so
+        ``kvcache.insert_request`` shapes line up. With ``prefill_chunk``
+        the first slice runs as a prefill and the rest as decode-mode
+        extensions. ``last_idx`` [G] selects each row's last REAL token
+        for the returned logits (one-shot prefill only). A dense
+        engine's prefill takes its kernel routes (the SSD kernel for a
+        scan from the zero state); a paged wave's prefill attends with
+        ``attention`` either way. Returns (logits, cache)."""
         G, S = tokens_2d.shape
-        rcache = T.init_cache(self.cfg, G, S, self.dtype, self.device)
-        return T.forward(self.params, self.cfg,
-                         T.to_device(tokens_2d, self.device),
-                         mode="prefill", cache=rcache, window=self.window,
-                         last_idx=last_idx)[:2]
+        rcache = T.init_cache(self.cfg, G, cache_len or S, self.dtype,
+                              self.device)
+        chunk = self.prefill_chunk or S
+        if last_idx is not None and chunk < S:
+            raise ValueError("a per-row last-token gather needs one-shot "
+                             "prefill")
+        kw = dict(window=self.window)
+        if self.cache_kind == "dense":
+            kw.update(attn_impl=self._dense_impl, ssd_impl="kernel")
+        toks = T.to_device(tokens_2d, self.device)
+        first = min(chunk, S)
+        logits, rcache, _ = T.forward(self.params, self.cfg, toks[:, :first],
+                                      mode="prefill", cache=rcache,
+                                      last_idx=last_idx, **kw)
+        off = first
+        while off < S:  # chunked prefill: bound per-call work
+            n = min(chunk, S - off)
+            pos = torch.arange(off, off + n, dtype=torch.int32,
+                               device=self.device).expand(G, n)
+            logits, rcache, _ = T.forward(self.params, self.cfg,
+                                          toks[:, off:off + n], pos, rcache,
+                                          mode="decode", **kw)
+            off += n
+        return logits, rcache
 
     def _activate(self, req: Request, slot: int, length: int,
                   first_tok: Optional[int]):
@@ -406,7 +493,8 @@ class Engine:
         if hit_eos or len(req.generated) >= req.max_new_tokens:
             req.finish_time = self.clock
             req.slot = None
-            PK.free_slot(self.pstate, slot)
+            if self.cache_kind == "paged":
+                PK.free_slot(self.pstate, slot)
             if slot in self._admit_order:   # was mid-prefill (chunked)
                 self._admit_order.remove(slot)
             if self.span_hook:
@@ -417,6 +505,26 @@ class Engine:
         self.active[slot] = req
         if slot not in self._admit_order:   # chunked slots already queued
             self._admit_order.append(slot)
+        if self.cache_kind == "dense":
+            self._host_lengths[slot] = length
+
+    # ---------------------------------------------------------- dense admit
+    def _admit_dense(self):
+        """Admit one request per free slot: prefill it alone over a
+        throwaway cache of the engine's capacity, sample its first token,
+        insert its cache into the slot (in place)."""
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            req = self.queue.popleft()
+            toks = self._prefill_tokens(req)
+            logits, rcache = self._run_prefill(toks[None, :],
+                                               cache_len=self.max_len)
+            first = None
+            if not req.generated:
+                first = self._sample_batch(logits, [req])[0]
+            KV.insert_request(self.cache, slot, rcache, len(toks))
+            self._activate(req, slot, len(toks), first)
 
     # ---------------------------------------------------------- paged admit
     def _admit_paged(self, wave: Optional[List[Request]] = None):
@@ -528,7 +636,9 @@ class Engine:
         for req in admitted:
             if id(req) in ctx_of:
                 continue        # prefix-cache hit: suffix-only path below
-            Sb = _pow2_at_least(len(ptoks[id(req)]))
+            S = len(ptoks[id(req)])
+            # chunked prefill keeps exact lengths (chunking bounds shapes)
+            Sb = S if self.prefill_chunk else _pow2_at_least(S)
             groups.setdefault(Sb, []).append(req)
         first_of: Dict[int, Optional[int]] = {}
         for Sb, reqs in groups.items():
@@ -536,7 +646,8 @@ class Engine:
             toks = np.zeros((len(reqs), Sb), np.int32)
             for i, r in enumerate(reqs):
                 toks[i, :lens[i]] = ptoks[id(r)]
-            last = T.to_device(np.asarray(lens, np.int64) - 1, self.device)
+            last = (None if self.prefill_chunk else
+                    T.to_device(np.asarray(lens, np.int64) - 1, self.device))
             logits, rcache = self._run_prefill(toks, last_idx=last)
             firsts = self._sample_batch(logits, reqs)
             PK.write_tokens_batch(
@@ -650,7 +761,9 @@ class Engine:
                     oidx))
 
     def _admit(self):
-        if self.sched.budgeted:
+        if self.cache_kind == "dense":
+            self._admit_dense()
+        elif self.sched.budgeted:
             self._admit_budget()
         else:
             self._admit_paged()
@@ -894,7 +1007,7 @@ class Engine:
         self._admit()
         finished = self._admit_finished
         self._admit_finished = []
-        if self.active:
+        if self.cache_kind == "paged" and self.active:
             # may preempt: must run BEFORE the step snapshots active slots
             self._ensure_decode_room()
         if not self.active:
@@ -906,6 +1019,24 @@ class Engine:
             tokens[slot] = req.generated[-1]
             active_mask[slot] = True
         temps, topks, seeds, ctrs = self._sampling_arrays()
+        stochastic, max_top_k = bool((temps > 0).any()), int(topks.max())
+        if self.cache_kind == "dense":
+            pre_lengths = self._host_lengths.copy()
+            # the key of the reference's _dense_step_impl jit (cfg is the
+            # engine's): sampling's static arguments and the window; the
+            # attention route
+            key = ("dense", stochastic, max_top_k, self.window,
+                   self._dense_impl)
+            fn = functools.partial(_dense_step, self.params, self.cache,
+                                   cfg=self.cfg, window=self.window,
+                                   attn_impl=self._dense_impl,
+                                   stochastic=stochastic,
+                                   max_top_k=max_top_k)
+            toks = fetch(self.graphs.run(key, fn, G_.pack(
+                tokens, pre_lengths, temps, topks, seeds, ctrs)))
+            self._host_lengths[active_mask] += 1
+            self._step_count += 1
+            return self._finish_step(toks, pre_lengths, finished)
 
         st = self.pstate
         pre_lengths = st.lengths.copy()
@@ -918,7 +1049,6 @@ class Engine:
         # the engine's): table width, sampling's static arguments,
         # replication degrees (all ones run the plain step), attention
         # impl, window. Lengths, tokens and sampling values never re-key.
-        stochastic, max_top_k = bool((temps > 0).any()), int(topks.max())
         degrees = self._step_degrees
         if degrees is not None and all(d == 1 for d in degrees):
             degrees = None
@@ -943,13 +1073,17 @@ class Engine:
             for slot in self.active:
                 PK.free_out_of_window(st, slot, self.window)
         self._step_count += 1
+        return self._finish_step(toks, pre_lengths, finished)
 
+    def _finish_step(self, toks, pre_lengths, finished):
+        """Append each active slot's sampled token; retire the requests
+        that hit eos, their token budget or the logical length."""
         for slot, req in list(self.active.items()):
             tok = int(toks[slot])
             req.generated.append(tok)
             hit_eos = req.eos_id is not None and tok == req.eos_id
             full = len(req.generated) >= req.max_new_tokens
-            over = int(pre_lengths[slot]) + 2 >= self.max_len
+            over = int(pre_lengths[slot]) + 2 >= self.logical_max
             if hit_eos or full or over:
                 req.finish_time = self.clock
                 if self.span_hook:
@@ -961,22 +1095,32 @@ class Engine:
     def _retire(self, slot: int):
         del self.active[slot]
         self._admit_order.remove(slot)
-        PK.free_slot(self.pstate, slot)
+        if self.cache_kind == "paged":
+            PK.free_slot(self.pstate, slot)
+        else:
+            self._host_lengths[slot] = 0
+            KV.evict_request(self.cache, slot)
 
     def prefix_stats(self) -> dict:
-        """Live prefix-sharing gauges (hit rate, CoW forks, blocks saved)."""
+        """Live prefix-sharing gauges (hit rate, CoW forks, blocks saved);
+        zeros for a dense engine."""
+        if self.cache_kind != "paged":
+            return {"queries": 0, "hits": 0, "hit_rate": 0.0,
+                    "cow_forks": 0, "blocks_saved_total": 0,
+                    "blocks_saved_now": 0, "cached_blocks": 0}
         return PK.prefix_stats(self.pstate)
 
     @property
     def block_size(self) -> int:
-        """Pool block granularity — what the pod router hashes incoming
-        prompts by (serving/router.py)."""
-        return self.pstate.block_size
+        """Pool block granularity (0 for a dense engine) — what the pod
+        router hashes incoming prompts by (serving/router.py)."""
+        return self.pstate.block_size if self.cache_kind == "paged" else 0
 
     def prefix_keys(self) -> set:
         """Hex-encoded content-chain keys RESIDENT in this engine's
-        prefix cache — the router's affinity signal."""
-        if not self.prefix_sharing:
+        prefix cache — the router's affinity signal (empty for a dense
+        engine)."""
+        if self.cache_kind != "paged" or not self.prefix_sharing:
             return set()
         return {k.hex() for k in self.pstate.prefix_cache}
 
@@ -1006,6 +1150,9 @@ class Engine:
         on one card or on the CPU, where every degree becomes 1 and the
         step — and so every token stream — is unchanged. A degree above
         1 across several cards raises (ROADMAP A10)."""
+        if self.cache_kind != "paged":
+            raise ValueError("apply_plan targets the paged decode step; "
+                             "dense engines predate module scaling")
         p = tuple(plan.p) if hasattr(plan, "p") else tuple(plan)
         if len(p) != self.cfg.num_layers:
             raise ValueError(f"plan covers {len(p)} layers, "
@@ -1039,6 +1186,9 @@ class Engine:
         ``paged_kv.export_blocks``' choice: ``"bits"`` for a port peer,
         ``"float32"`` for a peer that reads arrays by value (the JAX
         package)."""
+        if self.cache_kind != "paged":
+            raise ValueError("pause/resume migrates paged KV blocks; "
+                             "dense slabs go through core.migration")
         if slot in self.active:
             req = self.active.pop(slot)
             phase = "decode"
@@ -1080,6 +1230,8 @@ class Engine:
         request or touching the pool — when no slot or not enough blocks
         are free (the caller re-queues it; counter-based sampling replays
         the continuation deterministically)."""
+        if self.cache_kind != "paged":
+            raise ValueError("resume_request needs a paged engine")
         self._check_payload_version(payload, "resume_request")
         req = payload["request"]
         free = self._free_slots()
@@ -1114,6 +1266,8 @@ class Engine:
         stream keeps decoding into its tail block meanwhile. The returned
         ``epoch`` is the dirty-set cursor for the phase-2
         ``pause_request(slot, since_epoch=epoch)``; ``wire`` as there."""
+        if self.cache_kind != "paged":
+            raise ValueError("snapshot_request needs a paged engine")
         req = (self.active.get(slot) or self.prefilling[slot])
         payload = PK.export_blocks(self.pstate, slot, wire=wire)
         return {"v": MIGRATION_WIRE_VERSION, "rid": req.rid, "kv": payload,
@@ -1124,6 +1278,8 @@ class Engine:
         cannot touch (``_staged``), activating nothing. Returns the
         staging slot, or None (without mutating the pool) when no slot or
         not enough blocks are free."""
+        if self.cache_kind != "paged":
+            raise ValueError("prepare_resume needs a paged engine")
         self._check_payload_version(snap, "prepare_resume")
         free = self._free_slots()
         if not free:

@@ -1,10 +1,11 @@
 """CUDA graphs of the serving engine's steps: one graph per static key.
 
 Counterpart of the reference's compiled steps in
-``repro.serving.engine``: ``_jitted_steps()`` (the decode step,
+``repro.serving.engine``: ``_jitted_steps()`` (the paged decode step,
 ``_paged_step_impl``, jitted on cfg, window, impl, stochastic, max_top_k
-and degrees), ``_chunk_prefill_fn`` (one executable per pow2 (group,
-context, suffix) bucket) and ``_sample_fn``. A CUDA graph per static key
+and degrees, and the dense one, ``_dense_step_impl``, jitted on cfg,
+window, stochastic and max_top_k), ``_chunk_prefill_fn`` (one executable
+per pow2 (group, context, suffix) bucket) and ``_sample_fn``. A CUDA graph per static key
 is the card's counterpart of a jit cache entry per static key: it is
 captured at the first call that needs the key, as jit compiles at first
 use, and replayed by every later call.
@@ -22,10 +23,12 @@ A step reaches its graph through fixed tensors:
 * outputs: the tensor the captured function returned, rewritten by every
   replay; the caller reads it (the engine fetches the sampled ids, the
   step's one host sync) before the next call of the same key.
-* the pool and the weights, which the function reads through its
-  closure: they are written in place and never rebound, so a migration
-  (an import writes the pool with ``index_copy_``) keeps every graph
-  valid and captures nothing.
+* the pool, the dense cache and the weights, which the function reads
+  through its closure: they are written in place and never rebound (an
+  admission inserts into the dense cache with ``copy_``; the dense step
+  copies the Mamba2 mixer's new states into the cache's state tensors),
+  so a migration (an import writes the pool with ``index_copy_``) or an
+  admission keeps every graph valid and captures nothing.
 
 A capture runs the function once eagerly on a side stream — the warm-up,
 which sets the kernels' shared-memory attributes and cuBLAS's workspace
@@ -51,12 +54,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.models.transformer import to_device
 from repro_torch.serving import instrument
 
 #: kernel wrappers whose launches ``launches_run`` accounts through replays
-COUNTED = (paged_decode_attention,)
+COUNTED = (paged_decode_attention, decode_attention)
 
 
 def pack(*arrays) -> np.ndarray:
@@ -102,8 +106,8 @@ class _Graph:
 
 class StepGraphs:
     """One engine's captured steps, keyed by the static key whose first
-    element names the step's kind (``"decode"``, ``"chunk"``,
-    ``"sample"``). ``keys`` counts the calls per key on every device;
+    element names the step's kind (``"decode"``, ``"dense"``,
+    ``"chunk"``, ``"sample"``). ``keys`` counts the calls per key on every device;
     ``counts`` the captures and replays by kind on the card;
     ``capture_seconds`` holds (kind, warm-up, capture) host seconds of
     each capture — the warm-up's launches, then ``torch.cuda.graph``'s
@@ -204,7 +208,8 @@ def launches_run(kernel, graphs) -> int:
     graph was recorded (each recorded a launch and ran nothing), plus
     the launches each replay ran. For the paged kernel, one per layer of
     a decode step, this is layers x decode steps whether the steps ran
-    eagerly or from graphs."""
+    eagerly or from graphs; so is the dense-decode kernel's in a dense
+    step (one per attention layer or shared-block application)."""
     name = kernel.__name__
     return (kernel.launches - sum(g.recorded_calls[name] for g in graphs)
             + sum(g.replayed[name] for g in graphs))

@@ -151,6 +151,21 @@ def test_sliding_window_streams_identical(tiny, scheduler):
     assert eng.pstate.blocks_in_use() == 0
 
 
+def test_paged_prefill_chunk_streams_identical(tiny):
+    """``prefill_chunk``: whole-prompt waves at exact lengths, each
+    prefilled in slices of 4 over the throwaway cache (the phase
+    scheduler), against the reference's paged engine with the same
+    setting."""
+    jcfg, jp, tcfg, tp = tiny
+    prompts, kw, max_new = WORKLOADS["ragged"]
+    kw = dict(kw, scheduler="phase", prefill_chunk=4)
+    want = _run(JaxEngine(jcfg, jp, cache_kind="paged", **kw), JaxSpec,
+                JaxSampling, prompts, max_new, 0.0, 0)
+    got = _run(Engine(tcfg, tp, device="cpu", **kw), RequestSpec,
+               SamplingParams, prompts, max_new, 0.0, 0)
+    assert got == want
+
+
 def test_kernel_and_gather_impls_agree(tiny):
     """On the CPU the "kernel" impl is the kernel's plain version; it and
     the gather path give the same streams."""
@@ -194,10 +209,12 @@ def test_device_rules(tiny, monkeypatch):
 
 def test_uncovered_options_raise(tiny, monkeypatch):
     _, _, tcfg, tp = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Engine(tcfg, tp, device="cpu", cache_kind="dense")
+    mla = get_config("minicpm3-4b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP A9.3"):
+        Engine(mla, tp, device="cpu", cache_kind="dense")
+    # an SSM has nothing to page: the reference's ValueError
     ssm = get_config("mamba2-780m").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="cache_kind='paged' needs a GQA"):
         Engine(ssm, tp, device="cpu")
     eng = Engine(tcfg, tp, device="cpu")
     # replication degrees above 1 across several cards wait for A10; on

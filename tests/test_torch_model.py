@@ -265,8 +265,7 @@ def test_moe_forward_modes(variant):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-780m", "A9"), ("zamba2-7b", "A9"),
-    ("whisper-medium", "A9"), ("minicpm3-4b", "A9")])
+    ("whisper-medium", "A9.5"), ("minicpm3-4b", "A9.3")])
 def test_uncovered_families_raise(arch, item):
     cfg = torch_configs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -54,12 +54,28 @@ def test_run_in_process_on_cpu(capsys):
     assert "instances=2 dropped=0" in out
 
 
-def test_run_refuses_without_a_card_and_dense_families(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        run(ServeConfig(device="cpu", cache="dense", requests=1))
+def test_run_refuses_without_a_card_and_dense_families(monkeypatch, capsys):
+    """A dense family is served on the CPU by one dense-cache engine; MLA
+    waits for ROADMAP A9.3; without a card ``run`` refuses."""
+    assert run(ServeConfig(device="cpu", cache="dense", requests=2,
+                           max_new=4)) == 2
+    assert "[serve] cache_kind=dense device=cpu" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP A9.3"):
+        run(ServeConfig(device="cpu", arch="minicpm3-4b", requests=1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         run(ServeConfig(requests=1))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+def test_run_serves_ssm_and_hybrid_on_the_dense_cache(arch, capsys):
+    """``--cache auto`` picks the dense cache for the SSM and the hybrid,
+    and every request finishes with its tokens."""
+    assert run(ServeConfig(device="cpu", arch=arch, cache="auto",
+                           requests=3, max_new=5)) == 3
+    out = capsys.readouterr().out
+    assert "[serve] cache_kind=dense device=cpu reduced float32" in out
+    assert "[serve] 3 requests, 15 tokens" in out
 
 
 # ----------------------------------------------------------- tier 2
