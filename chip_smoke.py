@@ -19,7 +19,9 @@ prints no ``ok`` line):
    one-column table, and qwen2-moe-a2.7b's MHA shape (H = KV = 16, D 128)
    at the main path's mid-decode lengths and on ragged lengths with a
    length-0 row; dense decode at zamba2-7b's shared block, H = KV = 32,
-   D 112, the same way; the SSD scan at b 1 and 2, one chunk and
+   D 112, the same way, and at whisper-medium's cross-attention (H = KV
+   = 16, D 64, S 1500, all lengths 1500) and self-attention (S 448); the
+   SSD scan at b 1 and 2, one chunk and
    several, and at the shapes phase 10's prefills give it: mamba2-780m's
    and zamba2-7b's heads at each workload prompt length, padded as
    ``kernels.ops.ssd`` pads it),
@@ -32,7 +34,8 @@ prints no ``ok`` line):
    path's decode shapes (tinyllama-1.1b's heads, and qwen2-moe-a2.7b's
    for phase 9), flash at tinyllama-1.1b and gemma-7b prefill
    widths (S 2048), dense decode at tinyllama's and zamba2-7b's (B 8,
-   S 1024), the SSD scan at mamba2-780m's (L 2048 and 768) and
+   S 1024) and whisper-medium's cross-attention (B 8, S 1500), the SSD
+   scan at mamba2-780m's (L 2048 and 768) and
    zamba2-7b's (L 768);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
@@ -107,9 +110,16 @@ prints no ``ok`` line):
    graphs and once eager, each cold and then warm, with phase 5's gates
    (streams token-identical, launches = layers x decode steps, replays =
    steps - captures, no capture in the warm run, one host sync per
-   steady step under sync-debug "error"); one decode step's logits
-   through the kernel against the gather path (relative L2 2e-2, bf16);
-   a profiled window of 4 steady graph steps; then one stop-the-world
+   steady step under sync-debug "error"); one decode step through the
+   kernel against the gather path: each paged-kernel call against its
+   plain version (2e-2), the bf16 logits (2e-2) over the rows whose
+   top-4 experts agree with the gather route's in every layer (a
+   rounding difference can flip a row's experts, which moves its logits
+   far more), the first 12 layers widened to fp32 (1e-4, and the same
+   experts in every row and layer: past layer 10, where the bf16 routes'
+   first experts flip), with the kernel's layout run through the plain
+   paged attention printed beside them as a witness that the flips are
+   rounding; a profiled window of 4 steady graph steps; then one stop-the-world
    move of all 8 decoding requests to a second engine sharing the
    weights dict (every imported block bit-equal to its payload, 3 host
    syncs per move, streams token-identical to the unmigrated graph run).
@@ -138,9 +148,11 @@ prints no ``ok`` line):
       once with ``prefill_chunk`` W / 4; the ring wrapped (no row holds
       position 0); first-token and decode logits against the paged
       engine with ``swa=True`` on the same requests (2e-2);
-   c. mamba2-780m and d. zamba2-7b at full width, random bf16 weights
-      from a seeded generator (their bytes equal to the reference's
-      ``init_params``): the kernel routes against the plain ones (the
+   c. mamba2-780m and d. zamba2-7b at full width but cut depth (24 of
+      48 layers; 27 of 81: four applications of the shared block and the
+      tail of 3), random bf16 weights from a seeded generator (their
+      bytes equal to the reference's ``init_params`` at that depth): the
+      kernel routes against the plain ones (the
       SSD kernel against ``ssd_chunked`` on every prompt's first-token
       logits; the dense-decode kernel against the gather route on the
       first steady step), ``prefill_chunk=256`` against the one-shot
@@ -149,9 +161,35 @@ prints no ``ok`` line):
       steady step beside its weight-read bound (every weight once over
       3.35 TB/s), the cache bytes and the peak device memory.
    The dense-decode and SSD rows of the JSON line add the graph runs'
-   cold launches (a: 22 a step, d: 13; c: 48 a prefill, d: 81) to their
-   kernel-API launches, with each timed shape in ``shapes``.
+   cold launches (a: 22 a step, d: 4; c: 24 a prefill, d: 27) to their
+   kernel-API launches, with each timed shape in ``shapes``;
+11. MLA and the encoder-decoder on the dense-cache engine, after phase
+   10's weights are freed, each model at full width in bf16 (random
+   weights from a seeded generator, their bytes and the cache's equal
+   to the reference's), phase 5's workload through graphs and eagerly,
+   cold then warm, with phase 10's gates:
+   a. minicpm3-4b (62 layers, MLA with q rank 768, kv rank 256, rope
+      32), ``max_len`` 1024: dense-decode launches gated to 0 (MLA
+      attends plainly, as the reference does); one decode step of an
+      engine's live cache (the absorbed form) against one prefill over
+      each prompt plus its token (the expanded form), in fp32 within
+      1e-4 relative L2 (bf16 printed); ``prefill_chunk=256`` against one
+      shot (last-chunk logits in fp32 1e-4; greedy agreement printed);
+   b. whisper-medium (24 encoder and 24 decoder layers), ``max_len``
+      448 (its decoder's context), prompts capped at 416 tokens, frames
+      [1, 1500, 1024] from an ``encoder_input_fn`` drawing them on the
+      card seeded by request id: dense-decode launches = 48 x decode
+      steps (self- and cross-attention); on the first steady step every
+      kernel call against its plain version (2e-2) and the logits of the
+      kernel routes against the gather routes (bf16 2e-2, fp32 1e-4);
+   each with the steady step beside its bound (a: every weight once; b:
+   the decoder's weights read by a step, the lm_head, the cross K/V and
+   the self K/V rows the first steady step's lengths reach), a
+   profiled window of 4 steady graph steps and the peak device memory.
+   The dense-decode row adds b's launches and phase 3's S 1500 shape.
 
+Logits are compared over the real vocabulary: a padded vocabulary's
+padding columns hold -2**20, which would swamp any norm of a difference.
 It then prints a JSON line of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Longer
 logs go to ``chiprun_out/``.
@@ -435,7 +473,8 @@ def check_decode(DA, mid_lens):
     dim that is not a multiple of 32) at the main path's mid-decode
     lengths and on ragged lengths with a length-0 row, against a
     transposed view of a [B, 1024, KV, D] cache as the dense engine
-    passes it."""
+    passes it; whisper-medium's cross-attention (H = KV = 16, D 64, S
+    1500, all lengths 1500) and self-attention (S 448) the same way."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [  # (H, KV, S, D, lengths, bshd)
         (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
@@ -445,6 +484,11 @@ def check_decode(DA, mid_lens):
         (32, 4, 1024, 64, [64, 256, 0, 65, 63, 640, 1, 1024], False),
         (32, 32, 1024, 112, list(mid_lens), True),
         (32, 32, 1024, 112, [0, 1, 63, 64, 65, 640, 1023, 1024], True),
+        # whisper-medium's decoder: cross-attention over the 1500 encoder
+        # frames (every row's length 1500; S not a multiple of 64, so the
+        # last split is partial) and self-attention over its 448 rows
+        (16, 16, 1500, 64, [1500] * 8, True),
+        (16, 16, 448, 64, [0, 1, 63, 64, 65, 300, 447, 448], True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -980,36 +1024,46 @@ def serve_graphs_and_eager(engine_args, PD, GR, work, smi):
     return runs
 
 
+def paged_probe_inputs(eng):
+    """(tokens [B, 1], active rows [B] bool, paged handle) of a decode step
+    on a paged engine's live pool that feeds each active request its last
+    token, at the engine's pow2 table width."""
+    st = eng.pstate
+    toks = np.zeros((eng.max_batch, 1), np.int64)
+    act = np.zeros((eng.max_batch,), bool)
+    for s, r in eng.active.items():
+        toks[s, 0] = r.generated[-1]
+        act[s] = True
+    need = int(st.lengths[act].max()) // st.block_size + 1
+    nb = 1 << (need - 1).bit_length()  # the engine's pow2 table width
+    tables = np.ascontiguousarray(st.block_tables[:, :nb])
+    handle = {
+        "k": st.k,
+        "v": st.v,
+        "block_tables": torch.from_numpy(tables).cuda(),
+        "lengths": torch.from_numpy(st.lengths.copy()).cuda(),
+        "active": torch.from_numpy(act).cuda(),
+    }
+    return torch.from_numpy(toks).cuda(), act, handle
+
+
 def logit_probe(T, cfg, out, fp32):
-    """A ``run_engine`` probe: one decode step's logits through the kernel
-    and through the gather path, on the engine's live pool (both write
+    """A ``run_engine`` probe: one decode step's logits (over the real
+    vocabulary) through the kernel and through the gather path, on the
+    engine's live pool (both write
     the same new K/V at the same place, so the state is unchanged), in
     bf16 (``out["rel_err"]``, ``out["max_abs"]``, ``out["finite"]``) and,
     with ``fp32``, again with weights and pool widened (TF32 off), where
     the two paths differ only by summation order (``out["rel_err32"]``)."""
 
     def probe(eng):
+        tk, act, handle = paged_probe_inputs(eng)
         st = eng.pstate
-        toks = np.zeros((eng.max_batch, 1), np.int64)
-        act = np.zeros((eng.max_batch,), bool)
-        for s, r in eng.active.items():
-            toks[s, 0] = r.generated[-1]
-            act[s] = True
-        need = int(st.lengths[act].max()) // st.block_size + 1
-        nb = 1 << (need - 1).bit_length()  # the engine's pow2 table width
-        tables = np.ascontiguousarray(st.block_tables[:, :nb])
-        handle = {
-            "k": st.k,
-            "v": st.v,
-            "block_tables": torch.from_numpy(tables).cuda(),
-            "lengths": torch.from_numpy(st.lengths.copy()).cuda(),
-            "active": torch.from_numpy(act).cuda(),
-        }
-        tk = torch.from_numpy(toks).cuda()
 
         def rel_err(params, h):
             got = {
-                impl: T.forward_paged(params, cfg, tk, h, attn_impl=impl)[0][act]
+                impl: T.forward_paged(params, cfg, tk, h, attn_impl=impl)[0][
+                    act, : cfg.vocab_size]
                 for impl in ("kernel", "gather")
             }
             out["finite"] = bool(torch.isfinite(got["kernel"]).all())
@@ -1123,6 +1177,10 @@ def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None, keep_trace=True):
 
 # ------------------------------------------------ qwen2-moe at full width
 MOE_ARCH = "qwen2-moe-a2.7b"
+#: phase 9's fp32 comparison runs this many of qwen2-moe's 24 layers (their
+#: fp32 copy is 30.3 GB; all 24 would be 60.6 GB beside 30.3 GB of bf16);
+#: 12 reach past layer 10, where the bf16 routes' first experts flip
+MOE_FP32_LAYERS = 12
 
 
 def moe_phase(mods, get_config, out_dir, smi):
@@ -1175,43 +1233,101 @@ def moe_phase(mods, get_config, out_dir, smi):
             f"({bound_ms / ms[len(ms) // 2]:.1%} of bound) [{smi}]"
         )
 
-    # kernel vs gather (bf16) on a fresh graph engine's live pool, then a
-    # profiled window of 4 steady steps on the same engine
-    probe_out, busy, routed, rows = {}, {}, [], []
-    check = logit_probe(T, cfg, probe_out, fp32=False)
+    # kernel vs gather on a fresh graph engine's live pool, then a profiled
+    # window of 4 steady steps on the same engine. A bf16 rounding
+    # difference can flip a row's top-4 experts in some layer, and a flip
+    # moves that row's logits far more than 2e-2: so each paged-kernel call
+    # is held to its plain version (2e-2), the bf16 logits to 2e-2 on the
+    # rows whose experts agree in every layer, and the first
+    # MOE_FP32_LAYERS layers, widened to fp32, to 1e-4 with the same experts
+    # picked in every row and layer (all 24 in fp32 would not fit beside
+    # the bf16 weights). Two witnesses that the bf16 flips are rounding:
+    # fp32 through the layers of the first flips picks alike, and the
+    # kernel's layout with its plain version in the kernel's place
+    # ("plain") is printed against both routes
+    from repro_torch.kernels.paged_decode import paged_decode_attention_ref
+    from repro_torch.models import layers as LAYERS
+
+    busy, picks, calls, logits = {}, {}, {}, {}
     profile = functools.partial(
         profile_decode, out_dir=out_dir, smi=smi, tag="_moe", sink=busy
     )
 
     def probe(eng):
-        # record each layer's routing in the probe's first (kernel) step
-        act = sorted(eng.active)
-        rows.append(len(act))
-        route = MOE.route
+        tk, act, handle = paged_probe_inputs(eng)
+        route, V = MOE.route, cfg.vocab_size
 
-        def recording(p, x, c):
-            out = route(p, x, c)
-            if len(routed) < c.num_layers:
-                routed.append(out[1][act].unique().numel())
-            return out
+        def forward(tag, params, c, h, impl):
+            def recording(p, x, cc):
+                out = route(p, x, cc)
+                picks.setdefault(tag, []).append(out[1][act].sort(-1).values)
+                return out
 
-        MOE.route = recording
+            MOE.route = recording
+            try:
+                logits[tag] = T.forward_paged(params, c, tk, h, attn_impl=impl)[0][act, :V]
+            finally:
+                MOE.route = route
+
+        with checked_kernel_calls(calls):
+            forward("kernel", eng.params, cfg, handle, "kernel")
+        forward("gather", eng.params, cfg, handle, "gather")
+        paged = LAYERS.paged_decode_attention
+        LAYERS.paged_decode_attention = paged_decode_attention_ref
         try:
-            check(eng)
+            forward("plain", eng.params, cfg, handle, "kernel")
         finally:
-            MOE.route = route
+            LAYERS.paged_decode_attention = paged
+        n = MOE_FP32_LAYERS
+        cut = dataclasses.replace(cfg, num_layers=n)
+        p32 = widened({**{k: v for k, v in eng.params.items() if k != "layers"},
+                       "layers": _tree_map(lambda t: t[:n], eng.params["layers"])})
+        h32 = dict(handle, k=handle["k"][:n].float(), v=handle["v"][:n].float())
+        for impl in ("kernel", "gather"):
+            forward((impl, 32), p32, cut, h32, impl)
+        del p32, h32
         profile(eng)
 
     run_engine(*engine_args, "kernel", prompts, sampled, probe=probe)
-    rel = probe_out["rel_err"]
-    if not probe_out.get("finite") or rel > 2e-2:
+    L_ = cfg.num_layers
+    routed = [picks["kernel"][i].unique().numel() for i in range(L_)]
+    rows = len(logits["kernel"])
+
+    def flipped(a, b):
+        """(row, layer) pairs whose experts differ between two runs."""
+        return [(r, i) for i in range(len(picks[a])) for r in range(rows)
+                if not torch.equal(picks[a][i][r], picks[b][i][r])]
+
+    flips = flipped("kernel", "gather")
+    flips32 = flipped(("kernel", 32), ("gather", 32))
+    same = [r for r in range(rows) if r not in {f[0] for f in flips}]
+    worst = max(calls.get("paged", [float("inf")]))
+    if len(calls.get("paged", ())) != L_ or worst > 2e-2 or not same or flips32:
         raise AssertionError(
-            f"{cfg.name} kernel vs gather logits: relative error {rel:.3e} "
-            f"(tol 2e-2), finite {probe_out.get('finite')}"
-        )
+            f"{cfg.name}: {len(calls.get('paged', ()))} paged calls checked, worst "
+            f"{worst}; rows whose experts agree in every layer {same}; (row, "
+            f"layer) pairs that flip in fp32 {flips32}")
+    rel_same = gate_rel(f"{cfg.name} kernel vs gather logits, rows {same}",
+                        logits["kernel"][same], logits["gather"][same])
+    rel32 = gate_rel(f"{cfg.name} kernel vs gather logits, {MOE_FP32_LAYERS} layers "
+                     f"in fp32", logits["kernel", 32], logits["gather", 32], tol=1e-4)
     log(
-        f"[moe] one decode step, kernel vs gather logits: relative L2 error "
-        f"{rel:.3e} in bf16 (tol 2e-2), max abs {probe_out['max_abs']:.3e}"
+        f"[moe] one decode step, kernel vs gather: each of the {L_} bf16 paged "
+        f"calls against its plain version, worst relative L2 {worst:.3e} (tol "
+        f"2e-2); (row, layer) pairs whose top-{cfg.num_experts_per_tok} experts "
+        f"differ {flips}; logits relative L2 in bf16 over the {len(same)} rows "
+        f"whose experts agree in every layer {rel_same:.3e} (tol 2e-2), over all "
+        f"{rows} rows {rel_l2(logits['kernel'], logits['gather']):.3e} (not "
+        f"gated); the first {MOE_FP32_LAYERS} layers in fp32: pairs that differ "
+        f"{flips32} (none allowed), logits {rel32:.3e} (tol 1e-4) [{smi}]"
+    )
+    log(
+        f"[moe] witness, the kernel's layout with the plain paged attention in "
+        f"the kernel's place (bf16, not gated): pairs that differ from gather "
+        f"{flipped('plain', 'gather')}, from the kernel "
+        f"{flipped('plain', 'kernel')}; all-row logits relative L2 against "
+        f"gather {rel_l2(logits['plain'], logits['gather']):.3e}, against the "
+        f"kernel {rel_l2(logits['plain'], logits['kernel']):.3e} [{smi}]"
     )
     ms = stats["steady_step_ms"]
     median = ms[len(ms) // 2]
@@ -1219,7 +1335,7 @@ def moe_phase(mods, get_config, out_dir, smi):
     routed_bytes = step_bytes - (E * cfg.num_layers - sum(routed)) * expert_bytes
     routed_ms = routed_bytes / HBM_BYTES_PER_S * 1e3
     log(
-        f"[moe] routed-only bound: one decode step's {rows[0]} rows "
+        f"[moe] routed-only bound: one decode step's {rows} rows "
         f"route to {sum(routed)} of {E * cfg.num_layers} (layer, expert) pairs "
         f"(per layer {routed}); those experts' weights plus the rest of the "
         f"step's weights are {routed_bytes} B, bound {routed_ms:.3f} ms; the "
@@ -1981,9 +2097,26 @@ SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "zamba2-7b"
 #: phase 10's engine settings: phase 5's batch and length, dense cache
 DENSE_KW = dict(max_batch=8, max_len=1024, dtype="bfloat16", cache_kind="dense")
+MLA_ARCH = "minicpm3-4b"
+AUDIO_ARCH = "whisper-medium"
+#: phase 10 runs the SSM and the hybrid at full width but cut depth, to
+#: keep the script's time: mamba2-780m 24 of its 48 layers, zamba2-7b 27
+#: of its 81 (four applications of the shared block, then the tail of 3)
+PHASE10_LAYERS = {SSM_ARCH: 24, HYBRID_ARCH: 27}
 #: the weight bytes of the reference's init_params at full width in bf16
-#: (jax.eval_shape of repro.models.transformer.init_params)
-REFERENCE_WEIGHT_BYTES = {SSM_ARCH: 1_560_778_752, HYBRID_ARCH: 13_272_940_096}
+#: (jax.eval_shape of repro.models.transformer.init_params), at phase
+#: 10's depth for the SSM and the hybrid
+REFERENCE_WEIGHT_BYTES = {
+    SSM_ARCH: 857_854_464, HYBRID_ARCH: 4_851_272_896,
+    MLA_ARCH: 8_147_747_840, AUDIO_ARCH: 1_622_646_784,
+}
+#: the dense cache's bytes at phase 11's settings (max_batch 8; max_len
+#: 1024, whisper 448), from the reference's init_cache: minicpm3's
+#: latents, whisper's self K/V and cross K/V of 1500 rows
+REFERENCE_CACHE_BYTES = {MLA_ARCH: 292_585_504, AUDIO_ARCH: 1_531_983_904}
+#: whisper's decoder context, and the longest prompt that leaves room for
+#: 32 new tokens in it
+WHISPER_MAX_LEN, WHISPER_PROMPT = 448, 416
 
 
 def tree_leaves(tree):
@@ -1995,7 +2128,9 @@ def tree_leaves(tree):
 
 
 def dense_decode_logits(T, eng, toks=None, params=None, cache=None, **routes):
-    """One decode step's logits for the engine's active rows on its live
+    """One decode step's logits (over the real vocabulary: the padding
+    columns hold -2**20, which would swamp any norm of a difference) for
+    the engine's active rows on its live
     dense cache (or on ``cache``, a copy of it, with ``params``), through
     ``routes`` (``attn_impl`` / ``ssd_impl``); the cache is restored after
     (the step advances the SSM states in place). ``toks`` [B]: the tokens
@@ -2015,7 +2150,7 @@ def dense_decode_logits(T, eng, toks=None, params=None, cache=None, **routes):
     )[0]
     for t, c in snap:
         t.copy_(c)
-    return logits[act]
+    return logits[act, : eng.cfg.vocab_size]
 
 
 def widened(tree):
@@ -2025,17 +2160,19 @@ def widened(tree):
 
 @contextlib.contextmanager
 def checked_kernel_calls(out):
-    """Inside, every SSD-kernel call from the zero state (``ops.ssd``) and
-    every dense-decode call (``layers.decode_attention``) is held against
+    """Inside, every SSD-kernel call from the zero state (``ops.ssd``),
+    every dense-decode call (``layers.decode_attention``) and every
+    paged-decode call (``layers.paged_decode_attention``) is held against
     its plain version on the same inputs: ``out["ssd"]`` / ``out["decode"]``
-    collect each call's relative L2 (the SSD scan's larger of y and the
-    final state)."""
+    / ``out["paged"]`` collect each call's relative L2 (the SSD scan's
+    larger of y and the final state)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.paged_decode import paged_decode_attention_ref
     from repro_torch.models import layers as L
     from repro_torch.models.ssm import ssd_chunked
 
-    ssd, dec = ops.ssd, L.decode_attention
+    ssd, dec, paged = ops.ssd, L.decode_attention, L.paged_decode_attention
 
     def ssd_checked(x, dt, A, B, C, chunk=128, initial_state=None):
         y, h = ssd(x, dt, A, B, C, chunk, initial_state)
@@ -2050,11 +2187,18 @@ def checked_kernel_calls(out):
             rel_l2(o, decode_attention_ref(q, k, v, lengths)))
         return o
 
+    def paged_checked(q, k_pool, v_pool, tables, lengths):
+        o = paged(q, k_pool, v_pool, tables, lengths)
+        out.setdefault("paged", []).append(
+            rel_l2(o, paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths)))
+        return o
+
     ops.ssd, L.decode_attention = ssd_checked, dec_checked
+    L.paged_decode_attention = paged_checked
     try:
         yield out
     finally:
-        ops.ssd, L.decode_attention = ssd, dec
+        ops.ssd, L.decode_attention, L.paged_decode_attention = ssd, dec, paged
 
 
 def paged_decode_logits(T, eng, toks):
@@ -2076,19 +2220,19 @@ def paged_decode_logits(T, eng, toks):
     tk = torch.from_numpy(np.asarray(toks, np.int64)[:, None]).cuda()
     out = T.forward_paged(eng.params, eng.cfg, tk, handle, window=eng.window,
                           attn_impl="kernel")[0]
-    return out[sorted(eng.active)]
+    return out[sorted(eng.active), : eng.cfg.vocab_size]
 
 
 def prefill_logits(T, cfg, params, prompts, max_len, dtype="bfloat16", **routes):
-    """First-token logits [n, Vpad] of each prompt prefilled alone over a
-    fresh batch-1 dense cache of ``max_len`` (the dense engine's
-    admission), through ``routes``."""
+    """First-token logits [n, V] (the real vocabulary) of each prompt
+    prefilled alone over a fresh batch-1 dense cache of ``max_len`` (the
+    dense engine's admission), through ``routes``."""
     rows = []
     for p in prompts:
         cache = T.init_cache(cfg, 1, max_len, dtype, "cuda")
         tk = torch.from_numpy(np.asarray(p, np.int64)[None]).cuda()
         rows.append(T.forward(params, cfg, tk, mode="prefill", cache=cache,
-                              **routes)[0])
+                              **routes)[0][:, : cfg.vocab_size])
     return torch.cat(rows)
 
 
@@ -2147,7 +2291,7 @@ def serve_dense(mods, cfg, params, work, smi, per_step, per_prefill, tag, **kw):
     for what, graphs in (("graphs", True), ("eager", False)):
         DA.decode_attention.launches = 0
         SS.ssd_scan.launches = 0
-        eng = Engine(cfg, params, device="cuda", cuda_graphs=graphs, **DENSE_KW, **kw)
+        eng = Engine(cfg, params, device="cuda", cuda_graphs=graphs, **dict(DENSE_KW, **kw))
         counted = []
         for wl in (prompts, warm_prompts):
             dec0 = GR.launches_run(DA.decode_attention, [eng.graphs])
@@ -2311,7 +2455,8 @@ def dense_ring(mods, cfg, params, smi):
         orig = eng._sample_batch
 
         def sample(logits, reqs):
-            first_logits.setdefault(name, []).append(logits.float().clone())
+            first_logits.setdefault(name, []).append(
+                logits[:, : cfg.vocab_size].float().clone())
             return orig(logits, reqs)
 
         eng._sample_batch = sample
@@ -2375,6 +2520,37 @@ def dense_ring(mods, cfg, params, smi):
     )
 
 
+def full_width_params(T, cfg):
+    """Random bf16 weights of ``cfg`` from a seeded generator on the card,
+    their bytes gated to the reference's (after the peak-memory counter is
+    reset). Returns (params, bytes, seconds)."""
+    from repro_torch.core.migration import tree_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, gen, "bfloat16")
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    if weight_bytes != REFERENCE_WEIGHT_BYTES[cfg.name]:
+        raise AssertionError(f"{cfg.name}: {weight_bytes} B of weights")
+    return params, weight_bytes, time.perf_counter() - t
+
+
+def step_summary(stats, bound_ms, busy_ms, smi):
+    """The graph run's steady step beside its bound, the profiled busy
+    time and the peak device memory since the last reset."""
+    step_ms = stats["steady_step_ms"]
+    median = step_ms[len(step_ms) // 2]
+    return (
+        f"graphs, cold: steady step median {median:.3f} ms against the "
+        f"bound {bound_ms:.3f} ms ({bound_ms / median:.1%} of bound); device "
+        f"busy {busy_ms:.3f} ms per steady step (profiled), idle share "
+        f"outside the profiler {1 - busy_ms / median:.3f}; peak device "
+        f"memory allocated {torch.cuda.max_memory_allocated()} B [{smi}]"
+    )
+
+
 def dense_ssm(mods, cfg, work, out_dir, smi, per_step):
     """Phase 10 c and d: an SSM or hybrid model at full width in bf16
     through the dense engine. Returns the {"decode", "ssd"} launches of
@@ -2384,14 +2560,8 @@ def dense_ssm(mods, cfg, work, out_dir, smi, per_step):
     Engine, RS, SP, DA, SS, GR, T, PK = mods
     prompts, _, sampled = work
     tag = "mamba2" if cfg.family == "ssm" else "zamba2"
-    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = T.init_params(cfg, gen, "bfloat16")
-    torch.cuda.synchronize()
-    weight_bytes = tree_bytes(params)
-    if weight_bytes != REFERENCE_WEIGHT_BYTES[cfg.name]:
-        raise AssertionError(f"{cfg.name}: {weight_bytes} B of weights")
+    params, weight_bytes, _ = full_width_params(T, cfg)
     # a decode step reads every weight once (the tied embedding is the
     # unembedding's matrix; the shared block's weights count once)
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
@@ -2485,7 +2655,8 @@ def dense_ssm(mods, cfg, work, out_dir, smi, per_step):
             e = Engine(cfg, w, device="cuda", prefill_chunk=chunk,
                        **dict(DENSE_KW, dtype=dtype, max_batch=1))
             last[dtype, chunk] = torch.cat(
-                [e._run_prefill(p[None], cache_len=1024)[0] for p in prompts])
+                [e._run_prefill(p[None], cache_len=1024)[0][:, : cfg.vocab_size]
+                 for p in prompts])
             del e
     del p32
     rel_chunk = gate_rel(
@@ -2499,20 +2670,13 @@ def dense_ssm(mods, cfg, work, out_dir, smi, per_step):
     chunked = Engine(cfg, params, device="cuda", prefill_chunk=256, **DENSE_KW)
     _, creqs, _ = run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, eng=chunked)
     same, total = agreement(creqs, {r.rid: r.generated for r in reqs})
-    step_ms = stats["steady_step_ms"]
-    median = step_ms[len(step_ms) // 2]
-    peak = torch.cuda.max_memory_allocated()
     log(
         f"[{tag}] prefill_chunk=256 vs one-shot: last-chunk logits relative L2 "
         f"{rel_chunk:.3e} in fp32 (tol 1e-4), {rel_chunk16:.3e} in bf16; against "
         f"one shot in fp32, chunked {chunk16:.3e} and one-shot {one16:.3e} in bf16 "
         f"(the first may exceed the second by 2e-2); "
-        f"greedy tokens equal {same}/{total} (bf16; not "
-        f"gated); graphs, cold: steady step median {median:.3f} ms against the "
-        f"weight-read bound {bound_ms:.3f} ms ({bound_ms / median:.1%} of bound); "
-        f"device busy {busy[f'_{tag}']:.3f} ms per steady step (profiled), idle "
-        f"share outside the profiler {1 - busy[f'_{tag}'] / median:.3f}; peak device "
-        f"memory allocated {peak} B [{smi}]"
+        f"greedy tokens equal {same}/{total} (bf16; not gated); weight-read "
+        f"bound; {step_summary(stats, bound_ms, busy[f'_{tag}'], smi)}"
     )
     return launches
 
@@ -2537,7 +2701,7 @@ def dense_phase(mods, get_config, reference, out_dir, smi):
     launches = {"decode": {cfg.name: dec_tl}, "ssd": {}}
     for arch in (SSM_ARCH, HYBRID_ARCH):
         t = time.perf_counter()
-        c = get_config(arch)
+        c = dataclasses.replace(get_config(arch), num_layers=PHASE10_LAYERS[arch])
         per_step = c.num_layers // c.hybrid_attn_every if c.hybrid_attn_every else 0
         prompts, sampled = workload(c)
         work = (prompts, workload(c, seed=SEED + 1)[0], sampled)
@@ -2545,6 +2709,224 @@ def dense_phase(mods, get_config, reference, out_dir, smi):
         launches["ssd"][arch] = got["ssd"]
         if per_step:
             launches["decode"][arch] = got["decode"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[dense] {arch} in {time.perf_counter() - t:.1f} s")
+    return launches
+
+
+def dense_mla(mods, cfg, work, out_dir, smi):
+    """Phase 11 a: minicpm3-4b (MLA) at full width in bf16 through the
+    dense engine. MLA has no kernel (the reference attends it plainly):
+    the dense-decode launches are gated to 0."""
+    from repro_torch.core.migration import tree_bytes
+
+    Engine, RS, SP, DA, SS, GR, T, PK = mods
+    prompts, _, sampled = work
+    params, weight_bytes, init_s = full_width_params(T, cfg)
+    # a decode step reads every weight once (the tied embedding is the
+    # unembedding's matrix)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"[minicpm3] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"H={cfg.num_heads}, MLA q rank {cfg.q_lora_rank}, kv rank "
+        f"{cfg.kv_lora_rank}, rope {cfg.qk_rope_head_dim}, nope "
+        f"{cfg.qk_nope_head_dim}, v {cfg.v_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; weights {weight_bytes} B in {init_s:.1f} s; "
+        f"decode-step weight-read bound {bound_ms:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s [{smi}]"
+    )
+    runs = serve_dense(mods[:6], cfg, params, work, smi, 0, 0, "minicpm3")
+    reqs, _, stats, _ = runs["graphs"]
+    # the absorbed decode against the expanded form: an engine admits the
+    # 8 prompts (its prefills: the expanded form), then one decode step of
+    # its live cache (the absorbed form) fed each row's first token,
+    # against one prefill over each prompt plus that token; gated in fp32
+    # (weights widened, TF32 off), bf16 printed
+    p32 = widened(params)
+    rel, cache_bytes = {}, None
+    for dtype, w in (("float32", p32), ("bfloat16", params)):
+        eng = Engine(cfg, w, device="cuda", **dict(DENSE_KW, dtype=dtype))
+        if dtype == "bfloat16":
+            cache_bytes = tree_bytes(eng.cache)
+        submit_all(eng, RS, SP, prompts, sampled, 32)
+        eng._admit()
+        act = sorted(eng.active)
+        if len(act) != len(prompts):
+            raise AssertionError(f"{cfg.name}: {len(act)} admitted")
+        dec = dense_decode_logits(T, eng)
+        longer = [np.append(prompts[eng.active[s].rid], eng.active[s].generated[-1])
+                  for s in act]
+        rel[dtype] = rel_l2(dec, prefill_logits(T, cfg, w, longer, DENSE_KW["max_len"],
+                                                dtype))
+        del eng
+    if cache_bytes != REFERENCE_CACHE_BYTES[cfg.name]:
+        raise AssertionError(f"{cfg.name}: cache {cache_bytes} B")
+    if not rel["float32"] <= 1e-4:
+        raise AssertionError(
+            f"{cfg.name}: absorbed decode vs expanded prefill logits, relative L2 "
+            f"{rel['float32']:.3e} in fp32 > 1e-4")
+    # prefill_chunk=256 (its extensions attend in the absorbed form)
+    # against one shot: the last chunk's logits (fp32 gated 1e-4, bf16
+    # printed) and the greedy streams of a chunked engine
+    last = {}
+    for dtype, w in (("bfloat16", params), ("float32", p32)):
+        for chunk in (256, 0):
+            e = Engine(cfg, w, device="cuda", prefill_chunk=chunk,
+                       **dict(DENSE_KW, dtype=dtype, max_batch=1))
+            last[dtype, chunk] = torch.cat(
+                [e._run_prefill(p[None], cache_len=DENSE_KW["max_len"])[0][:, : cfg.vocab_size]
+                 for p in prompts])
+            del e
+    del p32
+    rel_chunk = gate_rel(
+        f"{cfg.name} prefill_chunk=256 vs one-shot last-chunk logits in fp32",
+        last["float32", 256], last["float32", 0], tol=1e-4,
+    )
+    rel_chunk16 = rel_l2(last["bfloat16", 256], last["bfloat16", 0])
+    chunked = Engine(cfg, params, device="cuda", prefill_chunk=256, **DENSE_KW)
+    _, creqs, _ = run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled,
+                             eng=chunked)
+    same, total = agreement(creqs, {r.rid: r.generated for r in reqs})
+    del chunked
+    busy = {}
+    profile = functools.partial(profile_decode, out_dir=out_dir, smi=smi,
+                                tag="_minicpm3", sink=busy, keep_trace=False)
+    run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, probe=profile,
+               eng=Engine(cfg, params, device="cuda", **DENSE_KW))
+    log(
+        f"[minicpm3] cache {cache_bytes} B (latents c [L, B, S, {cfg.kv_lora_rank}] "
+        f"and kr [L, B, S, {cfg.qk_rope_head_dim}] bf16, positions, length); "
+        f"absorbed decode vs expanded prefill over prompt + token, logits of the "
+        f"8 rows: relative L2 {rel['float32']:.3e} in fp32 (tol 1e-4), "
+        f"{rel['bfloat16']:.3e} in bf16 (not gated); prefill_chunk=256 vs one "
+        f"shot, last-chunk logits {rel_chunk:.3e} in fp32 (tol 1e-4), "
+        f"{rel_chunk16:.3e} in bf16; greedy tokens equal {same}/{total} (bf16; "
+        f"not gated); weight-read bound; "
+        f"{step_summary(stats, bound_ms, busy['_minicpm3'], smi)}"
+    )
+    del params
+
+
+def whisper_frames(cfg):
+    """An ``encoder_input_fn``: each request's frames [1, S_enc, d] in
+    fp32 (the reference engine's default frames' type), drawn on the
+    card from a generator seeded by its rid."""
+
+    def frames(req):
+        gen = torch.Generator(device="cuda").manual_seed(req.rid)
+        return torch.randn((1, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                           device="cuda")
+
+    return frames
+
+
+def dense_audio(mods, cfg, work, out_dir, smi):
+    """Phase 11 b: whisper-medium at full width in bf16 through the dense
+    engine, frames from ``whisper_frames``. Returns the dense-decode
+    launches of the graph engine's cold run (self- and cross-attention of
+    every decoder layer, 48 a step)."""
+    from repro_torch.core.migration import tree_bytes
+
+    Engine, RS, SP, DA, SS, GR, T, PK = mods
+    prompts, _, sampled = work
+    params, weight_bytes, init_s = full_width_params(T, cfg)
+    log(
+        f"[whisper] {cfg.name}: {cfg.num_encoder_layers} encoder and "
+        f"{cfg.num_layers} decoder layers, d={cfg.d_model}, H = KV = "
+        f"{cfg.num_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; weights {weight_bytes} B in {init_s:.1f} s [{smi}]"
+    )
+    kw = dict(max_len=WHISPER_MAX_LEN, encoder_input_fn=whisper_frames(cfg))
+    runs = serve_dense(mods[:6], cfg, params, work, smi, 2 * cfg.num_layers, 0,
+                       "whisper", **kw)
+    reqs, _, stats, launches = runs["graphs"]
+    eng = Engine(cfg, params, device="cuda", **dict(DENSE_KW, **kw))
+    cache_bytes = tree_bytes(eng.cache)
+    if cache_bytes != REFERENCE_CACHE_BYTES[cfg.name]:
+        raise AssertionError(f"{cfg.name}: cache {cache_bytes} B")
+    # a decode step reads the decoder's weights (not the cross K/V
+    # projections, which only a prefill uses, nor the embedding but its 8
+    # rows), the lm_head, the cross K/V, the cache's positions and length,
+    # and of the self K/V only each row's first position + 1 rows (the
+    # kernel's lengths; an idle row reads one): the bound is taken at the
+    # probe's step, the first steady one, whose rows later steps only add to
+    dec, ck = params["layers"], eng.cache["layers"]["k"]
+    fixed_bytes = (
+        tree_bytes(dec) - tree_bytes({k: dec["xattn"][k] for k in ("wk", "wv")})
+        + tree_bytes(params["lm_head"]) + tree_bytes(params["final_norm"])
+        + cache_bytes - 2 * tree_bytes(ck)
+    )
+    row_bytes = 2 * ck.shape[0] * ck[0, 0, 0].numel() * ck.element_size()
+    all_rows = ck.shape[1] * ck.shape[2]
+    del ck
+    # kernel vs gather on the first steady step's live cache: every kernel
+    # call held against its plain version on the same inputs (2e-2), the
+    # logits in bf16 (2e-2) and with weights and cache widened (1e-4)
+    out, calls = {}, {}
+    p32 = widened(params)
+
+    def probe(e):
+        out["rows"] = int((e._host_lengths + 1).sum())
+        with checked_kernel_calls(calls):
+            out["kernel"] = dense_decode_logits(T, e, attn_impl="kernel")
+        out["gather"] = dense_decode_logits(T, e, attn_impl="gather")
+        c32 = widened(e.cache)
+        for impl in ("kernel", "gather"):
+            out[impl, 32] = dense_decode_logits(T, e, params=p32, cache=c32, attn_impl=impl)
+
+    run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, probe=probe, eng=eng)
+    del p32, eng
+    step_bytes = fixed_bytes + out["rows"] * row_bytes
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"[whisper] cache {cache_bytes} B (self K/V [L, B, {WHISPER_MAX_LEN}, KV, D] "
+        f"and cross K/V [L, B, {cfg.encoder_seq_len}, KV, D] bf16, positions, "
+        f"length); decode-step bound {bound_ms:.3f} ms ({step_bytes} B at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: the self K/V at the first steady "
+        f"step's {out['rows']} rows over the batch, of {all_rows}) [{smi}]"
+    )
+    worst = max(calls.get("decode", [float("inf")]))
+    if len(calls.get("decode", ())) != 2 * cfg.num_layers or worst > 2e-2:
+        raise AssertionError(
+            f"{cfg.name}: dense-decode calls against their plain versions: "
+            f"{len(calls.get('decode', ()))} calls, worst {worst}")
+    rel = gate_rel(f"{cfg.name} kernel vs gather logits", out["kernel"], out["gather"])
+    rel32 = gate_rel(f"{cfg.name} kernel vs gather logits in fp32", out["kernel", 32],
+                     out["gather", 32], tol=1e-4)
+    busy = {}
+    profile = functools.partial(profile_decode, out_dir=out_dir, smi=smi,
+                                tag="_whisper", sink=busy, keep_trace=False)
+    run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, probe=profile,
+               eng=Engine(cfg, params, device="cuda", **dict(DENSE_KW, **kw)))
+    log(
+        f"[whisper] first steady decode step, kernel routes (self- and "
+        f"cross-attention) vs gather: each of the {len(calls['decode'])} bf16 "
+        f"kernel calls against its plain version, worst relative L2 {worst:.3e} "
+        f"(tol 2e-2); logits {rel:.3e} in bf16 (tol 2e-2), {rel32:.3e} in fp32 "
+        f"(tol 1e-4); decode-step bound; "
+        f"{step_summary(stats, bound_ms, busy['_whisper'], smi)}"
+    )
+    del params
+    return launches["decode"]
+
+
+def encdec_phase(mods, get_config, out_dir, smi):
+    """Phase 11 (module docstring). Returns the dense-decode launches of
+    the graph engines' cold runs: {model: n}."""
+    T = mods[6]
+    launches = {}
+    for arch in (MLA_ARCH, AUDIO_ARCH):
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        prompts, sampled = workload(cfg)
+        warm = workload(cfg, seed=SEED + 1)[0]
+        if arch == MLA_ARCH:
+            dense_mla(mods, cfg, (prompts, warm, sampled), out_dir, smi)
+            launches[arch] = 0
+        else:
+            cap = [[p[:WHISPER_PROMPT] for p in ps] for ps in (prompts, warm)]
+            launches[arch] = dense_audio(mods, cfg, (*cap, sampled), out_dir, smi)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[dense] {arch} in {time.perf_counter() - t:.1f} s")
@@ -2635,6 +3017,8 @@ def main():
         # phase 10's shapes: zamba2's shared block against its dense cache;
         # the longest prompt (600, padded to 768) of mamba2 and zamba2
         "decode_zamba": time_decode(DA, zamba, mid_lens, 1024, smi),
+        # phase 11's: whisper-medium's cross-attention over 1500 frames
+        "decode_whisper": time_decode(DA, get_config(AUDIO_ARCH), [1500] * 8, 1500, smi),
         "ssd_mamba_768": time_ssd(SS, mamba, 768, smi),
         "ssd_zamba_768": time_ssd(SS, zamba, 768, smi),
     }
@@ -2831,6 +3215,22 @@ def main():
                 "bound_by": k_by, "library_ms": k_lib,
             })
     log(f"[dense] phase 10 in {time.perf_counter() - t:.1f} s; serving launches {served}")
+
+    # phase 11: MLA and the encoder-decoder on the dense engine, after
+    # phase 10's weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    encdec = encdec_phase(mods, get_config, out_dir, smi)
+    row = kernels[2]
+    row["launches"] += sum(encdec.values())
+    k_ms, k_plain, k_lib, (k_bound, k_by) = timed["decode_whisper"]
+    row["shapes"].append({
+        "model": AUDIO_ARCH, "timed": "decode_whisper", "launches": encdec[AUDIO_ARCH],
+        "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+        "library_ms": k_lib,
+    })
+    log(f"[dense] phase 11 in {time.perf_counter() - t:.1f} s; serving launches {encdec}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

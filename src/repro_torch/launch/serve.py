@@ -10,11 +10,15 @@ widths (bf16 weights and pool). Weights come from
 ``models.transformer.init_params`` with a ``torch.Generator`` seeded 0
 on the chosen device. Families without paged support (``--cache auto``
 picks for them, or ``--cache dense``) run one dense-cache engine, as the
-reference's fallback does:
+reference's fallback does: the SSM and the hybrid, MLA (minicpm3-4b) and
+the audio encoder-decoder (whisper-medium, over the engine's default
+zero frames, as the reference serves it):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 24 --rps 4 --instances 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
 Every flag lives on ``ServeConfig`` — one dataclass, built either from
 the command line (``ServeConfig.from_args``) or from a TOML file

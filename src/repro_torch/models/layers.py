@@ -1,4 +1,4 @@
-"""Model primitives: norms, rotary embeddings, GQA attention, MLPs.
+"""Model primitives: norms, rotary embeddings, attention (GQA / MLA), MLPs.
 
 PyTorch counterpart of ``repro.models.layers``: plain functions on
 tensors, parameters in nested dicts with the reference's keys and
@@ -20,6 +20,11 @@ What depends on a step's inputs but not on the layer — rope's ``cos`` /
 tables (``paged_step_meta``) — is computed once per step by the caller
 and passed down, the same ops on the same inputs, where XLA's CSE
 removes the per-layer repeats in the reference.
+
+JAX promotes an einsum of two float types (bf16 x fp32 -> fp32, the
+bf16 operand widened exactly); ``torch.einsum`` refuses mixed types. The
+reference's audio encoder runs fp32 frames through bf16 weights, so the
+einsums of a GQA layer and an MLP promote explicitly (``_einsum``).
 """
 from __future__ import annotations
 
@@ -183,6 +188,17 @@ def attention(q, k, v, *, q_positions=None, kv_len=None, window=None,
 
 
 # ------------------------------------------------------------------ GQA attention
+def _einsum(eq, x, w):
+    """``torch.einsum`` of an activation and a weight; where their float
+    types differ (the audio encoder's fp32 frames through bf16 weights,
+    and the cross K/V computed from its output), both are promoted as
+    JAX promotes a mixed einsum."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.einsum(eq, x, w)
+
+
 def init_gqa(cfg: ModelConfig, gen, dtype, *, lead=()):
     hd = cfg.resolved_head_dim
     return {
@@ -198,9 +214,9 @@ def init_gqa(cfg: ModelConfig, gen, dtype, *, lead=()):
 
 
 def _qkv(p, x, cfg: ModelConfig, positions, rope=None):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _einsum("bsd,dhk->bshk", x, p["wq"])
+    k = _einsum("bsd,dhk->bshk", x, p["wk"])
+    v = _einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.use_qk_norm:
         q, k = rms_norm_dim(q), rms_norm_dim(k)
     if cfg.use_rope:
@@ -210,8 +226,8 @@ def _qkv(p, x, cfg: ModelConfig, positions, rope=None):
 
 
 def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
-              k_positions=None, window=None, causal=True,
-              attend_fresh=False, rope=None, impl="gather"):
+              k_positions=None, window=None, kv_override=None, causal=True,
+              attend_fresh=False, rope=None, impl="gather", kv_lengths=None):
     """GQA/MQA attention with optional KV-cache write-then-attend.
 
     x: [B,S,d]; positions [B,S] absolute. ``cache`` is None (train) or a
@@ -234,10 +250,32 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     slot is its position and the rows below the length are exactly the
     keys the mask keeps. Every other call attends with ``attention``
     ("gather"), as the reference does.
+
+    ``kv_override``: (k, v) [B, Sk, KV, hd] for cross-attention, which
+    ignores the cache path and attends every key (``causal=False``).
+    Under ``impl="kernel"`` a single-token query attends them through the
+    decode-attention kernel on transposed views, with ``kv_lengths`` [B]
+    int32 = Sk for every row (made once per step by the caller): for one
+    query a non-causal attention over all Sk keys is exactly decode
+    attention at length Sk.
     Returns (out [B,S,d], cache_or_None).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    if kv_override is not None:
+        q = _einsum("bsd,dhk->bshk", x, p["wq"])
+        k, v = kv_override
+        if impl == "kernel" and S == 1:
+            if kv_lengths is None:
+                raise ValueError("the cross-attention kernel route needs "
+                                 "kv_lengths")
+            out = decode_attention(q[:, 0].to(k.dtype).contiguous(),
+                                   k.transpose(1, 2), v.transpose(1, 2),
+                                   kv_lengths)[:, None].to(q.dtype)
+        else:
+            out = attention(q, k, v, causal=False, chunk=512)
+        out = out.reshape(B, S, cfg.num_heads * hd)
+        return _einsum("bsh,hd->bsd", out, p["wo"]), None
     q, k, v = _qkv(p, x, cfg, positions, rope)
     if cache is None:
         out = attention(q, k, v, q_positions=positions, window=window,
@@ -263,7 +301,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
                             causal=causal, softcap=cfg.logit_softcap)
         cache = {"k": ck, "v": cv}
     out = out.reshape(B, S, cfg.num_heads * hd)
-    return torch.einsum("bsh,hd->bsd", out, p["wo"]), cache
+    return _einsum("bsh,hd->bsd", out, p["wo"]), cache
 
 
 def paged_step_meta(positions, block_tables, active, n_blocks: int,
@@ -351,6 +389,128 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     return torch.einsum("bsh,hd->bsd", out, p["wo"]), pool_k, pool_v
 
 
+def compute_cross_kv(p, enc_out):
+    """Cross-attention K/V from the encoder output (the whisper decoder's
+    prefill), at the promoted type of the output and the weights."""
+    k = _einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = _einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    return k, v
+
+
+# ------------------------------------------------------------------ MLA attention
+def init_mla(cfg: ModelConfig, gen, dtype, *, lead=()):
+    """``wq_a`` [d, q_rank] and ``wq_b`` [q_rank, H, nope + rope] when
+    the config has a ``q_lora_rank``, else ``wq`` [d, H, nope + rope];
+    ``wkv_a`` [d, kv_rank + rope], ``wk_b`` [kv_rank, H, nope], ``wv_b``
+    [kv_rank, H, v] and ``wo`` [H * v, d]."""
+    H = cfg.num_heads
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = dense_init(gen, cfg.d_model, cfg.q_lora_rank, dtype,
+                               lead=lead)
+        p["wq_b"] = dense_init(gen, cfg.q_lora_rank, (H, qk_dim), dtype,
+                               lead=lead)
+    else:
+        p["wq"] = dense_init(gen, cfg.d_model, (H, qk_dim), dtype, lead=lead)
+    p["wkv_a"] = dense_init(gen, cfg.d_model,
+                            cfg.kv_lora_rank + cfg.qk_rope_head_dim, dtype,
+                            lead=lead)
+    p["wk_b"] = dense_init(gen, cfg.kv_lora_rank, (H, cfg.qk_nope_head_dim),
+                           dtype, lead=lead)
+    p["wv_b"] = dense_init(gen, cfg.kv_lora_rank, (H, cfg.v_head_dim), dtype,
+                           lead=lead)
+    p["wo"] = dense_init(gen, H * cfg.v_head_dim, cfg.d_model, dtype,
+                         lead=lead)
+    return p
+
+
+def _mla_q(p, x, cfg, positions, rope=None):
+    if cfg.q_lora_rank:
+        q = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        q = torch.einsum("bsr,rhk->bshk", q, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope = q[..., :cfg.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions,
+                        cfg.rope_theta, rope)
+    return q_nope, q_rope
+
+
+def _mla_latents(p, x, cfg, positions, rope=None):
+    ckr = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv = ckr[..., :cfg.kv_lora_rank]
+    k_rope = apply_rope(ckr[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta, rope)[..., 0, :]
+    return c_kv, k_rope
+
+
+def _write_latents(cache, slots, c_kv, k_rope):
+    """The latents into a per-layer cache {"c": [B,M,r], "kr": [B,M,rope]}
+    at ``slots``, in place: when S > M only the trailing M columns, the
+    rule of ``apply_gqa``'s K/V write."""
+    B, S = slots.shape
+    s0 = max(S - cache["c"].shape[1], 0)
+    bidx = torch.arange(B, device=slots.device)[:, None]
+    cache["c"][bidx, slots[:, s0:]] = c_kv[:, s0:].to(cache["c"].dtype)
+    cache["kr"][bidx, slots[:, s0:]] = k_rope[:, s0:].to(cache["kr"].dtype)
+
+
+def apply_mla_prefill(p, x, cfg: ModelConfig, *, positions, cache=None,
+                      slots=None, window=None, rope=None):
+    """MLA in the expanded (compute-friendly) form for train/prefill:
+    K and V expanded per head from the latent, causal attention over this
+    call's sequence. ``cache``: None or a per-layer {"c": [B,M,r], "kr":
+    [B,M,rope]}, where this call's latents are written at ``slots`` (in
+    place). ``rope`` is ``rope_tables`` at the rope dim (never the GQA
+    head dim's). Returns (out, cache_or_None)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, rope)
+    c_kv, k_rope = _mla_latents(p, x, cfg, positions, rope)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope_b], -1)
+    out = attention(q, k, v, q_positions=positions, window=window)
+    out = out.reshape(B, S, H * cfg.v_head_dim)
+    out = torch.einsum("bsh,hd->bsd", out, p["wo"])
+    if cache is not None:
+        _write_latents(cache, slots, c_kv, k_rope)
+    return out, cache
+
+
+def apply_mla_decode(p, x, cfg: ModelConfig, *, positions, cache, slots,
+                     k_positions, window=None, rope=None):
+    """MLA decode in the ABSORBED form (DeepSeek-V2): ``wk_b`` is folded
+    into the query (``q_lat = q_nope . wk_b``, in x's type), the scores
+    run over the cached ``[c | kr]`` in fp32, and the latent output
+    (narrowed to x's type, as the reference narrows it) goes through
+    ``wv_b``. The new latents are written at ``slots`` (in place) BEFORE
+    attending; ``k_positions`` [B,M] are the already-updated absolute row
+    positions. Returns (out, cache)."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, rope)
+    c_new, kr_new = _mla_latents(p, x, cfg, positions, rope)
+    _write_latents(cache, slots, c_new, kr_new)
+    M = cache["c"].shape[1]
+    cc = cache["c"].float()
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    kpos = torch.broadcast_to(k_positions, (B, M)).to(torch.int32)
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc)
+         + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                        cache["kr"].float())) * scale
+    mask = _attn_mask(positions, kpos, None, window, True)
+    s = torch.where(mask[:, None, :, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", w, cc)
+    out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p["wv_b"])
+    out = out.reshape(B, S, cfg.num_heads * cfg.v_head_dim)
+    return torch.einsum("bsh,hd->bsd", out, p["wo"]), cache
+
+
 # ------------------------------------------------------------------------- MLPs
 def init_mlp(cfg: ModelConfig, gen, dtype, d_ff: Optional[int] = None, *,
              lead=()):
@@ -377,8 +537,8 @@ def _silu(x):
 
 def apply_mlp(p, x, cfg: ModelConfig):
     if cfg.ffn_kind == "gelu":
-        h = _gelu(torch.einsum("bsd,df->bsf", x, p["w_up"]))
-        return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+        h = _gelu(_einsum("bsd,df->bsf", x, p["w_up"]))
+        return _einsum("bsf,fd->bsd", h, p["w_down"])
     act = _gelu if cfg.ffn_kind == "geglu" else _silu
     g = act(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
     h = g * torch.einsum("bsd,df->bsf", x, p["w_up"])

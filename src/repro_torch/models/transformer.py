@@ -1,29 +1,35 @@
-"""Decoder stacks of the GQA decoder (dense, MoE, VLM), SSM (Mamba2) and
-hybrid (Zamba2) families: prefill/decode over a dense cache, and the
+"""Decoder stacks of every family the JAX package serves: the GQA and MLA
+decoders (dense, MoE, VLM), SSM (Mamba2), hybrid (Zamba2) and the audio
+encoder-decoder (whisper): prefill/decode over a dense cache, and the GQA
 decoders' single-token decode over a paged block pool.
 
-PyTorch counterpart of ``repro.models.transformer`` for the families this
-port covers so far: ``dense``, ``moe`` and ``vlm`` decoders with GQA
-attention (an MoE layer takes the MLP's place, ``models/moe.py``),
-``ssm`` (a stack of Mamba2 mixers, ``models/ssm.py``) and ``hybrid``
-(blocks of Mamba2 layers, each block followed by one SHARED attention
-+ MLP block, then a tail of Mamba2 layers). Parameters are a nested dict
-with the reference's keys and the stacked ``[L, ...]`` layer layout (the
-hybrid's ``blocks`` are ``[nb, every, ...]``), so
+PyTorch counterpart of ``repro.models.transformer``: ``dense``, ``moe``
+and ``vlm`` decoders with GQA or MLA attention (an MoE layer takes the
+MLP's place, ``models/moe.py``; MLA caches the compressed latent ``c``
+and the shared rope key ``kr``), ``ssm`` (a stack of Mamba2 mixers,
+``models/ssm.py``), ``hybrid`` (blocks of Mamba2 layers, each block
+followed by one SHARED attention + MLP block, then a tail of Mamba2
+layers) and ``audio`` (a non-causal encoder over precomputed frames,
+then a decoder whose layers add cross-attention over the encoder's
+output; the cross K/V are computed at prefill and cached). Parameters
+are a nested dict with the reference's keys and the stacked ``[L, ...]``
+layer layout (the hybrid's ``blocks`` are ``[nb, every, ...]``), so
 ``bridge.params_from_numpy`` maps the JAX tree key for key; the stacks
 run as Python loops over layers.
 
-Cache tensors (the dense cache's K/V, positions, length and SSM states,
-the paged pool) are updated IN PLACE, where the reference rebuilt them
-functionally.
+Cache tensors (the dense cache's K/V or latents, positions, length and
+SSM states, the paged pool) are updated IN PLACE, where the reference
+rebuilt them functionally.
 
 Two routes pick kernels where the reference computes plainly, the same
 function held to the same computation: ``attn_impl="kernel"`` sends a
-dense-cache decode step's attention through the decode-attention kernel
-(``layers.apply_gqa``), and ``ssd_impl="kernel"`` a prefill's SSD scan
-from the zero state through the SSD kernel (``kernels.ops.ssd``). Their
-defaults, ``"gather"`` and ``"chunked"``, are the reference's plain
-computations.
+dense-cache decode step's GQA attention, and a single-token query's
+cross-attention over the cached encoder K/V, through the
+decode-attention kernel (``layers.apply_gqa``), and ``ssd_impl="kernel"``
+a prefill's SSD scan from the zero state through the SSD kernel
+(``kernels.ops.ssd``). Their defaults, ``"gather"`` and ``"chunked"``,
+are the reference's plain computations. MLA attends plainly on every
+route, as the reference does.
 """
 from __future__ import annotations
 
@@ -60,18 +66,14 @@ def to_device(a, device) -> torch.Tensor:
     return a.to(device)
 
 
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
+
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError, naming the ROADMAP item, for what this
-    slice of the port does not cover yet: MLA attention (A9.3) and the
-    audio encoder-decoder (A9.5)."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio encoder-decoder is not ported yet "
-            f"(ROADMAP A9.5)")
-    if cfg.attention_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A9.3)")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+    """Raise ValueError for a family the reference does not know either;
+    the port covers all of the reference's (``FAMILIES``), GQA and MLA
+    attention alike."""
+    if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -108,6 +110,30 @@ def _init_mamba_layer(cfg, gen, dtype):
             "mixer": SSM.init_mamba2(cfg, gen, dtype)}
 
 
+def _init_attn(cfg, gen, dtype, lead):
+    if cfg.attention_kind == "mla":
+        return L.init_mla(cfg, gen, dtype, lead=lead)
+    return L.init_gqa(cfg, gen, dtype, lead=lead)
+
+
+def _init_enc_layers(cfg, gen, dtype, lead):
+    """The audio encoder's layers: self-attention and a GELU MLP."""
+    dev = gen.device
+    return {"norm1": L.init_norm(cfg, dtype, dev, lead=lead),
+            "attn": L.init_gqa(cfg, gen, dtype, lead=lead),
+            "norm2": L.init_norm(cfg, dtype, dev, lead=lead),
+            "mlp": L.init_mlp(cfg, gen, dtype, lead=lead)}
+
+
+def _init_encdec_layers(cfg, gen, dtype, lead):
+    """The audio decoder's layers: an encoder layer with cross-attention
+    (``norm_x``, ``xattn``) between its attention and its MLP."""
+    p = _init_enc_layers(cfg, gen, dtype, lead)
+    p["norm_x"] = L.init_norm(cfg, dtype, gen.device, lead=lead)
+    p["xattn"] = L.init_gqa(cfg, gen, dtype, lead=lead)
+    return p
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     """Random weights from ``gen`` (on ``gen.device``), with the reference
     tree's keys and shapes; the same distributions as the reference
@@ -118,7 +144,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     ``blocks`` ``[nb, every, ...]`` of them, a ``tail`` of the
     remaining ``num_layers % every`` where there are any, and the
     ``shared`` attention block (with its ``mlp`` when the config has a
-    ``d_ff``). Mamba2 layers are drawn one at a time into ``dtype``."""
+    ``d_ff``). Mamba2 layers are drawn one at a time into ``dtype``. An
+    MLA config's attention is ``layers.init_mla``'s; an audio config gets
+    decoder ``layers`` with cross-attention and an ``encoder`` of
+    ``num_encoder_layers`` layers and its ``final_norm``."""
     check_supported(cfg)
     dtype = torch_dtype(dtype)
     dev = gen.device
@@ -149,9 +178,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
         if cfg.d_ff:
             params["shared"]["mlp"] = L.init_mlp(cfg, gen, dtype)
         return params
+    if cfg.family == "audio":
+        params["layers"] = _init_encdec_layers(cfg, gen, dtype, lead)
+        params["encoder"] = {
+            "layers": _init_enc_layers(cfg, gen, dtype,
+                                       (cfg.num_encoder_layers,)),
+            "final_norm": L.init_norm(cfg, dtype, dev),
+        }
+        return params
     params["layers"] = {
         "norm1": L.init_norm(cfg, dtype, dev, lead=lead),
-        "attn": L.init_gqa(cfg, gen, dtype, lead=lead),
+        "attn": _init_attn(cfg, gen, dtype, lead),
         "norm2": L.init_norm(cfg, dtype, dev, lead=lead),
     }
     if cfg.num_experts > 0:
@@ -172,7 +209,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype="bfloat16",
     SSD state, in ``dtype`` as the reference keeps them), O(1) in
     sequence length. Hybrid: those states as ``blocks`` ``[nb, every,
     B, ...]`` and ``tail`` ``[rem, B, ...]``, the shared block's K/V
-    ``[nb, B, max_len, KV, hd]`` (one per application) and positions."""
+    ``[nb, B, max_len, KV, hd]`` (one per application) and positions.
+    MLA: the latents ``c`` ``[L, B, max_len, kv_rank]`` and ``kr`` ``[L,
+    B, max_len, rope]`` in place of K/V. Audio: the decoder's K/V and the
+    ``cross`` K/V ``[L, B, encoder_seq_len, KV, hd]``."""
     check_supported(cfg)
     dtype = torch_dtype(dtype)
     hd = cfg.resolved_head_dim
@@ -180,8 +220,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype="bfloat16",
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    def kv(n_layers):
-        shape = (n_layers, batch, max_len, cfg.num_kv_heads, hd)
+    def kv(n_layers, n_ctx=max_len):
+        shape = (n_layers, batch, n_ctx, cfg.num_kv_heads, hd)
         return {"k": zeros(*shape), "v": zeros(*shape)}
 
     def ssm_state(*lead):
@@ -210,7 +250,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype="bfloat16",
         cache["shared"] = kv(nb)
     else:
         cache["positions"] = positions()
-        cache["layers"] = kv(cfg.num_layers)
+        if cfg.attention_kind == "mla":
+            L_ = cfg.num_layers
+            cache["layers"] = {
+                "c": zeros(L_, batch, max_len, cfg.kv_lora_rank),
+                "kr": zeros(L_, batch, max_len, cfg.qk_rope_head_dim)}
+        else:
+            cache["layers"] = kv(cfg.num_layers)
+        if cfg.family == "audio":
+            cache["cross"] = kv(cfg.num_layers, cfg.encoder_seq_len)
     return cache
 
 
@@ -288,32 +336,97 @@ def _cache_meta(cache, positions):
     return slots, kpos
 
 
+def _attn(lp, h, cfg, positions, lc, slots, kpos, mode, window, rope,
+          attn_impl):
+    """A decoder layer's self-attention: MLA's absorbed form in decode
+    mode and its expanded form otherwise, or GQA (prefill attends the
+    fresh sequence and writes the cache on the side; decode writes, then
+    attends the cache)."""
+    if cfg.attention_kind == "mla":
+        if mode == "decode":
+            return L.apply_mla_decode(lp["attn"], h, cfg, positions=positions,
+                                      cache=lc, slots=slots, k_positions=kpos,
+                                      window=window, rope=rope)[0]
+        return L.apply_mla_prefill(lp["attn"], h, cfg, positions=positions,
+                                   cache=lc, slots=slots, window=window,
+                                   rope=rope)[0]
+    return L.apply_gqa(lp["attn"], h, cfg, positions=positions, cache=lc,
+                       slots=slots, k_positions=kpos, window=window,
+                       attend_fresh=(mode == "prefill"), rope=rope,
+                       impl=attn_impl)[0]
+
+
+def _cross_cache(cache, enc_out, params):
+    """The cache's ``cross`` leaves, ready to take a prefill's cross K/V.
+    They keep the type ``compute_cross_kv`` gives them, as the
+    reference's prefill returns them: fp32 frames through bf16 weights
+    give fp32 K/V, which the extensions of a chunked prefill read before
+    ``kvcache.insert_request`` narrows them into the engine's cache. Where
+    that type is not the cache's, the leaves are replaced (a prefill's
+    throwaway cache; no graph reads it)."""
+    cross = cache["cross"]
+    dt = torch.promote_types(enc_out.dtype,
+                             params["layers"]["xattn"]["wk"].dtype)
+    if cross["k"].dtype != dt:
+        cross = cache["cross"] = {n: torch.empty(t.shape, dtype=dt,
+                                                 device=t.device)
+                                  for n, t in cross.items()}
+    return cross
+
+
 def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
-                     last_idx=None, attn_impl="gather"):
-    """Dense / moe / vlm decoder: train, prefill (attend fresh, write the
-    cache on the side) or decode (write, then attend the cache). An MoE
-    layer dispatches over all B x S tokens, a bucket's padding included,
-    as the reference does."""
+                     last_idx=None, attn_impl="gather", encoder_out=None):
+    """Dense / moe / vlm decoder and the whisper decoder: train, prefill
+    (attend fresh, write the cache on the side) or decode (write, then
+    attend the cache). An MoE layer dispatches over all B x S tokens, a
+    bucket's padding included, as the reference does. Rope's tables are
+    built once per call at the width attention rotates: MLA's rope dim,
+    else the head dim. Audio: a train or prefill call attends the cross
+    K/V computed from ``encoder_out`` (a prefill also stores them in the
+    cache's ``cross`` leaves); a decode call reads them from the cache."""
     has_cache = cache is not None
+    is_audio = cfg.family == "audio"
+    B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     if not cfg.use_rope:
         x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     slots = kpos = None
     if has_cache:
         slots, kpos = _cache_meta(cache, positions)
-    rope = (L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope_dim = (cfg.qk_rope_head_dim if cfg.attention_kind == "mla"
+                else cfg.resolved_head_dim)
+    rope = (L.rope_tables(positions, rope_dim, cfg.rope_theta)
             if cfg.use_rope else None)
+    cross = cross_len = None
+    if is_audio and mode == "decode":
+        cross = cache["cross"]
+    elif is_audio and has_cache:
+        cross = _cross_cache(cache, encoder_out, params)
+    if is_audio and attn_impl == "kernel" and S == 1:
+        # the cross-attention kernel's lengths, once per call, fixed shape
+        n_enc = (cross["k"].shape[2] if mode == "decode"
+                 else encoder_out.shape[1])
+        cross_len = torch.full((B,), n_enc, dtype=torch.int32,
+                               device=x.device)
     aux = 0.0
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
-        lc = ({"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i]}
-              if has_cache else None)
+        lc = _layer_slice(cache["layers"], i) if has_cache else None
         h = L.apply_norm(lp["norm1"], x, cfg)
-        h, _ = L.apply_gqa(lp["attn"], h, cfg, positions=positions,
-                           cache=lc, slots=slots, k_positions=kpos,
-                           window=window, attend_fresh=(mode == "prefill"),
-                           rope=rope, impl=attn_impl)
-        x = x + h
+        x = x + _attn(lp, h, cfg, positions, lc, slots, kpos, mode, window,
+                      rope, attn_impl)
+        if is_audio:
+            if mode == "decode":
+                ckv = (cross["k"][i], cross["v"][i])
+            else:
+                ckv = L.compute_cross_kv(lp["xattn"], encoder_out)
+                if cross is not None:
+                    cross["k"][i].copy_(ckv[0])
+                    cross["v"][i].copy_(ckv[1])
+            h = L.apply_norm(lp["norm_x"], x, cfg)
+            x = x + L.apply_gqa(lp["xattn"], h, cfg, positions=positions,
+                                kv_override=ckv, impl=attn_impl,
+                                kv_lengths=cross_len)[0]
         x, a = _mlp_sublayer(lp, x, cfg)
         aux = aux + a
 
@@ -327,6 +440,26 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
     else:
         x_last = x[:, -1]
     return unembed(params, cfg, x_last), new_cache, aux
+
+
+def encode_audio(params, cfg: ModelConfig, frames):
+    """Whisper-style encoder over precomputed (stubbed) frame embeddings
+    [B, S, d]: sinusoidal positions, ``num_encoder_layers`` non-causal
+    layers, the final norm. It runs in the frames' type promoted with the
+    weights' (fp32 frames through bf16 weights run in fp32, as in the
+    reference)."""
+    B, S, _ = frames.shape
+    pos = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
+    x = frames + L.sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
+    enc = params["encoder"]
+    for i in range(cfg.num_encoder_layers):
+        lp = _layer_slice(enc["layers"], i)
+        h = L.apply_norm(lp["norm1"], x, cfg)
+        x = x + L.apply_gqa(lp["attn"], h, cfg, positions=pos,
+                            causal=False)[0]
+        h = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+    return L.apply_norm(enc["final_norm"], x, cfg)
 
 
 def _mamba_layer(lp, x, cfg, lc, mode, ssd_fn):
@@ -470,8 +603,8 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
-            mode="train", window=None, last_idx=None, attn_impl="gather",
-            ssd_impl="chunked"):
+            mode="train", encoder_input=None, window=None, last_idx=None,
+            attn_impl="gather", ssd_impl="chunked"):
     """Dense-cache entry point (the paged decode step is
     ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
     (default arange). An MoE layer dispatches ``"auto"``.
@@ -480,7 +613,9 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     [B,Vpad]. ``last_idx`` [B] (decoders only, as in the reference)
     selects each row's last REAL token instead of column -1. The cache
     is updated in place and returned. ``attn_impl`` / ``ssd_impl``: the
-    kernel routes of the module docstring.
+    kernel routes of the module docstring. ``encoder_input`` [B, S_enc,
+    d] (audio, train and prefill modes) are the encoder's frames; a
+    decode call reads the cross K/V its prefill cached.
 
     Prefill mode starts a sequence: the SSM and hybrid families scan
     from the ZERO state and ignore the states ``cache`` holds (the
@@ -495,10 +630,16 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        enc_out = None
+        if cfg.family == "audio" and mode in ("train", "prefill"):
+            if encoder_input is None:
+                raise ValueError("audio needs encoder frames "
+                                 "(encoder_input) in train and prefill mode")
+            enc_out = encode_audio(params, cfg, encoder_input)
         return _forward_decoder(params, cfg, tokens, positions, cache, mode,
                                 window, last_idx=last_idx,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, encoder_out=enc_out)
     if last_idx is not None:
         raise ValueError(f"last_idx unsupported for family {cfg.family}")
     if cfg.family == "ssm":

@@ -51,22 +51,27 @@ since_epoch)`` (the dirty-set delta only) → ``commit_resume``.
 all quantize to 1 and the step is unchanged.
 
 **The dense path** (``cache_kind="dense"``) serves the families the
-pool cannot hold — SSM (Mamba2) and hybrid (Zamba2) states — and
-sliding-window decoders as a ring buffer of the window's capacity: a
+pool cannot hold — SSM (Mamba2) and hybrid (Zamba2) states, MLA's
+latents and the audio decoder's cross K/V — and sliding-window decoders
+as a ring buffer of the window's capacity: a
 ``[B, max_len]`` cache (``models.transformer.init_cache``). It runs the
 ``phase`` scheduler whatever ``scheduler`` says, as the reference forces
 it, without prefix sharing: each admission prefills one request over a
 throwaway batch-1 cache of the engine's capacity (in ``prefill_chunk``
 slices when that is set: the first slice as a prefill, the rest as
 multi-token decode extensions), samples its first token and inserts it
-into its slot (``kvcache.insert_request``, in place); each step is one
+into its slot (``kvcache.insert_request``, in place); an audio model's
+prefill first encodes the request's frames (``encoder_input_fn(req)``,
+else fp32 zeros, as the reference's engine does) and caches the cross
+K/V, which every decode step then only reads; each step is one
 decode+sample call over all slots (``_dense_step``), captured as a CUDA
 graph keyed like the reference's ``_dense_step_impl`` jit. A prefill
 from the zero state scans through the SSD kernel (``ops.ssd``; an
 extension continues through ``ssd_chunked``, the op's own rule), and
 ``dense_attn_impl="kernel"`` sends a decode step's attention through the
 decode-attention kernel where the reference's paged guards allow it (no
-window, no softcap); ``"gather"`` is the plain computation. Module scaling
+window, no softcap), the audio decoder's cross-attention too;
+``"gather"`` is the plain computation. Module scaling
 and migration target the pool: a dense engine refuses them with the
 reference's ValueErrors.
 
@@ -80,7 +85,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-from typing import Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -240,6 +245,7 @@ def _default_device():
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  max_len: int = 128, dtype="float32", swa: bool = False,
+                 encoder_input_fn: Optional[Callable] = None,
                  prefill_chunk: int = 0,
                  cache_kind: str = "paged", block_size: int = 16,
                  n_blocks: Optional[int] = None,
@@ -275,6 +281,8 @@ class Engine:
         self.logical_max = max_len
         self.window = cfg.sliding_window if swa else None
         self.dtype = T.torch_dtype(dtype)
+        # audio: req -> the request's encoder frames [1, S_enc, d]
+        self.encoder_input_fn = encoder_input_fn
         self.prefill_chunk = prefill_chunk  # 0 = one-shot prefill
         self.active: Dict[int, Request] = {}   # slot -> request
         # slots whose prompt is only PARTIALLY written (chunked prefill):
@@ -435,7 +443,7 @@ class Engine:
         return np.asarray(req.prompt, np.int32)
 
     def _run_prefill(self, tokens_2d, cache_len: Optional[int] = None,
-                     last_idx=None):
+                     enc=None, last_idx=None):
         """Batched (possibly chunked) prefill over a throwaway cache.
 
         The paged path sizes the cache exactly to the (bucket-padded)
@@ -447,10 +455,17 @@ class Engine:
         for the returned logits (one-shot prefill only). A dense
         engine's prefill takes its kernel routes (the SSD kernel for a
         scan from the zero state); a paged wave's prefill attends with
-        ``attention`` either way. Returns (logits, cache)."""
+        ``attention`` either way. An audio model's first slice encodes
+        ``enc`` [G, S_enc, d] (on the engine's device; default fp32
+        zeros, the reference's). Returns (logits, cache)."""
         G, S = tokens_2d.shape
         rcache = T.init_cache(self.cfg, G, cache_len or S, self.dtype,
                               self.device)
+        if self.cfg.family == "audio":
+            enc = (torch.zeros((G, self.cfg.encoder_seq_len,
+                                self.cfg.d_model), dtype=torch.float32,
+                               device=self.device) if enc is None
+                   else T.to_device(enc, self.device))
         chunk = self.prefill_chunk or S
         if last_idx is not None and chunk < S:
             raise ValueError("a per-row last-token gather needs one-shot "
@@ -462,7 +477,8 @@ class Engine:
         first = min(chunk, S)
         logits, rcache, _ = T.forward(self.params, self.cfg, toks[:, :first],
                                       mode="prefill", cache=rcache,
-                                      last_idx=last_idx, **kw)
+                                      encoder_input=enc, last_idx=last_idx,
+                                      **kw)
         off = first
         while off < S:  # chunked prefill: bound per-call work
             n = min(chunk, S - off)
@@ -518,8 +534,12 @@ class Engine:
                 break
             req = self.queue.popleft()
             toks = self._prefill_tokens(req)
+            enc = (self.encoder_input_fn(req)
+                   if self.cfg.family == "audio" and self.encoder_input_fn
+                   else None)
             logits, rcache = self._run_prefill(toks[None, :],
-                                               cache_len=self.max_len)
+                                               cache_len=self.max_len,
+                                               enc=enc)
             first = None
             if not req.generated:
                 first = self._sample_batch(logits, [req])[0]

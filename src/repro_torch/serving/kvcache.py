@@ -6,9 +6,9 @@ request's cache needs (the ring window for sliding-window archs), how
 many bytes a token's KV (``kv_bytes_per_token``), a request's O(1)
 recurrent state (``state_bytes``) or a whole cache (``cache_bytes``)
 takes, and the per-slot insertion and eviction of the dense ``[B,
-max_len]`` cache (``models.transformer.init_cache``) that SSM, hybrid
-and sliding-window serving decode against (``Engine(cache_kind=
-"dense")``). The byte accounting is layout-agnostic; the offline
+max_len]`` cache (``models.transformer.init_cache``) that SSM, hybrid,
+MLA, audio and sliding-window serving decode against (``Engine(
+cache_kind="dense")``). The byte accounting is layout-agnostic; the offline
 simulator and the paged engine's pool sizing use it too.
 
 Insertion and eviction write the engine's cache IN PLACE (the reference

@@ -209,13 +209,11 @@ def test_device_rules(tiny, monkeypatch):
 
 def test_uncovered_options_raise(tiny, monkeypatch):
     _, _, tcfg, tp = tiny
-    mla = get_config("minicpm3-4b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9.3"):
-        Engine(mla, tp, device="cpu", cache_kind="dense")
-    # an SSM has nothing to page: the reference's ValueError
-    ssm = get_config("mamba2-780m").reduced()
-    with pytest.raises(ValueError, match="cache_kind='paged' needs a GQA"):
-        Engine(ssm, tp, device="cpu")
+    # an SSM has nothing to page, and MLA latents and audio cross K/V are
+    # not pooled: the reference's ValueError
+    for arch in ("mamba2-780m", "minicpm3-4b", "whisper-medium"):
+        with pytest.raises(ValueError, match="cache_kind='paged' needs a GQA"):
+            Engine(get_config(arch).reduced(), tp, device="cpu")
     eng = Engine(tcfg, tp, device="cpu")
     # replication degrees above 1 across several cards wait for A10; on
     # one device (here the CPU) a plan quantizes to all ones

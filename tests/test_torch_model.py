@@ -264,11 +264,13 @@ def test_moe_forward_modes(variant):
     _close(got[1]["k"][:, :-1], want[1]["k"], 1e-4)
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-medium", "A9.5"), ("minicpm3-4b", "A9.3")])
-def test_uncovered_families_raise(arch, item):
-    cfg = torch_configs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_unknown_family_raises():
+    """Every family of the reference is ported (MLA and audio have their
+    own parity tests, tests/test_torch_mla.py and test_torch_audio.py);
+    only a family the reference does not know either is refused."""
+    cfg = dataclasses.replace(
+        torch_configs.get_config("tinyllama-1.1b").reduced(), family="rnn")
+    with pytest.raises(ValueError, match="unknown family rnn"):
         TT.init_params(cfg, torch.Generator().manual_seed(0), "float32")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match="unknown family rnn"):
         TT.init_cache(cfg, 1, 8, "float32", "cpu")

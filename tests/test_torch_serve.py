@@ -1,8 +1,8 @@
 """Port parity, the serving entry point (``repro_torch.launch.serve``):
 ``ServeConfig`` keeps the reference's fields and adds ``device`` and
 ``reduced``, built from flags or TOML as the reference's is; ``run``
-serves the synthetic workload in process on the CPU; no CUDA device, or
-a family that needs the dense cache, raises. ``--workers 2`` (spawned
+serves the synthetic workload in process on the CPU, a family without a
+paged path on one dense-cache engine; no CUDA device raises. ``--workers 2`` (spawned
 engine servers) and ``--http`` are tier 2 (``pytest.mark.slow``)."""
 import dataclasses
 import json
@@ -55,13 +55,11 @@ def test_run_in_process_on_cpu(capsys):
 
 
 def test_run_refuses_without_a_card_and_dense_families(monkeypatch, capsys):
-    """A dense family is served on the CPU by one dense-cache engine; MLA
-    waits for ROADMAP A9.3; without a card ``run`` refuses."""
+    """A dense family is served on the CPU by one dense-cache engine;
+    without a card ``run`` refuses."""
     assert run(ServeConfig(device="cpu", cache="dense", requests=2,
                            max_new=4)) == 2
     assert "[serve] cache_kind=dense device=cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A9.3"):
-        run(ServeConfig(device="cpu", arch="minicpm3-4b", requests=1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         run(ServeConfig(requests=1))
@@ -71,6 +69,18 @@ def test_run_refuses_without_a_card_and_dense_families(monkeypatch, capsys):
 def test_run_serves_ssm_and_hybrid_on_the_dense_cache(arch, capsys):
     """``--cache auto`` picks the dense cache for the SSM and the hybrid,
     and every request finishes with its tokens."""
+    assert run(ServeConfig(device="cpu", arch=arch, cache="auto",
+                           requests=3, max_new=5)) == 3
+    out = capsys.readouterr().out
+    assert "[serve] cache_kind=dense device=cpu reduced float32" in out
+    assert "[serve] 3 requests, 15 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-medium"])
+def test_run_serves_mla_and_audio_on_the_dense_cache(arch, capsys):
+    """``--cache auto`` picks the dense cache for MLA and the audio
+    encoder-decoder (whisper over the engine's default zero frames, as
+    the reference serves it), and every request finishes."""
     assert run(ServeConfig(device="cpu", arch=arch, cache="auto",
                            requests=3, max_new=5)) == 3
     out = capsys.readouterr().out
