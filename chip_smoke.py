@@ -186,7 +186,35 @@ prints no ``ok`` line):
    the decoder's weights read by a step, the lm_head, the cross K/V and
    the self K/V rows the first steady step's lengths reach), a
    profiled window of 4 steady graph steps and the peak device memory.
-   The dense-decode row adds b's launches and phase 3's S 1500 shape.
+   The dense-decode row adds b's launches and phase 3's S 1500 shape;
+12. module replication across ranks: two spawned rank processes share
+   the card (``torch.cuda.set_device(0)``) in a gloo group over a
+   ``TCPStore`` (NCCL refuses two ranks on one device), so this phase
+   shows the program right, not replication's speed. Rank 0 draws phase
+   5's tinyllama-1.1b weights, ``replicate_params_for_plan`` broadcasts
+   them (timed; the ranks' weights bit-equal). Each rank serves phase
+   5's workload through eager ``Engine(group=...)`` engines in the same
+   order of calls: in bf16 at degree 1 (streams equal to phase 5's),
+   under degree 2 on layers 0-10 (a logit probe against degree 1 within
+   2e-2 relative L2; one replicated step profiled: 22 paged split
+   kernels and 22 launches a rank) and under degree 2 on every other
+   layer; in fp32 at degree 1, under both plans and under a plan changed
+   mid-stream (degree 2 everywhere at step 3, all ones at step 6; at
+   step 4 rank 1's pool is zeroed and re-placed from rank 0 by
+   ``migrate_paged_pool``), the greedy streams equal to degree 1's but
+   where a top-2 tie within 1e-4 flips. Gates: the ranks' tokens equal
+   at every step and their pools bit-equal after every run; paged
+   launches = 22 x decode steps; each replicated step's all-gathers as
+   the hooks predict (12 contiguous, 22 fragmented, 23 everywhere);
+   ``migrate_by_path`` of the attention weights moves ``tree_bytes``
+   and restores rank 1's zeroed copy; every paged-kernel call of one
+   steady replicated step (bf16 contiguous, fp32 fragmented: a
+   replicated layer's 4 of 8 rows a rank) against its plain version,
+   relative L2 within 2e-2 in bf16 and 1e-4 in fp32, on each rank (phase
+   3 checks that shape too, with inert rows). Printed: steady step times
+   (eager, degree 1 against replicated), collectives and host syncs per
+   step, one staged all-reduce alone. The paged row of the JSON line
+   adds both ranks' launches and phase 3's replicated shape (rows 0-3).
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -202,6 +230,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -329,7 +358,11 @@ def check_paged_decode(PD, mid_lens):
     64); block sizes 16, 32 and 128 (spans of whole blocks); and
     qwen2-moe-a2.7b's decode shape (MHA, H = KV = 16, D 128) at the main
     path's mid-decode lengths ``mid_lens`` and on ragged lengths with a
-    length-0 row. Returns the max abs error seen."""
+    length-0 row; and phase 12's replicated shape, one rank's 4 of 8 rows
+    (tinyllama's heads, width 64), at the main path's lengths and with
+    inert rows (length 0, every table entry -1), as a rank's rows carry
+    once slots are free or a batch pads to an uneven shard. Returns the
+    max abs error seen."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (B, H, KV, D, bs, lengths, table width or None: just enough + 2)
         (8, 32, 4, 64, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
@@ -340,6 +373,8 @@ def check_paged_decode(PD, mid_lens):
         (1, 32, 4, 64, 16, [1], 1),
         (8, 16, 16, 128, 16, mid_lens, 64),
         (8, 16, 16, 128, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
+        (4, 32, 4, 64, 16, mid_lens[:4], 64),
+        (4, 32, 4, 64, 16, [mid_lens[4], 0, mid_lens[6], 0], 64),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
@@ -2933,6 +2968,431 @@ def encdec_phase(mods, get_config, out_dir, smi):
     return launches
 
 
+# -------------------------------------------- replication across two ranks
+#: phase 12's ranks: two processes sharing the one card in a gloo group
+#: (NCCL refuses two ranks on one device: "Duplicate GPU detected")
+REPL_RANKS = 2
+
+
+def predicted_gathers(degrees):
+    """The all-gathers the replication hooks make in one paged decode
+    step under ``degrees``: one per replicated layer (its K/V rows) and
+    one where a run of layers of one degree above 1 ends (at a change of
+    degree or after the last layer)."""
+    n, cur = sum(d > 1 for d in degrees), 1
+    for d in (*degrees, 1):
+        n += cur > 1 and d != cur
+        cur = d
+    return n
+
+
+def tensor_sha(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+class Top2:
+    """While installed, wraps ``transformer.forward_paged`` (which the
+    engine's decode step calls): each decode step's top-2 logits of every
+    active row, keyed by (rid, index of the token being sampled) — the
+    witness of a greedy flip between two runs."""
+
+    def __init__(self, T, cfg):
+        self.T, self.V, self.orig = T, cfg.vocab_size, T.forward_paged
+        self.eng, self.rec = None, {}
+
+    def __call__(self, *args, **kw):
+        logits, cache, aux = self.orig(*args, **kw)
+        vals, ids = (t.cpu().tolist() for t in logits[:, : self.V].float().topk(2, dim=-1))
+        for slot, req in self.eng.active.items():
+            self.rec[(req.rid, len(req.generated))] = (vals[slot], ids[slot])
+        return logits, cache, aux
+
+    @contextlib.contextmanager
+    def installed(self, eng):
+        self.eng, self.T.forward_paged = eng, self
+        try:
+            yield self
+        finally:
+            self.T.forward_paged = self.orig
+
+
+def repl_flips(c, one, rec_one, got, rec_got):
+    """The first differing token of each greedy stream of two runs, with
+    each run's top-2 logits there: (rid, index, top-2 of ``one``, of
+    ``got``)."""
+    out = []
+    for i in range(len(c.prompts)):
+        if i in c.sampled or one[i] == got[i]:
+            continue
+        t = next(j for j, (a, b) in enumerate(zip(one[i], got[i])) if a != b)
+        out.append((i, t, rec_one.get((i, t)), rec_got.get((i, t))))
+    return out
+
+
+def repl_run(c, params, dtype, plans, probe=None, rec=None, migrate_at=None,
+             profile_dir=None, check=None):
+    """Phase 5's workload through a fresh eager ``Engine(group=...)`` on
+    this rank, ``plans[i]`` applied before step i; each steady step timed
+    (ms, collectives, host syncs), apart by whether its degrees replicate;
+    every request's last token after every step; the pool's sha256 at the
+    end. ``probe(eng)`` runs before the first steady step; ``rec`` (a
+    ``Top2``) records the decode logits; at ``migrate_at`` every rank but
+    0 loses its pool (zeroed) and takes rank 0's back through
+    ``migrate_paged_pool``; ``profile_dir`` profiles the second timed
+    steady replicated step; ``check`` (a dict) holds every paged-kernel
+    call of the first steady replicated step against its plain version
+    (``checked_kernel_calls``: ``check["paged"]``, one relative L2 a
+    call). Neither of those two steps is timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = c.Engine(c.cfg, params, paged_attn_impl="kernel", device=c.device,
+                   cuda_graphs=False, group=c.group, **dict(ENGINE_KW, dtype=dtype))
+    reqs = []
+    for i, p in enumerate(c.prompts):
+        temp, top_k = (0.8, 8) if i in c.sampled else (0.0, 0)
+        sampling = c.SP(temperature=temp, top_k=top_k, seed=100 + i)
+        reqs.append(eng.submit(c.RS(rid=i, prompt=p, max_tokens=32, sampling=sampling)))
+    c.PD.paged_decode_attention.launches = 0
+    out = {"one": [], "rep": [], "colls": [], "steps": [], "profile": None,
+           "pool_move": None}
+    i = 0
+    with rec.installed(eng) if rec else contextlib.nullcontext():
+        while eng.queue or eng.active or eng.prefilling:
+            if i in plans:
+                eng.apply_plan(plans[i])
+            if i == migrate_at:
+                st, k0 = eng.pstate, eng.pstate.k
+                if c.group.rank:
+                    st.k.zero_()
+                    st.v.zero_()
+                _, cost = c.MIG.migrate_paged_pool(st, (), c.group, measure=True)
+                if st.k is not k0 or cost.bytes_moved != 2 * k0.numel() * k0.element_size():
+                    raise AssertionError(f"pool move: {cost}, rebound {st.k is not k0}")
+                out["pool_move"] = (cost.bytes_moved, cost.measured_seconds)
+            steady = not eng.queue and not eng.prefilling
+            if steady and probe is not None:   # its launches do not count
+                n0 = c.PD.paged_decode_attention.launches
+                probe(eng)
+                c.PD.paged_decode_attention.launches = n0
+                probe = None
+            degrees = eng._step_degrees
+            replicated = degrees is not None and max(degrees) > 1
+            prof = (profile_dir is not None and steady and replicated
+                    and len(out["rep"]) == 1 and out["profile"] is None)
+            checked = check is not None and steady and replicated and not check
+            launches, decoded = c.PD.paged_decode_attention.launches, eng._step_count
+            c.INS.synchronize(c.device)
+            t = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                n = stack.enter_context(c.R.count_collectives(c.group))
+                syncs = stack.enter_context(c.INS.count_host_syncs())
+                if prof:
+                    p = stack.enter_context(profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                if checked:
+                    stack.enter_context(checked_kernel_calls(check))
+                eng.step()
+            ms = (time.perf_counter() - t) * 1e3
+            if replicated and eng._step_count > decoded:
+                out["colls"].append(sum(n.values()))
+            if prof:
+                c.INS.synchronize(c.device)
+                trace = profile_dir / f"replicated_step_trace_rank{c.group.rank}.json"
+                p.export_chrome_trace(str(trace))
+                kernels = [ev["name"] for ev in json.loads(trace.read_text())["traceEvents"]
+                           if ev.get("cat") == "kernel"]
+                out["profile"] = {
+                    "split_kernels": sum("split_kernel" in k for k in kernels),
+                    "device_kernels": len(kernels),
+                    "launches": c.PD.paged_decode_attention.launches - launches,
+                }
+            elif steady and not checked:
+                out["rep" if replicated else "one"].append(
+                    (ms, sum(n.values()), syncs.n, degrees if replicated else None))
+            out["steps"].append([(r.rid, r.generated[-1] if r.generated else -1) for r in reqs])
+            i += 1
+    nb = eng.pstate.k.shape[1] - 1
+    out.update(
+        streams={r.rid: r.generated for r in reqs},
+        launches=c.PD.paged_decode_attention.launches,
+        decode_steps=eng._step_count,
+        eager=eng.graphs.counts.eager["decode"],
+        pool=tensor_sha(eng.pstate.k[:, :nb], eng.pstate.v[:, :nb]),
+    )
+    return out
+
+
+def replication_rank(rank, world, port, reference, out_dir, results, device="cuda"):
+    """One rank of phase 12, a spawned process: its gloo group on the
+    card, tinyllama-1.1b's weights (rank 0's broadcast), the runs of the
+    module docstring; puts (rank, measurements) on ``results``.
+    ``device="cpu"`` rehearses the phase without a card."""
+    import datetime
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import migration as MIG
+    from repro_torch.core import replication as R
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import instrument as INS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import RequestSpec, SamplingParams
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=180)
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=rank == 0, timeout=timeout)
+    group = R.ReplicationGroup.of(dist.ProcessGroupGloo(store, rank, world, timeout), device)
+    cfg = get_config("tinyllama-1.1b")
+    prompts, sampled = workload(cfg)
+    c = types.SimpleNamespace(Engine=Engine, RS=RequestSpec, SP=SamplingParams, PD=PD,
+                              INS=INS, R=R, MIG=MIG, cfg=cfg, group=group,
+                              prompts=prompts, sampled=sampled, device=device)
+    res = {"device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
+    # phase 5's weights on rank 0; rank 1 draws others, then takes rank 0's
+    gen = torch.Generator(device=device).manual_seed(SEED + rank)
+    params = T.init_params(cfg, gen, "bfloat16")
+    INS.synchronize(device)
+    t = time.perf_counter()
+    with R.count_collectives(group) as n:
+        R.replicate_params_for_plan(params, group)
+    INS.synchronize(device)
+    leaves = list(tree_leaves(params))
+    res["broadcast"] = (time.perf_counter() - t, sum(n.values()),
+                        sum(x.numel() * x.element_size() for x in leaves))
+    res["weights_sha"] = tensor_sha(*leaves)
+    # one collective of each of the hooks' shapes, alone: the full-batch
+    # activations and one layer's K/V rows (bf16)
+    coll = {}
+    for shape in ((8, 1, cfg.d_model), (8, 1, cfg.num_kv_heads, 2 * cfg.resolved_head_dim)):
+        buf = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        times = []
+        for _ in range(21):
+            t = time.perf_counter()
+            group.all_reduce(buf)
+            times.append((time.perf_counter() - t) * 1e3)
+        coll[shape] = sorted(times)[10]
+    res["collective_ms"] = coll
+    L = cfg.num_layers
+    contiguous = [2 if i <= 10 else 1 for i in range(L)]
+    fragmented = [2 if i % 2 == 0 else 1 for i in range(L)]
+    midstream = {3: [2] * L, 6: [1] * L}
+    res["plans"] = {"contiguous": contiguous, "fragmented": fragmented,
+                    "mid-stream": [2] * L}
+    probe = {}
+
+    def logit_probe(eng):
+        tk, act, handle = paged_probe_inputs(eng)
+        hook = R.layer_hook_from_degrees(eng._step_degrees, group)
+        got, want = (
+            T.forward_paged(eng.params, cfg, tk, handle, attn_impl="kernel",
+                            layer_hook=h)[0][act, : cfg.vocab_size].float()
+            for h in (hook, None))
+        probe["finite"] = bool(torch.isfinite(got).all())
+        probe["rel"] = ((got - want).norm() / want.norm()).item()
+
+    runs, checks = {}, {"bf16 contiguous": {}, "fp32 fragmented": {}}
+    runs["bf16 degree 1"] = repl_run(c, params, "bfloat16", {})
+    runs["bf16 contiguous"] = repl_run(c, params, "bfloat16", {0: contiguous},
+                                       probe=logit_probe, profile_dir=out_dir,
+                                       check=checks["bf16 contiguous"])
+    runs["bf16 fragmented"] = repl_run(c, params, "bfloat16", {0: fragmented})
+    res["probe"] = probe
+    res["checks"] = checks
+    p32 = _tree_map(lambda x: x.float(), params)
+    recs = {}
+    for what, plans, at in (("degree 1", {}, None), ("contiguous", {0: contiguous}, None),
+                            ("fragmented", {0: fragmented}, None),
+                            ("mid-stream", midstream, 4)):
+        recs[what] = Top2(T, cfg)
+        runs[f"fp32 {what}"] = repl_run(c, p32, "float32", plans, rec=recs[what],
+                                        migrate_at=at, check=checks.get(f"fp32 {what}"))
+    one = runs["fp32 degree 1"]["streams"]
+    res["flips"] = {
+        what: repl_flips(c, one, recs["degree 1"].rec, runs[f"fp32 {what}"]["streams"],
+                         recs[what].rec)
+        for what in ("contiguous", "fragmented", "mid-stream")
+    }
+    del p32
+    # the attention weights re-placed replicated from rank 0, rank 1's lost
+    if rank:
+        for x in params["layers"]["attn"].values():
+            x.zero_()
+    _, cost = MIG.migrate_by_path(params, r"layers/attn", (), group, measure=True)
+    res["attn_move"] = (cost.bytes_moved, MIG.tree_bytes(params, r"layers/attn"),
+                        cost.measured_seconds, tensor_sha(*tree_leaves(params)))
+    res["runs"] = runs
+    res["reference_ok"] = runs["bf16 degree 1"]["streams"] == reference
+    group.all_reduce(torch.zeros(1, device=device))   # both ranks are done
+    results.put((rank, res))
+
+
+def replication_phase(TR, reference, out_dir, smi, device="cuda"):
+    """Phase 12 (module docstring): spawns the two ranks, waits for both
+    (a rank that fails fails the phase), gates and prints their runs.
+    Returns the paged kernel's launches on both ranks."""
+    import multiprocessing as mp
+    import queue
+
+    port = int(TR.free_tcp_endpoint().rsplit(":", 1)[1])
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=replication_rank,
+                         args=(r, REPL_RANKS, port, reference, out_dir, results, device))
+             for r in range(REPL_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + 600
+        while len(got) < REPL_RANKS:
+            try:
+                rank, res = results.get(timeout=5)
+                got[rank] = res
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"phase 12: a rank failed (exit codes "
+                                         f"{[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if [p.exitcode for p in procs] != [0] * REPL_RANKS:
+        raise AssertionError(f"phase 12 exit codes {[p.exitcode for p in procs]}")
+    r0, r1 = got[0], got[1]
+    log(
+        f"[replication] {REPL_RANKS} rank processes on one card ({r0['device']}) in a "
+        f"gloo group: NCCL refuses two ranks on one device, and gloo stages each "
+        f"collective through the host. Two ranks sharing one card measure the "
+        f"program, not replication's speed [{smi}]"
+    )
+    secs, n_bc, nbytes = r0["broadcast"]
+    if r0["weights_sha"] != r1["weights_sha"]:
+        raise AssertionError("the ranks' weights differ after replicate_params_for_plan")
+    log(
+        f"[replication] replicate_params_for_plan: {n_bc} broadcasts, {nbytes} B of "
+        f"bf16 weights from rank 0 in {secs:.3f} s; the ranks' weights bit-equal"
+    )
+    if not (r0["reference_ok"] and r1["reference_ok"]):
+        raise AssertionError("a rank's degree-1 bf16 streams differ from phase 5's")
+    L = len(r0["plans"]["contiguous"])
+    predicted = {what: predicted_gathers(p) for what, p in r0["plans"].items()}
+    launches = 0
+    for what in r0["runs"]:
+        a, b = r0["runs"][what], r1["runs"][what]
+        if a["streams"] != b["streams"] or a["steps"] != b["steps"]:
+            raise AssertionError(f"{what}: the ranks' tokens differ")
+        if a["pool"] != b["pool"]:
+            raise AssertionError(f"{what}: the ranks' pools differ")
+        for r, run in ((0, a), (1, b)):
+            if run["launches"] != L * run["decode_steps"]:
+                raise AssertionError(f"{what} rank {r}: {run['launches']} paged launches "
+                                     f"for {run['decode_steps']} decode steps")
+            launches += run["launches"]
+        plan = what.split()[-1]
+        if plan in predicted and set(a["colls"] + b["colls"]) != {predicted[plan]}:
+            raise AssertionError(f"{what}: collectives per replicated step "
+                                 f"{sorted(set(a['colls']))}, predicted {predicted[plan]}")
+        if what.endswith("degree 1") == bool(a["eager"]):
+            raise AssertionError(f"{what}: {a['eager']} eager replicated steps")
+        steady = "; ".join(
+            f"{kind} steady step median ms, rank 0 / 1: "
+            f"{sorted(x[0] for x in a[key])[len(a[key]) // 2]:.3f} / "
+            f"{sorted(x[0] for x in b[key])[len(b[key]) // 2]:.3f} over {len(a[key])}"
+            for kind, key in (("degree-1", "one"), ("replicated", "rep")) if a[key])
+        log(
+            f"[replication] {what}: {a['decode_steps']} decode steps ({a['eager']} "
+            f"replicated, eager), paged launches {a['launches']} / {b['launches']} "
+            f"(= {L} x steps per rank); {steady}; all-gathers per replicated decode "
+            f"step {sorted(set(a['colls']))}, host syncs per steady step "
+            f"{sorted({s for _, _, s, _ in a['one'] + a['rep']})}; tokens equal on both "
+            f"ranks at every step, pools bit-equal [{smi}]"
+        )
+    if not predicted["contiguous"] < predicted["fragmented"]:
+        raise AssertionError(f"continuity: {predicted}")
+    log(
+        f"[replication] continuity: 11 replicated layers make "
+        f"{predicted['contiguous']} all-gathers a step as one run (layers 0-10) "
+        f"against {predicted['fragmented']} fragmented (every other layer), each "
+        f"step's count as the hooks predict"
+    )
+    for r, res in ((0, r0), (1, r1)):
+        pr = res["probe"]
+        if not pr["finite"] or pr["rel"] > 2e-2:
+            raise AssertionError(f"rank {r}: bf16 replicated vs degree-1 logits {pr}")
+        for what, flips in res["flips"].items():
+            for rid, t, one, rep in flips:
+                ok = (one and rep and set(one[1]) == set(rep[1])
+                      and abs(one[0][0] - one[0][1]) <= 1e-4 * max(1.0, abs(one[0][0]))
+                      and abs(rep[0][0] - rep[0][1]) <= 1e-4 * max(1.0, abs(rep[0][0])))
+                if not ok:
+                    raise AssertionError(f"rank {r} fp32 {what}: rid {rid} token {t} "
+                                         f"flips, top-2 {one} against {rep}")
+        prof = res["runs"]["bf16 contiguous"]["profile"]
+        if prof is None or prof["split_kernels"] != L or prof["launches"] != L:
+            raise AssertionError(f"rank {r}: profile of a replicated step {prof}")
+    log(
+        f"[replication] bf16 contiguous vs degree 1, one decode step's logits over "
+        f"the real vocabulary: relative L2 {r0['probe']['rel']:.3e} / "
+        f"{r1['probe']['rel']:.3e} (rank 0 / 1, tol 2e-2); fp32 greedy streams equal "
+        f"degree 1's but for the flips {r0['flips']} (each a top-2 tie within 1e-4)"
+    )
+    for what, tol in (("bf16 contiguous", 2e-2), ("fp32 fragmented", 1e-4)):
+        for r, res in ((0, r0), (1, r1)):
+            errs = res["checks"][what].get("paged", [])
+            if len(errs) != L or max(errs) > tol:
+                raise AssertionError(f"rank {r} {what}: paged kernel calls of a "
+                                     f"replicated step against their plain version: "
+                                     f"{len(errs)} calls, relative L2 {errs} (tol {tol})")
+        log(
+            f"[replication] {what}: each of the {L} paged-kernel calls of one steady "
+            f"replicated step (degree-2 layers at 4 of 8 rows a rank) against "
+            f"paged_decode_attention_ref on the same inputs: worst relative L2 "
+            f"{max(r0['checks'][what]['paged']):.3e} / "
+            f"{max(r1['checks'][what]['paged']):.3e} (rank 0 / 1, tol {tol})"
+        )
+    prof = r0["runs"]["bf16 contiguous"]["profile"]
+    log(
+        f"[replication] profile of one replicated step (rank 0; rank 1 alike): "
+        f"{prof['split_kernels']} paged split kernels, {prof['launches']} paged "
+        f"launches, {prof['device_kernels']} device kernels"
+    )
+    moved, seconds = r0["runs"]["fp32 mid-stream"]["pool_move"]
+    log(
+        f"[replication] migrate_paged_pool at step 4 of the mid-stream run: rank 1's "
+        f"zeroed pool re-placed from rank 0 in place, {moved} B in {seconds:.3f} s; "
+        f"served on token-identical to degree 1"
+    )
+    a, b = r0["attn_move"], r1["attn_move"]
+    if a[0] != a[1] or b[0] != b[1] or a[3] != b[3] or a[3] != r0["weights_sha"]:
+        raise AssertionError(f"migrate_by_path: {a[:3]} / {b[:3]}")
+    log(
+        f"[replication] migrate_by_path(layers/attn, replicated): {a[0]} B "
+        f"(= tree_bytes) in {a[2]:.3f} s; rank 1's zeroed attention weights back "
+        f"to rank 0's, bit for bit"
+    )
+    log(
+        f"[replication] one staged all-reduce alone (the hooks' all-gather), "
+        f"median of 21, bf16, by shape: "
+        f"{ {s: round(ms, 4) for s, ms in r0['collective_ms'].items()} } ms (rank 0) "
+        f"[{smi}]"
+    )
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2987,6 +3447,8 @@ def main():
     ms, plain_ms, bound_ms, bound_by = time_paged_decode(PD, cfg, mid_lens, width, smi)
     # phase 9's shape: qwen2-moe-a2.7b's heads, the same lengths
     moe_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens, width, smi)
+    # phase 12's: a replicated layer's call on one rank, rows 0-3 of 8
+    repl_paged = time_paged_decode(PD, cfg, mid_lens[:4], width, smi)
     # phase 10's serving shapes: mamba2-780m's and zamba2-7b's prefills
     mamba, zamba = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
     serving_ssd = [
@@ -3231,6 +3693,20 @@ def main():
         "library_ms": k_lib,
     })
     log(f"[dense] phase 11 in {time.perf_counter() - t:.1f} s; serving launches {encdec}")
+
+    # phase 12: module replication across two ranks sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    repl = replication_phase(TR, reference, out_dir, smi)
+    kernels[0]["launches"] += repl
+    kernels[0]["shapes"].append({
+        "model": f"{cfg.name} replicated (4 of 8 rows a rank)", "launches": repl,
+        "ms": repl_paged[0], "plain_ms": repl_paged[1], "bound_ms": repl_paged[2],
+        "bound_by": repl_paged[3],
+    })
+    log(f"[replication] phase 12 in {time.perf_counter() - t:.1f} s; paged launches "
+        f"on both ranks {repl}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

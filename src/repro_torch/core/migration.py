@@ -3,14 +3,25 @@
 Counterpart of ``repro.core.migration``. The cost model (bytes moved /
 link bandwidth + a fixed per-migration overhead) has the shape of the
 paper's Table 2; ``fit_migration_model`` fits its two constants to the
-host it runs on. What this port moves is the unit CoCoServe's live
-scale-down moves: ``migrate_blocks`` ships one request's KV blocks
-between two engines' block pools (the wire format of
-``serving/paged_kv.export_blocks``).
+host it runs on. ``migrate_blocks`` ships the unit CoCoServe's live
+scale-down moves, one request's KV blocks between two engines' block
+pools (the wire format of ``serving/paged_kv.export_blocks``).
 
-Re-sharding a tree, a dense cache or a whole pool under a new placement
-across cards (``migrate_by_path``, ``migrate_kv_cache``,
-``migrate_paged_pool``) waits for multi-card replication (ROADMAP A10).
+``migrate_by_path`` re-places the leaves of a tree whose path matches a
+regex across the ranks of a ``core.replication.ReplicationGroup``
+(``migrate_kv_cache``: a dense cache's layers; ``migrate_paged_pool``: a
+whole block pool, in place). Where the reference device_puts under a
+``NamedSharding``, the port's placement is a per-dimension tuple, its own
+``PartitionSpec``: each entry None (not split), an axis name (``"r0"``)
+or a tuple of them, r0 the most significant. The owner's values (rank
+0's) reach every rank by a broadcast, in place; a replicated
+placement (no split entry, ``()``) keeps them whole, in the same
+storage, and a split one keeps a copy of this rank's shard alone, so
+the full tensor is freed once the caller drops the old tree. The
+broadcast is the only point-to-many collective both gloo and NCCL take
+for CUDA tensors, so every rank receives every byte of a split leaf
+too: ``bytes_moved`` is the reference's ``tree_bytes`` of the matched
+leaves either way.
 """
 from __future__ import annotations
 
@@ -71,22 +82,80 @@ def estimate_cost(bytes_moved: int, link_bandwidth: float,
     return fixed_overhead_s + bytes_moved / link_bandwidth
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} re-shards under a placement across cards, which is not "
-        f"ported yet (ROADMAP A10)")
+def _map_leaves(fn, tree, prefix=()):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
-def migrate_by_path(tree, path_regex: str, new_spec, mesh, **kw):
-    _not_ported("migrate_by_path")
+def _shard_of(t: torch.Tensor, spec, group) -> torch.Tensor:
+    """This rank's shard of ``t`` under the placement ``spec``: ``t``
+    itself where nothing is split, else a copy of the shard in storage
+    of its own (a view would keep the whole tensor alive)."""
+    if len(spec) > t.dim():
+        raise ValueError(f"placement {spec} has more entries than the "
+                         f"{t.dim()} dims of a {tuple(t.shape)} tensor")
+    full = t
+    for dim, axes in enumerate(spec):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        n, idx = 1, 0
+        for a in axes:
+            size = group.axis_size(a)
+            n, idx = n * size, idx * size + group.axis_index(a)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"{n} ways")
+        step = t.shape[dim] // n
+        t = t.narrow(dim, idx * step, step)
+    return t if t.shape == full.shape else t.clone()
 
 
-def migrate_kv_cache(cache, new_spec, mesh, **kw):
-    _not_ported("migrate_kv_cache")
+def migrate_by_path(tree, path_regex: str, new_spec, group, *,
+                    link_bandwidth: float = 50e9, measure: bool = False):
+    """Re-place every leaf whose '/'-joined path matches ``path_regex``
+    under ``new_spec`` (module docstring): each such tensor takes rank
+    0's values in place (a broadcast over ``group``), and the new
+    tree holds it whole or a copy of this rank's shard of it; other
+    leaves are kept. ``bytes_moved`` counts the matched leaves (``tree_bytes``).
+    Returns (new_tree, MigrationCost)."""
+    pat = re.compile(path_regex)
+    moved = 0
+
+    def place(path, leaf):
+        nonlocal moved
+        if not pat.search(_PATH_JOIN.join(path)):
+            return leaf
+        moved += leaf.numel() * leaf.element_size()
+        return _shard_of(group.broadcast(leaf), new_spec, group)
+
+    t0 = time.perf_counter()
+    new_tree = _map_leaves(place, tree)
+    if measure:
+        INS.synchronize(group.device)
+    dt = time.perf_counter() - t0 if measure else None
+    return new_tree, MigrationCost(moved, estimate_cost(moved, link_bandwidth),
+                                   dt)
 
 
-def migrate_paged_pool(state, new_spec, mesh, **kw):
-    _not_ported("migrate_paged_pool")
+def migrate_kv_cache(cache, new_spec, group, **kw):
+    """KV-cache migration (the paper's memory-intensive module, §3.3)."""
+    return migrate_by_path(cache, r"layers/", new_spec, group, **kw)
+
+
+def migrate_paged_pool(state, new_spec, group, **kw):
+    """Re-place a whole paged block pool (``paged_kv.PagedState``).
+    Mutates ``state`` in place: under a replicated placement its K/V
+    tensors keep their addresses, so an engine (and its graphs) keeps
+    serving from the pool; returns (state, MigrationCost)."""
+    handle = {"k": state.k, "v": state.v}
+    new, cost = migrate_by_path(handle, r"^(k|v)$", new_spec, group, **kw)
+    state.k, state.v = new["k"], new["v"]
+    return state, cost
 
 
 def _resolve_device(device):

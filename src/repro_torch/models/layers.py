@@ -325,7 +325,7 @@ def paged_step_meta(positions, block_tables, active, n_blocks: int,
 
 def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
                     block_tables, active, window=None, impl="gather",
-                    meta=None, rope=None):
+                    meta=None, rope=None, kv_rows=None):
     """GQA decode attention against a paged block pool (write-then-attend).
 
     Single-token decode only: x [B,1,d]. ``pool_k/v`` are ONE layer's pool
@@ -337,6 +337,10 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     context (garbage logits the engine ignores). All on x's device.
     ``meta`` is ``paged_step_meta`` and ``rope`` is ``rope_tables``, both
     computed once per step by ``forward_paged``; None computes them here.
+    ``kv_rows`` (a replicated layer, ``core.replication.LayerHook.
+    gather_kv``): x holds this rank's rows only, and ``kv_rows(k, v)``
+    returns every row's new K/V, which the write (``meta["write"]``, of
+    the full batch) puts into the pool, so every rank's pool stays whole.
 
     ``impl``: "gather" materialises the table's blocks and reuses the
     chunked fp32 attention; "kernel" calls the paged-decode kernel
@@ -356,6 +360,8 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     if meta is None:
         meta = paged_step_meta(positions, block_tables, active, n_blocks, bs)
     q, k, v = _qkv(p, x, cfg, positions, rope)
+    if kv_rows is not None:
+        k, v = kv_rows(k, v)
 
     # ---- write the new token's K/V into its block (dropped rows land in
     # the scratch block)

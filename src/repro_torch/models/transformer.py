@@ -290,9 +290,14 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 # ================================================================== forwards
-def _mlp_sublayer(lp, x, cfg):
+def _mlp_sublayer(lp, x, cfg, layer_hook=None):
     """norm2, then the MLP or the MoE layer, then the residual. Returns
-    (x, aux): the MoE's load-balance loss, 0.0 for an MLP."""
+    (x, aux): the MoE's load-balance loss, 0.0 for an MLP. Under a
+    ``layer_hook`` an MoE layer takes the full batch (its capacity and
+    loss are over every row, as the reference's sharded layer computes
+    them)."""
+    if "moe" in lp and layer_hook is not None:
+        x = layer_hook.full(x)
     h = L.apply_norm(lp["norm2"], x, cfg)
     if "moe" in lp:
         h, aux = MOE.apply_moe(lp["moe"], h, cfg)
@@ -375,7 +380,8 @@ def _cross_cache(cache, enc_out, params):
 
 
 def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
-                     last_idx=None, attn_impl="gather", encoder_out=None):
+                     last_idx=None, attn_impl="gather", encoder_out=None,
+                     layer_hook=None):
     """Dense / moe / vlm decoder and the whisper decoder: train, prefill
     (attend fresh, write the cache on the side) or decode (write, then
     attend the cache). An MoE layer dispatches over all B x S tokens, a
@@ -383,7 +389,9 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
     built once per call at the width attention rotates: MLA's rope dim,
     else the head dim. Audio: a train or prefill call attends the cross
     K/V computed from ``encoder_out`` (a prefill also stores them in the
-    cache's ``cross`` leaves); a decode call reads them from the cache."""
+    cache's ``cross`` leaves); a decode call reads them from the cache.
+    ``layer_hook`` (a cache-less call) splits each layer's batch
+    (``core.replication.LayerHook``)."""
     has_cache = cache is not None
     is_audio = cfg.family == "audio"
     B, S = tokens.shape
@@ -409,12 +417,16 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
         cross_len = torch.full((B,), n_enc, dtype=torch.int32,
                                device=x.device)
     aux = 0.0
+    pos_i, rope_i = positions, rope
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         lc = _layer_slice(cache["layers"], i) if has_cache else None
+        if layer_hook is not None:
+            x = layer_hook(i, x)
+            pos_i, rope_i = layer_hook.rows(positions), layer_hook.rows(rope)
         h = L.apply_norm(lp["norm1"], x, cfg)
-        x = x + _attn(lp, h, cfg, positions, lc, slots, kpos, mode, window,
-                      rope, attn_impl)
+        x = x + _attn(lp, h, cfg, pos_i, lc, slots, kpos, mode, window,
+                      rope_i, attn_impl)
         if is_audio:
             if mode == "decode":
                 ckv = (cross["k"][i], cross["v"][i])
@@ -427,8 +439,10 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
             x = x + L.apply_gqa(lp["xattn"], h, cfg, positions=positions,
                                 kv_override=ckv, impl=attn_impl,
                                 kv_lengths=cross_len)[0]
-        x, a = _mlp_sublayer(lp, x, cfg)
+        x, a = _mlp_sublayer(lp, x, cfg, layer_hook)
         aux = aux + a
+    if layer_hook is not None:
+        x = layer_hook.full(x)
 
     new_cache = _set_length(cache, positions) if has_cache else None
     if mode == "train":
@@ -544,8 +558,22 @@ def _forward_hybrid(params, cfg, tokens, positions, cache, mode, window,
     return _last(params, cfg, x, mode), new_cache, 0.0
 
 
+def _paged_rows(hook, positions, meta, active, rope):
+    """A paged layer's operands at the hook's current degree: this rank's
+    rows of the positions, lengths, tables, ``active`` and rope tables
+    (padding rows inactive, length 0, no blocks), the full batch's write
+    indices, and the K/V gather of a replicated layer (None at degree
+    1)."""
+    if hook.degree == 1:
+        return positions, meta, active, rope, None
+    rows = dict(meta, kv_len=hook.rows(meta["kv_len"]),
+                tables=hook.rows(meta["tables"], -1))
+    return (hook.rows(positions), rows, hook.rows(active, False),
+            hook.rows(rope), hook.gather_kv)
+
+
 def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
-                  attn_impl="gather"):
+                  attn_impl="gather", layer_hook=None):
     """Single-token decode step against a PAGED KV pool.
 
     tokens: [B, 1] on the pool's device. ``cache`` is the paged handle:
@@ -563,7 +591,12 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
     (serving/graphs.py). The pool-write index, lengths, int32 tables and
     rope's tables are computed once per step, at fixed shapes, for every
     layer. An MoE layer dispatches ``"auto"``, as the reference's paged
-    step does. Returns (logits [B, Vpad], new_cache, aux).
+    step does. ``layer_hook`` (``core.replication.LayerHook``, the live
+    engine's replication plan) splits each layer's batch: a replicated
+    layer attends with this rank's rows, their tables, lengths and
+    ``active``, and writes every row's K/V (``LayerHook.gather_kv``),
+    so every rank's pool stays a full replica; the logits are the full
+    batch's on every rank. Returns (logits [B, Vpad], new_cache, aux).
     """
     if not cfg.supports_paged_kv:
         raise ValueError(f"paged decode needs a GQA attention decoder "
@@ -588,23 +621,31 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
     if not cfg.use_rope:
         x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     aux = 0.0
+    pos_i, meta_i, act_i, rope_i, kv_rows = positions, meta, active, rope, None
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
+        if layer_hook is not None:
+            x = layer_hook(i, x)
+            pos_i, meta_i, act_i, rope_i, kv_rows = _paged_rows(
+                layer_hook, positions, meta, active, rope)
         h = L.apply_norm(lp["norm1"], x, cfg)
         h, _, _ = L.apply_gqa_paged(
-            lp["attn"], h, cfg, positions=positions, pool_k=cache["k"][i],
-            pool_v=cache["v"][i], block_tables=meta["tables"], active=active,
-            window=window, impl=attn_impl, meta=meta, rope=rope)
+            lp["attn"], h, cfg, positions=pos_i, pool_k=cache["k"][i],
+            pool_v=cache["v"][i], block_tables=meta_i["tables"],
+            active=act_i, window=window, impl=attn_impl, meta=meta_i,
+            rope=rope_i, kv_rows=kv_rows)
         x = x + h
-        x, a = _mlp_sublayer(lp, x, cfg)
+        x, a = _mlp_sublayer(lp, x, cfg, layer_hook)
         aux = aux + a
+    if layer_hook is not None:
+        x = layer_hook.full(x)
     new_cache = dict(cache, lengths=lengths + active.to(torch.int32))
     return unembed(params, cfg, x[:, -1]), new_cache, aux
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             mode="train", encoder_input=None, window=None, last_idx=None,
-            attn_impl="gather", ssd_impl="chunked"):
+            attn_impl="gather", ssd_impl="chunked", layer_hook=None):
     """Dense-cache entry point (the paged decode step is
     ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
     (default arange). An MoE layer dispatches ``"auto"``.
@@ -615,7 +656,10 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     is updated in place and returned. ``attn_impl`` / ``ssd_impl``: the
     kernel routes of the module docstring. ``encoder_input`` [B, S_enc,
     d] (audio, train and prefill modes) are the encoder's frames; a
-    decode call reads the cross K/V its prefill cached.
+    decode call reads the cross K/V its prefill cached. ``layer_hook``
+    (``core.replication.LayerHook``; a decoder's cache-less call, as the
+    reference's replication tests run it) splits each layer's batch
+    between the ranks of its group.
 
     Prefill mode starts a sequence: the SSM and hybrid families scan
     from the ZERO state and ignore the states ``cache`` holds (the
@@ -630,6 +674,10 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
+    if layer_hook is not None and (
+            cache is not None or cfg.family not in ("dense", "moe", "vlm")):
+        raise ValueError("layer_hook splits a decoder's cache-less call; "
+                         "the paged decode step takes it in forward_paged")
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         enc_out = None
         if cfg.family == "audio" and mode in ("train", "prefill"):
@@ -639,7 +687,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             enc_out = encode_audio(params, cfg, encoder_input)
         return _forward_decoder(params, cfg, tokens, positions, cache, mode,
                                 window, last_idx=last_idx,
-                                attn_impl=attn_impl, encoder_out=enc_out)
+                                attn_impl=attn_impl, encoder_out=enc_out,
+                                layer_hook=layer_hook)
     if last_idx is not None:
         raise ValueError(f"last_idx unsupported for family {cfg.family}")
     if cfg.family == "ssm":

@@ -47,8 +47,16 @@ token-identically; the two-phase variant is ``snapshot_request`` (bulk
 export, the stream keeps decoding) → destination ``prepare_resume``
 (staged import into an admission-excluded slot) → ``pause_request(...,
 since_epoch)`` (the dirty-set delta only) → ``commit_resume``.
-``apply_plan`` records a plan's replication degrees; on one card they
-all quantize to 1 and the step is unchanged.
+``apply_plan`` puts a plan's per-layer replication degrees on the paged
+decode step, quantized to the engine's replication group
+(``core/replication.py``; ``group=`` a ``ReplicationGroup`` whose ranks
+each run this engine with the same calls): a step under degrees above 1
+splits each replicated layer's batch between the ranks and gathers it
+back, every rank's pool staying a full replica and every rank sampling
+the same tokens. Such a step runs eagerly (``graphs.counts.eager``): a
+collective staged through the host cannot be captured. Without a group
+the engine is its own size-1 group, every degree quantizes to 1, and the
+step keeps its graph.
 
 **The dense path** (``cache_kind="dense"``) serves the families the
 pool cannot hold — SSM (Mamba2) and hybrid (Zamba2) states, MLA's
@@ -76,9 +84,7 @@ and migration target the pool: a dense engine refuses them with the
 reference's ValueErrors.
 
 The pool and the dense cache are updated in place where the reference
-rebuilt them functionally. Not ported yet, and raising
-NotImplementedError: replication degrees above 1 across several cards
-(ROADMAP A10).
+rebuilt them functionally.
 """
 from __future__ import annotations
 
@@ -202,19 +208,21 @@ def _sample_step(logits, buf, *, vocab_size, stochastic, max_top_k):
 
 
 def _decode_step(params, k, v, buf, *, cfg, nb, width, window, impl,
-                 stochastic, max_top_k):
+                 stochastic, max_top_k, hook=None):
     """One fused decode step, a decode graph's function: forward over the
     pool + ``_sample_step``, the operands packed as (tokens, lengths,
     active, then the sampling operands, then the block tables
     [B, width]) — the whole tables, so the graphs of every table width
-    ``nb`` share one input buffer; the step reads ``tables[:, :nb]``."""
+    ``nb`` share one input buffer; the step reads ``tables[:, :nb]``.
+    ``hook``: the replication plan's ``LayerHook`` (an eager step)."""
     B = buf.numel() // (7 + width)
     tokens, lengths, active, sampling, tables = G_.unpack(
         buf, (B,), (B,), (B,), (4 * B,), (B, width))
     handle = {"k": k, "v": v, "block_tables": tables[:, :nb],
               "lengths": lengths, "active": active != 0}
     logits, _, _ = T.forward_paged(params, cfg, tokens[:, None], handle,
-                                   window=window, attn_impl=impl)
+                                   window=window, attn_impl=impl,
+                                   layer_hook=hook)
     return _sample_step(logits, sampling, vocab_size=cfg.vocab_size,
                         stochastic=stochastic, max_top_k=max_top_k)
 
@@ -253,7 +261,8 @@ class Engine:
                  dense_attn_impl: str = "kernel",
                  prefix_sharing: bool = True, scheduler: str = "budget",
                  token_budget: int = 128,
-                 device=None, cuda_graphs: bool = True):
+                 device=None, cuda_graphs: bool = True,
+                 group: Optional[R.ReplicationGroup] = None):
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         T.check_supported(cfg)
@@ -266,8 +275,17 @@ class Engine:
                 ("dense_attn_impl", dense_attn_impl, ("kernel", "gather"))):
             if impl not in allowed:
                 raise ValueError(f"unknown {name} {impl!r}")
+        if device is None and group is not None:
+            device = group.device
         self.device = (torch.device(device) if device is not None
                        else _default_device())
+        if group is not None and not R.same_device(group.device,
+                                                   self.device):
+            raise ValueError(f"the replication group's device "
+                             f"{group.device} is not the engine's "
+                             f"{self.device}")
+        # the ranks a plan's replicated layers split the batch between
+        self.group = group or R.default_replication_group(self.device)
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -1021,7 +1039,9 @@ class Engine:
     def step(self, dt: float = 1.0):
         """One engine iteration: admit from queue, one decode+sample call
         for all active slots, retire finished requests. Exactly one
-        device→host sync (the sampled-token fetch) in steady state."""
+        device→host sync (the sampled-token fetch) in steady state, and
+        one more per collective of a replicated step staged through the
+        host (gloo on the card)."""
         self.clock += dt
         self.last_step_packed = None   # set by the token-budget planner
         self._admit()
@@ -1079,9 +1099,16 @@ class Engine:
                                width=st.block_tables.shape[1],
                                window=self.window, impl=self._paged_impl,
                                stochastic=stochastic, max_top_k=max_top_k)
-        toks_dev = self.graphs.run(key, fn, G_.pack(
-            tokens, st.lengths, active_mask, temps, topks, seeds, ctrs,
-            st.block_tables))
+        operands = G_.pack(tokens, st.lengths, active_mask, temps, topks,
+                           seeds, ctrs, st.block_tables)
+        if degrees is None:
+            toks_dev = self.graphs.run(key, fn, operands)
+        else:
+            # a replicated step: its collectives run eagerly, outside any
+            # graph (gloo stages them through the host)
+            hook = R.layer_hook_from_degrees(degrees, self.group)
+            toks_dev = self.graphs.eager(key, functools.partial(
+                fn, hook=hook), operands)
         toks = fetch(toks_dev)     # the ONE host sync
         st.lengths[active_mask] += 1
         # dirty-set bookkeeping: the step wrote each active slot's token
@@ -1165,11 +1192,11 @@ class Engine:
     # ------------------------------------------- live module scaling API
     def apply_plan(self, plan):
         """Apply a PlacementPlan's per-layer replication degrees (P) to
-        the live decode step. Degrees are quantized to the replication
-        group (``core.replication.replication_group_size``): one device
-        on one card or on the CPU, where every degree becomes 1 and the
-        step — and so every token stream — is unchanged. A degree above
-        1 across several cards raises (ROADMAP A10)."""
+        the live decode step from the next step on, no drain. Degrees are
+        quantized to the engine's replication group: without a group
+        every degree becomes 1 and the step — and so every token stream
+        — is unchanged; in a group every rank applies the same plan at
+        the same step (``forward_paged``'s ``layer_hook``)."""
         if self.cache_kind != "paged":
             raise ValueError("apply_plan targets the paged decode step; "
                              "dense engines predate module scaling")
@@ -1180,12 +1207,7 @@ class Engine:
         if all(d == 1 for d in p):
             self.replication_degrees, self._step_degrees = p, None
             return
-        q = tuple(R.quantize_degrees(
-            list(p), R.replication_group_size(self.device)))
-        if any(d > 1 for d in q):
-            raise NotImplementedError(
-                f"replication degrees {q} across several cards are not "
-                f"ported yet (ROADMAP A10)")
+        q = tuple(R.quantize_degrees(list(p), self.group.size))
         self.replication_degrees, self._step_degrees = p, q
 
     # --------------------------------------- request migration (paged)

@@ -108,7 +108,8 @@ class StepGraphs:
     """One engine's captured steps, keyed by the static key whose first
     element names the step's kind (``"decode"``, ``"dense"``,
     ``"chunk"``, ``"sample"``). ``keys`` counts the calls per key on every device;
-    ``counts`` the captures and replays by kind on the card;
+    ``counts`` the captures and replays by kind on the card, and the
+    calls of ``eager`` on every device;
     ``capture_seconds`` holds (kind, warm-up, capture) host seconds of
     each capture — the warm-up's launches, then ``torch.cuda.graph``'s
     entry (which waits for the warm-up), the recording and the
@@ -136,8 +137,7 @@ class StepGraphs:
         numpy arrays and tensors; ``fn`` returns one tensor."""
         self.keys[key] += 1
         if not self.enabled:
-            return fn(*(to_device(a, self.device) if isinstance(a, np.ndarray)
-                        else a.to(self.device) for a in inputs))
+            return self._call(fn, inputs)
         g = self._graphs.get(key)
         if g is None:
             return self._capture(key, fn, inputs)
@@ -146,6 +146,18 @@ class StepGraphs:
         self.counts.replays[key[0]] += 1
         self.replayed.update(g.recorded)
         return g.output
+
+    def eager(self, key, fn, *inputs) -> torch.Tensor:
+        """``fn(*inputs)`` eagerly whatever ``enabled`` says, counted
+        under ``counts.eager``: a step whose collectives a graph cannot
+        hold (a replicated decode step; gloo stages through the host)."""
+        self.keys[key] += 1
+        self.counts.eager[key[0]] += 1
+        return self._call(fn, inputs)
+
+    def _call(self, fn, inputs):
+        return fn(*(to_device(a, self.device) if isinstance(a, np.ndarray)
+                    else a.to(self.device) for a in inputs))
 
     def _load(self, static, inputs):
         for buf, a in zip(static, inputs):

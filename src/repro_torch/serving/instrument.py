@@ -13,7 +13,11 @@ active ``count_host_syncs`` context counts:
 * ``synchronize`` — wait for the card (a migration's wall time is read
   after it);
 * ``graph_capture`` — the one host sync of a CUDA-graph capture
-  (``torch.cuda.graph`` synchronizes on entry; serving/graphs.py).
+  (``torch.cuda.graph`` synchronizes on entry; serving/graphs.py);
+* ``collective`` — one collective of a replicated step
+  (``core/replication.py``, which counts them by kind on its group):
+  where it stages through the host (gloo on CUDA tensors) it is a host
+  sync.
 
 On the card, these relax ``torch.cuda.set_sync_debug_mode`` around
 themselves, so a run under ``"error"`` mode fails on any other sync.
@@ -21,7 +25,8 @@ themselves, so a run under ``"error"`` mode fails on any other sync.
 ``GraphCounter`` counts one engine's graph captures and replays, by the
 kind of step (``"decode"``, ``"chunk"``, ``"sample"``), beside the sync
 counter: a steady decode step replays its graph and makes one host sync,
-the fetch; the first step of each static key captures instead.
+the fetch; the first step of each static key captures instead. A
+replicated decode step never enters a graph and counts as ``eager``.
 
 ``FaultCounters``, ``IngressCounters``, ``EngineTelemetry`` and
 ``timed_step`` are copies of the reference's: the orchestrator folds
@@ -44,18 +49,22 @@ import torch
 from repro_torch.models.transformer import to_device
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)   # contexts leave by identity
 class SyncCounter:
-    n: int = 0          # host syncs: fetches and synchronizes
+    n: int = 0          # host syncs: fetches, synchronizes, staged
+                        # collectives, graph captures
     uploads: int = 0    # host→device copies (not syncs)
 
 
 @dataclasses.dataclass
 class GraphCounter:
-    """One engine's CUDA-graph captures and replays, by step kind."""
+    """One engine's CUDA-graph captures and replays, and the steps run
+    eagerly because their collectives cannot be captured, by step kind."""
     captures: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     replays: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    eager: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
 
@@ -369,6 +378,22 @@ def synchronize(device):
     torch.cuda.set_sync_debug_mode(0)
     try:
         torch.cuda.synchronize(device)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def collective(op, staged: bool):
+    """Run ``op()``, one collective that waits for its result. Where it
+    stages through the host (``staged``: gloo copies CUDA tensors to the
+    host and back) it is counted as a host sync, with sync-debug mode
+    relaxed around it."""
+    if not staged:
+        return op()
+    _count("n")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return op()
     finally:
         torch.cuda.set_sync_debug_mode(mode)
 

@@ -215,12 +215,18 @@ def test_uncovered_options_raise(tiny, monkeypatch):
         with pytest.raises(ValueError, match="cache_kind='paged' needs a GQA"):
             Engine(get_config(arch).reduced(), tp, device="cpu")
     eng = Engine(tcfg, tp, device="cpu")
-    # replication degrees above 1 across several cards wait for A10; on
-    # one device (here the CPU) a plan quantizes to all ones
+    # without a replication group the engine is its own size-1 group: a
+    # plan quantizes to all ones; a group of 2 takes degree 2 (the steps
+    # that run it: tests/test_torch_replication.py)
     eng.apply_plan([2] * tcfg.num_layers)
-    monkeypatch.setattr(R, "replication_group_size", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.apply_plan([2] * tcfg.num_layers)
+    assert eng._step_degrees == (1,) * tcfg.num_layers
+    pair = R.ReplicationGroup(object(), 0, 2, "cpu")
+    two = Engine(tcfg, tp, device="cpu", group=pair)
+    two.apply_plan([4] * tcfg.num_layers)
+    assert two._step_degrees == (2,) * tcfg.num_layers
+    with pytest.raises(ValueError, match="device"):
+        Engine(tcfg, tp, device="cpu",
+               group=R.ReplicationGroup(object(), 0, 2, "meta"))
     with pytest.raises(PK.OutOfBlocks):     # never-fits rejection
         eng.submit(RequestSpec(rid=1, prompt=np.full(200, 3, np.int32)))
         eng.run_until_done()

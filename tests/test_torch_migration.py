@@ -17,6 +17,7 @@ from repro.serving import paged_kv as JPK
 from repro.serving.engine import Engine as JaxEngine
 from repro.serving.engine import Request as JaxRequest
 from repro_torch.core import migration as MIG
+from repro_torch.core import replication as R
 from repro_torch.serving import paged_kv as PK
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.instrument import count_host_syncs
@@ -489,13 +490,24 @@ def test_fit_migration_model_on_cpu(tiny):
 
 
 def test_resharding_and_default_device(tiny, monkeypatch):
-    """Re-sharding across cards waits for A10; probing without a device
-    and without CUDA refuses rather than running on the CPU."""
-    for fn, args in ((MIG.migrate_by_path, ({}, ".*", None, None)),
-                     (MIG.migrate_kv_cache, ({}, None, None)),
-                     (MIG.migrate_paged_pool, (None, None, None))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn(*args)
+    """Re-placing over the size-1 group keeps every tensor where it is
+    and counts its bytes (a group of several ranks:
+    tests/test_torch_replication.py); probing without a device and
+    without CUDA refuses rather than running on the CPU."""
+    solo = R.default_replication_group("cpu")
+    t = torch.arange(12.0).view(3, 4)
+    new, cost = MIG.migrate_by_path({"a": [t], "b": t}, r"^a/", (None, "r0"),
+                                    solo)
+    assert new["a"][0].data_ptr() == t.data_ptr() and new["b"] is t
+    assert cost.bytes_moved == 48
+    cache = {"layers": {"k": t}, "positions": t}
+    assert MIG.migrate_kv_cache(cache, (), solo)[1].bytes_moved == 48
+    st = _pools(tiny, 8)[1]
+    k = st.k
+    _, cost = MIG.migrate_paged_pool(st, (), solo)
+    assert st.k is k and cost.bytes_moved == 2 * k.numel() * k.element_size()
+    with pytest.raises(ValueError, match="axis"):
+        MIG.migrate_by_path({"a": t}, ".*", ("r1",), solo)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MIG.probe_block_migration(tiny[2], 8, repeats=1)

@@ -280,8 +280,9 @@ def test_control_tick_burst_stops_when_nothing_moves(tiny):
 
 def test_apply_plan_is_token_invariant(tiny, monkeypatch):
     """Mixed degrees, then the all-ones plan, mid-decode: the stream is
-    the unmigrated reference's. A degree above 1 across several cards
-    raises (A10) and records nothing."""
+    the unmigrated reference's. Without a replication group every degree
+    quantizes to 1; in a group of 2 the mixed plan keeps its degrees
+    (the replicated steps: tests/test_torch_replication.py)."""
     _, _, tcfg, tp = tiny
     rows = [(0, np.arange(2, 10, dtype=np.int32), 10, 0.0, 0, 0)]
     ref = jax_solo_streams(tiny[0], tiny[1], rows)
@@ -302,10 +303,10 @@ def test_apply_plan_is_token_invariant(tiny, monkeypatch):
             break
     assert out[0].generated == ref[0]
     assert e.replication_degrees == (1,) * tcfg.num_layers
-    monkeypatch.setattr(R, "replication_group_size", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        e.apply_plan(mixed)
-    assert e.replication_degrees == (1,) * tcfg.num_layers
+    monkeypatch.setattr(e, "group", R.ReplicationGroup(object(), 0, 2, "cpu"))
+    e.apply_plan(mixed)
+    assert e.replication_degrees == tuple(mixed)
+    assert e._step_degrees == tuple(min(d, 2) for d in mixed)
     with pytest.raises(ValueError):
         e.apply_plan([2])
 
@@ -325,7 +326,7 @@ def test_device_and_remote_rules(tiny, monkeypatch):
     builds one ``EngineProxy`` per instance, the engine settings and the
     device passed to each."""
     _, _, tcfg, tp = tiny
-    assert R.replication_group_size("cpu") == 1
+    assert R.default_replication_group("cpu").size == 1
     monkeypatch.setattr("repro_torch.serving.remote_engine.EngineProxy",
                         _ProxyRecorder)
     monkeypatch.setattr(_ProxyRecorder, "calls", [])
