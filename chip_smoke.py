@@ -215,6 +215,42 @@ prints no ``ok`` line):
    (eager, degree 1 against replicated), collectives and host syncs per
    step, one staged all-reduce alone. The paged row of the JSON line
    adds both ranks' launches and phase 3's replicated shape (rows 0-3).
+13. the reference's sharded serving step (``repro_torch.parallel``): two
+   spawned rank processes share the card, each building its meshes as
+   gloo groups (one per axis line) over a ``TCPStore``, each drawing
+   phase 5's full weights and keeping its shard (``shard_params`` under
+   ``param_specs``), its rows and its cache shard (``init_cache_shard``),
+   and running ``forward`` under ``use_rules`` in fp32 and bf16, eagerly
+   (every collective stages through the host). Rank 0 runs the
+   unsharded ``forward`` on the same weights, fed the sharded run's
+   tokens, as the reference. First a probe of gloo on CUDA tensors (MAX
+   all-reduce, its own all-to-all). a. tensor parallel: tinyllama-1.1b
+   on (data 1, model 2) under ``rules_for`` (heads, KV heads, d_ff and
+   vocab split), phase 5's 8 prompts over a 1024-slot dense cache and
+   32 greedy decode steps through the dense-decode kernel at a rank's 16
+   of 32 heads: fp32 tokens equal and logits within 1e-4, bf16 last-step
+   logits within 2e-2, every dense-decode call of decode step 3 against
+   ``decode_attention_ref`` (1e-4 / 2e-2), collectives per decode step as
+   ``predicted_collectives`` says, launches = 22 x steps a rank; b.
+   distributed flash-decoding: tinyllama-1.1b on (data 2, model 1) under
+   ``long_context_rules`` + ``flash_decode`` (the reference's long_500k
+   step): batch 1, an 8320-token prompt wrapping the 8192-slot ring of
+   the window, 4096 slots a rank, 16 decode steps; fp32 tokens and
+   logits (1e-4) against the unsharded ring, bf16 logits (2e-2), each
+   rank's (m, l, o) partial of every layer at one step against plain
+   attention over its slice; c. the same for minicpm3-4b's
+   ``flash_decode_mla`` at ``MLA13_LAYERS`` of 62 layers; d. expert
+   parallel: qwen2-moe-a2.7b at ``EP_LAYERS`` of 24 layers on (data 2,
+   model 1) under ``rules_for`` + ``moe_a2a``, 32 of 64 experts and 4 of
+   8 rows a rank, decoding 16 steps from rank 0's unsharded prefill
+   cache (each rank's rows handed over by an all-reduce): dropped slots
+   per step (none predicted), tokens and fp32 logits against the
+   unsharded ``dispatch="dense"`` stream where nothing drops, bf16
+   first-step logits over the rows whose experts agree, and the
+   expert-parallel prefill's drops. Printed beside each part: the eager
+   decode step's median on each rank and the unsharded step's. The
+   dense-decode row of the JSON line adds both ranks' launches of 13a
+   and 13d and phase 3's shapes of them (``decode_tp``, ``decode_ep``).
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -239,6 +275,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -524,6 +561,10 @@ def check_decode(DA, mid_lens):
         # last split is partial) and self-attention over its 448 rows
         (16, 16, 1500, 64, [1500] * 8, True),
         (16, 16, 448, 64, [0, 1, 63, 64, 65, 300, 447, 448], True),
+        # phase 13's local heads: tinyllama-1.1b on model 2 (16 of 32
+        # heads, 2 of 4 KV heads) and qwen2-moe-a2.7b's 4 rows a rank
+        (16, 2, 1024, 64, list(mid_lens), True),
+        (16, 16, 1024, 128, list(mid_lens[:4]), True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -3131,7 +3172,6 @@ def replication_rank(rank, world, port, reference, out_dir, results, device="cud
     module docstring; puts (rank, measurements) on ``results``.
     ``device="cpu"`` rehearses the phase without a card."""
     import datetime
-    import types
 
     import torch.distributed as dist
 
@@ -3393,6 +3433,619 @@ def replication_phase(TR, reference, out_dir, smi, device="cuda"):
     return launches
 
 
+# --------------------------------------- the sharded serving step (phase 13)
+#: phase 13's ranks: two processes sharing the one card in gloo groups
+SHARD_RANKS = 2
+#: a rank's attention heads of tinyllama-1.1b on a model axis of 2
+TP_LOCAL_HEADS = types.SimpleNamespace(num_heads=16, num_kv_heads=2, resolved_head_dim=64)
+#: the long-context shape of the reference's long_500k serving step
+#: (launch/dryrun.py: batch 1, window = sliding_window, a ring of that
+#: many slots): a prompt that wraps the ring, then decode steps
+LONG_PROMPT, LONG_STEPS = 8320, 16
+#: 13a's greedy decode steps; 13d's decode steps and qwen2-moe depth
+TP_STEPS, EP_STEPS, EP_LAYERS = 32, 16, 6
+#: 13c's minicpm3-4b depth (of 62), to keep the script's time: at 31
+#: layers phase 13 took 82.5 s and the script 329.7 s (PERF.md, PR 23)
+MLA13_LAYERS = 16
+#: every stream's eager decode steps timed after its gated run
+TIMED_STEPS = 8
+
+
+def p13_settings(device):
+    """Phase 13's sizes: the card's, or a CPU rehearsal's (reduced
+    configs, short prompts)."""
+    if torch.device(device).type == "cuda":
+        return dict(reduced=False, cut=None, max_len=1024, tp_steps=TP_STEPS,
+                    long_prompt=LONG_PROMPT, long_steps=LONG_STEPS,
+                    mla_layers=MLA13_LAYERS, ep_layers=EP_LAYERS,
+                    ep_steps=EP_STEPS, timed=TIMED_STEPS)
+    return dict(reduced=True, cut=24, max_len=64, tp_steps=4, long_prompt=72,
+                long_steps=3, mla_layers=2, ep_layers=2, ep_steps=3, timed=2)
+
+
+def p13_config(get_config, arch, st, layers=None, experts=None):
+    cfg = get_config(arch)
+    if st["reduced"]:
+        cfg = cfg.reduced()
+        if experts:   # the expert-parallel dispatch takes more than 8
+            cfg = dataclasses.replace(cfg, num_experts=experts)
+    if layers and not st["reduced"]:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def predicted_collectives(cfg, kind):
+    """The collectives of one decode step of phase 13's four parts, from
+    the design (PERF.md, PR 23): a: the vocab-split embedding's psum, two
+    row-parallel psums a layer (``wo``, ``w_down``), the logits'
+    all-gather; b, c: flash-decoding's pmax and two psums a layer; d: two
+    all-to-alls a MoE layer."""
+    L = cfg.num_layers
+    return {"tp": {"all-reduce": 1 + 2 * L, "all-gather": 1},
+            "long": {"all-reduce": 3 * L},
+            "ep": {"all-to-all": 2 * L}}[kind]
+
+
+def padded_prompts(prompts, device):
+    """Right-padded [B, S] tokens, each row's length and last index."""
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    toks = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    return torch.from_numpy(toks).to(device), lens.to(device)
+
+
+def decode_stream(T, INS, cfg, params, prompts, steps, cache, device, window=None,
+                  forced=None, impl="kernel", dispatch="auto", mesh=None, hook=None,
+                  timed=0, first=None):
+    """A prefill of right-padded ``prompts`` over ``cache`` (or, given
+    ``first`` [B], the prefill's tokens: a cache prefilled already), then
+    ``steps`` greedy decode steps (or steps fed ``forced`` [B, steps + 1],
+    another stream's tokens). Returns dict: ``tokens`` [B, steps + 1]
+    (each call's argmax over the real vocabulary), ``logits`` [calls, B,
+    V] fp32 (the prefill's first where it ran),
+    ``colls`` (the mesh's collectives of each decode step), ``ms`` (the
+    ``timed`` eager decode steps run after, host clock with a sync each
+    side), ``dropped`` (the expert-parallel dispatch's drops each decode
+    step). ``hook(t)`` returns a context manager entered around decode
+    step t (its step is neither timed nor counted apart)."""
+    V = cfg.vocab_size
+    toks, lens = padded_prompts(prompts, device)
+    out = {"colls": [], "ms": [], "dropped": []}
+    if first is None:
+        lg = T.forward(params, cfg, toks, cache=cache, mode="prefill", window=window,
+                       last_idx=(lens - 1).long(), attn_impl=impl, dispatch=dispatch)[0]
+        logits, nxt = [lg[:, :V].float()], [lg[:, :V].argmax(-1)]
+    else:
+        logits, nxt = [], [first]
+
+    def step(t, tok):
+        pos = (lens + t)[:, None]
+        return T.forward(params, cfg, tok[:, None], positions=pos, cache=cache,
+                         mode="decode", window=window, attn_impl=impl,
+                         dispatch=dispatch)[0]
+
+    for t in range(steps):
+        tok = forced[:, t] if forced is not None else nxt[-1]
+        before = collections.Counter(mesh.collectives) if mesh else None
+        d0 = mesh.moe_dropped if mesh else 0
+        with hook(t) if hook else contextlib.nullcontext():
+            lg = step(t, tok)
+        if mesh:
+            out["colls"].append(dict(mesh.collectives - before))
+            out["dropped"].append(int(mesh.moe_dropped - d0))
+        logits.append(lg[:, :V].float())
+        nxt.append(lg[:, :V].argmax(-1))
+    for t in range(steps, steps + timed):
+        INS.synchronize(device)
+        t0 = time.perf_counter()
+        step(t, nxt[-1])
+        INS.synchronize(device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["tokens"] = torch.stack(nxt, 1)
+    out["logits"] = torch.stack(logits)
+    return out
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def draw_shard(T, SH, cfg, rules, mesh, dtype, keep_full):
+    """The full weights drawn on this rank from phase 5's seeded generator
+    (every rank draws the same tree), each leaf sliced to this rank's
+    shard; the full tree is kept only where ``keep_full`` (the unsharded
+    comparison), else freed."""
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+    full = T.init_params(cfg, gen, "bfloat16")
+    shard = SH.shard_params(full, SH.param_specs(cfg, full, rules, mesh), mesh)
+    if dtype == "float32":   # widening is exact, so shard and widen commute
+        shard = widened(shard)
+        full = widened(full) if keep_full else None
+    return (full if keep_full else None), shard
+
+
+@contextlib.contextmanager
+def recorded(module, name, sink):
+    """Inside, every call of ``module.name`` appends (args, result) to
+    ``sink``, its tensor arguments copied (a cache the call reads is
+    written again by later steps)."""
+    fn = getattr(module, name)
+
+    def rec(*args):
+        out = fn(*args)
+        sink.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, fn)
+
+
+def check_partials(L, calls, mla):
+    """Each recorded shard-local partial (m, l, o) against the plain
+    attention over the same slice: o / l against ``attention`` (GQA) or
+    the absorbed latent softmax (MLA), and m the masked scores' max.
+    Returns the worst relative L2 of o / l and the calls checked."""
+    worst = 0.0
+    for args, (m, l, o) in calls:
+        if mla:
+            ql, qr, c, kr, qpos, kpos, window, scale = args
+            s = (torch.einsum("bhr,btr->bht", ql.float(), c.float())
+                 + torch.einsum("bhk,btk->bht", qr.float(), kr.float())) * scale
+            mask = L._attn_mask(qpos, kpos, None, window, True)[:, 0]
+            s = torch.where(mask[:, None, :], s, L.NEG_INF)
+            want = torch.einsum("bht,btr->bhr", torch.softmax(s, -1), c.float())
+            got = o / l[..., None]
+        else:
+            q, k, v, qpos, kpos, window, softcap = args
+            B, _, KV, R, D = q.shape
+            want = L.attention(q.reshape(B, 1, KV * R, D).float(), k.float(),
+                               v.float(), q_positions=qpos, k_positions=kpos,
+                               window=window, softcap=softcap)[:, 0]
+            got = (o / l[..., None]).reshape(B, KV * R, -1)
+        if not bool(torch.isfinite(m).all()):
+            raise AssertionError("a shard-local max is not finite")
+        worst = max(worst, rel_l2(got, want))
+    return worst, len(calls)
+
+
+def sharded_rank(rank, world, port, results, device="cuda"):
+    """One rank of phase 13, a spawned process: its meshes on the card
+    (gloo groups over a ``TCPStore``) and the four parts of the module
+    docstring; puts (rank, measurements) on ``results``. ``device="cpu"``
+    rehearses the phase without a card (reduced configs)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import distributed_attention as DATT
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import RankMesh
+    from repro_torch.serving import instrument as INS
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    st = p13_settings(device)
+    timeout = datetime.timedelta(seconds=300)
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=rank == 0, timeout=timeout)
+    res = {"device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
+    t_phase = time.perf_counter()
+
+    def mesh_of(tag, shape):
+        return RankMesh.build(dist.PrefixStore(tag, store), ("data", "model"), shape,
+                              rank, device, timeout)
+
+    # gloo on CUDA tensors: MAX, and its own all-to-all (the mesh's
+    # all-to-all is an all-reduce; this probe is for the record)
+    probe = mesh_of("probe", (world, 1))
+    pg = probe.groups["data"]
+    x = torch.full((4,), float(rank), device=device)
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = dist.ReduceOp.MAX
+    pg.allreduce([x], opts).wait()
+    res["gloo_max"] = x.tolist()
+    try:
+        src = torch.arange(world, dtype=torch.float32, device=device) + 10 * rank
+        dst = torch.empty_like(src)
+        pg.alltoall_base(dst, src, [], [], dist.AllToAllOptions()).wait()
+        res["gloo_alltoall"] = dst.tolist()
+    except RuntimeError as e:   # recorded, not used: the mesh all-reduces
+        res["gloo_alltoall"] = f"raises: {str(e).splitlines()[0][:200]}"
+
+    # 13a: tensor parallel, tinyllama-1.1b at (data 1, model 2)
+    cfg = p13_config(get_config, "tinyllama-1.1b", st)
+    prompts, _ = workload(cfg)
+    if st["cut"]:
+        prompts = [p[: st["cut"]] for p in prompts]
+    mesh = mesh_of("13a", (1, world))
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+    tp = {"rules": {k: v for k, v in rules.items() if k != "mesh"},
+          "predicted": predicted_collectives(cfg, "tp")}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        full, shard = draw_shard(T, SH, cfg, rules, mesh, dtype, rank == 0)
+        cache = T.init_cache_shard(cfg, len(prompts), st["max_len"], rules, mesh, dtype,
+                                   device)
+        checks = {}
+
+        def hook(t):
+            return checked_kernel_calls(checks) if t == 3 else contextlib.nullcontext()
+
+        DA.decode_attention.launches = 0
+        with SH.use_rules(rules):
+            got = decode_stream(T, INS, cfg, shard, prompts, st["tp_steps"], cache, device,
+                                mesh=mesh, hook=hook, timed=st["timed"])
+        r = {"launches": DA.decode_attention.launches, "tokens": got["tokens"].tolist(),
+             "colls": got["colls"], "ms": got["ms"], "checks": checks.get("decode", []),
+             "local_wq": tuple(shard["layers"]["attn"]["wq"].shape),
+             "local_cache": tuple(cache["layers"]["k"].shape)}
+        if rank == 0:
+            ucache = T.init_cache(cfg, len(prompts), st["max_len"], dtype, device)
+            want = decode_stream(T, INS, cfg, full, prompts, st["tp_steps"], ucache,
+                                 device, forced=got["tokens"], timed=st["timed"])
+            r["unsharded_ms"] = want["ms"]
+            r["tokens_equal"] = bool((want["tokens"] == got["tokens"]).all())
+            r["first_flip"] = next((t for t in range(want["tokens"].shape[1])
+                                    if not bool((want["tokens"][:, t]
+                                                 == got["tokens"][:, t]).all())), None)
+            r["rel_last"] = rel_l2(got["logits"][-1], want["logits"][-1])
+            r["rel_max"] = max(rel_l2(a, b) for a, b in zip(got["logits"], want["logits"]))
+            del ucache, want
+        r["seconds"] = time.perf_counter() - t0
+        tp[dtype] = r
+        del full, shard, cache, got
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    res["tp"] = tp
+
+    # 13b / 13c: distributed flash-decoding, (data 2, model 1), batch 1
+    for part, arch, layers, fn, mla in (
+            ("long", "tinyllama-1.1b", None, "_local_partial", False),
+            ("mla", "minicpm3-4b", st["mla_layers"], "_mla_local_partial", True)):
+        cfg = p13_config(get_config, arch, st, layers=layers)
+        window = cfg.sliding_window
+        prompt = np.random.default_rng(SEED + 13).integers(
+            2, cfg.vocab_size, size=st["long_prompt"]).astype(np.int32)
+        mesh = mesh_of(f"13{part}", (world, 1))
+        rules = dict(SH.long_context_rules(cfg, mesh), flash_decode=True, mesh=mesh)
+        out = {"rules": {k: v for k, v in rules.items() if k != "mesh"},
+               "predicted": predicted_collectives(cfg, "long"), "layers": cfg.num_layers}
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            full, shard = draw_shard(T, SH, cfg, rules, mesh, dtype, rank == 0)
+            cache = T.init_cache_shard(cfg, 1, window, rules, mesh, dtype, device)
+            calls = []
+
+            def hook(t, calls=calls):
+                return (recorded(DATT, fn, calls) if t == 2 and dtype == "float32"
+                        else contextlib.nullcontext())
+
+            with SH.use_rules(rules):
+                got = decode_stream(T, INS, cfg, shard, [prompt], st["long_steps"], cache,
+                                    device, window=window, mesh=mesh, hook=hook,
+                                    timed=st["timed"])
+            r = {"tokens": got["tokens"].tolist(), "colls": got["colls"], "ms": got["ms"],
+                 "local_cache": tuple(next(iter(cache["layers"].values())).shape)}
+            if calls:
+                r["partials"] = check_partials(L, calls, mla)
+            del calls[:]
+            if rank == 0:
+                ucache = T.init_cache(cfg, 1, window, dtype, device)
+                want = decode_stream(T, INS, cfg, full, [prompt], st["long_steps"], ucache,
+                                     device, window=window, forced=got["tokens"],
+                                     timed=st["timed"])
+                r["unsharded_ms"] = want["ms"]
+                r["tokens_equal"] = bool((want["tokens"] == got["tokens"]).all())
+                r["rel"] = [rel_l2(a, b) for a, b in zip(got["logits"], want["logits"])]
+                del ucache, want
+            r["seconds"] = time.perf_counter() - t0
+            out[dtype] = r
+            del full, shard, cache, got
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        res[part] = out
+
+    # 13d: expert parallel, qwen2-moe-a2.7b at (data 2, model 1)
+    cfg = p13_config(get_config, "qwen2-moe-a2.7b", st, layers=st["ep_layers"],
+                     experts=12)
+    prompts, _ = workload(cfg)
+    if st["cut"]:
+        prompts = [p[: st["cut"]] for p in prompts]
+    B = len(prompts)
+    mesh = mesh_of("13d", (world, 1))
+    rules = dict(SH.rules_for(cfg, mesh), moe_a2a=True, mesh=mesh)
+    b = B // world
+    mine = slice(rank * b, (rank + 1) * b)
+    ep = {"rules": {k: v for k, v in rules.items() if k != "mesh"},
+          "predicted": predicted_collectives(cfg, "ep"), "layers": cfg.num_layers}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        full, shard = draw_shard(T, SH, cfg, rules, mesh, dtype, rank == 0)
+        r = {"local_experts": shard["layers"]["moe"]["w_gate"].shape[1]}
+        # one prefill through the unsharded forward on rank 0; each rank
+        # takes its rows of that cache (an all-reduce with rank 0 the only
+        # writer) and decodes them expert-parallel
+        ucache = T.init_cache(cfg, B, st["max_len"], dtype, device)
+        toks, lens = padded_prompts(prompts, device)
+        first = torch.zeros((B,), dtype=torch.int64, device=device)
+        if rank == 0:
+            lg = T.forward(full, cfg, toks, cache=ucache, mode="prefill",
+                           last_idx=(lens - 1).long(), attn_impl="kernel",
+                           dispatch="dense")[0]
+            first = lg[:, : cfg.vocab_size].argmax(-1)
+        handed = {k: mesh.psum(t, "data") for k, t in
+                  (("k", ucache["layers"]["k"]), ("v", ucache["layers"]["v"]),
+                   ("positions", ucache["positions"]), ("length", ucache["length"]),
+                   ("first", first))}
+        cache = {"layers": {"k": handed["k"][:, mine].contiguous(),
+                            "v": handed["v"][:, mine].contiguous()},
+                 "positions": handed["positions"][mine].contiguous(),
+                 "length": handed["length"][mine].contiguous()}
+        first = handed["first"]
+        del handed
+        routes = []
+
+        def hook(t, routes=routes):   # every gated decode step's experts
+            return recorded(MOE, "route", routes)
+
+        DA.decode_attention.launches = 0
+        with SH.use_rules(rules):
+            got = decode_stream(T, INS, cfg, shard, prompts[mine], st["ep_steps"], cache,
+                                device, mesh=mesh, hook=hook, timed=st["timed"],
+                                first=first[mine])
+        r["launches"] = DA.decode_attention.launches
+        r.update(colls=got["colls"], dropped=got["dropped"], ms=got["ms"])
+        # every rank's tokens, logits and experts on rank 0, for the
+        # comparison (results cross processes as plain Python values)
+        all_logits = mesh.all_gather(got["logits"], "data", 1)
+        all_tokens = mesh.all_gather(got["tokens"], "data", 0)
+        n_sh = len(routes)   # [steps * layers, b, 1, k], then every row's
+        all_routes = mesh.all_gather(torch.stack([o[1] for _, o in routes]), "data", 1)
+        if rank == 0:
+            want = decode_stream(T, INS, cfg, full, prompts, st["ep_steps"], ucache, device,
+                                 dispatch="dense", hook=hook, timed=st["timed"],
+                                 first=first)
+            uroutes = torch.stack([o[1] for _, o in routes[n_sh:]])
+            r["unsharded_ms"] = want["ms"]
+            r["tokens_equal"] = bool((want["tokens"] == all_tokens).all())
+            # decode step t's logits are comparable while the tokens fed
+            # up to it agree (the two streams run free) and, row by row,
+            # while its top-k experts agree in every layer of every step
+            # so far (a flip changes the K/V a row writes)
+            agree = (want["tokens"] == all_tokens).all(0).tolist() + [False]
+            r["comparable"] = min(agree.index(False), len(want["logits"]))
+            same = (all_routes.sort(-1).values == uroutes.sort(-1).values).all(-1)
+            same = same.reshape(st["ep_steps"], -1, B).all(1).int().cumprod(0).bool()
+            r["flipped_rows"] = {i: int((~same[:, i]).nonzero()[0])
+                                 for i in range(B) if not bool(same[-1, i])}
+            r["rel"] = [rel_l2(a[k], w[k]) for a, w, k in
+                        zip(all_logits, want["logits"], same[: r["comparable"]])
+                        if bool(k.any())]
+            r["rel_first"] = r["rel"][0] if r["rel"] else None
+            del want
+        del ucache, cache
+        # the expert-parallel prefill on its own: this rank's rows, fresh
+        pcache = T.init_cache_shard(cfg, B, st["max_len"], rules, mesh, dtype, device)
+        d0 = mesh.moe_dropped
+        with SH.use_rules(rules):
+            T.forward(shard, cfg, toks[mine], cache=pcache, mode="prefill",
+                      last_idx=(lens[mine] - 1).long(), attn_impl="kernel")
+        r["prefill_dropped"] = int(mesh.moe_dropped - d0)
+        r["seconds"] = time.perf_counter() - t0
+        ep[dtype] = r
+        del full, shard, pcache, got, all_logits
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    res["ep"] = ep
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    results.put((rank, res))
+
+
+def sharded_phase(TR, smi, device="cuda"):
+    """Phase 13 (module docstring): spawns the two ranks, waits for both
+    (a rank that fails fails the phase), gates and prints their parts.
+    Returns the dense-decode kernel's launches on both ranks' main paths
+    by part ({"tp": n, "ep": n})."""
+    import multiprocessing as mp
+    import queue
+
+    port = int(TR.free_tcp_endpoint().rsplit(":", 1)[1])
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, SHARD_RANKS, port, results, device))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + 900
+        while len(got) < SHARD_RANKS:
+            try:
+                rank, res = results.get(timeout=5)
+                got[rank] = res
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"phase 13: a rank failed (exit codes "
+                                         f"{[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if [p.exitcode for p in procs] != [0] * SHARD_RANKS:
+        raise AssertionError(f"phase 13 exit codes {[p.exitcode for p in procs]}")
+    r0, r1 = got[0], got[1]
+    st = p13_settings(device)
+    log(
+        f"[sharded] {SHARD_RANKS} rank processes on one card ({r0['device']}) in gloo "
+        f"groups, one per mesh axis line: two ranks sharing one card measure the "
+        f"program (its collectives staged through the host), not the gain of "
+        f"sharding [{smi}]"
+    )
+    log(
+        f"[sharded] gloo on CUDA tensors: all-reduce MAX gave {r0['gloo_max']} (rank 0) "
+        f"/ {r1['gloo_max']}; gloo's own all-to-all: {r0['gloo_alltoall']} (rank 0) "
+        f"(the mesh's all-to-all is an exact all-reduce either way)"
+    )
+    if r0["gloo_max"] != [float(SHARD_RANKS - 1)] * 4:
+        raise AssertionError(f"gloo MAX on CUDA tensors: {r0['gloo_max']}")
+    launches = {}
+
+    def same_tokens(part, what):
+        a, b = r0[part][what]["tokens"], r1[part][what]["tokens"]
+        if a != b:
+            raise AssertionError(f"{part} {what}: the ranks' tokens differ")
+
+    def colls_ok(part, what, res):
+        want = res[part]["predicted"]
+        seen = res[part][what]["colls"]
+        if any(c != want for c in seen):
+            raise AssertionError(f"{part} {what}: collectives per decode step "
+                                 f"{seen[:3]}..., predicted {want}")
+
+    on_card = torch.device(device).type == "cuda"
+    # 13a
+    tp = r0["tp"]
+    n_layers = tp["predicted"]["all-reduce"] // 2
+    for what, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        a = r0["tp"][what]
+        same_tokens("tp", what)
+        for res in (r0, r1):
+            colls_ok("tp", what, res)
+            errs = res["tp"][what]["checks"]
+            if len(errs) != n_layers or max(errs) > tol:
+                raise AssertionError(f"tp {what}: dense-decode calls of a steady step "
+                                     f"against decode_attention_ref: {errs} (tol {tol})")
+        if what == "float32" and not (a["tokens_equal"] and a["rel_max"] <= 1e-4):
+            raise AssertionError(f"tp fp32: tokens equal {a['tokens_equal']} (first "
+                                 f"differing call {a['first_flip']}), logits {a['rel_max']:.3e}")
+        if what == "bfloat16" and a["rel_last"] > 2e-2:
+            raise AssertionError(f"tp bf16: last-step logits {a['rel_last']:.3e} > 2e-2")
+        per_rank = n_layers * (st["tp_steps"] + st["timed"])
+        if on_card:
+            for res in (r0, r1):
+                if res["tp"][what]["launches"] != per_rank:
+                    raise AssertionError(f"tp {what}: {res['tp'][what]['launches']} "
+                                         f"dense-decode launches, {per_rank} expected")
+        launches["tp"] = launches.get("tp", 0) + r0["tp"][what]["launches"] \
+            + r1["tp"][what]["launches"]
+        log(
+            f"[sharded] 13a tensor parallel, tinyllama-1.1b on (data 1, model 2) under "
+            f"rules_for {tp['rules']}, {what}: local wq {a['local_wq']}, cache shard "
+            f"{a['local_cache']}; 8 prompts, {st['tp_steps']} greedy decode steps: tokens "
+            f"equal to the unsharded stream's: {a['tokens_equal']} (first differing "
+            f"call {a['first_flip']}); logits relative L2 at the last step "
+            f"{a['rel_last']:.3e}, worst over calls {a['rel_max']:.3e}; dense-decode calls "
+            f"of step 3 against decode_attention_ref: worst relative L2 "
+            f"{max(a['checks']):.3e} / {max(r1['tp'][what]['checks']):.3e} (rank 0 / 1, "
+            f"{len(a['checks'])} calls, tol {tol}); collectives per decode step "
+            f"{a['colls'][0]} (predicted {tp['predicted']}); dense-decode launches "
+            f"{a['launches']} / {r1['tp'][what]['launches']}; eager decode step median "
+            f"{median(a['ms']):.3f} / {median(r1['tp'][what]['ms']):.3f} ms (rank 0 / 1) "
+            f"against the unsharded eager step's {median(a['unsharded_ms']):.3f} ms; "
+            f"{a['seconds']:.1f} s [{smi}]"
+        )
+    # 13b, 13c
+    for part, name in (("long", "13b distributed flash-decoding, tinyllama-1.1b"),
+                       ("mla", "13c flash_decode_mla, minicpm3-4b")):
+        info = r0[part]
+        for what, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+            a = info[what]
+            same_tokens(part, what)
+            for res in (r0, r1):
+                colls_ok(part, what, res)
+            if what == "float32":
+                if not a["tokens_equal"] or max(a["rel"]) > tol:
+                    raise AssertionError(f"{part} fp32: tokens equal {a['tokens_equal']}, "
+                                         f"logits {max(a['rel']):.3e}")
+                for res in (r0, r1):
+                    worst, n = res[part][what]["partials"]
+                    if n != info["layers"] or worst > 1e-4:
+                        raise AssertionError(f"{part}: shard partials {worst:.3e} over {n}")
+            elif max(a["rel"]) > tol:
+                raise AssertionError(f"{part} bf16: logits {max(a['rel']):.3e} > {tol}")
+            parts = ""
+            if what == "float32":
+                parts = (f"; each rank's (m, l, o) of every layer at step 2 against the plain "
+                         f"attention over its slice: worst relative L2 "
+                         f"{a['partials'][0]:.3e} / {r1[part][what]['partials'][0]:.3e} "
+                         f"(rank 0 / 1, {a['partials'][1]} calls, tol 1e-4)")
+            log(
+                f"[sharded] {name} ({info['layers']} layers) on (data 2, model 1) under "
+                f"long_context_rules + flash_decode, {what}: batch 1, a "
+                f"{st['long_prompt']}-token prompt over a ring of the {a['local_cache'][2] * 2}"
+                f"-slot window, cache shard {a['local_cache']}; {st['long_steps']} greedy "
+                f"decode steps: tokens equal to the unsharded ring's: {a['tokens_equal']}; "
+                f"logits relative L2 worst {max(a['rel']):.3e} (tol {tol}){parts}; "
+                f"collectives per decode step {a['colls'][0]} (predicted "
+                f"{info['predicted']}); eager decode step median {median(a['ms']):.3f} / "
+                f"{median(r1[part][what]['ms']):.3f} ms against the unsharded ring's "
+                f"{median(a['unsharded_ms']):.3f} ms; {a['seconds']:.1f} s [{smi}]"
+            )
+    # 13d
+    info = r0["ep"]
+    for what in ("float32", "bfloat16"):
+        a, b = r0["ep"][what], r1["ep"][what]
+        for res in (r0, r1):
+            colls_ok("ep", what, res)
+        dropped = [x + y for x, y in zip(a["dropped"], b["dropped"])]
+        per_rank = info["layers"] * (st["ep_steps"] + st["timed"])
+        if on_card and (a["launches"], b["launches"]) != (
+                per_rank, per_rank):
+            raise AssertionError(f"ep {what}: dense-decode launches {a['launches']} / "
+                                 f"{b['launches']}, {per_rank} expected")
+        launches["ep"] = launches.get("ep", 0) + a["launches"] + b["launches"]
+        if what == "float32" and not any(dropped):
+            if not a["tokens_equal"] or a["flipped_rows"] or max(a["rel"]) > 1e-4:
+                raise AssertionError(f"ep fp32: tokens equal {a['tokens_equal']}, "
+                                     f"flipped rows {a['flipped_rows']}, logits "
+                                     f"{max(a['rel']) if a['rel'] else None}")
+        if what == "bfloat16" and a["rel"] and max(a["rel"]) > 2e-2:
+            raise AssertionError(f"ep bf16: logits {max(a['rel']):.3e} over rows whose "
+                                 f"experts agree")
+        rel = f"{max(a['rel']):.3e}" if a["rel"] else "none comparable"
+        log(
+            f"[sharded] 13d expert parallel, qwen2-moe-a2.7b ({info['layers']} layers) on "
+            f"(data 2, model 1) under rules_for + moe_a2a {info['rules']}, {what}: "
+            f"{a['local_experts']} experts and 4 of 8 rows a rank; decode from the "
+            f"unsharded prefill's cache: dropped slots per step {dropped} (predicted none); "
+            f"tokens equal to the unsharded dispatch='dense' stream's: {a['tokens_equal']}; "
+            f"rows whose top-k experts differ from the unsharded route's in a layer "
+            f"(row: first such decode step) {a['flipped_rows']}; logits relative L2 over "
+            f"the rows not flipped so far: first "
+            f"step {a['rel_first'] or 0:.3e}, worst {rel} over the {a['comparable']} "
+            f"steps fed the same tokens; collectives per decode step "
+            f"{a['colls'][0]} (predicted {info['predicted']}); dense-decode launches "
+            f"{a['launches']} / {b['launches']}; the expert-parallel prefill alone dropped "
+            f"{a['prefill_dropped']} / {b['prefill_dropped']} slots (rank 0 / 1); eager "
+            f"decode step median {median(a['ms']):.3f} / {median(b['ms']):.3f} ms against "
+            f"the unsharded dense dispatch's {median(a['unsharded_ms']):.3f} ms; "
+            f"{a['seconds']:.1f} s [{smi}]"
+        )
+    log(f"[sharded] the ranks' phase took {r0['phase_seconds']:.1f} / "
+        f"{r1['phase_seconds']:.1f} s after their start")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3481,6 +4134,10 @@ def main():
         "decode_zamba": time_decode(DA, zamba, mid_lens, 1024, smi),
         # phase 11's: whisper-medium's cross-attention over 1500 frames
         "decode_whisper": time_decode(DA, get_config(AUDIO_ARCH), [1500] * 8, 1500, smi),
+        # phase 13's: a rank's heads under tensor parallelism (13a) and
+        # its 4 rows under expert parallelism (13d)
+        "decode_tp": time_decode(DA, TP_LOCAL_HEADS, mid_lens, 1024, smi),
+        "decode_ep": time_decode(DA, get_config(MOE_ARCH), mid_lens[:4], 1024, smi),
         "ssd_mamba_768": time_ssd(SS, mamba, 768, smi),
         "ssd_zamba_768": time_ssd(SS, zamba, 768, smi),
     }
@@ -3707,6 +4364,24 @@ def main():
     })
     log(f"[replication] phase 12 in {time.perf_counter() - t:.1f} s; paged launches "
         f"on both ranks {repl}")
+
+    # phase 13: the sharded serving step across two ranks sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sharded = sharded_phase(TR, smi)
+    row = kernels[2]
+    row["launches"] += sum(sharded.values())
+    for part, timed_key, model in (
+            ("tp", "decode_tp", f"{cfg.name} on model 2 (16 of 32 heads a rank)"),
+            ("ep", "decode_ep", f"{MOE_ARCH} on data 2 (4 of 8 rows a rank)")):
+        k_ms, k_plain, k_lib, (k_bound, k_by) = timed[timed_key]
+        row["shapes"].append({
+            "model": model, "timed": timed_key, "launches": sharded[part], "ms": k_ms,
+            "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib,
+        })
+    log(f"[sharded] phase 13 in {time.perf_counter() - t:.1f} s; dense-decode launches "
+        f"on both ranks {sharded}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel import sharding as SH
+
 
 def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]):
     if a.dtype.name == "bfloat16":
@@ -34,3 +36,12 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     return _tensor(np.asarray(tree), device, dtype)
+
+
+def shard_from_numpy(tree, specs, mesh, device,
+                     dtype: Optional[torch.dtype] = None):
+    """This rank's shard of a numpy params tree: each leaf sliced by its
+    spec on ``mesh`` (``parallel.sharding.shard_params``), then made a
+    tensor as ``params_from_numpy`` makes it."""
+    return params_from_numpy(SH.shard_params(tree, specs, mesh), device,
+                             dtype)

@@ -25,6 +25,15 @@ JAX promotes an einsum of two float types (bf16 x fp32 -> fp32, the
 bf16 operand widened exactly); ``torch.einsum`` refuses mixed types. The
 reference's audio encoder runs fp32 frames through bf16 weights, so the
 einsums of a GQA layer and an MLP promote explicitly (``_einsum``).
+
+Under sharding rules (``parallel.sharding.use_rules``) a layer runs at
+this rank's shard of the reference's sharded step, its geometry read
+from the weights' shapes (``Heads``, ``split_axis``): query heads (and
+KV heads) split over ``heads`` with a row-parallel ``wo``, ``d_ff`` over
+``ffn`` with a row-parallel ``w_down``, each ending in a ``psum`` where
+GSPMD inserts one in the reference; a cache's sequence split over
+``cache_seq`` (``cache_span``, ``write_slots``) is attended by
+distributed flash-decoding.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_decode import paged_decode_attention
+from repro_torch.parallel import sharding as SH
 
 NEG_INF = -2.0 ** 20  # large-negative that is safe in bf16 softmax
 
@@ -199,6 +209,117 @@ def _einsum(eq, x, w):
     return torch.einsum(eq, x, w)
 
 
+# ------------------------------------------------------- a rank's shard
+class Heads:
+    """This rank's attention heads under the sharding rules installed
+    (``parallel.sharding.use_rules``): ``n`` local query heads, read from
+    the query weight's shape; ``axis``, the mesh axis they are split over
+    (None when this rank holds every head); ``h0``, the first global
+    head it holds. Where the K/V heads stay whole though the query heads
+    are split (KV does not divide the axis), ``kv`` picks the global KV
+    head of each local query head (``h // (H // KV)``): a slice where
+    they form whole groups, else an index. Otherwise ``kv`` is None."""
+
+    def __init__(self, cfg: ModelConfig, n: int, n_kv: Optional[int] = None):
+        self.n, self.axis, self.h0, self.kv, self.mesh = n, None, 0, None, None
+        rules = SH.current_rules()
+        if rules is None or n == cfg.num_heads:
+            return
+        self.axis, self.mesh = rules["heads"], rule_mesh(rules)
+        self.h0 = self.mesh.axes_index(self.axis) * n
+        if n_kv is None or n_kv < cfg.num_kv_heads:
+            return                           # K/V heads split alike
+        R = cfg.num_heads // cfg.num_kv_heads
+        lo, hi = self.h0 // R, (self.h0 + n - 1) // R + 1
+        if hi - lo == 1 or (self.h0 % R == 0 and n % R == 0):
+            self.kv = slice(lo, hi)
+        else:
+            self.kv = (torch.arange(self.h0, self.h0 + n) // R)
+
+    def select_kv(self, *ts):
+        """K/V tensors [B, S, KV, D] at the heads this rank's queries
+        read (the tensors themselves where no selection is needed)."""
+        if self.kv is None:
+            return ts
+        return tuple(t[:, :, self.kv.to(t.device)
+                       if torch.is_tensor(self.kv) else self.kv] for t in ts)
+
+    def local(self, t, dim=2):
+        """This rank's heads of a per-head tensor that holds them all."""
+        if self.axis is None or t.shape[dim] == self.n:
+            return t
+        return t.narrow(dim, self.h0, self.n)
+
+    def reduce(self, y):
+        """The output projection's partial sums over the split heads
+        (a row-parallel ``wo``) summed across ``axis``."""
+        return y if self.axis is None else self.mesh.psum(y, self.axis)
+
+
+def rule_mesh(rules):
+    """The ``parallel.mesh.RankMesh`` a rule table drives ops on."""
+    mesh = rules.get("mesh")
+    if mesh is None:
+        raise ValueError("sharding rules that split a tensor need this "
+                         "rank's mesh under rules['mesh']")
+    return mesh
+
+
+def split_axis(logical: str, local: int, full: int):
+    """The mesh axis a dimension of ``full`` entries is split over under
+    the installed rules, where this rank holds ``local`` of them; None
+    where it holds them all."""
+    rules = SH.current_rules()
+    if rules is None or local == full:
+        return None
+    if rules.get(logical) is None:
+        raise ValueError(f"{local} of {full} entries held, but no "
+                         f"{logical!r} rule splits them")
+    return rules[logical]
+
+
+def psum_split(y, logical: str, local: int, full: int):
+    """``y``, a partial sum over this rank's ``local`` of ``full``
+    entries of a contracted dim, summed across the axis that splits them
+    (``y`` itself when nothing is split)."""
+    axis = split_axis(logical, local, full)
+    return y if axis is None else rule_mesh(SH.current_rules()).psum(y, axis)
+
+
+def cache_span(m_local: int):
+    """(M, lo, axis) of a cache whose sequence this rank holds ``m_local``
+    slots of: the whole cache's capacity, the first slot this rank holds
+    and the mesh axis the sequence is split over (``cache_seq``), or
+    ``(m_local, 0, None)`` when it holds every slot."""
+    rules = SH.current_rules()
+    axis = rules.get("cache_seq") if rules else None
+    if axis is None:
+        return m_local, 0, None
+    mesh = rule_mesh(rules)
+    return (m_local * mesh.axes_size(axis),
+            m_local * mesh.axes_index(axis), axis)
+
+
+def write_slots(t, slots, vals):
+    """``t[b, slots[b, s]] = vals[b, s]`` in place, for a cache leaf
+    ``t`` [B, m, ...] holding this rank's slots of the sequence
+    (``cache_span``): a slot outside them is not written. When S is
+    longer than the whole cache (a ring) only the trailing M columns are
+    written: the reference sends the others out of bounds and drops
+    them."""
+    B, S = slots.shape
+    M, lo, _ = cache_span(t.shape[1])
+    s0 = max(S - M, 0)
+    sl, vv = slots[:, s0:], vals[:, s0:].to(t.dtype)
+    bidx = torch.arange(B, device=slots.device)[:, None].expand_as(sl)
+    if M == t.shape[1]:
+        t[bidx, sl] = vv
+        return
+    loc = sl - lo
+    own = (loc >= 0) & (loc < t.shape[1])
+    t[bidx[own], loc[own]] = vv[own]
+
+
 def init_gqa(cfg: ModelConfig, gen, dtype, *, lead=()):
     hd = cfg.resolved_head_dim
     return {
@@ -258,13 +379,25 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     int32 = Sk for every row (made once per step by the caller): for one
     query a non-causal attention over all Sk keys is exactly decode
     attention at length Sk.
+    Under sharding rules (``parallel.sharding.use_rules``) the layer
+    runs at this rank's heads (``Heads``, from the weights' shapes), and
+    the row-parallel ``wo`` ends in a ``psum`` over the heads' axis. A
+    cache whose sequence is split (``cache_seq``) takes only the slots
+    this rank holds (``write_slots``); a single-token decode over it
+    combines the ranks' partials by distributed flash-decoding
+    (``_decode_split_cache``), with ``rules["flash_decode"]`` as the
+    reference does and without it too, where the reference lets GSPMD
+    gather the scores: the same attention. Where the query heads split
+    over the sequence's axis, the queries are gathered first and this
+    rank keeps its heads of the result.
     Returns (out [B,S,d], cache_or_None).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    heads = Heads(cfg, p["wq"].shape[-2], p["wk"].shape[-2])
     if kv_override is not None:
         q = _einsum("bsd,dhk->bshk", x, p["wq"])
-        k, v = kv_override
+        k, v = heads.select_kv(*kv_override)
         if impl == "kernel" and S == 1:
             if kv_lengths is None:
                 raise ValueError("the cross-attention kernel route needs "
@@ -274,34 +407,66 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
                                    kv_lengths)[:, None].to(q.dtype)
         else:
             out = attention(q, k, v, causal=False, chunk=512)
-        out = out.reshape(B, S, cfg.num_heads * hd)
-        return _einsum("bsh,hd->bsd", out, p["wo"]), None
+        out = out.reshape(B, S, heads.n * hd)
+        return heads.reduce(_einsum("bsh,hd->bsd", out, p["wo"])), None
     q, k, v = _qkv(p, x, cfg, positions, rope)
     if cache is None:
-        out = attention(q, k, v, q_positions=positions, window=window,
-                        causal=causal, softcap=cfg.logit_softcap)
+        out = attention(q, *heads.select_kv(k, v), q_positions=positions,
+                        window=window, causal=causal,
+                        softcap=cfg.logit_softcap)
     else:
         ck, cv = cache["k"], cache["v"]
-        s0 = max(S - ck.shape[1], 0)
-        bidx = torch.arange(B, device=x.device)[:, None]
-        ck[bidx, slots[:, s0:]] = k[:, s0:].to(ck.dtype)
-        cv[bidx, slots[:, s0:]] = v[:, s0:].to(cv.dtype)
+        write_slots(ck, slots, k)
+        write_slots(cv, slots, v)
+        M, _, seq_axis = cache_span(ck.shape[1])
+        rules = SH.current_rules()
         if attend_fresh:  # prefill: full fresh sequence, windowed mask
-            out = attention(q, k, v, q_positions=positions, window=window,
-                            causal=causal, softcap=cfg.logit_softcap)
+            out = attention(q, *heads.select_kv(k, v), q_positions=positions,
+                            window=window, causal=causal,
+                            softcap=cfg.logit_softcap)
+        elif S == 1 and seq_axis is not None and (
+                rules.get("flash_decode") or M > ck.shape[1]):
+            out = _decode_split_cache(heads, q, ck, cv, positions,
+                                      k_positions, window, cfg, seq_axis)
+        elif M > ck.shape[1]:
+            raise NotImplementedError(
+                "a multi-token decode over a sequence-split cache is not "
+                "ported (ROADMAP A10)")
         elif (impl == "kernel" and S == 1 and causal and window is None
-              and not cfg.logit_softcap):
+              and not cfg.logit_softcap and heads.kv is None):
             lengths = (positions[:, 0] + 1).to(torch.int32)
             out = decode_attention(q[:, 0].to(ck.dtype).contiguous(),
                                    ck.transpose(1, 2), cv.transpose(1, 2),
                                    lengths)[:, None].to(q.dtype)
         else:  # decode: attend the updated cache
-            out = attention(q, ck, cv, q_positions=positions,
-                            k_positions=k_positions, window=window,
-                            causal=causal, softcap=cfg.logit_softcap)
+            out = attention(q, *heads.select_kv(ck, cv),
+                            q_positions=positions, k_positions=k_positions,
+                            window=window, causal=causal,
+                            softcap=cfg.logit_softcap)
         cache = {"k": ck, "v": cv}
-    out = out.reshape(B, S, cfg.num_heads * hd)
-    return _einsum("bsh,hd->bsd", out, p["wo"]), cache
+    out = out.reshape(B, S, heads.n * hd)
+    return heads.reduce(_einsum("bsh,hd->bsd", out, p["wo"])), cache
+
+
+def _decode_split_cache(heads, q, ck, cv, positions, k_positions, window,
+                        cfg, seq_axis):
+    """One token's attention over this rank's slice of a sequence-split
+    cache, combined across ``seq_axis`` (``flash_decode``). Every rank of
+    that axis must bring the same queries: where they hold different
+    heads of it, the queries are gathered over the axis and each rank
+    keeps its own heads of the output."""
+    from repro_torch.parallel.distributed_attention import flash_decode
+
+    mesh = rule_mesh(SH.current_rules())
+    gather = heads.axis == seq_axis
+    if gather:
+        q = mesh.all_gather(q, seq_axis, dim=2)
+    else:
+        ck, cv = heads.select_kv(ck, cv)
+    out = flash_decode(q, ck, cv, positions, k_positions, mesh=mesh,
+                       seq_axis=seq_axis, window=window,
+                       softcap=cfg.logit_softcap)
+    return heads.local(out) if gather else out
 
 
 def paged_step_meta(positions, block_tables, active, n_blocks: int,
@@ -391,7 +556,7 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
                                                  device=x.device),
                         window=window, causal=True,
                         softcap=cfg.logit_softcap)
-    out = out.reshape(B, S, cfg.num_heads * hd)
+    out = out.reshape(B, S, q.shape[2] * hd)
     return torch.einsum("bsh,hd->bsd", out, p["wo"]), pool_k, pool_v
 
 
@@ -453,13 +618,18 @@ def _mla_latents(p, x, cfg, positions, rope=None):
 
 def _write_latents(cache, slots, c_kv, k_rope):
     """The latents into a per-layer cache {"c": [B,M,r], "kr": [B,M,rope]}
-    at ``slots``, in place: when S > M only the trailing M columns, the
-    rule of ``apply_gqa``'s K/V write."""
-    B, S = slots.shape
-    s0 = max(S - cache["c"].shape[1], 0)
-    bidx = torch.arange(B, device=slots.device)[:, None]
-    cache["c"][bidx, slots[:, s0:]] = c_kv[:, s0:].to(cache["c"].dtype)
-    cache["kr"][bidx, slots[:, s0:]] = k_rope[:, s0:].to(cache["kr"].dtype)
+    at ``slots``, in place (``write_slots``: when S > M only the trailing
+    M columns, the rule of ``apply_gqa``'s K/V write; on a
+    sequence-split cache only this rank's slots)."""
+    write_slots(cache["c"], slots, c_kv)
+    write_slots(cache["kr"], slots, k_rope)
+
+
+def _mla_heads(p, cfg):
+    """(heads, wk_b, wv_b) at this rank's query heads: the absorbed
+    per-head weights are cut to them where they are whole."""
+    heads = Heads(cfg, p["wq_b" if cfg.q_lora_rank else "wq"].shape[-2])
+    return heads, heads.local(p["wk_b"], 1), heads.local(p["wv_b"], 1)
 
 
 def apply_mla_prefill(p, x, cfg: ModelConfig, *, positions, cache=None,
@@ -469,19 +639,22 @@ def apply_mla_prefill(p, x, cfg: ModelConfig, *, positions, cache=None,
     call's sequence. ``cache``: None or a per-layer {"c": [B,M,r], "kr":
     [B,M,rope]}, where this call's latents are written at ``slots`` (in
     place). ``rope`` is ``rope_tables`` at the rope dim (never the GQA
-    head dim's). Returns (out, cache_or_None)."""
+    head dim's). Under sharding rules it runs at this rank's heads, the
+    latents whole (or this rank's slots of a sequence-split cache), and
+    ``wo`` ends in a ``psum``. Returns (out, cache_or_None)."""
     B, S, _ = x.shape
-    H = cfg.num_heads
+    heads, wk_b, wv_b = _mla_heads(p, cfg)
+    H = heads.n
     q_nope, q_rope = _mla_q(p, x, cfg, positions, rope)
     c_kv, k_rope = _mla_latents(p, x, cfg, positions, rope)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, wk_b)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, wv_b)
     k_rope_b = k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope_b], -1)
     out = attention(q, k, v, q_positions=positions, window=window)
     out = out.reshape(B, S, H * cfg.v_head_dim)
-    out = torch.einsum("bsh,hd->bsd", out, p["wo"])
+    out = heads.reduce(torch.einsum("bsh,hd->bsd", out, p["wo"]))
     if cache is not None:
         _write_latents(cache, slots, c_kv, k_rope)
     return out, cache
@@ -495,26 +668,53 @@ def apply_mla_decode(p, x, cfg: ModelConfig, *, positions, cache, slots,
     (narrowed to x's type, as the reference narrows it) goes through
     ``wv_b``. The new latents are written at ``slots`` (in place) BEFORE
     attending; ``k_positions`` [B,M] are the already-updated absolute row
-    positions. Returns (out, cache)."""
+    positions. Under sharding rules it runs at this rank's heads; over a
+    sequence-split cache a single token's latent attention is combined
+    across the ranks by ``flash_decode_mla`` (with ``rules
+    ["flash_decode"]``, as the reference, or without it, as
+    ``apply_gqa``), its output rounded to ``q_lat``'s type and widened.
+    Returns (out, cache)."""
     B, S, _ = x.shape
+    heads, wk_b, wv_b = _mla_heads(p, cfg)
     q_nope, q_rope = _mla_q(p, x, cfg, positions, rope)
     c_new, kr_new = _mla_latents(p, x, cfg, positions, rope)
     _write_latents(cache, slots, c_new, kr_new)
-    M = cache["c"].shape[1]
-    cc = cache["c"].float()
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
-    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    kpos = torch.broadcast_to(k_positions, (B, M)).to(torch.int32)
-    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc)
-         + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                        cache["kr"].float())) * scale
-    mask = _attn_mask(positions, kpos, None, window, True)
-    s = torch.where(mask[:, None, :, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", w, cc)
-    out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p["wv_b"])
-    out = out.reshape(B, S, cfg.num_heads * cfg.v_head_dim)
-    return torch.einsum("bsh,hd->bsd", out, p["wo"]), cache
+    m_local = cache["c"].shape[1]
+    M, _, seq_axis = cache_span(m_local)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    kpos = torch.broadcast_to(k_positions, (B, m_local)).to(torch.int32)
+    rules = SH.current_rules()
+    if S == 1 and seq_axis is not None and (rules.get("flash_decode")
+                                            or M > m_local):
+        from repro_torch.parallel.distributed_attention import (
+            flash_decode_mla)
+        mesh = rule_mesh(rules)
+        gather = heads.axis == seq_axis
+        ql, qr = ((mesh.all_gather(q_lat, seq_axis, 2),
+                   mesh.all_gather(q_rope, seq_axis, 2)) if gather
+                  else (q_lat, q_rope))
+        o_lat = flash_decode_mla(ql, qr, cache["c"], cache["kr"], positions,
+                                 kpos, mesh=mesh, seq_axis=seq_axis,
+                                 window=window, qk_dim=qk_dim).float()
+        if gather:
+            o_lat = heads.local(o_lat)
+    elif M > m_local:
+        raise NotImplementedError(
+            "a multi-token decode over a sequence-split cache is not "
+            "ported (ROADMAP A10)")
+    else:
+        cc = cache["c"].float()
+        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc)
+             + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                            cache["kr"].float())) * (1.0 / math.sqrt(qk_dim))
+        mask = _attn_mask(positions, kpos, None, window, True)
+        s = torch.where(mask[:, None, :, :], s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", w, cc)
+    out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), wv_b)
+    out = out.reshape(B, S, heads.n * cfg.v_head_dim)
+    return heads.reduce(torch.einsum("bsh,hd->bsd", out, p["wo"])), cache
 
 
 # ------------------------------------------------------------------------- MLPs
@@ -542,10 +742,14 @@ def _silu(x):
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
+    """The MLP; under sharding rules at this rank's slice of ``d_ff``
+    (column-parallel up, row-parallel down), ending in a ``psum``."""
     if cfg.ffn_kind == "gelu":
         h = _gelu(_einsum("bsd,df->bsf", x, p["w_up"]))
-        return _einsum("bsf,fd->bsd", h, p["w_down"])
-    act = _gelu if cfg.ffn_kind == "geglu" else _silu
-    g = act(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
-    h = g * torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+        y = _einsum("bsf,fd->bsd", h, p["w_down"])
+    else:
+        act = _gelu if cfg.ffn_kind == "geglu" else _silu
+        g = act(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
+        h = g * torch.einsum("bsd,df->bsf", x, p["w_up"])
+        y = torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return psum_split(y, "ffn", p["w_down"].shape[-2], cfg.d_ff)

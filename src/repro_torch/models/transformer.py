@@ -21,6 +21,13 @@ Cache tensors (the dense cache's K/V or latents, positions, length and
 SSM states, the paged pool) are updated IN PLACE, where the reference
 rebuilt them functionally.
 
+Under sharding rules (``parallel.sharding.use_rules``) ``forward`` runs
+one rank's part of the reference's sharded serving step for the
+decoders (``SHARDED``): a vocab-split embedding (a masked lookup and a
+``psum``) and logits (an all-gather), the layers at the rank's shard
+(``models/layers.py``, ``models/moe.py``) and its cache shard
+(``init_cache_shard``).
+
 Two routes pick kernels where the reference computes plainly, the same
 function held to the same computation: ``attn_impl="kernel"`` sends a
 dense-cache decode step's GQA attention, and a single-token query's
@@ -44,6 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel import sharding as SH
 
 BIG_POS = 2 ** 30
 
@@ -69,12 +77,24 @@ def to_device(a, device) -> torch.Tensor:
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
+#: the families the sharded serving step runs
+SHARDED = ("dense", "moe", "vlm")
+
+
 def check_supported(cfg: ModelConfig):
     """Raise ValueError for a family the reference does not know either;
     the port covers all of the reference's (``FAMILIES``), GQA and MLA
-    attention alike."""
+    attention alike. Under sharding rules (``parallel.sharding``) it
+    covers the decoders (``dense``, ``moe``, ``vlm``) and raises
+    NotImplementedError for the others."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
+    if SH.current_rules() is not None and cfg.family not in SHARDED:
+        raise NotImplementedError(
+            f"the {cfg.family} family under sharding rules is not ported "
+            f"(ROADMAP A10): a head-split Mamba2 layer's gated norm needs a "
+            f"cross-rank sum of squares, and the audio encoder-decoder's "
+            f"cross-attention waits with it")
 
 
 # ======================================================================= init
@@ -262,12 +282,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype="bfloat16",
     return cache
 
 
+def init_cache_shard(cfg: ModelConfig, batch: int, max_len: int, rules,
+                     mesh, dtype="bfloat16", device="cuda"):
+    """This rank's shard of ``init_cache(cfg, batch, max_len)`` under
+    ``parallel.sharding.cache_specs(rules)``, allocated at its local
+    shape (the whole cache is never made): its rows of the batch, its
+    slots of a sequence-split cache, its KV heads."""
+    full = init_cache(cfg, batch, max_len, dtype, device="meta")
+    local = SH.shard_params(full, SH.cache_specs(full, rules), mesh)
+    return SH.tree_map_with_path(
+        lambda path, t: torch.full(t.shape, BIG_POS if path[-1] == "positions"
+                                   else 0, dtype=t.dtype, device=device),
+        local)
+
+
 # ================================================================= embeddings
 def embed_tokens(params, cfg: ModelConfig, tokens):
     """Token ids must lie below the vocab size: ``jnp.take`` clamps an
     out-of-range id, torch indexing on the card traps. The engine checks
-    prompts at submission, and sampled ids are below the vocab size."""
-    x = params["embed"][tokens]
+    prompts at submission, and sampled ids are below the vocab size.
+    A vocab-split table (sharding rules) looks up the ids this rank holds
+    (zeros for the others) and sums across the ``vocab`` axis."""
+    emb = params["embed"]
+    axis = L.split_axis("vocab", emb.shape[0], cfg.padded_vocab)
+    if axis is None:
+        x = emb[tokens]
+    else:
+        mesh = L.rule_mesh(SH.current_rules())
+        ids = tokens - mesh.axes_index(axis) * emb.shape[0]
+        own = (ids >= 0) & (ids < emb.shape[0])
+        x = emb[ids.clamp(0, emb.shape[0] - 1)] * own[..., None].to(emb.dtype)
+        x = mesh.psum(x, axis)
     if cfg.scale_embed:
         # the factor rounds to x's type first, as in the reference;
         # torch.full fills on the device (no host->device copy)
@@ -277,11 +322,17 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def unembed(params, cfg: ModelConfig, x):
+    """Final norm and the logits over the padded vocabulary (padding
+    columns masked). A vocab-split ``lm_head`` (or tied table) gives this
+    rank's columns, gathered across the ``vocab`` axis."""
     x = L.apply_norm(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
         logits = torch.einsum("...d,vd->...v", x, params["embed"])
     else:
         logits = torch.einsum("...d,dv->...v", x, params["lm_head"])
+    axis = L.split_axis("vocab", logits.shape[-1], cfg.padded_vocab)
+    if axis is not None:
+        logits = L.rule_mesh(SH.current_rules()).all_gather(logits, axis, -1)
     logits = logits.float()
     if cfg.padded_vocab > cfg.vocab_size:  # mask padding rows
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
@@ -290,17 +341,17 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 # ================================================================== forwards
-def _mlp_sublayer(lp, x, cfg, layer_hook=None):
-    """norm2, then the MLP or the MoE layer, then the residual. Returns
-    (x, aux): the MoE's load-balance loss, 0.0 for an MLP. Under a
-    ``layer_hook`` an MoE layer takes the full batch (its capacity and
-    loss are over every row, as the reference's sharded layer computes
-    them)."""
+def _mlp_sublayer(lp, x, cfg, layer_hook=None, dispatch="auto"):
+    """norm2, then the MLP or the MoE layer (``dispatch``), then the
+    residual. Returns (x, aux): the MoE's load-balance loss, 0.0 for an
+    MLP. Under a ``layer_hook`` an MoE layer takes the full batch (its
+    capacity and loss are over every row, as the reference's sharded
+    layer computes them)."""
     if "moe" in lp and layer_hook is not None:
         x = layer_hook.full(x)
     h = L.apply_norm(lp["norm2"], x, cfg)
     if "moe" in lp:
-        h, aux = MOE.apply_moe(lp["moe"], h, cfg)
+        h, aux = MOE.apply_moe(lp["moe"], h, cfg, dispatch=dispatch)
     else:
         h, aux = L.apply_mlp(lp["mlp"], h, cfg), 0.0
     return x + h, aux
@@ -329,15 +380,14 @@ def _cache_meta(cache, positions):
     Ring buffers (prefill longer than the cache) keep only the LAST M
     tokens: the reference sends the earlier tokens to the out-of-bounds
     slot M and drops them; here only the trailing M columns are written
-    (``layers.apply_gqa`` applies the same rule to the K/V write).
+    (``layers.write_slots``, also the K/V write's rule). Slots are the
+    whole cache's: a rank holding a slice of a sequence-split cache
+    writes the slots it holds.
     """
-    B, S = positions.shape
     kpos = cache["positions"]
-    M = kpos.shape[1]
+    M, _, _ = L.cache_span(kpos.shape[1])
     slots = positions.long() % M
-    s0 = max(S - M, 0)
-    bidx = torch.arange(B, device=positions.device)[:, None]
-    kpos[bidx, slots[:, s0:]] = positions[:, s0:].to(kpos.dtype)
+    L.write_slots(kpos, slots, positions)
     return slots, kpos
 
 
@@ -381,7 +431,7 @@ def _cross_cache(cache, enc_out, params):
 
 def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
                      last_idx=None, attn_impl="gather", encoder_out=None,
-                     layer_hook=None):
+                     layer_hook=None, dispatch="auto"):
     """Dense / moe / vlm decoder and the whisper decoder: train, prefill
     (attend fresh, write the cache on the side) or decode (write, then
     attend the cache). An MoE layer dispatches over all B x S tokens, a
@@ -439,7 +489,7 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
             x = x + L.apply_gqa(lp["xattn"], h, cfg, positions=positions,
                                 kv_override=ckv, impl=attn_impl,
                                 kv_lengths=cross_len)[0]
-        x, a = _mlp_sublayer(lp, x, cfg, layer_hook)
+        x, a = _mlp_sublayer(lp, x, cfg, layer_hook, dispatch)
         aux = aux + a
     if layer_hook is not None:
         x = layer_hook.full(x)
@@ -602,6 +652,9 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
         raise ValueError(f"paged decode needs a GQA attention decoder "
                          f"(family={cfg.family}, attn={cfg.attention_kind})")
     check_supported(cfg)
+    if SH.current_rules() is not None:
+        raise NotImplementedError("the paged decode step under sharding "
+                                  "rules is not ported (ROADMAP A10)")
     dev = cache["k"].device
     operands = (tokens, cache["block_tables"], cache["lengths"],
                 cache["active"])
@@ -645,7 +698,8 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             mode="train", encoder_input=None, window=None, last_idx=None,
-            attn_impl="gather", ssd_impl="chunked", layer_hook=None):
+            attn_impl="gather", ssd_impl="chunked", layer_hook=None,
+            dispatch="auto"):
     """Dense-cache entry point (the paged decode step is
     ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
     (default arange). An MoE layer dispatches ``"auto"``.
@@ -659,7 +713,16 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     decode call reads the cross K/V its prefill cached. ``layer_hook``
     (``core.replication.LayerHook``; a decoder's cache-less call, as the
     reference's replication tests run it) splits each layer's batch
-    between the ranks of its group.
+    between the ranks of its group. ``dispatch`` is the MoE layers'
+    (``moe.apply_moe``).
+
+    Under sharding rules (``parallel.sharding.use_rules``, read here as
+    the reference reads them) a decoder runs this rank's shard of the
+    reference's sharded step: ``params`` is this rank's
+    ``shard_params`` tree, ``tokens`` / ``positions`` its rows under
+    ``rules["batch"]``, ``cache`` its shard (``init_cache_shard``); every
+    rank of the mesh calls it together, and the logits are every
+    column's on every rank.
 
     Prefill mode starts a sequence: the SSM and hybrid families scan
     from the ZERO state and ignore the states ``cache`` holds (the
@@ -678,6 +741,9 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             cache is not None or cfg.family not in ("dense", "moe", "vlm")):
         raise ValueError("layer_hook splits a decoder's cache-less call; "
                          "the paged decode step takes it in forward_paged")
+    if layer_hook is not None and SH.current_rules() is not None:
+        raise ValueError("layer_hook and sharding rules each split the "
+                         "batch: pass one of them")
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         enc_out = None
         if cfg.family == "audio" and mode in ("train", "prefill"):
@@ -688,7 +754,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
         return _forward_decoder(params, cfg, tokens, positions, cache, mode,
                                 window, last_idx=last_idx,
                                 attn_impl=attn_impl, encoder_out=enc_out,
-                                layer_hook=layer_hook)
+                                layer_hook=layer_hook, dispatch=dispatch)
     if last_idx is not None:
         raise ValueError(f"last_idx unsupported for family {cfg.family}")
     if cfg.family == "ssm":

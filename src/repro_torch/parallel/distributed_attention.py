@@ -1,0 +1,121 @@
+"""Distributed flash-decoding over a sequence-sharded KV cache.
+
+Counterpart of ``repro.parallel.distributed_attention``. Each rank holds
+a slice of the cache's sequence (``cache_specs`` under a ``cache_seq``
+rule) and reduces it to a shard-local partial: a per-head max ``m``,
+denominator ``l`` and weighted output ``o``. One ``pmax`` and two
+``psum`` over the sequence axis combine them:
+
+    o = Σ_s exp(m_s - m*) · o_s / Σ_s exp(m_s - m*) · l_s
+
+The reference runs this as a ``shard_map`` program; here the caller is
+already the rank, and passes its own cache shard and that shard's key
+positions. The partials are plain torch, as the reference's are plain
+jnp: no Pallas kernel is involved. The masking sequence is the
+reference's, literally: ``NEG_INF`` is finite (-2**20), so a shard
+whose every key is masked has ``m = -2**20``, ``l = Sl`` and a junk
+``o``, and its weight ``exp(m - m*)`` underflows to exactly 0 beside a
+shard that has a real key.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import NEG_INF
+
+
+def _local_partial(q, k, v, qpos, kpos, window, softcap):
+    """Shard-local attention partials.
+
+    q: [B,1,KV,R,D]; k,v: [B,Sl,KV,D]; qpos [B,1]; kpos [B,Sl].
+    Returns m [B,KV,R], l [B,KV,R], o [B,KV,R,Dv] (fp32).
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqkrd,bskd->bkrqs", q.float(),
+                     k.float())[:, :, :, 0] * scale            # [B,KV,R,Sl]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qp = qpos[:, 0]                                           # [B]
+    mask = kpos <= qp[:, None]                                # [B,Sl]
+    if window is not None:
+        mask &= kpos > qp[:, None] - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                        # [B,KV,R]
+    p = torch.exp(s - m[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkrs,bskd->bkrd", p, v.float())
+    return m, l, o
+
+
+def _combine(mesh, seq_axis, m, l, o):
+    """The flash-decoding combine of the partials over ``seq_axis``."""
+    m_max = mesh.pmax(m, seq_axis)
+    fin = torch.isfinite(m)
+    corr = torch.exp(torch.where(fin, m - m_max, NEG_INF))
+    corr = torch.where(fin, corr, 0.0)
+    l_sum = mesh.psum(l * corr, seq_axis)
+    o_sum = mesh.psum(o * corr[..., None], seq_axis)
+    denom = torch.where(l_sum == 0.0, 1.0, l_sum)
+    return o_sum / denom[..., None]
+
+
+def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, mesh,
+                 seq_axis: str = "model", batch_axis="data", window=None,
+                 softcap=0.0):
+    """Distributed flash-decoding, called by every rank of ``seq_axis``
+    with the same queries.
+
+    q: [B,1,H,D]; k/v_cache: this rank's shard [B,Sl,KV,Dk/Dv];
+    q_positions [B,1]; k_positions: the shard's [B,Sl]. ``batch_axis``
+    is the reference's argument, unused: B is already this rank's rows.
+    Returns [B,1,H,Dv] in q's type, the same on every rank of the axis.
+    """
+    del batch_axis
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    R = H // KV
+    qg = q.reshape(B, 1, KV, R, D)
+    m, l, o = _local_partial(qg, k_cache, v_cache, q_positions, k_positions,
+                             window, softcap)
+    out = _combine(mesh, seq_axis, m, l, o).to(q.dtype)       # [B,KV,R,Dv]
+    return out.reshape(B, 1, H, v_cache.shape[-1])
+
+
+def _mla_local_partial(q_lat, q_rope, c, kr, qpos, kpos, window, scale):
+    """Shard-local absorbed-MLA partials.
+
+    q_lat: [B,H,r]; q_rope: [B,H,ro]; c: [B,Sl,r]; kr: [B,Sl,ro];
+    qpos [B,1]; kpos [B,Sl]. Returns m,l [B,H], o_lat [B,H,r] (fp32).
+    """
+    s = (torch.einsum("bhr,btr->bht", q_lat.float(), c.float())
+         + torch.einsum("bhk,btk->bht", q_rope.float(), kr.float())) * scale
+    qp = qpos[:, 0]
+    mask = kpos <= qp[:, None]
+    if window is not None:
+        mask &= kpos > qp[:, None] - window
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(torch.isfinite(s), torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o_lat = torch.einsum("bht,btr->bhr", p, c.float())
+    return m, l, o_lat
+
+
+def flash_decode_mla(q_lat, q_rope, c_cache, kr_cache, q_positions,
+                     k_positions, *, mesh, seq_axis: str = "model",
+                     batch_axis="data", window=None, qk_dim: int = 128):
+    """Distributed flash-decoding in MLA's absorbed latent space.
+
+    q_lat: [B,1,H,r]; q_rope: [B,1,H,ro]; c_cache / kr_cache: this
+    rank's shard [B,Sl,r] / [B,Sl,ro]; k_positions the shard's [B,Sl].
+    Returns o_lat [B,1,H,r] in q_lat's type (multiply by W_uv outside).
+    """
+    del batch_axis
+    scale = 1.0 / math.sqrt(qk_dim)
+    m, l, o = _mla_local_partial(q_lat[:, 0], q_rope[:, 0], c_cache,
+                                 kr_cache, q_positions, k_positions, window,
+                                 scale)
+    return _combine(mesh, seq_axis, m, l, o)[:, None].to(q_lat.dtype)
