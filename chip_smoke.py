@@ -251,6 +251,31 @@ prints no ``ok`` line):
    decode step's median on each rank and the unsharded step's. The
    dense-decode row of the JSON line adds both ranks' launches of 13a
    and 13d and phase 3's shapes of them (``decode_tp``, ``decode_ep``).
+14. the training path (``repro_torch.training``, ``launch.train``), on
+   the plain routes: a. ``launch.train.main`` on tinyllama-1.1b at full
+   width with the reference's defaults (batch 8, seq 128, lr 1e-3), fp32
+   (TF32 off) and bf16, ``TRAIN_STEPS`` steps each (final loss finite),
+   then the same step timed on ONE repeated batch (losses finite and
+   falling by more than ``TRAIN_FALL`` nats): the median synchronised
+   step, tokens/s, the model FLOPs by the reference's convention
+   (``model_flops_train``) and their share of the type's dense peak, and
+   the peak memory against params + grads + moments; the bf16 step
+   profiled (``train_profile.txt``); b. bf16 loss and gradients at batch
+   8 x seq 1024 with and without ``remat`` (each leaf within 1e-6,
+   relative L2; peak memory of each); c. one fp32 train step of each
+   reduced config (``TRAIN_CHECK_ARCHS``) on the card against the CPU
+   port from the same weights (loss 1e-5, each gradient leaf and updated
+   parameter 1e-4); d. (at ``TRAIN_CUT_LAYERS`` of 22 layers) a bf16
+   checkpoint of params and moments after one step, saved and loaded
+   with ``like=``, the next step bit-equal to the uninterrupted one (file
+   bytes, save and load seconds); e. (the same depth)
+   ``make_train_step_accum`` over 4 micro-batches against one step on
+   the same unmasked fp32 batch (first moments, loss, grad norm 1e-5);
+   f. qwen2-moe-a2.7b at ``TRAIN_MOE_LAYERS`` of 24 layers, bf16 with
+   bf16 moments, two steps through the scatter dispatch's backward
+   (finite loss and aux loss; step ms, peak memory); g. the four kernel
+   wrappers' launch counts unchanged across the phase, and each wrapper
+   raising, unlaunched, on an input that requires grad.
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -1199,6 +1224,22 @@ def engine_report(what, eng, reqs, stats, launches, raw, smi):
     )
 
 
+def device_time(trace):
+    """(device ops, busy us, us by kernel name) of a chrome trace: busy is
+    the union of its kernel, copy and memset intervals."""
+    spans, by_name = [], {}
+    for ev in json.loads(trace.read_text())["traceEvents"]:
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
+            spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+            by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    busy_us, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return len(spans), busy_us, by_name
+
+
 def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None, keep_trace=True):
     """``n`` steady decode steps under torch.profiler, after two that are
     not profiled (so the window replays graphs that exist): device busy
@@ -1223,24 +1264,15 @@ def profile_decode(eng, out_dir, smi, n=4, tag="", sink=None, keep_trace=True):
     captures = sum(eng.graphs.counts.captures.values()) - captures
     trace = out_dir / f"decode_trace{tag}.json"
     prof.export_chrome_trace(str(trace))
-    spans, by_name = [], {}
-    for ev in json.loads(trace.read_text())["traceEvents"]:
-        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
-            spans.append((ev["ts"], ev["ts"] + ev["dur"]))
-            by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    n_ops, busy_us, by_name = device_time(trace)
     if not keep_trace:
         trace.unlink()
-    busy_us, end = 0.0, -1.0
-    for a, b in sorted(spans):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     mode = "CUDA graphs" if eng.graphs.enabled else "eager"
     head = (
         f"{n} steady decode steps ({mode}, {captures} captures in the window), "
         f"wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-        f"{len(spans)} device ops [{smi}]"
+        f"{n_ops} device ops [{smi}]"
     )
     rows = [f"{us / 1e3 / n:10.4f} ms/step  {name[:110]}" for name, us in top]
     (out_dir / f"decode_profile{tag}.txt").write_text("\n".join([head, *rows]) + "\n")
@@ -4046,6 +4078,406 @@ def sharded_phase(TR, smi, device="cuda"):
     return launches
 
 
+# ------------------------------------------------- training (phase 14)
+TRAIN_ARCH = "tinyllama-1.1b"
+#: steps of each phase-14a run, the driver's and the timed one
+TRAIN_STEPS = 10
+#: the timed run trains on ONE batch repeated; its loss must fall by more
+#: than this many nats over TRAIN_STEPS steps at the driver's lr 1e-3
+TRAIN_FALL = 1.0
+#: phase 14f runs qwen2-moe-a2.7b at this many of its 24 layers
+TRAIN_MOE_LAYERS = 4
+#: phases 14d (the checkpoint) and 14e (accumulation) run tinyllama-1.1b
+#: at this many of its 22 layers: at full depth 14d's 11.0 GB file took
+#: 35.6 s to save and load on an H100 machine, past phase 14's time
+TRAIN_CUT_LAYERS = 6
+#: phase 14c's reduced configs, card against the CPU: one per family but
+#: vlm (chameleon's decoder is the dense one)
+TRAIN_CHECK_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "mamba2-780m",
+                     "zamba2-7b", "minicpm3-4b", "whisper-medium")
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(device):
+    """Frees what the caching allocator holds and resets the peak."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(device):
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else 0)
+
+
+def model_flops_train(cfg, batch, seq):
+    """A train step's model FLOPs by the reference's convention
+    (``repro.launch.dryrun.model_flops_analytic``, kind ``train``): 2 x
+    the active parameters per token for the forward, plus attention
+    scores over half the sequence and the SSD state work, times 3 for
+    the backward."""
+    tokens, ctx = batch * seq, seq / 2
+    n_active = cfg.param_count()
+    if cfg.num_experts:
+        expert = 3 * cfg.d_model * cfg.d_ff
+        n_active += (cfg.num_experts_per_tok - cfg.num_experts) * expert * cfg.num_layers
+    attn = 0.0
+    if cfg.attention_kind != "none":
+        hd = (cfg.resolved_head_dim if cfg.attention_kind == "gqa"
+              else cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+        layers = (cfg.num_layers if cfg.hybrid_attn_every == 0
+                  else cfg.num_layers // cfg.hybrid_attn_every)
+        attn = 4.0 * tokens * ctx * cfg.num_heads * hd * layers
+    ssd = 0.0
+    if cfg.ssm_state:
+        ssd = 6.0 * tokens * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * cfg.num_layers
+    return (2.0 * n_active * tokens + attn + ssd) * 3.0
+
+
+def rel_tree(got, want):
+    """Relative L2 of each leaf of two ``tree_items`` lists (0 where both
+    are zero), by path."""
+    out = {}
+    for (path, a), (_, b) in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        den, num = b.norm().item(), (a - b).norm().item()
+        out["/".join(path)] = num / den if den else (0.0 if num == 0 else float("inf"))
+    return out
+
+
+def profile_train(step, args, n, out_dir, smi):
+    """``n`` train steps under torch.profiler: the device's busy time
+    (the union of kernel, copy and memset intervals) against the wall
+    time, and device time by kernel name (``train_profile.txt``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            args = step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    trace = out_dir / "train_trace.json"
+    prof.export_chrome_trace(str(trace))
+    n_ops, busy_us, by_name = device_time(trace)
+    trace.unlink()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    head = (f"{n} bf16 train steps of {TRAIN_ARCH} (batch 8, seq 128), wall "
+            f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms, {n_ops} "
+            f"device ops [{smi}]")
+    rows = [f"{us / 1e3 / n:10.4f} ms/step  {name[:110]}" for name, us in top]
+    (out_dir / "train_profile.txt").write_text("\n".join([head, *rows]) + "\n")
+    top5 = "; ".join(f"{name[:60]} {us / 1e3 / n:.4f} ms" for name, us in top[:5])
+    log(f"[train] profile: {head}; idle share {1 - busy_us / 1e3 / wall_ms:.3f}; "
+        f"top device time per step: {top5}")
+
+
+def train_driver(mods, cfg, st, out_dir, smi):
+    """14a: ``launch.train.main`` at the reference's defaults in fp32 and
+    bf16, then a timed run of the same step on one repeated batch."""
+    LT, OPT, TR, T, DP = mods
+    dev, B, S = st.device, 8, 128
+    flops = model_flops_train(cfg, B, S)
+    for dtype in ("float32", "bfloat16"):
+        reset_peak(dev)
+        t = time.perf_counter()
+        argv = ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch", str(B),
+                "--seq", str(S), "--lr", "1e-3", "--dtype", dtype, "--log-every", "5",
+                "--device", dev] + (["--reduce"] if st.reduced else [])
+        final = LT.main(argv)
+        if not np.isfinite(final):
+            raise AssertionError(f"launch.train.main {dtype}: final loss {final}")
+        log(f"[train] launch.train.main {' '.join(argv)}: final loss {final:.4f} in "
+            f"{time.perf_counter() - t:.1f} s, peak device memory allocated "
+            f"{peak_bytes(dev)} B [{smi}]")
+
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dtype)
+        ocfg = OPT.OptimizerConfig(lr=1e-3, warmup_steps=min(20, TRAIN_STEPS // 5),
+                                   total_steps=TRAIN_STEPS)
+        opt = OPT.init_opt_state(params)
+        step = TR.make_train_step(cfg, ocfg)
+        batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=S, global_batch=B), 0, dev)
+        n_params = sum(p.numel() for p in OPT.tree_leaves(params))
+        elt = torch.finfo(getattr(torch, dtype)).bits // 8
+        predicted = n_params * (2 * elt + 2 * 4)   # params, grads, fp32 moments
+        reset_peak(dev)
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+        peak = peak_bytes(dev)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{dtype} train losses {losses}")
+        if not losses[-1] < losses[0] - TRAIN_FALL:
+            raise AssertionError(
+                f"{dtype}: the loss on one repeated batch fell {losses[0] - losses[-1]:.3f} "
+                f"nats in {TRAIN_STEPS} steps at lr 1e-3 (gate > {TRAIN_FALL}): {losses}")
+        ms = median(times)
+        peak_flops = PEAK_FLOPS[getattr(torch, dtype)]
+        log(f"[train] 14a {cfg.name} {dtype}, batch {B} x seq {S}, lr 1e-3 (warmup "
+            f"{ocfg.warmup_steps}), one batch repeated: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (fell {losses[0] - losses[-1]:.3f} nats, gate > "
+            f"{TRAIN_FALL}); step median {ms:.3f} ms (min {min(times):.3f}, first "
+            f"{times[0]:.3f}; synchronised), {B * S / ms * 1e3:.0f} tokens/s, model FLOPs "
+            f"{flops:.4e} a step = {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{flops / (ms / 1e3) / peak_flops:.4f} of the {dtype} dense peak "
+            f"{peak_flops / 1e12:.0f} TFLOP/s (H100 SXM data sheet); peak device memory "
+            f"allocated {peak} B against params + grads + fp32 moments {predicted} B "
+            f"({n_params} parameters) [{smi}]")
+        if dtype == "bfloat16" and dev == "cuda":
+            profile_train(lambda p, o: step(p, o, batch)[:2], (params, opt), 2, out_dir,
+                          smi)
+        del params, opt, m
+
+
+def train_remat(mods, cfg, st, smi):
+    """14b: bf16 gradients at batch 8 x seq 1024 with and without remat."""
+    LT, OPT, TR, T, DP = mods
+    dev = st.device
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), "bfloat16")
+    batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=st.long_seq, global_batch=8), 0,
+                           dev)
+    out = {}
+    for remat in (False, True):
+        reset_peak(dev)
+        t = time.perf_counter()
+        (total, _), grads = TR.value_and_grad(TR.make_loss_fn(cfg, remat=remat), params,
+                                              batch)
+        sync(dev)
+        out[remat] = (total, grads, (time.perf_counter() - t) * 1e3, peak_bytes(dev))
+    rel = rel_tree(OPT.tree_items(out[True][1]), OPT.tree_items(out[False][1]))
+    equal = sum(torch.equal(a, b) for a, b in zip(OPT.tree_leaves(out[True][1]),
+                                                   OPT.tree_leaves(out[False][1])))
+    worst = max(rel.values())
+    if worst > 1e-6 or not torch.equal(out[True][0], out[False][0]):
+        raise AssertionError(f"remat changed the gradients: worst leaf {worst:.3e} "
+                             f"(gate 1e-6), loss {out[True][0]} vs {out[False][0]}")
+    log(f"[train] 14b {cfg.name} bf16, batch 8 x seq {st.long_seq}, loss and gradients "
+        f"with remat vs without: {equal} of {len(rel)} leaves bit-equal, worst relative "
+        f"L2 {worst:.3e} (gate 1e-6), loss equal; peak device memory allocated "
+        f"{out[False][3]} B without remat, {out[True][3]} B with; loss + gradients "
+        f"{out[False][2]:.1f} / {out[True][2]:.1f} ms (first call each) [{smi}]")
+
+
+def train_card_vs_cpu(mods, get_config, st, smi):
+    """14c: one fp32 train step of each reduced config on the card and on
+    the CPU, from the same drawn weights and batch."""
+    LT, OPT, TR, T, DP = mods
+    worst = {}
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, torch.Generator().manual_seed(SEED), "float32")
+        batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=32, global_batch=2), 0)
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+                (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
+        ocfg = OPT.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+        res = []
+        for dev in ("cpu", st.device):
+            p = OPT.tree_map(lambda t: t.to(dev, copy=True), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            (total, _), grads = TR.value_and_grad(TR.make_loss_fn(cfg), p, b)
+            p, _, _ = OPT.apply_updates(ocfg, p, grads, OPT.init_opt_state(p))
+            res.append((total, grads, p))
+        (tc, g_cpu, pc), (tg, g_dev, pg) = res
+        loss_rel = abs(float(tg) - float(tc)) / abs(float(tc))
+        g_rel = max(rel_tree(OPT.tree_items(g_dev), OPT.tree_items(g_cpu)).values())
+        p_rel = max(rel_tree(OPT.tree_items(pg), OPT.tree_items(pc)).values())
+        if loss_rel > 1e-5 or g_rel > 1e-4 or p_rel > 1e-4:
+            raise AssertionError(f"{arch} card vs CPU: loss {loss_rel:.3e} (1e-5), "
+                                 f"grads {g_rel:.3e}, params {p_rel:.3e} (1e-4)")
+        worst[arch] = (loss_rel, g_rel, p_rel)
+    log("[train] 14c one fp32 train step of each reduced config, card vs CPU from the "
+        "same weights (loss relative, worst gradient leaf and updated parameter relative "
+        "L2; gates 1e-5, 1e-4, 1e-4): " + "; ".join(
+            f"{a} {x:.2e} / {g:.2e} / {p:.2e}" for a, (x, g, p) in worst.items())
+        + f" [{smi}]")
+
+
+def train_checkpoint(mods, cfg, st, smi):
+    """14d: save -> load(like=) at full width (bf16; ``cfg`` at cut
+    depth), then one more step from the loaded trees against the
+    uninterrupted step."""
+    LT, OPT, TR, T, DP = mods
+    from repro_torch.training import checkpoint as CKPT
+
+    dev = st.device
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), "bfloat16")
+    opt = OPT.init_opt_state(params)
+    step = TR.make_train_step(cfg, OPT.OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                       total_steps=10))
+    data = DP.DataConfig(seq_len=128, global_batch=8)
+    params, opt, _ = step(params, opt, DP.synth_batch(cfg, data, 0, dev))
+    ckdir = ROOT / "build" / "train_ckpt"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    path = str(ckdir / "step1.ckpt")
+    tree = {"params": params, "opt": opt}
+    try:
+        sync(dev)
+        t = time.perf_counter()
+        CKPT.save(path, tree, {"arch": cfg.name, "step": 1})
+        save_s = time.perf_counter() - t
+        nbytes = os.path.getsize(path)
+        t = time.perf_counter()
+        loaded, meta = CKPT.load(path, like=tree)
+        sync(dev)
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    b1 = DP.synth_batch(cfg, data, 1, dev)
+    a = step(params, opt, b1)
+    b = step(loaded["params"], loaded["opt"], b1)
+    same = all(torch.equal(x, y) for x, y in zip(
+        OPT.tree_leaves({"p": a[0], "o": a[1]}), OPT.tree_leaves({"p": b[0], "o": b[1]})))
+    if not same or meta != {"arch": cfg.name, "step": 1}:
+        raise AssertionError("the step after save -> load differs from the "
+                             "uninterrupted step")
+    log(f"[train] 14d checkpoint of {cfg.name} ({cfg.num_layers} layers) bf16 params + "
+        f"fp32 moments after one step: {nbytes} B, save {save_s:.2f} s, load(like=) {load_s:.2f} s; the next "
+        f"step from the loaded trees bit-equal to the uninterrupted one (params, "
+        f"moments, step) [{smi}]")
+
+
+def train_accum(mods, cfg, st, smi):
+    """14e: accumulation over 4 micro-batches against one step over the
+    same global batch (fp32, no mask: each micro-batch's mean loss then
+    weighs its tokens as the global mean does)."""
+    LT, OPT, TR, T, DP = mods
+    dev = st.device
+    batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=128, global_batch=8), 0, dev)
+    del batch["mask"]
+    ocfg = OPT.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    res = {}
+    for accum in (1, 4):
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                               "float32")
+        step = (TR.make_train_step(cfg, ocfg) if accum == 1
+                else TR.make_train_step_accum(cfg, ocfg, accum_steps=accum))
+        _, opt, m = step(params, OPT.init_opt_state(params), batch)
+        res[accum] = (opt["mu"], float(m["total_loss"]), float(m["grad_norm"]))
+        del params, opt
+        reset_peak(dev)
+    worst = max(rel_tree(OPT.tree_items(res[4][0]), OPT.tree_items(res[1][0])).values())
+    loss_rel = abs(res[4][1] - res[1][1]) / abs(res[1][1])
+    norm_rel = abs(res[4][2] - res[1][2]) / abs(res[1][2])
+    if max(worst, loss_rel, norm_rel) > 1e-5:
+        raise AssertionError(f"accum 4 vs one step: moments {worst:.3e}, loss "
+                             f"{loss_rel:.3e}, grad norm {norm_rel:.3e} (gate 1e-5)")
+    log(f"[train] 14e {cfg.name} ({cfg.num_layers} layers) fp32, batch 8 x seq 128: "
+        f"make_train_step_accum (4 "
+        f"micro-batches of 2) vs make_train_step: first moments (1 - b1) x clipped "
+        f"gradient, worst leaf relative L2 {worst:.3e}, loss {loss_rel:.3e}, grad norm "
+        f"{norm_rel:.3e} (gate 1e-5) [{smi}]")
+
+
+def train_moe(mods, get_config, st, smi):
+    """14f: qwen2-moe-a2.7b at full width and cut depth, bf16 with bf16
+    moments, two steps through the scatter dispatch's backward."""
+    LT, OPT, TR, T, DP = mods
+    dev = st.device
+    cfg = get_config(MOE_ARCH)
+    cfg = (cfg.reduced() if st.reduced
+           else dataclasses.replace(cfg, num_layers=TRAIN_MOE_LAYERS))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), "bfloat16")
+    opt = OPT.init_opt_state(params, "bfloat16")
+    n_params = sum(p.numel() for p in OPT.tree_leaves(params))
+    step = TR.make_train_step(cfg, OPT.OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                       total_steps=10))
+    reset_peak(dev)
+    times, metrics = [], []
+    for i in range(2):
+        batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=128, global_batch=8), i, dev)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"qwen2-moe train step metrics {metrics}")
+    dispatch = "dense" if cfg.num_experts <= 8 else "scatter"
+    log(f"[train] 14f {cfg.name} at {cfg.num_layers} of 24 layers ({n_params} "
+        f"parameters), bf16 with bf16 moments, batch 8 x seq 128, {cfg.num_experts} "
+        f"experts through the {dispatch} dispatch: loss {metrics[0]['loss']:.4f} / "
+        f"{metrics[1]['loss']:.4f}, aux loss {metrics[0]['aux_loss']:.4f} / "
+        f"{metrics[1]['aux_loss']:.4f} (finite), grad norm "
+        f"{metrics[0]['grad_norm']:.3f}; step {times[0]:.1f} ms (first) / "
+        f"{times[1]:.1f} ms; peak device memory allocated {peak_bytes(dev)} B [{smi}]")
+
+
+def grad_probe_args(device):
+    """Small valid inputs of the four wrappers (paged, flash, decode, SSD),
+    the first one requiring grad."""
+    def z(*shape, grad=False):
+        return torch.zeros(shape, device=device, requires_grad=grad)
+
+    def i32(*shape, fill=16):
+        return torch.full(shape, fill, dtype=torch.int32, device=device)
+
+    return ((z(1, 4, 64, grad=True), z(2, 1, 16, 64), z(2, 1, 16, 64), i32(1, 1, fill=0),
+             i32(1)),
+            (z(1, 4, 16, 64, grad=True), z(1, 1, 16, 64), z(1, 1, 16, 64)),
+            (z(1, 4, 64, grad=True), z(1, 1, 16, 64), z(1, 1, 16, 64), i32(1)),
+            (z(1, 64, 2, 32, grad=True), z(1, 64, 2), z(2), z(1, 64, 1, 16),
+             z(1, 64, 1, 16)))
+
+
+def training_phase(kernel_fns, get_config, out_dir, smi, device="cuda", reduced=False):
+    """Phase 14: the training path at full width. ``kernel_fns`` are the
+    four kernel wrappers, whose launch counts must not move: training
+    takes the plain routes. ``device="cpu"`` with ``reduced`` rehearses
+    the phase on the CPU at the reduced configs."""
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as TR
+
+    mods = (LT, OPT, TR, T, DP)
+    st = types.SimpleNamespace(device=device, reduced=reduced,
+                               long_seq=128 if reduced else 1024)
+    before = [k.launches for k in kernel_fns]
+    cfg = get_config(TRAIN_ARCH)
+    cfg = cfg.reduced() if reduced else cfg
+    cut = cfg if reduced else dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)
+    parts = (("14a", lambda: train_driver(mods, cfg, st, out_dir, smi)),
+             ("14b", lambda: train_remat(mods, cfg, st, smi)),
+             ("14c", lambda: train_card_vs_cpu(mods, get_config, st, smi)),
+             ("14d", lambda: train_checkpoint(mods, cut, st, smi)),
+             ("14e", lambda: train_accum(mods, cut, st, smi)),
+             ("14f", lambda: train_moe(mods, get_config, st, smi)))
+    for name, part in parts:
+        t = time.perf_counter()
+        part()
+        reset_peak(device)
+        log(f"[train] {name} in {time.perf_counter() - t:.1f} s")
+    refused = []
+    if torch.device(device).type == "cuda":
+        for fn, args in zip(kernel_fns, grad_probe_args(device)):
+            try:
+                fn(*args)
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+                refused.append(fn.__name__)
+            else:
+                raise AssertionError(f"{fn.__name__} launched on an input that "
+                                     f"requires grad")
+    after = [k.launches for k in kernel_fns]
+    if after != before:
+        raise AssertionError(f"kernel launches during training: {before} -> {after}")
+    log(f"[train] 14g kernel launches across phase 14 unchanged: {after} (paged, flash, "
+        f"decode, SSD; training takes the plain routes); each wrapper refuses an input "
+        f"that requires grad (no backward): {refused}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4382,6 +4814,14 @@ def main():
         })
     log(f"[sharded] phase 13 in {time.perf_counter() - t:.1f} s; dense-decode launches "
         f"on both ranks {sharded}")
+
+    # phase 14: the training path, after phase 13's ranks are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    training_phase((PD.paged_decode_attention, FA.flash_attention, DA.decode_attention,
+                    SS.ssd_scan), get_config, out_dir, smi)
+    log(f"[train] phase 14 in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX ``init_params`` pytree, as numpy, to the port's
-parameter dict.
+"""Weight bridge: the JAX ``init_params`` pytree (and an optimizer
+state), as numpy, to the port's parameter dict.
 
 The caller converts the JAX tree with ``jax.tree_util.tree_map(np.asarray,
 tree)``; this module takes only numpy, so it never imports JAX. Keys and
@@ -36,6 +36,16 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     return _tensor(np.asarray(tree), device, dtype)
+
+
+def opt_state_from_numpy(state, device):
+    """A JAX optimizer state (``repro.training.optimizer.init_opt_state``'s
+    tree as numpy: ``step``, ``mu``, ``nu``) as the port's: ``step`` an
+    int32 0-d tensor, the moments in their own types, on ``device``."""
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device),
+            "mu": params_from_numpy(state["mu"], device),
+            "nu": params_from_numpy(state["nu"], device)}
 
 
 def shard_from_numpy(tree, specs, mesh, device,

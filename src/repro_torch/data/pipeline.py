@@ -1,0 +1,62 @@
+"""Synthetic tokenized data pipeline.
+
+PyTorch counterpart of ``repro.data.pipeline``: a deterministic token
+stream shaped like a packed LM dataset (documents separated by an EOS
+id, next-token labels, a loss mask), drawn from the same numpy
+``default_rng`` stream as the reference, so a batch is bit-identical to
+the reference's. ``sharded_batches`` (batches placed on a mesh) waits for
+the sharded train step (ROADMAP A11b).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seq_len: int = 1024
+    global_batch: int = 8
+    seed: int = 0
+    eos_id: int = 1
+    mean_doc_len: int = 384
+
+
+def synth_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
+                device="cpu") -> dict:
+    """One packed batch on ``device``: ``tokens`` and ``labels`` int32
+    [B, S], ``mask`` float32 [B, S] (0 where the label is the EOS id)."""
+    rng = np.random.default_rng(dcfg.seed * 1_000_003 + step)
+    B, S = dcfg.global_batch, dcfg.seq_len
+    toks = rng.integers(2, cfg.vocab_size, size=(B, S + 1), dtype=np.int64)
+    # sprinkle EOS boundaries to emulate packed documents
+    n_eos = max(1, (S + 1) // dcfg.mean_doc_len)
+    for b in range(B):
+        pos = rng.integers(1, S, size=n_eos)
+        toks[b, pos] = dcfg.eos_id
+    tokens = toks[:, :-1].astype(np.int32)
+    labels = toks[:, 1:].astype(np.int32)
+    mask = (labels != dcfg.eos_id).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in (("tokens", tokens), ("labels", labels),
+                         ("mask", mask))}
+
+
+def batches(cfg: ModelConfig, dcfg: DataConfig,
+            num_steps: Optional[int] = None, device="cpu") -> Iterator[dict]:
+    step = 0
+    while num_steps is None or step < num_steps:
+        yield synth_batch(cfg, dcfg, step, device)
+        step += 1
+
+
+def sharded_batches(cfg: ModelConfig, dcfg: DataConfig, mesh, batch_spec,
+                    num_steps: Optional[int] = None) -> Iterator[dict]:
+    raise NotImplementedError(
+        "sharded_batches places each batch on a mesh for the sharded train "
+        "step, which is not ported (ROADMAP A11b)")

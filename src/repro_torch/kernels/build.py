@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -88,6 +90,15 @@ def _finish(name: str, started) -> None:
         raise BuildError(f"nvcc failed for {name} "
                          f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)   # atomic: a reader never sees a partial library
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """A kernel has no backward: a launch on inputs that require grad,
+    under grad mode, raises instead of returning an output that silently
+    cuts the autograd graph (training takes the plain routes)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           f"torch.no_grad() or take the plain route")
 
 
 def build_all() -> Dict[str, Path]:

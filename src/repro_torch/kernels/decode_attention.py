@@ -173,6 +173,7 @@ def decode_attention(q, k, v, lengths):
         return decode_attention_ref(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.check_no_grad("decode_attention", q, k, v)
     B, H, D = q.shape
     KV, S = k.shape[1], k.shape[2]
     # the kernel copies cache rows in 16-byte vectors

@@ -90,6 +90,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.check_no_grad("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:

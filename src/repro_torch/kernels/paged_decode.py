@@ -150,6 +150,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
                                           lengths)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.check_no_grad("paged_decode_attention", q, k_pool, v_pool)
     B, H, D = q.shape
     n_blocks, KV, bs, _ = k_pool.shape
     # the kernel copies pool tiles in 16-byte vectors

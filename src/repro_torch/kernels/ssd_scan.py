@@ -176,6 +176,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
         return ssd_scan_ref(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.check_no_grad("ssd_scan", x, dt, A, B, C)
     b, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     Q = min(chunk, L)

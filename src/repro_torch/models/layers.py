@@ -734,11 +734,36 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
 
 
+def _sigmoid(x):
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+class _SiluGrad(torch.autograd.Function):
+    """``_silu`` with the backward of JAX's VJP of ``x * logistic(x)``:
+    ``g * s + (g * x) * (s * (1 - s))``, each op rounded to x's type, where
+    autograd through ``_silu``'s ops would differentiate the reciprocal
+    and the exponential (another bf16 rounding sequence)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _sigmoid(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def _silu(x):
     """``jax.nn.silu`` as XLA lowers it: x * 1 / (1 + exp(-x)), rounded
     to x's type after every op. For bf16 this reproduces the reference
-    bit for bit, where torch's fused silu differs in ~40% of elements."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    bit for bit, where torch's fused silu differs in ~40% of elements.
+    Under autograd its backward is JAX's (``_SiluGrad``)."""
+    if x.requires_grad:
+        return _SiluGrad.apply(x)
+    return x * _sigmoid(x)
 
 
 def apply_mlp(p, x, cfg: ModelConfig):

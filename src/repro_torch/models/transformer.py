@@ -45,6 +45,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -361,6 +362,28 @@ def _layer_slice(tree, i):
     return _tree_map(lambda t: t[i], tree)
 
 
+def _per_layer(tree, train):
+    """Layer ``i``'s tree of a stacked tree, as a function of ``i``. In
+    train mode every stacked leaf is unbound once (``unbind(0)``), so
+    autograd stacks its gradient once: a ``t[i]`` per layer gives each
+    layer's backward a zero tensor the size of the whole stack."""
+    if not train:
+        return functools.partial(_layer_slice, tree)
+    parts = _tree_map(lambda t: t.unbind(0), tree)
+    return lambda i: _tree_map(lambda u: u[i], parts)
+
+
+def _remat(fn, remat):
+    """``fn``, or with ``remat`` ``fn`` under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    its activations instead of keeping them, as ``jax.checkpoint`` does
+    for the reference's layer bodies."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def _write_state(lc, new):
     """A Mamba2 layer's new states into its cache leaves, in place (the
     mixer returns new tensors; the cache's tensors never move)."""
@@ -431,7 +454,7 @@ def _cross_cache(cache, enc_out, params):
 
 def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
                      last_idx=None, attn_impl="gather", encoder_out=None,
-                     layer_hook=None, dispatch="auto"):
+                     layer_hook=None, dispatch="auto", remat=False):
     """Dense / moe / vlm decoder and the whisper decoder: train, prefill
     (attend fresh, write the cache on the side) or decode (write, then
     attend the cache). An MoE layer dispatches over all B x S tokens, a
@@ -441,8 +464,10 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
     K/V computed from ``encoder_out`` (a prefill also stores them in the
     cache's ``cross`` leaves); a decode call reads them from the cache.
     ``layer_hook`` (a cache-less call) splits each layer's batch
-    (``core.replication.LayerHook``)."""
+    (``core.replication.LayerHook``). ``remat`` (train mode) checkpoints
+    each layer's body, as the reference's ``jax.checkpoint`` does."""
     has_cache = cache is not None
+    train = mode == "train"
     is_audio = cfg.family == "audio"
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
@@ -466,14 +491,8 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
                  else encoder_out.shape[1])
         cross_len = torch.full((B,), n_enc, dtype=torch.int32,
                                device=x.device)
-    aux = 0.0
-    pos_i, rope_i = positions, rope
-    for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
-        lc = _layer_slice(cache["layers"], i) if has_cache else None
-        if layer_hook is not None:
-            x = layer_hook(i, x)
-            pos_i, rope_i = layer_hook.rows(positions), layer_hook.rows(rope)
+
+    def layer(x, lp, lc, pos_i, rope_i, i):
         h = L.apply_norm(lp["norm1"], x, cfg)
         x = x + _attn(lp, h, cfg, pos_i, lc, slots, kpos, mode, window,
                       rope_i, attn_impl)
@@ -489,13 +508,24 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
             x = x + L.apply_gqa(lp["xattn"], h, cfg, positions=positions,
                                 kv_override=ckv, impl=attn_impl,
                                 kv_lengths=cross_len)[0]
-        x, a = _mlp_sublayer(lp, x, cfg, layer_hook, dispatch)
+        return _mlp_sublayer(lp, x, cfg, layer_hook, dispatch)
+
+    body = _remat(layer, remat and train)
+    layer_params = _per_layer(params["layers"], train)
+    aux = 0.0
+    pos_i, rope_i = positions, rope
+    for i in range(cfg.num_layers):
+        lc = _layer_slice(cache["layers"], i) if has_cache else None
+        if layer_hook is not None:
+            x = layer_hook(i, x)
+            pos_i, rope_i = layer_hook.rows(positions), layer_hook.rows(rope)
+        x, a = body(x, layer_params(i), lc, pos_i, rope_i, i)
         aux = aux + a
     if layer_hook is not None:
         x = layer_hook.full(x)
 
     new_cache = _set_length(cache, positions) if has_cache else None
-    if mode == "train":
+    if train:
         return unembed(params, cfg, x), None, aux
     if last_idx is not None:
         # per-row last REAL token (power-of-two padded prefill buckets:
@@ -506,18 +536,20 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
     return unembed(params, cfg, x_last), new_cache, aux
 
 
-def encode_audio(params, cfg: ModelConfig, frames):
+def encode_audio(params, cfg: ModelConfig, frames, train=False):
     """Whisper-style encoder over precomputed (stubbed) frame embeddings
     [B, S, d]: sinusoidal positions, ``num_encoder_layers`` non-causal
     layers, the final norm. It runs in the frames' type promoted with the
     weights' (fp32 frames through bf16 weights run in fp32, as in the
-    reference)."""
+    reference). ``train``: the layers' stacks are unbound once
+    (``_per_layer``); the reference does not checkpoint the encoder."""
     B, S, _ = frames.shape
     pos = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
     x = frames + L.sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
     enc = params["encoder"]
+    layer_params = _per_layer(enc["layers"], train)
     for i in range(cfg.num_encoder_layers):
-        lp = _layer_slice(enc["layers"], i)
+        lp = layer_params(i)
         h = L.apply_norm(lp["norm1"], x, cfg)
         x = x + L.apply_gqa(lp["attn"], h, cfg, positions=pos,
                             causal=False)[0]
@@ -557,21 +589,27 @@ def _last(params, cfg, x, mode):
     return unembed(params, cfg, x[:, -1])
 
 
-def _forward_ssm(params, cfg, tokens, positions, cache, mode, ssd_fn):
+def _forward_ssm(params, cfg, tokens, positions, cache, mode, ssd_fn,
+                 remat=False):
+    train = mode == "train"
     x = embed_tokens(params, cfg, tokens)
+    body = _remat(lambda x, lp, lc: _mamba_layer(lp, x, cfg, lc, mode, ssd_fn),
+                  remat and train)
+    layer_params = _per_layer(params["layers"], train)
     for i in range(cfg.num_layers):
         lc = _layer_slice(cache["layers"], i) if cache is not None else None
-        x = _mamba_layer(_layer_slice(params["layers"], i), x, cfg, lc, mode,
-                         ssd_fn)
+        x = body(x, layer_params(i), lc)
     new_cache = _set_length(cache, positions) if cache is not None else None
     return _last(params, cfg, x, mode), new_cache, 0.0
 
 
 def _forward_hybrid(params, cfg, tokens, positions, cache, mode, window,
-                    ssd_fn, attn_impl):
+                    ssd_fn, attn_impl, remat=False):
     """Blocks of ``every`` Mamba2 layers, each followed by the SHARED
     attention (+ MLP) block (the same parameters every time, its own K/V
-    per application), then the tail of Mamba2 layers."""
+    per application), then the tail of Mamba2 layers. ``remat`` (train
+    mode) checkpoints each block, not the tail, as the reference does."""
+    train = mode == "train"
     every = cfg.hybrid_attn_every
     nb, rem = divmod(cfg.num_layers, every)
     has_cache = cache is not None
@@ -583,14 +621,14 @@ def _forward_hybrid(params, cfg, tokens, positions, cache, mode, window,
             if cfg.use_rope else None)
     shared = params["shared"]
 
-    def mamba(x, part, idx):
+    def mamba(x, lp, part, idx):
         lc = _layer_slice(cache[part], idx) if has_cache else None
-        return _mamba_layer(_layer_slice(params[part], idx), x, cfg, lc,
-                            mode, ssd_fn)
+        return _mamba_layer(lp, x, cfg, lc, mode, ssd_fn)
 
-    for b in range(nb):
+    def block(x, bp, b):
+        layer_params = _per_layer(bp, train)
         for j in range(every):
-            x = mamba(x, "blocks", (b, j))
+            x = mamba(x, layer_params(j), "blocks", (b, j))
         h = L.apply_norm(shared["norm1"], x, cfg)
         skv = ({"k": cache["shared"]["k"][b], "v": cache["shared"]["v"][b]}
                if has_cache else None)
@@ -602,8 +640,16 @@ def _forward_hybrid(params, cfg, tokens, positions, cache, mode, window,
         if "mlp" in shared:
             h = L.apply_norm(shared["norm2"], x, cfg)
             x = x + L.apply_mlp(shared["mlp"], h, cfg)
-    for i in range(rem):
-        x = mamba(x, "tail", i)
+        return x
+
+    body = _remat(block, remat and train)
+    block_params = _per_layer(params["blocks"], train)
+    for b in range(nb):
+        x = body(x, block_params(b), b)
+    if rem:
+        tail_params = _per_layer(params["tail"], train)
+        for i in range(rem):
+            x = mamba(x, tail_params(i), "tail", i)
     new_cache = _set_length(cache, positions) if has_cache else None
     return _last(params, cfg, x, mode), new_cache, 0.0
 
@@ -699,7 +745,7 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             mode="train", encoder_input=None, window=None, last_idx=None,
             attn_impl="gather", ssd_impl="chunked", layer_hook=None,
-            dispatch="auto"):
+            dispatch="auto", remat=False):
     """Dense-cache entry point (the paged decode step is
     ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
     (default arange). An MoE layer dispatches ``"auto"``.
@@ -715,6 +761,13 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     reference's replication tests run it) splits each layer's batch
     between the ranks of its group. ``dispatch`` is the MoE layers'
     (``moe.apply_moe``).
+
+    Train mode takes no cache and the plain routes (``attn_impl`` and
+    ``ssd_impl`` at their defaults launch no kernel, and no kernel has a
+    backward). ``remat`` checkpoints each layer's body there (a hybrid's
+    blocks), as the reference's ``jax.checkpoint`` does; every stacked
+    leaf is unbound once per call (``_per_layer``), so its gradient is
+    stacked once.
 
     Under sharding rules (``parallel.sharding.use_rules``, read here as
     the reference reads them) a decoder runs this rank's shard of the
@@ -733,6 +786,9 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     check_supported(cfg)
     if attn_impl not in ("kernel", "gather"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    if mode == "train" and cache is not None:
+        raise ValueError("a train call takes no cache: its in-place writes "
+                         "are not differentiable")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -750,15 +806,17 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             if encoder_input is None:
                 raise ValueError("audio needs encoder frames "
                                  "(encoder_input) in train and prefill mode")
-            enc_out = encode_audio(params, cfg, encoder_input)
+            enc_out = encode_audio(params, cfg, encoder_input,
+                                   train=mode == "train")
         return _forward_decoder(params, cfg, tokens, positions, cache, mode,
                                 window, last_idx=last_idx,
                                 attn_impl=attn_impl, encoder_out=enc_out,
-                                layer_hook=layer_hook, dispatch=dispatch)
+                                layer_hook=layer_hook, dispatch=dispatch,
+                                remat=remat)
     if last_idx is not None:
         raise ValueError(f"last_idx unsupported for family {cfg.family}")
     if cfg.family == "ssm":
         return _forward_ssm(params, cfg, tokens, positions, cache, mode,
-                            _ssd_fn(ssd_impl))
+                            _ssd_fn(ssd_impl), remat)
     return _forward_hybrid(params, cfg, tokens, positions, cache, mode,
-                           window, _ssd_fn(ssd_impl), attn_impl)
+                           window, _ssd_fn(ssd_impl), attn_impl, remat)

@@ -242,7 +242,10 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.serving.remote_engine, repro_torch.serving.ingress, "
             "repro_torch.launch.pod, repro_torch.launch.serve, "
             "repro_torch.models.moe, repro_torch.serving.kvcache, "
-            "repro_torch.serving.workload, repro_torch.serving.simulator; "
+            "repro_torch.serving.workload, repro_torch.serving.simulator, "
+            "repro_torch.training.optimizer, repro_torch.training.train, "
+            "repro_torch.training.checkpoint, repro_torch.data.pipeline, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
