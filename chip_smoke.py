@@ -148,8 +148,8 @@ prints no ``ok`` line):
       once with ``prefill_chunk`` W / 4; the ring wrapped (no row holds
       position 0); first-token and decode logits against the paged
       engine with ``swa=True`` on the same requests (2e-2);
-   c. mamba2-780m and d. zamba2-7b at full width but cut depth (24 of
-      48 layers; 27 of 81: four applications of the shared block and the
+   c. mamba2-780m and d. zamba2-7b at full width but cut depth (12 of
+      48 layers; 15 of 81: two applications of the shared block and the
       tail of 3), random bf16 weights from a seeded generator (their
       bytes equal to the reference's ``init_params`` at that depth): the
       kernel routes against the plain ones (the
@@ -276,6 +276,33 @@ prints no ``ok`` line):
    (finite loss and aux loss; step ms, peak memory); g. the four kernel
    wrappers' launch counts unchanged across the phase, and each wrapper
    raising, unlaunched, on an input that requires grad.
+15. the sharded train step (``training.train`` under sharding rules, the
+   collectives' backward from ``parallel.mesh``): two more spawned rank
+   processes, each building ``RankMesh``es (gloo groups per axis line)
+   over a ``TCPStore``, fp32 (TF32 off) from phase 5's seeded weights,
+   batch 8 x seq 128 from ``sharded_batches``: a. tinyllama-1.1b at full
+   width and depth, tensor parallel on (data 1, model 2), 3 steps; b.
+   the same data parallel on (2, 1); c. qwen2-moe-a2.7b at
+   ``P15_MOE_LAYERS`` of 24 layers on (2, 1), experts on ``data``, the
+   scatter dispatch (2 steps), then the all-to-all dispatch
+   (``rules["moe_a2a"]``, 3 steps on one repeated batch). Gates: each
+   step's collectives by phase (forward, backward, update) and kind equal
+   to ``p15_predicted`` and to ``launch.dryrun``'s count of the same case
+   on ``RankMesh.dry``; each rank's bytes of params and moments equal the
+   dry run's ``params`` + ``opt_state`` bytes; the losses within 1e-5
+   of the unsharded step on the same weights and global batches (run on
+   each rank in turn), and each rank's params and both moments within
+   1e-4 relative L2 of their slices of the unsharded step's (a, b, and
+   c after its first step: its routing is discontinuous, and Adam turns
+   the two steps' ~1e-6 differences into expert ids that differ later,
+   printed by step and layer; the first step's ids are gated equal);
+   the ranks' losses equal; the all-to-all dispatch's aux loss finite and
+   its loss falling (it routes per rank: no unsharded twin); a and b's
+   bf16 run of ``TRAIN_STEPS`` on one repeated batch falling by more
+   than ``TRAIN_FALL``; d. the four kernel counters unchanged here and on
+   both ranks. Printed: step ms, tokens/s, the staged collectives' ms by
+   phase (the data-parallel gradient sums are the largest), collective
+   bytes, peak memory, the unsharded step's ms.
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -2208,14 +2235,15 @@ DENSE_KW = dict(max_batch=8, max_len=1024, dtype="bfloat16", cache_kind="dense")
 MLA_ARCH = "minicpm3-4b"
 AUDIO_ARCH = "whisper-medium"
 #: phase 10 runs the SSM and the hybrid at full width but cut depth, to
-#: keep the script's time: mamba2-780m 24 of its 48 layers, zamba2-7b 27
-#: of its 81 (four applications of the shared block, then the tail of 3)
-PHASE10_LAYERS = {SSM_ARCH: 24, HYBRID_ARCH: 27}
+#: keep the script's time: mamba2-780m 12 of its 48 layers, zamba2-7b 15
+#: of its 81 (two applications of the shared block, then the tail of 3);
+#: at 24 and 27 layers the script with phase 15 took 658.9 s on an H100
+PHASE10_LAYERS = {SSM_ARCH: 12, HYBRID_ARCH: 15}
 #: the weight bytes of the reference's init_params at full width in bf16
 #: (jax.eval_shape of repro.models.transformer.init_params), at phase
 #: 10's depth for the SSM and the hybrid
 REFERENCE_WEIGHT_BYTES = {
-    SSM_ARCH: 857_854_464, HYBRID_ARCH: 4_851_272_896,
+    SSM_ARCH: 506_392_320, HYBRID_ARCH: 2_979_791_296,
     MLA_ARCH: 8_147_747_840, AUDIO_ARCH: 1_622_646_784,
 }
 #: the dense cache's bytes at phase 11's settings (max_batch 8; max_len
@@ -3476,9 +3504,9 @@ TP_LOCAL_HEADS = types.SimpleNamespace(num_heads=16, num_kv_heads=2, resolved_he
 LONG_PROMPT, LONG_STEPS = 8320, 16
 #: 13a's greedy decode steps; 13d's decode steps and qwen2-moe depth
 TP_STEPS, EP_STEPS, EP_LAYERS = 32, 16, 6
-#: 13c's minicpm3-4b depth (of 62), to keep the script's time: at 31
-#: layers phase 13 took 82.5 s and the script 329.7 s (PERF.md, PR 23)
-MLA13_LAYERS = 16
+#: 13c's minicpm3-4b depth (of 62), to keep the script's time: cut from
+#: 31 and then 16 as phases 13 and 15 lengthened the script (PERF.md)
+MLA13_LAYERS = 8
 #: every stream's eager decode steps timed after its gated run
 TIMED_STEPS = 8
 
@@ -4478,6 +4506,399 @@ def training_phase(kernel_fns, get_config, out_dir, smi, device="cuda", reduced=
         f"that requires grad (no backward): {refused}")
 
 
+# ------------------------------------ the sharded train step (phase 15)
+#: phase 15's ranks: two processes sharing the one card in gloo groups
+#: (on the card ranks must be processes: CUDA autograd runs one worker
+#: thread per device, in which two thread-ranks' backward collectives
+#: would wait on each other)
+TRAIN_RANKS = 2
+#: 15c's qwen2-moe-a2.7b depth (of 24): two fp32 ranks and the unsharded
+#: step must fit the card one after another
+P15_MOE_LAYERS = 2
+P15_AXES = ("data", "model")
+
+
+def p15_settings(device):
+    """Phase 15's sizes: the card's (batch 8 x seq 128, as phase 14a), or
+    a CPU rehearsal's (reduced configs)."""
+    if torch.device(device).type == "cuda":
+        return dict(reduced=False, batch=8, seq=128, steps=3, moe_steps=2,
+                    bf16_steps=TRAIN_STEPS, ep_steps=3, moe_layers=P15_MOE_LAYERS)
+    return dict(reduced=True, batch=4, seq=16, steps=2, moe_steps=2, bf16_steps=4,
+                ep_steps=3, moe_layers=None)
+
+
+def p15_predicted(T, cfg, part):
+    """The collectives of one train step of phase 15's parts, by phase
+    and kind, from the design (``parallel.mesh``'s convention; no remat).
+    tp, (1, 2): the embedding's psum, two row-parallel psums a layer and
+    the logits' all-gather forward; backward, an ``enter`` psum a layer's
+    attention input, one its MLP input and one the final norm's output
+    entering the vocab-split ``lm_head``; update, one scalar psum of the
+    norm (the model-split leaves). dp, (2, 1): the loss's psum forward;
+    update, one gradient sum a leaf. moe, (2, 1), experts on data: a
+    layer gathers the rows and sums the experts forward, a reduce-scatter
+    and a psum backward; update, a gradient sum a leaf but the three
+    routed-expert leaves, and the norm's psum over data. ep: two
+    all-to-alls a layer each way."""
+    L = cfg.num_layers
+    n = len(list(tree_leaves(T.init_params_meta(cfg))))
+    return {
+        "tp": {"forward": {"all-gather": 1, "all-reduce": 1 + 2 * L},
+               "backward": {"all-reduce": 2 * L + 1}, "update": {"all-reduce": 1}},
+        "dp": {"forward": {"all-reduce": 1}, "backward": {}, "update": {"all-reduce": n}},
+        "moe": {"forward": {"all-gather": L, "all-reduce": L + 1},
+                "backward": {"all-reduce": L, "reduce-scatter": L},
+                "update": {"all-reduce": n - 3 + 1}},
+        "ep": {"forward": {"all-reduce": 1, "all-to-all": 2 * L},
+               "backward": {"all-to-all": 2 * L}, "update": {"all-reduce": n - 3 + 1}},
+    }[part]
+
+
+def fmt_ms(xs):
+    return "[" + ", ".join(f"{x:.1f}" for x in xs) + "]"
+
+
+def tally_counts(tally):
+    return {ph: {k: v["count"] for k, v in by.items()} for ph, by in tally.items()}
+
+
+def p15_turns(store, tag, rank, world, fn):
+    """``fn()`` on each rank in turn, rank order, the others waiting: the
+    unsharded step runs on one rank at a time (memory)."""
+    if rank:
+        store.wait([f"{tag}/{rank - 1}"])
+    out = fn()
+    store.set(f"{tag}/{rank}", "1")
+    store.wait([f"{tag}/{world - 1}"])
+    return out
+
+
+def p15_timed_steps(step, params, opt, batches, mesh, device):
+    """Runs ``step`` over ``batches``; per step: losses, ms, the mesh's
+    collectives (tally) and their host-clock ms by phase."""
+    out = {"loss": [], "aux": [], "ms": [], "tally": [], "coll_ms": []}
+    for b in batches:
+        mesh.reset_tally()
+        sync(device)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        loss = float(m["loss"])        # a host sync: the step has ended
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["loss"].append(loss)
+        out["aux"].append(float(m["aux_loss"]))
+        out["tally"].append(mesh.tally())
+        out["coll_ms"].append({k: v * 1e3 for k, v in mesh.seconds.items()})
+    return params, opt, out
+
+
+def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, ref=True,
+             bf16=False, repeat=False, compare_at=None):
+    """One part of phase 15 on this rank: the dry run's count and bytes
+    for the case; the fp32 sharded steps (TF32 off) from phase 5's seeded
+    weights on ``sharded_batches``; with ``ref``, the unsharded step on
+    the same weights and global batches, each rank in turn, against this
+    rank's shards of the params and both moments after ``compare_at``
+    steps (all of them by default); with ``bf16``, a bf16 run of
+    ``bf16_steps`` on one repeated batch. ``repeat`` trains the fp32 run
+    on one repeated batch too (``ep_steps`` of them). An MoE part records
+    each layer's expert ids in both runs (``route_flips``: the tokens
+    whose ids differ, by step and layer)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe as MOE
+
+    T, SH, OPT, TR, DP, DR, RankMesh, InputShape = mods
+    timeout = datetime.timedelta(seconds=600)
+    mesh = RankMesh.build(dist.PrefixStore(tag, store), P15_AXES, shape, rank, device, timeout)
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh, **(extra or {}))
+    dcfg = DP.DataConfig(seq_len=st["seq"], global_batch=st["batch"])
+    ocfg = OPT.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    out = {"shape": shape, "layers": cfg.num_layers}
+
+    # the dry run of the same case: rank's meta inputs, counted step
+    dry = RankMesh.dry(P15_AXES, shape, rank)
+    _, drules, dstep, dargs = DR.input_specs(
+        cfg.name, InputShape(tag, "train", st["seq"], st["batch"]), dry, dtype="float32",
+        moments_dtype="float32", rules_override=extra, cfg_override=cfg, remat=False)
+    out["dry_bytes"] = DR.tree_bytes(dargs[0]) + DR.tree_bytes(dargs[1])
+    out["dry"] = tally_counts(DR.run_step(drules, dstep, dargs)[1])
+    del dargs
+
+    reset_peak(device)
+    full = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "float32")
+    specs = SH.param_specs(cfg, full, rules, mesh)
+    params = SH.shard_params(full, specs, mesh)
+    del full
+    reset_peak(device)
+    opt = OPT.init_opt_state(params)
+    n = (st["ep_steps"] if repeat else st["moe_steps"] if cfg.num_experts
+         else st["steps"])
+    k = compare_at or n
+    batches = list(DP.sharded_batches(cfg, dcfg, mesh, SH.batch_specs(rules)["tokens"], n))
+    if repeat:
+        batches = [batches[0]] * n
+    routes, ref_routes = [], []
+
+    def routing(sink):     # each moe.route call's (args, (weights, ids, aux))
+        return recorded(MOE, "route", sink) if cfg.num_experts else contextlib.nullcontext()
+
+    with routing(routes):
+        step = TR.make_train_step(cfg, ocfg)
+        with SH.use_rules(rules):
+            params, opt, run = p15_timed_steps(step, params, opt, batches[:k], mesh, device)
+        out["bytes"] = sum(t.numel() * t.element_size()
+                           for t in [*tree_leaves(params), *tree_leaves(opt)])
+        host = {name: {p: t.to("cpu", copy=True) for p, t in OPT.tree_items(tree)}
+                for name, tree in (("params", params), ("mu", opt["mu"]), ("nu", opt["nu"]))}
+        if k < n:
+            with SH.use_rules(rules):
+                params, opt, more = p15_timed_steps(step, params, opt, batches[k:], mesh,
+                                                    device)
+            for key, v in more.items():
+                run[key] += v
+    out.update(run, peak=peak_bytes(device), compared_steps=k)
+    del params, opt, batches
+    reset_peak(device)
+
+    if ref:
+        def compare(p, o):
+            errs = {}
+            for name, tree in (("params", p), ("mu", o["mu"]), ("nu", o["nu"])):
+                for (path, leaf), (_, spec) in zip(OPT.tree_items(tree), OPT.tree_items(specs)):
+                    want = SH.shard_leaf(leaf, spec, mesh).float()
+                    got = host[name][path].to(device).float()
+                    den = want.norm().item()
+                    errs[f"{name}/{'/'.join(path)}"] = ((got - want).norm().item() / den
+                                                        if den else (got - want).norm().item())
+            return errs
+
+        def reference():
+            reset_peak(device)
+            p = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "float32")
+            o = OPT.init_opt_state(p)
+            step = TR.make_train_step(cfg, ocfg)
+            losses, ms = [], []
+            with routing(ref_routes):
+                for i in range(n):
+                    b = DP.synth_batch(cfg, dcfg, 0 if repeat else i, device)
+                    sync(device)
+                    t = time.perf_counter()
+                    p, o, m = step(p, o, b)
+                    losses.append(float(m["loss"]))
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    if i + 1 == k:
+                        errs = compare(p, o)
+            peak = peak_bytes(device)
+            del p, o
+            reset_peak(device)
+            return {"ref_loss": losses, "ref_ms": ms, "errs": errs, "ref_peak": peak}
+
+        out.update(p15_turns(store, f"{tag}/ref", rank, world, reference))
+        out["route_flips"] = [int((a[1][1] != b[1][1]).any(-1).sum())
+                              for a, b in zip(routes, ref_routes)]
+    del host
+
+    if bf16:
+        full = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "bfloat16")
+        params = SH.shard_params(full, SH.param_specs(cfg, full, rules, mesh), mesh)
+        del full
+        reset_peak(device)
+        opt = OPT.init_opt_state(params)
+        b = next(DP.sharded_batches(cfg, dcfg, mesh, SH.batch_specs(rules)["tokens"], 1))
+        with SH.use_rules(rules):
+            params, opt, run = p15_timed_steps(TR.make_train_step(cfg, ocfg), params, opt,
+                                               [b] * st["bf16_steps"], mesh, device)
+        out["bf16"] = dict(run, peak=peak_bytes(device))
+        del params, opt
+        reset_peak(device)
+    return out
+
+
+def sharded_train_rank(rank, world, port, results, device="cuda"):
+    """One rank of phase 15, a spawned process: its meshes on the card
+    (gloo groups over a ``TCPStore``) and the parts of the module
+    docstring; puts (rank, measurements) on ``results``. ``device="cpu"``
+    rehearses the phase without a card (reduced configs)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import RankMesh
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as TR
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = (PD.paged_decode_attention, FA.flash_attention, DA.decode_attention, SS.ssd_scan)
+    before = [k.launches for k in kernels]
+    st = p15_settings(device)
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=rank == 0,
+                          timeout=datetime.timedelta(seconds=600))
+    mods = (T, SH, OPT, TR, DP, DR, RankMesh, InputShape)
+    res = {"device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
+    args = (mods, st, store, rank, world, device)
+    cfg = p13_config(get_config, "tinyllama-1.1b", st)
+    mcfg = p13_config(get_config, MOE_ARCH, st, layers=st["moe_layers"], experts=12)
+    for part, tag, c, shape, kw in (
+            ("tp", "15a", cfg, (1, 2), dict(bf16=True)),
+            ("dp", "15b", cfg, (2, 1), dict(bf16=True)),
+            ("moe", "15c", mcfg, (2, 1), dict(compare_at=1)),
+            ("ep", "15c-a2a", mcfg, (2, 1), dict(extra={"moe_a2a": True}, ref=False,
+                                                 repeat=True))):
+        t = time.perf_counter()
+        res[part] = p15_part(*args, tag, c, shape, **kw)
+        res[part]["predicted"] = p15_predicted(T, c, part)
+        res[part]["seconds"] = time.perf_counter() - t
+    res["launches"] = (before, [k.launches for k in kernels])
+    results.put((rank, res))
+
+
+def p15_gates(part, r, on_card):
+    """Phase 15's gates on one rank's result of one part."""
+    want = r["predicted"]
+    for i, t in enumerate(r["tally"]):
+        if tally_counts(t) != want:
+            raise AssertionError(f"{part}: step {i}'s collectives {tally_counts(t)}, "
+                                 f"predicted {want}")
+    if r["dry"] != want:
+        raise AssertionError(f"{part}: the dry run counts {r['dry']}, predicted {want}")
+    if r["bytes"] != r["dry_bytes"]:
+        raise AssertionError(f"{part}: {r['bytes']} B of params and moments, the dry run "
+                             f"{r['dry_bytes']}")
+    if "ref_loss" in r:
+        k = r["compared_steps"]
+        if any(r["route_flips"][:k * r["layers"]]):
+            raise AssertionError(f"{part}: expert ids differ from the unsharded step's in the "
+                                 f"compared steps: {r['route_flips']}")
+        for got, ref in zip(r["loss"][:k], r["ref_loss"][:k]):
+            if abs(got - ref) > 1e-5 * abs(ref):
+                raise AssertionError(f"{part}: loss {got} against the unsharded {ref}")
+        worst = max(r["errs"], key=r["errs"].get)
+        if r["errs"][worst] > 1e-4:
+            raise AssertionError(f"{part}: {worst} {r['errs'][worst]:.3e} from the unsharded "
+                                 f"step (tol 1e-4)")
+    else:   # the expert-parallel dispatch: no unsharded twin (ROADMAP C3)
+        if not (np.isfinite(r["aux"]).all() and r["loss"][-1] < r["loss"][0]):
+            raise AssertionError(f"{part}: aux {r['aux']}, loss {r['loss']}")
+    if "bf16" in r:
+        losses = r["bf16"]["loss"]
+        fall = losses[0] - losses[-1]
+        if not np.isfinite(losses).all() or fall <= (TRAIN_FALL if on_card else 0.0):
+            raise AssertionError(f"{part} bf16: losses {losses}")
+
+
+def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
+    """Phase 15: spawns the two ranks, waits for both (a rank that fails
+    fails the phase), gates and prints their parts, and gates the four
+    kernel counters unchanged on both ranks and here (15d)."""
+    import multiprocessing as mp
+    import queue
+
+    before = [k.launches for k in kernel_fns]
+    port = int(TR.free_tcp_endpoint().rsplit(":", 1)[1])
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_train_rank, args=(r, TRAIN_RANKS, port, results, device))
+             for r in range(TRAIN_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + 900
+        while len(got) < TRAIN_RANKS:
+            try:
+                rank, res = results.get(timeout=5)
+                got[rank] = res
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"phase 15: a rank failed (exit codes "
+                                         f"{[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if [p.exitcode for p in procs] != [0] * TRAIN_RANKS:
+        raise AssertionError(f"phase 15 exit codes {[p.exitcode for p in procs]}")
+    on_card = torch.device(device).type == "cuda"
+    log(f"[sharded-train] {TRAIN_RANKS} rank processes on one card ({got[0]['device']}) in "
+        f"gloo groups: two ranks sharing one card measure the program (every collective "
+        f"staged through the host), not the gain of sharding [{smi}]")
+    names = {"tp": "15a tensor parallel (1, 2)", "dp": "15b data parallel (2, 1)",
+             "moe": "15c moe scatter dispatch (2, 1)", "ep": "15c moe all-to-all dispatch (2, 1)"}
+    for part, what in names.items():
+        r0, r1 = got[0][part], got[1][part]
+        for r in (r0, r1):
+            p15_gates(part, r, on_card)
+        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(r0["loss"], r1["loss"])):
+            raise AssertionError(f"{part}: the ranks' losses differ: {r0['loss']} / {r1['loss']}")
+        tokens = p15_settings(device)["batch"] * p15_settings(device)["seq"]
+        # the first step of a run warms up (allocator, cuBLAS, gloo buffers)
+        step_ms = median(r0["ms"][1:])
+        coll = {ph: median([c.get(ph, 0.0) for c in r0["coll_ms"][1:]])
+                for ph in ("forward", "backward", "update")}
+        nbytes = {ph: {k: v["bytes"] for k, v in by.items()} for ph, by in r0["tally"][0].items()}
+        log(f"[sharded-train] {what}: {r0['layers']} layers, fp32, collectives per step "
+            f"{r0['predicted']} = predicted = the dry run's (launch.dryrun); their bytes "
+            f"{nbytes}; params + moments {r0['bytes']} B a rank = the dry run's "
+            f"per_device_arg_bytes params + opt_state")
+        line = (f"[sharded-train] {what}: step ms {fmt_ms(r0['ms'])} (warm median {step_ms:.1f}, "
+                f"{tokens / step_ms * 1e3:.0f} tokens/s of both ranks); staged-collective ms "
+                f"a step (rank 0, host clock) forward {coll['forward']:.1f}, backward "
+                f"{coll['backward']:.1f}, update {coll['update']:.1f}; peak device memory "
+                f"{r0['peak']} / {r1['peak']} B (ranks 0 / 1)")
+        if "ref_loss" in r0:
+            errs = {**r0["errs"], **{k + " (rank 1)": v for k, v in r1["errs"].items()}}
+            worst = max(errs, key=errs.get)
+            line += (f"; the unsharded step {fmt_ms(r0['ref_ms'])} ms (peak {r0['ref_peak']} "
+                     f"B); losses {[f'{x:.6f}' for x in r0['loss']]} against "
+                     f"{[f'{x:.6f}' for x in r0['ref_loss']]} (gated over the first "
+                     f"{r0['compared_steps']}); worst shard after step "
+                     f"{r0['compared_steps']}: {worst} {errs[worst]:.3e} (tol 1e-4)")
+            if r0["route_flips"]:
+                line += (f"; tokens whose expert ids differ from the unsharded step's, by "
+                         f"step and layer: {r0['route_flips']}")
+        else:
+            line += (f"; losses {[f'{x:.4f}' for x in r0['loss']]} on one repeated batch, aux "
+                     f"{[f'{x:.4f}' for x in r0['aux']]} (routes per rank: no unsharded twin)")
+        log(line + f"; part {r0['seconds']:.1f} s [{smi}]")
+        if "bf16" in r0:
+            b = r0["bf16"]
+            log(f"[sharded-train] {what}, bf16: {len(b['loss'])} steps on one repeated batch, "
+                f"loss {b['loss'][0]:.4f} -> {b['loss'][-1]:.4f} (gate: falls more than "
+                f"{TRAIN_FALL}), warm step median {median(b['ms'][1:]):.1f} ms, update "
+                f"collectives median "
+                f"{median([c.get('update', 0.0) for c in b['coll_ms'][1:]]):.1f} ms, peak "
+                f"{b['peak']} B [{smi}]")
+    for r in (0, 1):
+        a, b = got[r]["launches"]
+        if a != b:
+            raise AssertionError(f"phase 15 rank {r}: kernel launches {a} -> {b}")
+    after = [k.launches for k in kernel_fns]
+    if after != before:
+        raise AssertionError(f"kernel launches during phase 15: {before} -> {after}")
+    log(f"[sharded-train] 15d kernel launches unchanged across phase 15: here {after}, rank 0 "
+        f"{got[0]['launches'][1]}, rank 1 {got[1]['launches'][1]} (paged, flash, decode, SSD)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4822,6 +5243,14 @@ def main():
     training_phase((PD.paged_decode_attention, FA.flash_attention, DA.decode_attention,
                     SS.ssd_scan), get_config, out_dir, smi)
     log(f"[train] phase 14 in {time.perf_counter() - t:.1f} s")
+
+    # phase 15: the sharded train step across two ranks sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sharded_train_phase(TR, smi, (PD.paged_decode_attention, FA.flash_attention,
+                                  DA.decode_attention, SS.ssd_scan))
+    log(f"[sharded-train] phase 15 in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,8 +3,9 @@
 Devices model the paper's testbed (A100-40GB) by default but take arbitrary
 compute/memory/bandwidth. Module memory/compute footprints come from the
 analytic Table-1 model in :func:`module_profile`. Copy of
-``repro.core.cluster`` for the port, without its dry-run target preset
-(the dry-run tooling is not ported).
+``repro.core.cluster`` for the port, whose dry-run target is the H100
+(``Cluster.h100``) where the reference's is the TPU v5e
+(``tpu_v5e``).
 """
 from __future__ import annotations
 
@@ -56,6 +57,19 @@ class Cluster:
             devices=[Device(i, mem_capacity=mem_gb * GB,
                             compute_flops=flops) for i in range(n)],
             link_bandwidth=link_gbps * GB)
+
+    @staticmethod
+    def h100(n: int) -> "Cluster":
+        """The port's dry-run target: ``n`` NVIDIA H100 SXM cards, each
+        80 GB of HBM3 and 989 TFLOP/s dense bf16, joined by NVLink at
+        450 GB/s a direction (NVIDIA's H100 data sheet, SXM column;
+        decimal GB). The chip machine's card reports itself as "NVIDIA
+        H100 80GB HBM3, 700.00 W" (``nvidia-smi --query-gpu=name,
+        power.limit``); at a lower power limit a card runs slower."""
+        return Cluster(
+            devices=[Device(i, mem_capacity=80e9, compute_flops=989e12)
+                     for i in range(n)],
+            link_bandwidth=450e9)
 
 
 # --------------------------------------------------------- module footprints

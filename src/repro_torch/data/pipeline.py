@@ -4,8 +4,8 @@ PyTorch counterpart of ``repro.data.pipeline``: a deterministic token
 stream shaped like a packed LM dataset (documents separated by an EOS
 id, next-token labels, a loss mask), drawn from the same numpy
 ``default_rng`` stream as the reference, so a batch is bit-identical to
-the reference's. ``sharded_batches`` (batches placed on a mesh) waits for
-the sharded train step (ROADMAP A11b).
+the reference's. ``sharded_batches`` gives one rank of a mesh its rows
+of each batch, as the reference's places a batch on its mesh.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import shard_leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +58,12 @@ def batches(cfg: ModelConfig, dcfg: DataConfig,
 
 def sharded_batches(cfg: ModelConfig, dcfg: DataConfig, mesh, batch_spec,
                     num_steps: Optional[int] = None) -> Iterator[dict]:
-    raise NotImplementedError(
-        "sharded_batches places each batch on a mesh for the sharded train "
-        "step, which is not ported (ROADMAP A11b)")
+    """This rank's part of each ``synth_batch`` global batch under
+    ``batch_spec`` (a spec tuple, e.g. ``("data", None)``, the reference's
+    ``PartitionSpec`` applied to every leaf) on ``mesh`` (a
+    ``parallel.mesh.RankMesh``), on the mesh's device: the rows of the
+    row-major split over the batch axes (``mesh.axes_index``). A dim that
+    does not divide raises, as a ``NamedSharding`` would."""
+    for b in batches(cfg, dcfg, num_steps):
+        yield {k: shard_leaf(v, batch_spec, mesh).to(mesh.device)
+               for k, v in b.items()}

@@ -245,10 +245,18 @@ class Heads:
                        if torch.is_tensor(self.kv) else self.kv] for t in ts)
 
     def local(self, t, dim=2):
-        """This rank's heads of a per-head tensor that holds them all."""
+        """This rank's heads of a per-head tensor that holds them all
+        (replicated over ``axis``: its cotangent is summed there,
+        ``enter``)."""
         if self.axis is None or t.shape[dim] == self.n:
             return t
-        return t.narrow(dim, self.h0, self.n)
+        return self.enter(t).narrow(dim, self.h0, self.n)
+
+    def enter(self, t):
+        """``t``, replicated over ``axis``, entering this rank's heads:
+        the identity, whose backward sums the cotangent over ``axis``
+        (``parallel.mesh``'s convention)."""
+        return t if self.axis is None else self.mesh.enter(t, self.axis)
 
     def reduce(self, y):
         """The output projection's partial sums over the split heads
@@ -286,6 +294,15 @@ def psum_split(y, logical: str, local: int, full: int):
     return y if axis is None else rule_mesh(SH.current_rules()).psum(y, axis)
 
 
+def enter_split(x, logical: str, local: int, full: int):
+    """``x``, replicated, entering a computation over this rank's
+    ``local`` of ``full`` entries: ``RankMesh.enter`` over the axis that
+    splits them (``x`` itself when nothing is split)."""
+    axis = split_axis(logical, local, full)
+    return x if axis is None else rule_mesh(SH.current_rules()).enter(x,
+                                                                      axis)
+
+
 def cache_span(m_local: int):
     """(M, lo, axis) of a cache whose sequence this rank holds ``m_local``
     slots of: the whole cache's capacity, the first slot this rank holds
@@ -309,6 +326,8 @@ def write_slots(t, slots, vals):
     them."""
     B, S = slots.shape
     M, lo, _ = cache_span(t.shape[1])
+    if t.device.type == "meta":     # no data to write (a dry run)
+        return
     s0 = max(S - M, 0)
     sl, vv = slots[:, s0:], vals[:, s0:].to(t.dtype)
     bidx = torch.arange(B, device=slots.device)[:, None].expand_as(sl)
@@ -334,15 +353,24 @@ def init_gqa(cfg: ModelConfig, gen, dtype, *, lead=()):
     }
 
 
-def _qkv(p, x, cfg: ModelConfig, positions, rope=None):
-    q = _einsum("bsd,dhk->bshk", x, p["wq"])
-    k = _einsum("bsd,dhk->bshk", x, p["wk"])
-    v = _einsum("bsd,dhk->bshk", x, p["wv"])
+def _qkv(p, x, cfg: ModelConfig, positions, rope=None, heads=None):
+    """q, k, v at ``heads`` (this rank's, or all of them): ``x`` enters
+    the split projections (``Heads.enter``); K/V heads that stay whole
+    under split query heads are computed whole and enter where this
+    rank's query heads pick from them."""
+    whole_kv = heads is not None and heads.kv is not None
+    xs = x if heads is None else heads.enter(x)
+    xkv = x if whole_kv else xs
+    q = _einsum("bsd,dhk->bshk", xs, p["wq"])
+    k = _einsum("bsd,dhk->bshk", xkv, p["wk"])
+    v = _einsum("bsd,dhk->bshk", xkv, p["wv"])
     if cfg.use_qk_norm:
         q, k = rms_norm_dim(q), rms_norm_dim(k)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta, rope)
         k = apply_rope(k, positions, cfg.rope_theta, rope)
+    if whole_kv:
+        k, v = heads.enter(k), heads.enter(v)
     return q, k, v
 
 
@@ -409,7 +437,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
             out = attention(q, k, v, causal=False, chunk=512)
         out = out.reshape(B, S, heads.n * hd)
         return heads.reduce(_einsum("bsh,hd->bsd", out, p["wo"])), None
-    q, k, v = _qkv(p, x, cfg, positions, rope)
+    q, k, v = _qkv(p, x, cfg, positions, rope, heads)
     if cache is None:
         out = attention(q, *heads.select_kv(k, v), q_positions=positions,
                         window=window, causal=causal,
@@ -596,12 +624,14 @@ def init_mla(cfg: ModelConfig, gen, dtype, *, lead=()):
     return p
 
 
-def _mla_q(p, x, cfg, positions, rope=None):
+def _mla_q(p, x, cfg, positions, rope, heads):
+    """The queries at ``heads``: the replicated input of the head-split
+    projection (``x``, or the low-rank ``x . wq_a``) enters it."""
     if cfg.q_lora_rank:
         q = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
-        q = torch.einsum("bsr,rhk->bshk", q, p["wq_b"])
+        q = torch.einsum("bsr,rhk->bshk", heads.enter(q), p["wq_b"])
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q = torch.einsum("bsd,dhk->bshk", heads.enter(x), p["wq"])
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions,
                         cfg.rope_theta, rope)
@@ -645,11 +675,14 @@ def apply_mla_prefill(p, x, cfg: ModelConfig, *, positions, cache=None,
     B, S, _ = x.shape
     heads, wk_b, wv_b = _mla_heads(p, cfg)
     H = heads.n
-    q_nope, q_rope = _mla_q(p, x, cfg, positions, rope)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, rope, heads)
     c_kv, k_rope = _mla_latents(p, x, cfg, positions, rope)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, wk_b)
-    v = torch.einsum("bsr,rhk->bshk", c_kv, wv_b)
-    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_head_dim)
+    # the latents are whole on every rank and enter its heads
+    c_in = heads.enter(c_kv)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_in, wk_b)
+    v = torch.einsum("bsr,rhk->bshk", c_in, wv_b)
+    k_rope_b = heads.enter(k_rope)[:, :, None, :].expand(
+        B, S, H, cfg.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope_b], -1)
     out = attention(q, k, v, q_positions=positions, window=window)
@@ -676,7 +709,7 @@ def apply_mla_decode(p, x, cfg: ModelConfig, *, positions, cache, slots,
     Returns (out, cache)."""
     B, S, _ = x.shape
     heads, wk_b, wv_b = _mla_heads(p, cfg)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions, rope)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, rope, heads)
     c_new, kr_new = _mla_latents(p, x, cfg, positions, rope)
     _write_latents(cache, slots, c_new, kr_new)
     m_local = cache["c"].shape[1]
@@ -769,6 +802,7 @@ def _silu(x):
 def apply_mlp(p, x, cfg: ModelConfig):
     """The MLP; under sharding rules at this rank's slice of ``d_ff``
     (column-parallel up, row-parallel down), ending in a ``psum``."""
+    x = enter_split(x, "ffn", p["w_down"].shape[-2], cfg.d_ff)
     if cfg.ffn_kind == "gelu":
         h = _gelu(_einsum("bsd,df->bsf", x, p["w_up"]))
         y = _einsum("bsf,fd->bsd", h, p["w_down"])

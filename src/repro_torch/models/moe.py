@@ -92,11 +92,17 @@ def _one_hot(idx, n, dtype):
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def _acc(dtype) -> torch.dtype:
+    """The routing and combine type: fp32, or ``dtype`` where it is
+    wider (a float64 forward, as a finite-difference check runs)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def route(p, x, cfg: ModelConfig):
     """Router: returns (weights [.., k] in x's type, idx [.., k] int64,
     aux_loss fp32 scalar)."""
     E = cfg.padded_experts(EXPERT_AXIS_PAD)
-    logits = x.float() @ p["router"]
+    logits = x.to(_acc(x.dtype)) @ p["router"]
     if E > cfg.num_experts:  # mask padding experts
         pad_mask = torch.arange(E, device=x.device) >= cfg.num_experts
         logits = torch.where(pad_mask, -1e30, logits)
@@ -211,7 +217,9 @@ def _moe_scatter(p, x, weights, idx, cfg, capacity_factor=1.25):
 def _swiglu_split(x, w, d_ff: int):
     """``_swiglu`` at this rank's slice of the branch's ``d_ff``, summed
     across the ``ffn`` axis where it is split."""
-    return L.psum_split(_swiglu(x, w), "ffn", w["w_down"].shape[-2], d_ff)
+    n = w["w_down"].shape[-2]
+    y = _swiglu(L.enter_split(x, "ffn", n, d_ff), w)
+    return L.psum_split(y, "ffn", n, d_ff)
 
 
 def _batch_axes(rules):
@@ -226,26 +234,39 @@ def _routed_split(p, x, cfg, dispatch, rules):
     over the batch axes first (minor axis first, the row-major split),
     so capacities, slots and the load-balance loss are the whole
     dispatch's, as in the reference; this rank keeps its rows of the
-    sum. Returns (out, aux)."""
+    sum. Returns (out, aux).
+
+    Gradients (``parallel.mesh``'s convention): over a batch axis the
+    ranks' cotangents of the gathered rows differ (each keeps its own
+    rows of the sum), so the sum over it takes a psum backward and the
+    gather a reduce-scatter; over any other axis that splits the experts
+    (or their ``d_ff``), the replicated rows and gate weights enter the
+    split and the sum passes its cotangent through."""
     mesh = L.rule_mesh(rules)
+    batch = _batch_axes(rules)
     x_all = x
-    for a in reversed(_batch_axes(rules)):
-        x_all = mesh.all_gather(x_all, a, dim=0)
+    for a in reversed(batch):
+        x_all = mesh.all_gather(x_all, a, dim=0, grad="reduce_scatter")
     weights, idx, aux = route(p, x_all, cfg)
     E = cfg.padded_experts(EXPERT_AXIS_PAD)
     E_loc = p["w_gate"].shape[-3]
     e_axis = L.split_axis("experts", E_loc, E)
     e0 = mesh.axes_index(e_axis) * E_loc if e_axis else 0
-    if dispatch == "dense":
-        out = _moe_dense(p, x_all, weights, idx, cfg, e0)
-    else:
-        out = _scatter_sum(p, x_all, weights, idx, cfg, e0=e0)
     f_axis = L.split_axis("ffn", p["w_down"].shape[-2], cfg.d_ff)
-    for a in dict.fromkeys(a for a in (e_axis, f_axis) if a):
-        out = mesh.psum(out, a)
+    split = tuple(dict.fromkeys(a for a in (e_axis, f_axis) if a))
+    x_in = x_all
+    for a in split:
+        if a not in batch:
+            x_in, weights = mesh.enter(x_in, a), mesh.enter(weights, a)
+    if dispatch == "dense":
+        out = _moe_dense(p, x_in, weights, idx, cfg, e0)
+    else:
+        out = _scatter_sum(p, x_in, weights, idx, cfg, e0=e0)
+    for a in split:
+        out = mesh.psum(out, a, grad="psum" if a in batch else "identity")
     out = out.reshape(x_all.shape).to(x.dtype)
     if x_all is not x:
-        i = mesh.axes_index(_batch_axes(rules)) * x.shape[0]
+        i = mesh.axes_index(batch) * x.shape[0]
         out = out[i:i + x.shape[0]]
     return out, aux
 
@@ -310,12 +331,15 @@ def _moe_expert_parallel(p, x, weights, idx, cfg: ModelConfig, rules,
     ``cap_e`` rows per local expert (a row past ``cap_e`` is dropped),
     runs its experts, sums the ``d_ff`` slices over ``ffn``, and sends
     the outputs back, where they are combined with the router's weights
-    in fp32. Two all-to-alls: the tokens, their local expert ids and
-    gate weights travel together in one fp32 buffer (ids below 2**24 and
-    bf16 widen exactly), and the outputs come back in x's type. The
-    slots dropped on this rank (at its send buckets and at its experts)
-    are added to ``rules["mesh"].moe_dropped`` as a device scalar (no
-    host sync). Returns [Bl, S, d] in x's type."""
+    in fp32 (``_acc``: float64 for a float64 forward). Two all-to-alls:
+    the tokens, their local expert ids and gate weights travel together
+    in one buffer of that type (ids below 2**24 and bf16 widen exactly),
+    and the outputs come back in x's type. Under autograd each
+    all-to-all's backward is the same all-to-all of the cotangent, and
+    the received tokens enter the ``ffn`` split. The slots dropped on
+    this rank (at its send buckets and at its experts) are added to
+    ``rules["mesh"].moe_dropped`` as a device scalar (no host sync).
+    Returns [Bl, S, d] in x's type."""
     mesh = L.rule_mesh(rules)
     exp_axis = rules.get("experts")
     n_dest = mesh.axis_size(exp_axis)
@@ -332,24 +356,26 @@ def _moe_expert_parallel(p, x, weights, idx, cfg: ModelConfig, rules,
     cap = -(-cap // 8) * 8
     cap_e = int(max(8, round(n_dest * cap * 1.3 / E_loc)))
     cap_e = -(-cap_e // 8) * 8
+    acc = _acc(x.dtype)
     xf = x.reshape(T, d)
-    w_f = weights.reshape(T, k).float()
+    w_f = weights.reshape(T, k).to(acc)
     idx_f = idx.reshape(T, k)
     dest = idx_f // E_loc                      # [T,k] destination rank
     e_loc = idx_f % E_loc                      # local expert id there
     poss, keeps = _dispatch_plan(dest, n_dest, cap, drop_at=cap)
     # send buffer [n_dest, cap + 1, d + 2]: the token, its local expert
     # id and its gate weight; row ``cap`` takes the dropped slots
-    send = torch.zeros((n_dest, cap + 1, d + 2), dtype=torch.float32,
-                       device=x.device)
+    send = torch.zeros((n_dest, cap + 1, d + 2), dtype=acc, device=x.device)
     for j in range(k):
-        row = torch.cat([torch.where(keeps[j][:, None], xf, 0).float(),
-                         e_loc[:, j:j + 1].float(),
+        row = torch.cat([torch.where(keeps[j][:, None], xf, 0).to(acc),
+                         e_loc[:, j:j + 1].to(acc),
                          torch.where(keeps[j], w_f[:, j], 0.0)[:, None]], 1)
         send[dest[:, j], poss[j]] = row
     recv = mesh.all_to_all(send[:, :cap].contiguous(), exp_axis)
     Tr = n_dest * cap
     rxf = recv[..., :d].reshape(Tr, d).to(x.dtype)
+    if rules.get("ffn"):     # the tokens enter this rank's d_ff slice
+        rxf = mesh.enter(rxf, rules["ffn"])
     ref_ = recv[..., d].reshape(Tr).long()
     rgf = recv[..., d + 1].reshape(Tr)
     valid = rgf > 0                            # unfilled slots are junk
@@ -366,11 +392,11 @@ def _moe_expert_parallel(p, x, weights, idx, cfg: ModelConfig, rules,
         y_tok = mesh.psum(y_tok, rules["ffn"])
     ry = mesh.all_to_all(y_tok.to(x.dtype).reshape(n_dest, cap, d),
                          exp_axis)             # back at the source rank
-    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    out = torch.zeros((T, d), dtype=acc, device=x.device)
     for j in range(k):
         got = ry[dest[:, j], poss[j].clamp(max=cap - 1)]
         got = torch.where(keeps[j][:, None], got, 0)
-        out = out + got.float() * w_f[:, j:j + 1]
+        out = out + got.to(acc) * w_f[:, j:j + 1]
     dropped = sum((~kp).sum() for kp in keeps) + (valid & ~keep_e).sum()
     mesh.moe_dropped = mesh.moe_dropped + dropped
     return out.reshape(Bl, S, d).to(x.dtype)

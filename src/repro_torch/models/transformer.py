@@ -22,11 +22,13 @@ SSM states, the paged pool) are updated IN PLACE, where the reference
 rebuilt them functionally.
 
 Under sharding rules (``parallel.sharding.use_rules``) ``forward`` runs
-one rank's part of the reference's sharded serving step for the
-decoders (``SHARDED``): a vocab-split embedding (a masked lookup and a
-``psum``) and logits (an all-gather), the layers at the rank's shard
+one rank's part of the reference's sharded serving or train step for
+the decoders (``SHARDED``): a vocab-split embedding (a masked lookup and
+a ``psum``) and logits (an all-gather), the layers at the rank's shard
 (``models/layers.py``, ``models/moe.py``) and its cache shard
-(``init_cache_shard``).
+(``init_cache_shard``); the collectives carry their backward
+(``parallel.mesh``), where the replicated final norm enters a
+vocab-split ``lm_head`` or tied table.
 
 Two routes pick kernels where the reference computes plainly, the same
 function held to the same computation: ``attn_impl="kernel"`` sends a
@@ -219,6 +221,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     return params
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` reads ``meta``: ``init_params``
+    allocates on ``gen.device``, and a draw into a meta tensor reads no
+    generator state."""
+    device = torch.device("meta")
+
+
+def init_params_meta(cfg: ModelConfig, dtype="bfloat16"):
+    """``init_params``' tree as meta tensors: every shape and type,
+    nothing allocated (the reference's ``jax.eval_shape(init_params)``)."""
+    return init_params(cfg, _MetaGenerator(), dtype)
+
+
 # ====================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype="bfloat16",
                device="cuda"):
@@ -327,11 +342,14 @@ def unembed(params, cfg: ModelConfig, x):
     columns masked). A vocab-split ``lm_head`` (or tied table) gives this
     rank's columns, gathered across the ``vocab`` axis."""
     x = L.apply_norm(params["final_norm"], x, cfg)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    n_local = table.shape[0 if cfg.tie_embeddings else 1]
+    x = L.enter_split(x, "vocab", n_local, cfg.padded_vocab)
     if cfg.tie_embeddings:
-        logits = torch.einsum("...d,vd->...v", x, params["embed"])
+        logits = torch.einsum("...d,vd->...v", x, table)
     else:
-        logits = torch.einsum("...d,dv->...v", x, params["lm_head"])
-    axis = L.split_axis("vocab", logits.shape[-1], cfg.padded_vocab)
+        logits = torch.einsum("...d,dv->...v", x, table)
+    axis = L.split_axis("vocab", n_local, cfg.padded_vocab)
     if axis is not None:
         logits = L.rule_mesh(SH.current_rules()).all_gather(logits, axis, -1)
     logits = logits.float()

@@ -1,10 +1,11 @@
 """The port's device mesh: this rank's place on named axes, and the
-collectives of one axis line.
+collectives of one axis line, differentiable.
 
-Counterpart of the ``jax.sharding.Mesh`` the reference's sharded serving
-step runs on. The reference is one controller over every device: GSPMD
-and ``shard_map`` insert the collectives. Here every rank runs the same
-program on its own shard and calls them itself:
+Counterpart of the ``jax.sharding.Mesh`` the reference's sharded steps
+run on. The reference is one controller over every device: GSPMD and
+``shard_map`` insert the collectives, and ``jax.grad`` transposes them.
+Here every rank runs the same program on its own shard and calls them
+itself:
 
 * ``RankMesh(axis_names, shape, rank, device, groups)``: ``rank`` is the
   row-major index into ``shape`` (the reference's ``mesh.devices``
@@ -13,26 +14,68 @@ program on its own shard and calls them itself:
   line along the axis). A size-1 axis has no group, and its collectives
   return their input. ``RankMesh.build`` makes those groups as
   ``ProcessGroupGloo(PrefixStore(f"{axis}/{line}", store), i, n)``.
+  ``RankMesh.dry`` is rank 0's view of a mesh with no group at all: its
+  collectives record their kind and bytes and return tensors of the
+  right shape without reducing, so a step runs on meta tensors
+  (``launch/dryrun.py``).
 * ``axis_names``, ``shape``, ``devices.shape``, ``axis_size``,
   ``axis_index`` and ``coords``: what ``parallel.sharding`` reads, as the
   reference reads a ``Mesh``.
 * ``psum`` / ``pmax`` / ``all_gather`` / ``all_to_all`` over one axis,
-  each counted on ``collectives`` by the reference's HLO name
-  (``all-reduce``, ``all-gather``, ``all-to-all``; ``pmax`` is an
-  all-reduce there too). Only ``allreduce`` is called, the one
-  collective both gloo and NCCL take for CUDA tensors with every op
+  and ``enter`` (the identity, whose backward is a ``psum``). Each
+  collective is counted on ``collectives`` by the reference's HLO name
+  (``all-reduce``, ``all-gather``, ``all-to-all``, ``reduce-scatter``;
+  ``pmax`` is an all-reduce there too), and by phase on ``tally()``:
+  ``forward`` (a recomputed forward under remat counts again),
+  ``backward`` (the conjugates below) and ``update`` (the train step's
+  gradient sums and norm, ``psum_``). Only ``allreduce`` is called, the
+  one collective both gloo and NCCL take for CUDA tensors with every op
   here: the gather and the all-to-all are all-reduces of zero-filled
   buffers with one writer per element, which is exact. ``pmax`` reduces
   with MAX. Nothing falls back: a collective that fails raises.
 
+Gradients (``torch.autograd``) follow one convention, Megatron's: a
+tensor that is the same on every rank of an axis (replicated) carries
+the WHOLE cotangent on every rank of it. So:
+
+* ``psum(grad="identity")`` (the default): the output is replicated and
+  each rank's cotangent is already the whole one; it passes through. The
+  row-parallel sums (``wo``, ``w_down``) and the vocab-split embedding.
+* ``all_gather(grad="slice")`` (the default): each rank keeps its own
+  slice of the whole cotangent. The vocab-split logits.
+* ``enter``: where a replicated tensor enters a computation split over
+  the axis (column-parallel q/k/v and ``w_gate`` / ``w_up``, the
+  vocab-split ``lm_head``, the experts' ``d_ff`` slices, K/V heads that
+  stay whole under split query heads), each rank's cotangent is a
+  partial sum, and the backward sums them: identity forward, ``psum``
+  backward.
+* Where the ranks of an axis hold different rows (a batch axis) and a
+  replicated result is sliced per rank afterwards, its cotangent differs
+  per rank: ``psum(grad="psum")`` and ``all_gather(grad="reduce_scatter")``
+  (a psum, then this rank's slice) sum them. The MoE dispatch under
+  rules (``models/moe.py`` ``_routed_split``) gathers the batch's rows,
+  sums the experts over ``data`` and keeps its rows; these are its two.
+* ``all_to_all``'s backward is the inverse all-to-all, itself.
+* ``pmax`` (flash-decoding, which training never reaches) has no
+  backward: it raises.
+
+Every backward clones before it reduces, as every forward does: the
+all-reduce is in place. Every rank must run the same collectives in the
+same order, backward too; the same program on every rank builds the
+same autograd graph.
+
 Every group is explicit, never the default one, so ranks can be threads
 of one process (the CPU tests) or one process per card; two ranks that
-share a card take gloo (NCCL refuses two ranks on one device).
+share a card take gloo (NCCL refuses two ranks on one device). On the
+card two ranks must be processes: CUDA autograd runs one worker thread
+per device, so two thread-ranks' backward collectives would wait on each
+other in it.
 """
 from __future__ import annotations
 
 import collections
 import datetime
+import time
 import types
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -42,12 +85,15 @@ import torch.distributed as dist
 
 from repro_torch.serving import instrument as INS
 
+PHASES = ("forward", "backward", "update")
+
+
 class RankMesh:
     """One rank's view of a mesh ``shape`` over ``axis_names``."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
                  rank: int, device, groups: Optional[Dict[str, object]]
-                 = None):
+                 = None, *, dry: bool = False):
         self.axis_names = tuple(axis_names)
         self.shape = tuple(int(n) for n in shape)
         if len(self.axis_names) != len(self.shape):
@@ -63,10 +109,12 @@ class RankMesh:
         # what the sharding rules read of a Mesh: names and devices.shape
         self.devices = types.SimpleNamespace(shape=self.shape)
         self.groups = dict(groups or {})
+        self.is_dry = dry
         for a, n in zip(self.axis_names, self.shape):
-            if n > 1 and self.groups.get(a) is None:
+            if n > 1 and not dry and self.groups.get(a) is None:
                 raise ValueError(f"axis {a!r} of size {n} needs a group")
         self.collectives: collections.Counter = collections.Counter()
+        self.reset_tally()
         # slots the expert-parallel MoE dispatch dropped on this rank (a
         # device scalar once it has run: read it after a step)
         self.moe_dropped = 0
@@ -90,6 +138,14 @@ class RankMesh:
                 dist.PrefixStore(f"{a}/{line}", store), int(coords[i]), n,
                 timeout)
         return cls(axis_names, shape, rank, device, groups)
+
+    @classmethod
+    def dry(cls, axis_names, shape, rank: int = 0,
+            device="meta") -> "RankMesh":
+        """``rank``'s view of a mesh with no groups: its collectives are
+        counted (kind, bytes, phase) and return tensors of the right
+        shape, unreduced (on meta tensors, nothing is allocated)."""
+        return cls(axis_names, shape, rank, device, dry=True)
 
     # ------------------------------------------------------------ geometry
     def axis_size(self, name: str) -> int:
@@ -116,62 +172,193 @@ class RankMesh:
             i = i * self.axis_size(a) + self.axis_index(a)
         return i
 
+    # ---------------------------------------------------------------- tally
+    def reset_tally(self):
+        """Zero the per-phase counts, bytes and seconds (``tally``);
+        ``collectives`` keeps counting."""
+        self._tally = {ph: {"count": collections.Counter(),
+                            "bytes": collections.Counter()}
+                       for ph in PHASES}
+        self.seconds = collections.Counter()
+
+    def tally(self) -> dict:
+        """``{phase: {kind: {"count", "bytes"}}}`` since ``reset_tally``
+        (phases: ``forward``, ``backward``, ``update``)."""
+        return {ph: {k: {"count": t["count"][k], "bytes": t["bytes"][k]}
+                     for k in sorted(t["count"])}
+                for ph, t in self._tally.items()}
+
     # --------------------------------------------------------- collectives
-    def _reduce(self, kind, axis, t, op=dist.ReduceOp.SUM):
-        """All-reduce ``t`` in place over ``axis`` (counted as ``kind``);
-        ``t`` itself on a size-1 axis."""
+    def _reduce(self, kind, axis, t, op=dist.ReduceOp.SUM, phase="forward"):
+        """All-reduce ``t`` in place over ``axis`` (counted as ``kind`` in
+        ``phase``); ``t`` itself on a size-1 axis. A dry mesh counts and
+        returns ``t`` as it is."""
         if self.axis_size(axis) == 1:
+            return t
+        self.collectives[kind] += 1
+        self._tally[phase]["count"][kind] += 1
+        self._tally[phase]["bytes"][kind] += t.numel() * t.element_size()
+        if self.is_dry:
             return t
         pg = self.groups[axis]
         opts = dist.AllreduceOptions()
         opts.reduceOp = op
         staged = self.device.type == "cuda" and pg.name() == "gloo"
-        self.collectives[kind] += 1
+        t0 = time.perf_counter()
         INS.collective(lambda: pg.allreduce([t], opts).wait(), staged=staged)
+        self.seconds[phase] += time.perf_counter() - t0
         return t
 
-    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``x`` over ``axis`` (a new tensor)."""
-        return self._reduce("all-reduce", axis, x.contiguous().clone())
+    def psum(self, x: torch.Tensor, axis: str, grad: str = "identity"
+             ) -> torch.Tensor:
+        """The sum of ``x`` over ``axis`` (a new tensor where the axis has
+        more than one rank). Its backward is
+        the identity, or with ``grad="psum"`` a psum (module
+        docstring)."""
+        if self.axis_size(axis) == 1:
+            return x
+        if grad not in ("identity", "psum"):
+            raise ValueError(f"psum's backward is 'identity' or 'psum', "
+                             f"not {grad!r}")
+        return _Psum.apply(x, self, axis, grad)
+
+    def psum_(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` summed over ``axis`` IN PLACE, outside autograd, counted
+        in the ``update`` phase (the train step's gradient sums and its
+        norm)."""
+        return self._reduce("all-reduce", axis, t, phase="update")
+
+    def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` itself, whose cotangent is summed over ``axis`` in the
+        backward: where a tensor replicated over ``axis`` enters a
+        computation split over it (module docstring)."""
+        if self.axis_size(axis) == 1 or not (torch.is_grad_enabled()
+                                             and x.requires_grad):
+            return x
+        return _Enter.apply(x, self, axis)
 
     def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The elementwise max of ``x`` over ``axis`` (a new tensor)."""
-        return self._reduce("all-reduce", axis, x.contiguous().clone(),
-                            dist.ReduceOp.MAX)
+        """The elementwise max of ``x`` over ``axis`` (a new tensor); no
+        backward."""
+        if self.axis_size(axis) == 1:
+            return x
+        return _Pmax.apply(x, self, axis)
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int
-                   ) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int,
+                   grad: str = "slice") -> torch.Tensor:
         """The shards of ``axis`` concatenated along ``dim`` in axis
         order: an all-reduce of a zero-filled full buffer into which each
-        rank has written its own shard."""
-        n = self.axis_size(axis)
-        if n == 1:
+        rank has written its own shard. Its backward keeps this rank's
+        slice of the cotangent, or with ``grad="reduce_scatter"`` of its
+        sum over ``axis`` (module docstring)."""
+        if self.axis_size(axis) == 1:
             return x
-        dim = dim % x.dim()
-        shape = list(x.shape)
-        w = shape[dim]
-        shape[dim] = n * w
-        buf = x.new_zeros(shape)
-        i = self.axis_index(axis)
-        buf.narrow(dim, i * w, w).copy_(x)
-        return self._reduce("all-gather", axis, buf)
+        if grad not in ("slice", "reduce_scatter"):
+            raise ValueError(f"all_gather's backward is 'slice' or "
+                             f"'reduce_scatter', not {grad!r}")
+        return _AllGather.apply(x, self, axis, dim % x.dim(), grad)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` [n, ...] holds one row per destination along ``axis``;
         returns [n, ...] with row s from source s (``jax.lax.all_to_all``
         with split and concat axis 0, untiled): an all-reduce of a
         zero-filled [n_src, n_dest, ...] buffer where this rank writes
-        row ``[me]``, then reads column ``[:, me]``."""
+        row ``[me]``, then reads column ``[:, me]``. Its backward is the
+        same all-to-all of the cotangent (its own inverse)."""
         n = self.axis_size(axis)
         if n == 1:
             return x
         if x.shape[0] != n:
             raise ValueError(f"all_to_all over {axis!r} of size {n} needs "
                              f"{n} rows, got {tuple(x.shape)}")
-        i = self.axis_index(axis)
+        return _AllToAll.apply(x, self, axis)
+
+    # the collectives themselves, on tensors outside autograd
+    def _gather(self, x, axis, dim, kind="all-gather", phase="forward"):
+        n, i = self.axis_size(axis), self.axis_index(axis)
+        shape = list(x.shape)
+        w = shape[dim]
+        shape[dim] = n * w
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, i * w, w).copy_(x)
+        return self._reduce(kind, axis, buf, phase=phase)
+
+    def _a2a(self, x, axis, phase="forward"):
+        n, i = self.axis_size(axis), self.axis_index(axis)
         buf = x.new_zeros((n, *x.shape))
         buf[i] = x
-        return self._reduce("all-to-all", axis, buf)[:, i].contiguous()
+        return self._reduce("all-to-all", axis, buf,
+                            phase=phase)[:, i].contiguous()
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, grad):
+        ctx.mesh, ctx.axis, ctx.grad = mesh, axis, grad
+        return mesh._reduce("all-reduce", axis, x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "psum":
+            g = ctx.mesh._reduce("all-reduce", ctx.axis,
+                                 g.contiguous().clone(), phase="backward")
+        return g, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._reduce("all-reduce", ctx.axis,
+                                 g.contiguous().clone(), phase="backward"),
+                None, None)
+
+
+class _Pmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh._reduce("all-reduce", axis, x.contiguous().clone(),
+                            dist.ReduceOp.MAX)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "pmax has no backward: it combines flash-decoding's partials, "
+            "which only serving runs")
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, grad):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.grad = mesh, axis, dim, grad
+        ctx.w = x.shape[dim]
+        return mesh._gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        if ctx.grad == "reduce_scatter":
+            g = mesh._reduce("reduce-scatter", ctx.axis,
+                             g.contiguous().clone(), phase="backward")
+        i = mesh.axis_index(ctx.axis)
+        return (g.narrow(ctx.dim, i * ctx.w, ctx.w).contiguous(),
+                None, None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh._a2a(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._a2a(g.contiguous(), ctx.axis, phase="backward"), \
+            None, None
 
 
 def _names(axes) -> Tuple[str, ...]:

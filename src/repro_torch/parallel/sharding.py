@@ -55,6 +55,16 @@ def spec_for(logical_axes, rules=None) -> tuple:
     return tuple(rules.get(a) if a else None for a in logical_axes)
 
 
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec (or one of its entries: an axis name, a tuple
+    of them, or None) splits over, in order."""
+    if spec is None:
+        return ()
+    if isinstance(spec, str):
+        return (spec,)
+    return tuple(a for entry in spec for a in spec_axes(entry))
+
+
 def lshard(x, *logical_axes):
     """The identity (module docstring)."""
     return x

@@ -19,8 +19,9 @@ The simulator is intentionally deterministic given (workload seed, config).
 
 Copy of ``repro.serving.simulator`` for the port, over the port's copies
 of ``core/{cluster,controller,monitor,plan,speedup}``. Its constants
-describe the paper's A100 testbed, as the reference's do; an H100 preset
-waits for the dry-run tooling (ROADMAP A11b).
+describe the paper's A100 testbed, as the reference's do: the
+reference's simulator has no preset of its dry-run target either (the
+port's target, ``Cluster.h100``, is the dry run's).
 """
 from __future__ import annotations
 

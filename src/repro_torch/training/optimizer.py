@@ -30,6 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import spec_axes
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -175,20 +177,42 @@ def _decay_mask(params):
     return tree_map(lambda p: p.ndim >= 2, params)
 
 
-def global_norm(tree):
+def global_norm(tree, specs=None, mesh=None):
     """sqrt of the sum of squares of every leaf, in float32, summed leaf
-    by leaf in the reference's order."""
-    total = None
-    for x in tree_leaves(tree):
+    by leaf in the reference's order. On one rank of a mesh (``specs``,
+    the tree's spec tree, and ``mesh``, a ``parallel.mesh.RankMesh``)
+    each leaf is this rank's shard: the squares of leaves split over the
+    same axes are summed here, then over those axes (``psum_``, in the
+    mesh's axis order, merging sums whose remaining axes agree), and a
+    replicated leaf counts once."""
+    if mesh is None:
+        total = None
+        for x in tree_leaves(tree):
+            s = torch.sum(torch.square(x.float()))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    sums = {}
+    for (_, x), (_, spec) in zip(tree_items(tree), tree_items(specs)):
+        key = tuple(a for a in mesh.axis_names if a in spec_axes(spec)
+                    and mesh.axis_size(a) > 1)
         s = torch.sum(torch.square(x.float()))
-        total = s if total is None else total + s
-    return torch.sqrt(total)
+        sums[key] = s if key not in sums else sums[key] + s
+    while any(sums):
+        key = max((k for k in sums if k), key=len)
+        s = mesh.psum_(sums.pop(key), key[0])
+        rest = key[1:]
+        sums[rest] = s if rest not in sums else sums[rest] + s
+    return torch.sqrt(sums[()])
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptimizerConfig, params, grads, state):
+def apply_updates(cfg: OptimizerConfig, params, grads, state, *, specs=None,
+                  mesh=None):
     """One AdamW step, in place. Returns (params, state, metrics): the
-    same trees, updated, and ``{"lr", "grad_norm"}`` as 0-d tensors.
+    same trees, updated, and ``{"lr", "grad_norm"}`` as 0-d tensors. On
+    one rank of a mesh the trees are its shards and ``specs`` / ``mesh``
+    give the clipping norm its sums across the ranks (``global_norm``);
+    the update itself is elementwise, per shard.
 
     Per leaf, in float32: the gradient clipped by the global norm, ``mu =
     b1 * m + (1 - b1) * g``, ``nu = b2 * v + (1 - b2) * g * g``, ``u =
@@ -198,7 +222,7 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
     typed constant."""
     step = state["step"] + 1
     device = step.device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.minimum(_f32(1.0, device),

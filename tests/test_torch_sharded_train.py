@@ -1,0 +1,311 @@
+"""Port parity, the sharded train step: ``training.train`` under
+sharding rules, every rank a thread with its shard of the weights
+(``shard_from_numpy`` of one seeded fp32 draw, which the reference takes
+whole) and its rows of the batch (``data.pipeline.sharded_batches``),
+against the reference's UNSHARDED ``make_train_step`` on the same
+weights and batch: GSPMD's sharded step differentiates that global
+function. (The reference's own sharded-step test fails under jax 0.9,
+ROADMAP "Reference caveats".)
+
+For dense, vlm, GQA (query heads split, the one K/V head whole), MLA
+(with a low-rank query) and moe (the scatter dispatch, experts on
+``data``), on meshes (1, 2), (2, 1) and (2, 2): one step's loss (1e-5
+relative), each rank's gradient shard against its slice of the
+reference's gradient (1e-5 relative L2) and its updated params (1e-4).
+Also: accumulation against one step, ``sharded_batches`` rows against
+``synth_batch``, the expert-parallel dispatch's gradient against a
+central finite difference in float64 (it routes per rank, so it has no
+unsharded twin), and the families the sharded forward does not cover
+raising (ROADMAP A10)."""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.data import pipeline as JDP
+from repro.training import optimizer as JOPT
+from repro.training import train as JTR
+from repro_torch.bridge import shard_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.data import pipeline as TDP
+from repro_torch.models import moe as MOE
+from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.mesh import RankMesh
+from repro_torch.training import optimizer as TOPT
+from repro_torch.training import train as TTR
+from _torch_mesh import run_mesh
+from _torch_parity import one_torch_thread  # noqa: F401
+
+# family -> (arch, config changes)
+FAMILIES = {
+    "dense": ("tinyllama-1.1b", ()),
+    "vlm": ("chameleon-34b", ()),
+    "gqa": ("tinyllama-1.1b", (("num_heads", 8), ("num_kv_heads", 1))),
+    "mla": ("minicpm3-4b", (("q_lora_rank", 32),)),
+    "moe": ("qwen2-moe-a2.7b", (("num_experts", 12),)),
+}
+MESHES = [(1, 2), (2, 1), (2, 2)]
+DATA = dict(seq_len=16, global_batch=4)
+OPT_KW = dict(lr=3e-3, warmup_steps=2, total_steps=50, clip_norm=0.5)
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+def _flat(tree):
+    return {"/".join(p): v for p, v in TOPT.tree_items(tree)}
+
+
+@functools.cache
+def _case(family):
+    """(tcfg, numpy fp32 weights drawn by the port's ``init_params``)."""
+    arch, changes = FAMILIES[family]
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
+    tp = T.init_params(tcfg, torch.Generator().manual_seed(0), "float32")
+    return tcfg, TOPT.tree_map(lambda t: t.numpy(), tp)
+
+
+@functools.cache
+def _reference(family):
+    """The reference's unsharded loss, gradient and one train step on
+    the whole batch, under one jit: {"loss", "total", "grads" (flat),
+    "params" (flat)}."""
+    arch, changes = FAMILIES[family]
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **dict(changes))
+    _, np_params = _case(family)
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jb = JDP.synth_batch(jcfg, JDP.DataConfig(**DATA), 0)
+    jocfg = JOPT.OptimizerConfig(**OPT_KW)
+
+    def run(p, b):
+        (total, parts), grads = jax.value_and_grad(
+            JTR.make_loss_fn(jcfg), has_aux=True)(p, b)
+        new, _, _ = JTR.make_train_step(jcfg, jocfg)(
+            p, JOPT.init_opt_state(p), b)
+        return total, parts["loss"], grads, new
+
+    total, loss, grads, new = jax.tree_util.tree_map(
+        np.asarray, jax.jit(run)(jp, jb))
+    flat = lambda t: {"/".join(str(getattr(k, "key", k)) for k in path): v  # noqa: E731
+                      for path, v in jax.tree_util.tree_flatten_with_path(t)[0]}
+    return {"total": float(total), "loss": float(loss), "grads": flat(grads),
+            "params": flat(new)}
+
+
+def _index(shape, spec, mesh):
+    """This rank's slices of a leaf of ``shape`` under ``spec``."""
+    out = []
+    for i, n in enumerate(shape):
+        axes = spec[i] if i < len(spec) else None
+        k, j = mesh.axes_size(axes), mesh.axes_index(axes)
+        out.append(slice(j * (n // k), (j + 1) * (n // k)))
+    return tuple(out)
+
+
+def _rank_step(family, mesh, step_kw=None):
+    """This rank's loss parts, gradient shards (after ``reduce_grads``)
+    and updated params, each with its slice of the global leaf."""
+    tcfg, np_params = _case(family)
+    rules = dict(SH.rules_for(tcfg, mesh), mesh=mesh)
+    specs = SH.param_specs(tcfg, np_params, rules, mesh)
+    batch = next(TDP.sharded_batches(tcfg, TDP.DataConfig(**DATA), mesh,
+                                     SH.batch_specs(rules)["tokens"], 1))
+    p = shard_from_numpy(np_params, specs, mesh, "cpu")
+    with SH.use_rules(rules):
+        (total, parts), grads = TTR.value_and_grad(TTR.make_loss_fn(tcfg),
+                                                   p, batch)
+        TTR.reduce_grads(grads, *TTR.rank_specs(tcfg, rules, p)[::-1],
+                         rules)
+        new, _, metrics = TTR.make_train_step(
+            tcfg, TOPT.OptimizerConfig(**OPT_KW))(
+                p, TOPT.init_opt_state(p), batch)
+    where = {k: _index(np_params_leaf.shape, s, mesh)
+             for (k, np_params_leaf), (_, s) in zip(
+                 _flat(np_params).items(), TOPT.tree_items(specs))}
+    return {"total": float(total), "loss": float(parts["loss"]),
+            "step_total": float(metrics["total_loss"]),
+            "grads": {k: v.numpy() for k, v in _flat(grads).items()},
+            "params": {k: v.numpy() for k, v in _flat(new).items()},
+            "where": where}
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_sharded_step_matches_reference(family, shape):
+    ref = _reference(family)
+    for r in run_mesh(shape, lambda mesh: _rank_step(family, mesh)):
+        for k in ("total", "loss"):
+            assert _rel(r[k], ref[k]) <= 1e-5, (k, r[k], ref[k])
+        assert _rel(r["step_total"], ref["total"]) <= 1e-5
+        assert set(r["grads"]) == set(ref["grads"])
+        for k, idx in r["where"].items():
+            assert _rel(r["grads"][k], ref["grads"][k][idx]) <= 1e-5, \
+                ("grad", k, _rel(r["grads"][k], ref["grads"][k][idx]))
+            assert _rel(r["params"][k], ref["params"][k][idx]) <= 1e-4, \
+                ("param", k)
+
+
+def test_accumulation_matches_one_step():
+    """``make_train_step_accum`` under rules on (2, 2) (each rank's 2 rows
+    as 2 micro-batches of 1) against the unsharded one step on the same
+    unmasked batch (with a mask, the micro-batches' own denominators
+    differ from the whole batch's)."""
+    tcfg, np_params = _case("dense")
+    dcfg = TDP.DataConfig(**DATA)
+    ocfg = TOPT.OptimizerConfig(**OPT_KW)
+    whole = TDP.synth_batch(tcfg, dcfg, 0)
+    whole["mask"] = torch.ones_like(whole["mask"])
+    ref = {k: torch.from_numpy(v).clone() for k, v in _flat(np_params).items()}
+    p = TOPT.tree_from([tuple(k.split("/")) for k in ref], list(ref.values()))
+    p, _, want = TTR.make_train_step(tcfg, ocfg)(p, TOPT.init_opt_state(p),
+                                                 whole)
+    want_p = {k: v.numpy() for k, v in _flat(p).items()}
+
+    def rank(mesh):
+        rules = dict(SH.rules_for(tcfg, mesh), mesh=mesh)
+        specs = SH.param_specs(tcfg, np_params, rules, mesh)
+        mine = {k: SH.shard_leaf(v, SH.batch_specs(rules)[k], mesh)
+                for k, v in whole.items()}
+        q = shard_from_numpy(np_params, specs, mesh, "cpu")
+        with SH.use_rules(rules):
+            q, _, m = TTR.make_train_step_accum(tcfg, ocfg, accum_steps=2)(
+                q, TOPT.init_opt_state(q), mine)
+        where = [_index(v.shape, s, mesh) for v, (_, s) in zip(
+            _flat(np_params).values(), TOPT.tree_items(specs))]
+        return float(m["total_loss"]), _flat(q), where
+
+    for loss, q, where in run_mesh((2, 2), rank):
+        assert _rel(loss, float(want["total_loss"])) <= 1e-5
+        for (k, v), idx in zip(q.items(), where):
+            assert _rel(v.numpy(), want_p[k][idx]) <= 1e-4, k
+
+
+def test_sharded_batches_rows():
+    """Each rank's rows are its row-major part of ``synth_batch`` over
+    the batch axes (here ``pod`` and ``data``), on the mesh's device; a
+    batch that does not divide raises."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    dcfg = TDP.DataConfig(seq_len=8, global_batch=8)
+    spec = (("pod", "data"), None)
+
+    def rank(mesh):
+        got = list(TDP.sharded_batches(cfg, dcfg, mesh, spec, 2))
+        return mesh.axes_index(("pod", "data")), got
+
+    for i, got in run_mesh((2, 2, 1), rank, axes=("pod", "data", "model")):
+        assert len(got) == 2
+        for step, b in enumerate(got):
+            whole = TDP.synth_batch(cfg, dcfg, step)
+            for k, v in whole.items():
+                assert b[k].device.type == "cpu"
+                torch.testing.assert_close(b[k], v[2 * i:2 * i + 2],
+                                           rtol=0, atol=0)
+    mesh = RankMesh.dry(("data", "model"), (3, 1))
+    with pytest.raises(ValueError, match="does not split"):
+        next(TDP.sharded_batches(cfg, dcfg, mesh, ("data", None), 1))
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_expert_parallel_gradient_finite_difference(shape):
+    """The expert-parallel dispatch (``rules["moe_a2a"]``, experts on
+    ``data``) in float64: the directional derivative of the global
+    objective F = sum over the data ranks of <out_r, c_r> + aux_r / n
+    (the train step's: each rank's aux enters once over the batch) from
+    the sharded backward (the all-to-alls' and the ``enter`` ops'
+    conjugates, then the batch sums of ``reduce_grads``) against a
+    central finite difference of F along a random direction."""
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              num_experts=12)
+    full = T.init_params(cfg, torch.Generator().manual_seed(0), "float32")
+    moe = TOPT.tree_map(lambda t: t[0].double(), full["layers"]["moe"])
+    g = np.random.default_rng(0)
+    B, S, d = 4, 8, cfg.d_model
+    x = torch.from_numpy(g.standard_normal((B, S, d)))
+    c = torch.from_numpy(g.standard_normal((B, S, d)))
+    v_moe = TOPT.tree_map(lambda t: torch.from_numpy(
+        g.standard_normal(tuple(t.shape))), moe)
+    v_x = torch.from_numpy(g.standard_normal((B, S, d)))
+    eps = 1e-6
+
+    def rank(mesh):
+        rules = dict(SH.rules_for(cfg, mesh), mesh=mesh, moe_a2a=True)
+        fspecs = SH.param_specs(cfg, full, rules, mesh)["layers"]["moe"]
+        specs = TOPT.tree_map(lambda s: s[1:], fspecs)  # one layer's
+        rows = _index((B,), (rules["batch"],), mesh)[0]
+        n = mesh.axes_size(rules["batch"])
+        once = mesh.axis_index("model") == 0    # model ranks duplicate F_r
+
+        def objective(p, xr):
+            out, aux = MOE.apply_moe(p, xr, cfg, dispatch="auto")
+            return (out * c[rows]).sum() + aux / n
+
+        def shard(tree):
+            return SH.shard_params(tree, specs, mesh)
+
+        with SH.use_rules(rules):
+            p = shard(moe)
+            leaves = [t.requires_grad_() for t in TOPT.tree_leaves(p)]
+            xr = x[rows].clone().requires_grad_()
+            with torch.enable_grad():
+                gs = torch.autograd.grad(objective(p, xr), [xr, *leaves])
+            grads = TOPT.tree_from([k for k, _ in TOPT.tree_items(p)],
+                                   list(gs[1:]))
+            TTR.reduce_grads(grads, specs, mesh, rules)
+            # each distinct shard once: a leaf (and x) replicated over an
+            # axis is counted by that axis's rank 0 only
+            deriv = (gs[0] * v_x[rows]).sum() if once else 0.0
+            vs = shard(v_moe)
+            for (_, gl), (_, vl), (_, s) in zip(TOPT.tree_items(grads),
+                                                TOPT.tree_items(vs),
+                                                TOPT.tree_items(specs)):
+                split = SH.spec_axes(s)
+                if all(mesh.axis_index(a) == 0 for a in mesh.axis_names
+                       if a not in split):
+                    deriv = deriv + (gl * vl).sum()
+            fs = []
+            for sign in (1, -1):
+                q = shard(TOPT.tree_map(lambda t, u: t + sign * eps * u,
+                                        moe, v_moe))
+                with torch.no_grad():
+                    f = objective(q, x[rows] + sign * eps * v_x[rows])
+                fs.append(float(f) if once else 0.0)
+        return float(deriv), fs
+
+    out = run_mesh(shape, rank)
+    deriv = sum(d for d, _ in out)
+    fd = (sum(f[0] for _, f in out) - sum(f[1] for _, f in out)) / (2 * eps)
+    assert abs(deriv - fd) <= 1e-6 * abs(fd), (deriv, fd)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
+                                  "whisper-medium"])
+def test_uncovered_families_raise_under_rules(arch):
+    """ssm, hybrid and audio: the sharded forward raises (ROADMAP A10)
+    before any collective, in the loss and both steps."""
+    cfg = get_config(arch).reduced()
+    mesh = RankMesh.dry(("data", "model"), (1, 2), device="cpu")
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+    ocfg = TOPT.OptimizerConfig()
+    batch = TDP.synth_batch(cfg, TDP.DataConfig(seq_len=8, global_batch=2), 0)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((2, cfg.encoder_seq_len, cfg.d_model))
+    p = T.init_params(cfg, torch.Generator().manual_seed(0), "float32")
+    opt = TOPT.init_opt_state(p)
+    with SH.use_rules(rules):
+        for call in (lambda: TTR.make_loss_fn(cfg)(p, batch),
+                     lambda: TTR.make_train_step(cfg, ocfg)(p, opt, batch),
+                     lambda: TTR.make_train_step_accum(
+                         cfg, ocfg, accum_steps=2)(p, opt, batch)):
+            with pytest.raises(NotImplementedError, match="A10"):
+                call()
+    assert mesh.collectives == {}

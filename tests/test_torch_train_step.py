@@ -5,8 +5,8 @@ weights, for every family: dense, vlm, moe (the dense dispatch, and the
 scatter dispatch at 12 experts), ssm, hybrid, MLA and audio.
 Tolerances: fp32 loss 1e-5 relative, each gradient leaf and each
 updated parameter 1e-4 relative L2; bf16 (dense) 2e-2. Also: ``remat``
-gives the same gradients as no remat, a stacked leaf's gradient is
-stacked once, and the A11b raises under sharding rules."""
+gives the same gradients as no remat, and a stacked leaf's gradient is
+stacked once. The sharded step is tests/test_torch_sharded_train.py."""
 import dataclasses
 import functools
 
@@ -25,10 +25,8 @@ from repro_torch.bridge import opt_state_from_numpy, params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.data import pipeline as TDP
 from repro_torch.models import transformer as TT
-from repro_torch.parallel import sharding as SH
 from repro_torch.training import optimizer as TOPT
 from repro_torch.training import train as TTR
-from _torch_mesh import fake_mesh
 from _torch_parity import jit, one_torch_thread  # noqa: F401
 
 ARCH = {"dense": "tinyllama-1.1b", "vlm": "chameleon-34b",
@@ -268,20 +266,3 @@ def test_train_mode_takes_no_cache():
     cache = TT.init_cache(tcfg, 2, 32, "float32", "cpu")
     with pytest.raises(ValueError, match="no cache"):
         TT.forward(tp, tcfg, tb["tokens"], cache=cache, mode="train")
-
-
-def test_a11b_raises_under_sharding_rules():
-    """The loss and both steps refuse sharding rules: the forward's
-    collectives have no backward yet (ROADMAP A11b)."""
-    _, _, tcfg, tp, _, tb = _case("dense")
-    _, tocfg = _opt_cfgs()
-    calls = [
-        lambda: TTR.make_loss_fn(tcfg)(tp, tb),
-        lambda: TTR.make_train_step(tcfg, tocfg)(tp, None, tb),
-        lambda: TTR.make_train_step_accum(tcfg, tocfg, accum_steps=2)(
-            tp, None, tb),
-    ]
-    with SH.use_rules(SH.rules_for(tcfg, fake_mesh((1, 2)))):
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="A11b"):
-                call()

@@ -153,12 +153,6 @@ def test_synth_batch_bit_identical(arch, seq, batch, seed, step):
                                   np.asarray(want["tokens"]))
 
 
-def test_sharded_batches_raises_a11b():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TDP.sharded_batches(get_config("tinyllama-1.1b"), TDP.DataConfig(),
-                            None, None)
-
-
 def _ckpt_trees(dtype):
     """The same tree in both packages: reduced mamba2 weights (fp32, or
     narrowed to bf16) and the reference's fresh optimizer state (an int32
