@@ -24,7 +24,9 @@ prints no ``ok`` line):
    SSD scan at b 1 and 2, one chunk and
    several, and at the shapes phase 10's prefills give it: mamba2-780m's
    and zamba2-7b's heads at each workload prompt length, padded as
-   ``kernels.ops.ssd`` pads it),
+   ``kernels.ops.ssd`` pads it, and a rank's half of those heads (phase
+   13e-f); dense decode at phase 13's rank shapes: zamba2's shared block
+   at 16 of 32 heads and whisper's cross- and self-attention at 8 of 16),
    with the count of tensor-core instructions (``cuobjdump -sass``: HGMMA
    in each bf16 flash kernel, HMMA in each bf16 SSD kernel with products)
    and each split-K decode call's grid; then each timed beside its bound,
@@ -36,7 +38,11 @@ prints no ``ok`` line):
    widths (S 2048), dense decode at tinyllama's and zamba2-7b's (B 8,
    S 1024) and whisper-medium's cross-attention (B 8, S 1500), the SSD
    scan at mamba2-780m's (L 2048 and 768) and
-   zamba2-7b's (L 768);
+   zamba2-7b's (L 768); and phase 13's rank shapes on model 2: dense
+   decode at a rank's heads of tinyllama (16 of 32), zamba2 (16 of 32)
+   and whisper's cross-attention (8 of 16), at qwen2-moe's 4 rows, and
+   the SSD scan at mamba2's 24 of 48 heads and zamba2's 56 of 112 (L
+   768);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -247,10 +253,30 @@ prints no ``ok`` line):
    per step (none predicted), tokens and fp32 logits against the
    unsharded ``dispatch="dense"`` stream where nothing drops, bf16
    first-step logits over the rows whose experts agree, and the
-   expert-parallel prefill's drops. Printed beside each part: the eager
-   decode step's median on each rank and the unsharded step's. The
-   dense-decode row of the JSON line adds both ranks' launches of 13a
-   and 13d and phase 3's shapes of them (``decode_tp``, ``decode_ep``).
+   expert-parallel prefill's drops; e-g. the ssm, hybrid and audio
+   families on (data 1, model 2) under ``rules_for``
+   (``FAMILY13``): mamba2-780m at 12 of 48 layers (a rank's 24 of 48
+   SSD heads; the gated norm's sum of squares summed across the ranks),
+   zamba2-7b at one block of 6 layers and a tail layer (56 of 112 SSD
+   heads, the shared block at 16 of 32 attention heads through the
+   dense-decode kernel), whisper-medium at 4 encoder and 4 decoder
+   layers (8 of 16 heads, self- and cross-attention through the
+   dense-decode kernel, frames drawn on the card); phase 10's 8 prompts
+   (an SSM's each prefilled alone through the SSD kernel into its row of
+   the cache shard, whisper's cut to 416 and prefilled together), 16
+   greedy decode steps in fp32, then in bf16 fed the fp32 tokens: fp32
+   tokens equal and logits within 1e-4 of the unsharded ``forward``,
+   bf16 logits no more than 2e-2 farther from the unsharded fp32 ones
+   than the unsharded bf16 ones are (``tests/_bf16_gap.py``'s rule),
+   every SSD call of the first prefill against ``ssd_chunked`` and
+   every dense-decode call of decode step 3 against
+   ``decode_attention_ref`` (1e-4 / 2e-2), collectives per prefill and
+   per decode step as ``predicted_collectives`` says, SSD launches =
+   Mamba2 layers x prefills and dense-decode launches = calls a step x
+   steps, a rank. Printed beside each part: the eager decode step's
+   median on each rank and the unsharded step's. The dense-decode and
+   SSD rows of the JSON line add both ranks' launches of 13a, 13d and
+   13e-g and phase 3's rank shapes of them.
 14. the training path (``repro_torch.training``, ``launch.train``), on
    the plain routes: a. ``launch.train.main`` on tinyllama-1.1b at full
    width with the reference's defaults (batch 8, seq 128, lr 1e-3), fp32
@@ -285,7 +311,10 @@ prints no ``ok`` line):
    the same data parallel on (2, 1); c. qwen2-moe-a2.7b at
    ``P15_MOE_LAYERS`` of 24 layers on (2, 1), experts on ``data``, the
    scatter dispatch (2 steps), then the all-to-all dispatch
-   (``rules["moe_a2a"]``, 3 steps on one repeated batch). Gates: each
+   (``rules["moe_a2a"]``, 3 steps on one repeated batch); e. mamba2-780m
+   at 13e's 12 layers, head-split on (1, 2), 3 steps; f. whisper-medium
+   at 13g's depth, data parallel on (2, 1), 3 steps, each rank's rows of
+   the frames from ``sharded_batches(..., frames=True)``. Gates: each
    step's collectives by phase (forward, backward, update) and kind equal
    to ``p15_predicted`` and to ``launch.dryrun``'s count of the same case
    on ``RankMesh.dry``; each rank's bytes of params and moments equal the
@@ -295,7 +324,8 @@ prints no ``ok`` line):
    1e-4 relative L2 of their slices of the unsharded step's (a, b, and
    c after its first step: its routing is discontinuous, and Adam turns
    the two steps' ~1e-6 differences into expert ids that differ later,
-   printed by step and layer; the first step's ids are gated equal);
+   printed by step and layer; the first step's ids are gated equal;
+   e and f);
    the ranks' losses equal; the all-to-all dispatch's aux loss finite and
    its loss falling (it routes per rank: no unsharded twin); a and b's
    bf16 run of ``TRAIN_STEPS`` on one repeated batch falling by more
@@ -598,7 +628,9 @@ def check_decode(DA, mid_lens):
     lengths and on ragged lengths with a length-0 row, against a
     transposed view of a [B, 1024, KV, D] cache as the dense engine
     passes it; whisper-medium's cross-attention (H = KV = 16, D 64, S
-    1500, all lengths 1500) and self-attention (S 448) the same way."""
+    1500, all lengths 1500) and self-attention (S 448) the same way; the
+    rank shapes of phase 13 (tinyllama's and zamba2's heads on model 2,
+    whisper's at 8 of 16 heads, qwen2-moe's 4 rows)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [  # (H, KV, S, D, lengths, bshd)
         (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
@@ -617,6 +649,11 @@ def check_decode(DA, mid_lens):
         # heads, 2 of 4 KV heads) and qwen2-moe-a2.7b's 4 rows a rank
         (16, 2, 1024, 64, list(mid_lens), True),
         (16, 16, 1024, 128, list(mid_lens[:4]), True),
+        # 13f / 13g: zamba2-7b's shared block at 16 of 32 heads, and
+        # whisper-medium's cross- and self-attention at 8 of 16
+        (16, 16, 1024, 112, list(mid_lens), True),
+        (8, 8, 1500, 64, [1500] * 8, True),
+        (8, 8, 448, 64, [0, 1, 63, 64, 65, 300, 447, 448], True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -3496,8 +3533,14 @@ def replication_phase(TR, reference, out_dir, smi, device="cuda"):
 # --------------------------------------- the sharded serving step (phase 13)
 #: phase 13's ranks: two processes sharing the one card in gloo groups
 SHARD_RANKS = 2
-#: a rank's attention heads of tinyllama-1.1b on a model axis of 2
-TP_LOCAL_HEADS = types.SimpleNamespace(num_heads=16, num_kv_heads=2, resolved_head_dim=64)
+def rank_heads(cfg, m=2):
+    """The head counts a rank of a model axis of ``m`` holds of ``cfg``'s
+    attention and SSD heads (with the other widths the kernels read)."""
+    return types.SimpleNamespace(
+        num_heads=cfg.num_heads // m, num_kv_heads=cfg.num_kv_heads // m,
+        resolved_head_dim=cfg.resolved_head_dim if cfg.num_heads else 0,
+        ssm_heads=cfg.ssm_heads // m, ssm_head_dim=cfg.ssm_head_dim,
+        ssm_state=cfg.ssm_state, ssm_ngroups=cfg.ssm_ngroups, ssm_chunk=cfg.ssm_chunk)
 #: the long-context shape of the reference's long_500k serving step
 #: (launch/dryrun.py: batch 1, window = sliding_window, a ring of that
 #: many slots): a prompt that wraps the ring, then decode steps
@@ -3509,6 +3552,13 @@ TP_STEPS, EP_STEPS, EP_LAYERS = 32, 16, 6
 MLA13_LAYERS = 8
 #: every stream's eager decode steps timed after its gated run
 TIMED_STEPS = 8
+#: 13e-g on (data 1, model 2): part -> (arch, depth on the card): mamba2
+#: at phase 10's 12 of 48 layers, zamba2 at one block of 6 and a tail
+#: layer (7 of 81), whisper at 4 of 24 encoder and 4 of 24 decoder layers
+FAMILY13 = {"ssm": (SSM_ARCH, {"num_layers": 12}),
+            "hybrid": (HYBRID_ARCH, {"num_layers": 7}),
+            "audio": (AUDIO_ARCH, {"num_layers": 4, "num_encoder_layers": 4})}
+FAMILY_STEPS = 16
 
 
 def p13_settings(device):
@@ -3523,24 +3573,43 @@ def p13_settings(device):
                 long_steps=3, mla_layers=2, ep_layers=2, ep_steps=3, timed=2)
 
 
-def p13_config(get_config, arch, st, layers=None, experts=None):
+def p13_config(get_config, arch, st, layers=None, experts=None, cut=None):
+    """``arch`` at phase 13's size: reduced for a CPU rehearsal (where an
+    expert-parallel part takes ``experts``, and a hybrid 3 layers so its
+    tail runs), else at full width with ``layers`` or the config changes
+    ``cut``."""
     cfg = get_config(arch)
     if st["reduced"]:
         cfg = cfg.reduced()
         if experts:   # the expert-parallel dispatch takes more than 8
             cfg = dataclasses.replace(cfg, num_experts=experts)
-    if layers and not st["reduced"]:
+        if cfg.family == "hybrid":
+            cfg = dataclasses.replace(cfg, num_layers=3)
+        return cfg
+    if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    return cfg
+    return dataclasses.replace(cfg, **(cut or {}))
 
 
 def predicted_collectives(cfg, kind):
-    """The collectives of one decode step of phase 13's four parts, from
-    the design (PERF.md, PR 23): a: the vocab-split embedding's psum, two
-    row-parallel psums a layer (``wo``, ``w_down``), the logits'
+    """The collectives of one decode step of phase 13's parts, from the
+    design (PERF.md §3, §6): a: the vocab-split embedding's psum,
+    two row-parallel psums a layer (``wo``, ``w_down``), the logits'
     all-gather; b, c: flash-decoding's pmax and two psums a layer; d: two
-    all-to-alls a MoE layer."""
+    all-to-alls a MoE layer; e-g (``kind`` "ssm", "hybrid", "audio"): the
+    embedding's psum and the logits' all-gather, two psums a Mamba2 layer
+    (the gated norm's sum of squares, ``out_proj``), two a shared-block
+    application, three an audio decoder layer (self and cross ``wo``,
+    ``w_down``). ``kind`` "audio_prefill": a prefill of e-g's audio part,
+    its encoder's two psums a layer besides."""
     L = cfg.num_layers
+    if kind in ("ssm", "hybrid", "audio", "audio_prefill"):
+        nb = L // cfg.hybrid_attn_every if kind == "hybrid" else 0
+        if kind.startswith("audio"):
+            n = 3 * L + (2 * cfg.num_encoder_layers if kind == "audio_prefill" else 0)
+        else:
+            n = 2 * L + 2 * nb
+        return {"all-reduce": 1 + n, "all-gather": 1}
     return {"tp": {"all-reduce": 1 + 2 * L, "all-gather": 1},
             "long": {"all-reduce": 3 * L},
             "ep": {"all-to-all": 2 * L}}[kind]
@@ -3557,33 +3626,64 @@ def padded_prompts(prompts, device):
 
 def decode_stream(T, INS, cfg, params, prompts, steps, cache, device, window=None,
                   forced=None, impl="kernel", dispatch="auto", mesh=None, hook=None,
-                  timed=0, first=None):
+                  timed=0, first=None, enc=None, row_cache=None, prefill_hook=None):
     """A prefill of right-padded ``prompts`` over ``cache`` (or, given
-    ``first`` [B], the prefill's tokens: a cache prefilled already), then
-    ``steps`` greedy decode steps (or steps fed ``forced`` [B, steps + 1],
-    another stream's tokens). Returns dict: ``tokens`` [B, steps + 1]
-    (each call's argmax over the real vocabulary), ``logits`` [calls, B,
-    V] fp32 (the prefill's first where it ran),
-    ``colls`` (the mesh's collectives of each decode step), ``ms`` (the
-    ``timed`` eager decode steps run after, host clock with a sync each
-    side), ``dropped`` (the expert-parallel dispatch's drops each decode
-    step). ``hook(t)`` returns a context manager entered around decode
-    step t (its step is neither timed nor counted apart)."""
+    ``first`` [B], the prefill's tokens: a cache prefilled already; or,
+    given ``row_cache``, a function returning a fresh batch-1 cache, each
+    prompt prefilled alone into one and put into its row of ``cache``, as
+    the dense engine admits an SSM's prompts), then ``steps`` greedy
+    decode steps (or steps fed ``forced`` [B, steps + 1], another stream's
+    tokens). ``impl`` picks both kernel routes (``attn_impl``, and the SSD
+    scan's ``ssd_impl``); ``enc``: an audio config's frames. Returns dict:
+    ``tokens`` [B, steps + 1] (each call's argmax over the real
+    vocabulary), ``logits`` [calls, B, V] fp32 (the prefill's first where
+    it ran), ``prefill_colls`` / ``colls`` (the mesh's collectives of each
+    prefill call / decode step), ``ms`` (the ``timed`` eager decode steps
+    run after, host clock with a sync each side) and ``coll_ms`` (the
+    mesh's staged collectives inside each of them), ``dropped`` (the
+    expert-parallel dispatch's drops each decode step). ``hook(t)`` /
+    ``prefill_hook(i)`` return a context manager entered around decode
+    step t / row i's prefill (its step is neither timed nor counted
+    apart)."""
     V = cfg.vocab_size
     toks, lens = padded_prompts(prompts, device)
-    out = {"colls": [], "ms": [], "dropped": []}
-    if first is None:
-        lg = T.forward(params, cfg, toks, cache=cache, mode="prefill", window=window,
-                       last_idx=(lens - 1).long(), attn_impl=impl, dispatch=dispatch)[0]
-        logits, nxt = [lg[:, :V].float()], [lg[:, :V].argmax(-1)]
-    else:
+    routes = dict(attn_impl=impl, ssd_impl="kernel" if impl == "kernel" else "chunked")
+    out = {"colls": [], "ms": [], "coll_ms": [], "dropped": [], "prefill_colls": []}
+
+    def counted(fn, i):
+        before = collections.Counter(mesh.collectives) if mesh else None
+        with prefill_hook(i) if prefill_hook else contextlib.nullcontext():
+            lg = fn()
+        if mesh:
+            out["prefill_colls"].append(dict(mesh.collectives - before))
+        return lg
+
+    if first is not None:
         logits, nxt = [], [first]
+    else:
+        if row_cache is None:
+            lg = counted(lambda: T.forward(
+                params, cfg, toks, cache=cache, mode="prefill", window=window,
+                last_idx=(lens - 1).long(), dispatch=dispatch, encoder_input=enc,
+                **routes)[0], 0)
+        else:
+            from repro_torch.serving import kvcache as KV
+
+            rows = []
+            for i, p in enumerate(prompts):
+                one = row_cache()
+                rows.append(counted(lambda: T.forward(
+                    params, cfg, toks[i:i + 1, :len(p)], cache=one, mode="prefill",
+                    window=window, **routes)[0], i))
+                KV.insert_request(cache, i, one, len(p))
+                del one
+            lg = torch.cat(rows)
+        logits, nxt = [lg[:, :V].float()], [lg[:, :V].argmax(-1)]
 
     def step(t, tok):
         pos = (lens + t)[:, None]
         return T.forward(params, cfg, tok[:, None], positions=pos, cache=cache,
-                         mode="decode", window=window, attn_impl=impl,
-                         dispatch=dispatch)[0]
+                         mode="decode", window=window, dispatch=dispatch, **routes)[0]
 
     for t in range(steps):
         tok = forced[:, t] if forced is not None else nxt[-1]
@@ -3598,10 +3698,12 @@ def decode_stream(T, INS, cfg, params, prompts, steps, cache, device, window=Non
         nxt.append(lg[:, :V].argmax(-1))
     for t in range(steps, steps + timed):
         INS.synchronize(device)
+        c0 = mesh.seconds["forward"] if mesh else 0.0
         t0 = time.perf_counter()
         step(t, nxt[-1])
         INS.synchronize(device)
         out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["coll_ms"].append(((mesh.seconds["forward"] if mesh else 0.0) - c0) * 1e3)
     out["tokens"] = torch.stack(nxt, 1)
     out["logits"] = torch.stack(logits)
     return out
@@ -3912,8 +4014,120 @@ def sharded_rank(rank, world, port, results, device="cuda"):
         if device.type == "cuda":
             torch.cuda.empty_cache()
     res["ep"] = ep
+
+    # 13e-g: the ssm, hybrid and audio families, (data 1, model 2)
+    for part in FAMILY13:
+        res[part] = family_part(T, SH, DA, INS, get_config, st, mesh_of(f"13{part}", (1, world)),
+                                rank, part, device)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     res["phase_seconds"] = time.perf_counter() - t_phase
     results.put((rank, res))
+
+
+def family_part(T, SH, DA, INS, get_config, st, mesh, rank, part, device):
+    """13e-g on this rank: ``FAMILY13[part]``'s config at full width and
+    cut depth (reduced on the CPU) on ``mesh`` under ``rules_for``, phase
+    10's 8 prompts (whisper's cut to 416 tokens, over frames drawn on the
+    device from a seeded generator, the same on every rank), each SSM or
+    hybrid prompt prefilled alone into its row of the cache shard (as the
+    dense engine admits them), a batch prefill of right-padded prompts for
+    whisper; then ``FAMILY_STEPS`` greedy decode steps, in fp32 and then
+    in bf16 fed the fp32 stream's tokens. Every SSD call of the first
+    prompt's prefill and every dense-decode call of decode step 3 (the
+    last of a CPU rehearsal's 3) is held
+    against its plain version. Rank 0 runs the unsharded ``forward`` on
+    the same weights fed the same tokens, in both types."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.training.optimizer import tree_items
+
+    arch, cut = FAMILY13[part]
+    cfg = p13_config(get_config, arch, st, cut=cut)
+    prompts, _ = workload(cfg)
+    audio = cfg.family == "audio"
+    if audio:
+        prompts = [p[:WHISPER_PROMPT] for p in prompts]
+    if st["cut"]:
+        prompts = [p[: st["cut"]] for p in prompts]
+    B = len(prompts)
+    max_len = WHISPER_MAX_LEN if audio and not st["reduced"] else st["max_len"]
+    enc = None
+    if audio:
+        gen = torch.Generator(device=device).manual_seed(SEED + 13)
+        enc = torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                          device=device)
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+    steps, timed = (FAMILY_STEPS, st["timed"]) if not st["reduced"] else (3, 2)
+    out = {"rules": {k: v for k, v in rules.items() if k != "mesh"},
+           "predicted": predicted_collectives(cfg, part),
+           "predicted_prefill": predicted_collectives(
+               cfg, "audio_prefill" if audio else part),
+           "layers": cfg.num_layers, "enc_layers": cfg.num_encoder_layers,
+           "prefills": 1 if audio else B, "steps": steps, "timed": timed,
+           # Mamba2 layers (an SSD call each a prefill) and dense-decode
+           # calls a decode step (the shared block's; self and cross)
+           "mamba": 0 if audio else cfg.num_layers,
+           "attn": (cfg.num_layers // cfg.hybrid_attn_every if cfg.family == "hybrid"
+                    else 2 * cfg.num_layers if audio else 0)}
+    tokens32 = truth = None
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        full, shard = draw_shard(T, SH, cfg, rules, mesh, dtype, rank == 0)
+        cache = T.init_cache_shard(cfg, B, max_len, rules, mesh, dtype, device)
+        row_cache = None if audio else functools.partial(
+            T.init_cache_shard, cfg, 1, max_len, rules, mesh, dtype, device)
+        checks, pchecks = {}, {}
+
+        def hook(t, checks=checks):
+            return (checked_kernel_calls(checks) if t == min(3, steps - 1)
+                    else contextlib.nullcontext())
+
+        def prefill_hook(i, pchecks=pchecks):
+            return checked_kernel_calls(pchecks) if i == 0 else contextlib.nullcontext()
+
+        DA.decode_attention.launches = SS.ssd_scan.launches = 0
+        with SH.use_rules(rules):
+            got = decode_stream(T, INS, cfg, shard, prompts, steps, cache, device, mesh=mesh,
+                                hook=hook, timed=timed, enc=enc, row_cache=row_cache,
+                                prefill_hook=prefill_hook, forced=tokens32)
+        r = {"decode_launches": DA.decode_attention.launches,
+             "ssd_launches": SS.ssd_scan.launches, "tokens": got["tokens"].tolist(),
+             "colls": got["colls"], "prefill_colls": got["prefill_colls"], "ms": got["ms"],
+             "coll_ms": got["coll_ms"],
+             "checks": checks.get("decode", []), "ssd_checks": pchecks.get("ssd", []),
+             "local": {"/".join(k): tuple(v.shape) for k, v in tree_items(shard)
+                       if k[-1] in ("w_x", "w_dt", "out_proj", "wq")},
+             "local_cache": {"/".join(k): tuple(v.shape) for k, v in tree_items(cache)
+                             if k[-1] in ("ssd", "conv_x", "conv_B", "k")}}
+        del cache
+        if rank == 0:
+            ucache = T.init_cache(cfg, B, max_len, dtype, device)
+            urow = None if audio else functools.partial(T.init_cache, cfg, 1, max_len, dtype,
+                                                        device)
+            want = decode_stream(T, INS, cfg, full, prompts, steps, ucache, device,
+                                 forced=tokens32 if tokens32 is not None else got["tokens"],
+                                 timed=timed, enc=enc, row_cache=urow)
+            r["unsharded_ms"] = want["ms"]
+            r["tokens_equal"] = bool((want["tokens"] == got["tokens"]).all())
+            r["rel"] = [rel_l2(a, b) for a, b in zip(got["logits"], want["logits"])]
+            if dtype == "float32":
+                truth = want["logits"]
+            else:   # tests/_bf16_gap.py's rule: against the fp32 unsharded logits
+                r["gap"] = [(rel_l2(a, w), rel_l2(b, w)) for a, b, w in
+                            zip(got["logits"], want["logits"], truth)]
+            r["finite"] = bool(torch.isfinite(got["logits"]).all())
+            del ucache, want
+        if dtype == "float32":
+            tokens32 = got["tokens"]
+        r["seconds"] = time.perf_counter() - t0
+        out[dtype] = r
+        del full, shard, got
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
 
 
 def sharded_phase(TR, smi, device="cuda"):
@@ -4101,9 +4315,92 @@ def sharded_phase(TR, smi, device="cuda"):
             f"the unsharded dense dispatch's {median(a['unsharded_ms']):.3f} ms; "
             f"{a['seconds']:.1f} s [{smi}]"
         )
+    # 13e-g
+    ssd_launches = {}
+    for part, name in (("ssm", "13e mamba2-780m"), ("hybrid", "13f zamba2-7b"),
+                       ("audio", "13g whisper-medium")):
+        launches[part], ssd_launches[part] = family_gates(part, name, r0, r1, on_card, smi)
     log(f"[sharded] the ranks' phase took {r0['phase_seconds']:.1f} / "
         f"{r1['phase_seconds']:.1f} s after their start")
-    return launches
+    return {"decode": launches, "ssd": ssd_launches}
+
+
+def family_gates(part, name, r0, r1, on_card, smi):
+    """13e-g's gates on both ranks' results, and their lines. Returns the
+    dense-decode and SSD launches of both ranks' sharded streams."""
+    info = r0[part]
+    L, n_pre, mamba, attn = info["layers"], info["prefills"], info["mamba"], info["attn"]
+    decode_launches = ssd_launches = 0
+    for what, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        a = info[what]
+        if a["tokens"] != r1[part][what]["tokens"]:
+            raise AssertionError(f"{part} {what}: the ranks' tokens differ")
+        for res in (r0, r1):
+            b = res[part][what]
+            if any(c != info["predicted"] for c in b["colls"]) or any(
+                    c != info["predicted_prefill"] for c in b["prefill_colls"]) or len(
+                    b["prefill_colls"]) != n_pre:
+                raise AssertionError(
+                    f"{part} {what}: collectives per prefill {b['prefill_colls'][:2]}... and "
+                    f"per decode step {b['colls'][:2]}..., predicted "
+                    f"{info['predicted_prefill']} and {info['predicted']}")
+            if len(b["ssd_checks"]) != mamba or (mamba and max(b["ssd_checks"]) > tol):
+                raise AssertionError(f"{part} {what}: SSD calls of the first prefill against "
+                                     f"the plain scan: {b['ssd_checks']} (tol {tol})")
+            if len(b["checks"]) != attn or (attn and max(b["checks"]) > tol):
+                raise AssertionError(f"{part} {what}: dense-decode calls of decode step 3 "
+                                     f"against decode_attention_ref: {b['checks']} (tol {tol})")
+            if on_card and (b["ssd_launches"] != mamba * n_pre or b["decode_launches"]
+                            != attn * (info["steps"] + info["timed"])):
+                raise AssertionError(
+                    f"{part} {what}: SSD launches {b['ssd_launches']} (expected "
+                    f"{mamba * n_pre}), dense-decode {b['decode_launches']} (expected "
+                    f"{attn * (info['steps'] + info['timed'])})")
+            decode_launches += b["decode_launches"]
+            ssd_launches += b["ssd_launches"]
+        if not a["finite"]:
+            raise AssertionError(f"{part} {what}: non-finite logits")
+        if what == "float32":
+            if not a["tokens_equal"] or max(a["rel"]) > tol:
+                raise AssertionError(f"{part} fp32: tokens equal {a['tokens_equal']}, logits "
+                                     f"{max(a['rel']):.3e} (tol {tol})")
+            gate = (f"tokens equal to the unsharded stream's: {a['tokens_equal']}; logits "
+                    f"relative L2 worst {max(a['rel']):.3e} over {len(a['rel'])} calls "
+                    f"(tol {tol})")
+        else:
+            worst = max(g - p for g, p in a["gap"])
+            if worst > tol:
+                raise AssertionError(f"{part} bf16: logits farther from fp32 than the "
+                                     f"unsharded bf16 by {worst:.3e} (tol {tol})")
+            gate = (f"fed the fp32 stream's tokens; logits against the unsharded bf16 "
+                    f"worst {max(a['rel']):.3e}; against the unsharded fp32: sharded "
+                    f"{max(g for g, _ in a['gap']):.3e}, unsharded "
+                    f"{max(p for _, p in a['gap']):.3e}, the sharded no more than "
+                    f"{worst:.3e} farther (tol {tol}, tests/_bf16_gap.py's rule)")
+        checks = []
+        if mamba:
+            checks.append(f"the {len(a['ssd_checks'])} SSD calls of the first prefill "
+                          f"against ssd_chunked worst {max(a['ssd_checks']):.3e} / "
+                          f"{max(r1[part][what]['ssd_checks']):.3e}")
+        if attn:
+            checks.append(f"the {len(a['checks'])} dense-decode calls of decode step 3 "
+                          f"against decode_attention_ref worst {max(a['checks']):.3e} / "
+                          f"{max(r1[part][what]['checks']):.3e}")
+        log(
+            f"[sharded] {name} ({L} layers"
+            + (f", {info['enc_layers']} encoder layers" if part == "audio" else "")
+            + f") on (data 1, model 2) under rules_for {info['rules']}, {what}: local "
+            f"{a['local']}, cache shard {a['local_cache']}; {n_pre} prefill call(s), "
+            f"{info['steps']} decode steps: {gate}; {'; '.join(checks)} (rank 0 / 1, tol "
+            f"{tol}); collectives per prefill {a['prefill_colls'][0]}, per decode step "
+            f"{a['colls'][0]} (predicted {info['predicted_prefill']} / {info['predicted']}); "
+            f"launches SSD {a['ssd_launches']}, dense decode {a['decode_launches']} a rank; "
+            f"eager decode step median {median(a['ms']):.3f} / "
+            f"{median(r1[part][what]['ms']):.3f} ms (rank 0 / 1), its staged collectives "
+            f"{median(a['coll_ms']):.3f} ms (rank 0, host clock), against the unsharded "
+            f"eager step's {median(a['unsharded_ms']):.3f} ms; {a['seconds']:.1f} s [{smi}]"
+        )
+    return decode_launches, ssd_launches
 
 
 # ------------------------------------------------- training (phase 14)
@@ -4540,9 +4837,19 @@ def p15_predicted(T, cfg, part):
     layer gathers the rows and sums the experts forward, a reduce-scatter
     and a psum backward; update, a gradient sum a leaf but the three
     routed-expert leaves, and the norm's psum over data. ep: two
-    all-to-alls a layer each way."""
+    all-to-alls a layer each way. ssm, (1, 2): forward as tp, two psums a
+    Mamba2 layer (the gated norm's sum of squares, ``out_proj``);
+    backward, seven a layer (the ``enter`` of x into the split
+    projections, of the whole B and C, of ``dt_bias``, ``A_log`` and
+    ``D`` at the rank's heads, and the gated norm's psum backward) and the
+    final norm's; update as tp. audio, (2, 1): as dp."""
     L = cfg.num_layers
     n = len(list(tree_leaves(T.init_params_meta(cfg))))
+    if part == "ssm":
+        return {"forward": {"all-gather": 1, "all-reduce": 1 + 2 * L},
+                "backward": {"all-reduce": 7 * L + 1}, "update": {"all-reduce": 1}}
+    if part == "audio":
+        part = "dp"
     return {
         "tp": {"forward": {"all-gather": 1, "all-reduce": 1 + 2 * L},
                "backward": {"all-reduce": 2 * L + 1}, "update": {"all-reduce": 1}},
@@ -4593,7 +4900,7 @@ def p15_timed_steps(step, params, opt, batches, mesh, device):
 
 
 def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, ref=True,
-             bf16=False, repeat=False, compare_at=None):
+             bf16=False, repeat=False, compare_at=None, witness=False):
     """One part of phase 15 on this rank: the dry run's count and bytes
     for the case; the fp32 sharded steps (TF32 off) from phase 5's seeded
     weights on ``sharded_batches``; with ``ref``, the unsharded step on
@@ -4603,7 +4910,11 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     ``bf16_steps`` on one repeated batch. ``repeat`` trains the fp32 run
     on one repeated batch too (``ep_steps`` of them). An MoE part records
     each layer's expert ids in both runs (``route_flips``: the tokens
-    whose ids differ, by step and layer)."""
+    whose ids differ, by step and layer). ``witness``: the shards are
+    also compared after every step (``errs_steps``, each step's worst
+    leaf, ungated), and rank 0 runs the unsharded step a second time from
+    its weights perturbed by up to one float32 ulp, in lockstep, against
+    the first (``ulp_steps``): the spread that rounding alone grows to."""
     import datetime
 
     import torch.distributed as dist
@@ -4637,7 +4948,9 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     n = (st["ep_steps"] if repeat else st["moe_steps"] if cfg.num_experts
          else st["steps"])
     k = compare_at or n
-    batches = list(DP.sharded_batches(cfg, dcfg, mesh, SH.batch_specs(rules)["tokens"], n))
+    audio = cfg.family == "audio"
+    batches = list(DP.sharded_batches(cfg, dcfg, mesh, SH.batch_specs(rules)["tokens"], n,
+                                      frames=audio))
     if repeat:
         batches = [batches[0]] * n
     routes, ref_routes = [], []
@@ -4645,61 +4958,94 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     def routing(sink):     # each moe.route call's (args, (weights, ids, aux))
         return recorded(MOE, "route", sink) if cfg.num_experts else contextlib.nullcontext()
 
+    def trees(p, o):
+        return (("params", p), ("mu", o["mu"]), ("nu", o["nu"]))
+
+    snap_at = set(range(1, n + 1)) if witness else {k}
+    hosts, run = {}, None
     with routing(routes):
         step = TR.make_train_step(cfg, ocfg)
-        with SH.use_rules(rules):
-            params, opt, run = p15_timed_steps(step, params, opt, batches[:k], mesh, device)
+        for i, b in enumerate(batches):
+            with SH.use_rules(rules):
+                params, opt, one = p15_timed_steps(step, params, opt, [b], mesh, device)
+            run = one if run is None else {key: run[key] + v for key, v in one.items()}
+            if i + 1 in snap_at:
+                hosts[i + 1] = {name: {p: t.to("cpu", copy=True)
+                                       for p, t in OPT.tree_items(tree)}
+                                for name, tree in trees(params, opt)}
         out["bytes"] = sum(t.numel() * t.element_size()
                            for t in [*tree_leaves(params), *tree_leaves(opt)])
-        host = {name: {p: t.to("cpu", copy=True) for p, t in OPT.tree_items(tree)}
-                for name, tree in (("params", params), ("mu", opt["mu"]), ("nu", opt["nu"]))}
-        if k < n:
-            with SH.use_rules(rules):
-                params, opt, more = p15_timed_steps(step, params, opt, batches[k:], mesh,
-                                                    device)
-            for key, v in more.items():
-                run[key] += v
     out.update(run, peak=peak_bytes(device), compared_steps=k)
     del params, opt, batches
     reset_peak(device)
 
+    def rel_errs(p, o, other):
+        """Relative L2 of each leaf of ``other(name, path, leaf)`` against
+        the leaf of (p, o) (this rank's shard of it where ``shard``)."""
+        errs = {}
+        for name, tree in trees(p, o):
+            for path, leaf in OPT.tree_items(tree):
+                want, got = other(name, path, leaf)
+                den = want.norm().item()
+                errs[f"{name}/{'/'.join(path)}"] = ((got - want).norm().item() / den
+                                                    if den else (got - want).norm().item())
+        return errs
+
+    def worst(errs):
+        w = max(errs, key=errs.get)
+        return w, errs[w]
+
     if ref:
-        def compare(p, o):
-            errs = {}
-            for name, tree in (("params", p), ("mu", o["mu"]), ("nu", o["nu"])):
-                for (path, leaf), (_, spec) in zip(OPT.tree_items(tree), OPT.tree_items(specs)):
-                    want = SH.shard_leaf(leaf, spec, mesh).float()
-                    got = host[name][path].to(device).float()
-                    den = want.norm().item()
-                    errs[f"{name}/{'/'.join(path)}"] = ((got - want).norm().item() / den
-                                                        if den else (got - want).norm().item())
-            return errs
+        spec_of = dict(OPT.tree_items(specs))
+
+        def against_host(at):
+            return lambda name, path, leaf: (
+                SH.shard_leaf(leaf, spec_of[path], mesh).float(),
+                hosts[at][name][path].to(device).float())
 
         def reference():
             reset_peak(device)
-            p = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "float32")
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            p = T.init_params(cfg, gen, "float32")
             o = OPT.init_opt_state(p)
+            control = witness and rank == 0
+            if control:   # every weight times (1 + u 2^-23), |u| <= 1
+                gen.manual_seed(SEED + 15)
+                pp = {path: t * (1 + (torch.rand(t.shape, generator=gen, device=device) * 2
+                                      - 1) * 2.0 ** -23) for path, t in OPT.tree_items(p)}
+                pp = OPT.tree_from(list(pp), list(pp.values()))
+                oo = OPT.init_opt_state(pp)
             step = TR.make_train_step(cfg, ocfg)
-            losses, ms = [], []
+            losses, ms, errs, ulp = [], [], {}, {}
             with routing(ref_routes):
                 for i in range(n):
                     b = DP.synth_batch(cfg, dcfg, 0 if repeat else i, device)
+                    if audio:
+                        b["frames"] = DP.synth_frames(cfg, dcfg, 0 if repeat else i, device)
                     sync(device)
                     t = time.perf_counter()
                     p, o, m = step(p, o, b)
                     losses.append(float(m["loss"]))
                     ms.append((time.perf_counter() - t) * 1e3)
-                    if i + 1 == k:
-                        errs = compare(p, o)
+                    if i + 1 in hosts:
+                        errs[i + 1] = rel_errs(p, o, against_host(i + 1))
+                    if control:
+                        pp, oo, _ = step(pp, oo, b)
+                        other = {name: dict(OPT.tree_items(tree))
+                                 for name, tree in trees(pp, oo)}
+                        ulp[i + 1] = worst(rel_errs(p, o, lambda name, path, leaf: (
+                            leaf, other[name][path])))
             peak = peak_bytes(device)
             del p, o
             reset_peak(device)
-            return {"ref_loss": losses, "ref_ms": ms, "errs": errs, "ref_peak": peak}
+            return {"ref_loss": losses, "ref_ms": ms, "errs": errs[k], "ref_peak": peak,
+                    "errs_steps": {s: worst(e) for s, e in errs.items()} if witness else None,
+                    "ulp_steps": ulp or None}
 
         out.update(p15_turns(store, f"{tag}/ref", rank, world, reference))
         out["route_flips"] = [int((a[1][1] != b[1][1]).any(-1).sum())
                               for a, b in zip(routes, ref_routes)]
-    del host
+    del hosts
 
     if bf16:
         full = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "bfloat16")
@@ -4754,12 +5100,18 @@ def sharded_train_rank(rank, world, port, results, device="cuda"):
     args = (mods, st, store, rank, world, device)
     cfg = p13_config(get_config, "tinyllama-1.1b", st)
     mcfg = p13_config(get_config, MOE_ARCH, st, layers=st["moe_layers"], experts=12)
+    scfg = p13_config(get_config, SSM_ARCH, st, cut=FAMILY13["ssm"][1])
+    acfg = p13_config(get_config, AUDIO_ARCH, st, cut=FAMILY13["audio"][1])
     for part, tag, c, shape, kw in (
             ("tp", "15a", cfg, (1, 2), dict(bf16=True)),
             ("dp", "15b", cfg, (2, 1), dict(bf16=True)),
             ("moe", "15c", mcfg, (2, 1), dict(compare_at=1)),
             ("ep", "15c-a2a", mcfg, (2, 1), dict(extra={"moe_a2a": True}, ref=False,
-                                                 repeat=True))):
+                                                 repeat=True)),
+            # gated after its first step, as 15c: the witness shows the
+            # unsharded step 1 ulp apart from itself drift past 1e-4
+            ("ssm", "15e", scfg, (1, 2), dict(witness=True, compare_at=1)),
+            ("audio", "15f", acfg, (2, 1), {})):
         t = time.perf_counter()
         res[part] = p15_part(*args, tag, c, shape, **kw)
         res[part]["predicted"] = p15_predicted(T, c, part)
@@ -4785,7 +5137,8 @@ def p15_gates(part, r, on_card):
         if any(r["route_flips"][:k * r["layers"]]):
             raise AssertionError(f"{part}: expert ids differ from the unsharded step's in the "
                                  f"compared steps: {r['route_flips']}")
-        for got, ref in zip(r["loss"][:k], r["ref_loss"][:k]):
+        # every step's loss, but where routing may flip after the first
+        for got, ref in zip(r["loss"][:k] if r["route_flips"] else r["loss"], r["ref_loss"]):
             if abs(got - ref) > 1e-5 * abs(ref):
                 raise AssertionError(f"{part}: loss {got} against the unsharded {ref}")
         worst = max(r["errs"], key=r["errs"].get)
@@ -4804,7 +5157,7 @@ def p15_gates(part, r, on_card):
 
 def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
     """Phase 15: spawns the two ranks, waits for both (a rank that fails
-    fails the phase), gates and prints their parts, and gates the four
+    fails the phase), prints and gates their parts, and gates the four
     kernel counters unchanged on both ranks and here (15d)."""
     import multiprocessing as mp
     import queue
@@ -4843,13 +5196,11 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
         f"gloo groups: two ranks sharing one card measure the program (every collective "
         f"staged through the host), not the gain of sharding [{smi}]")
     names = {"tp": "15a tensor parallel (1, 2)", "dp": "15b data parallel (2, 1)",
-             "moe": "15c moe scatter dispatch (2, 1)", "ep": "15c moe all-to-all dispatch (2, 1)"}
+             "moe": "15c moe scatter dispatch (2, 1)", "ep": "15c moe all-to-all dispatch (2, 1)",
+             "ssm": "15e mamba2-780m head-split (1, 2)",
+             "audio": "15f whisper-medium data parallel with frames (2, 1)"}
     for part, what in names.items():
         r0, r1 = got[0][part], got[1][part]
-        for r in (r0, r1):
-            p15_gates(part, r, on_card)
-        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(r0["loss"], r1["loss"])):
-            raise AssertionError(f"{part}: the ranks' losses differ: {r0['loss']} / {r1['loss']}")
         tokens = p15_settings(device)["batch"] * p15_settings(device)["seq"]
         # the first step of a run warms up (allocator, cuBLAS, gloo buffers)
         step_ms = median(r0["ms"][1:])
@@ -4871,7 +5222,8 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
             line += (f"; the unsharded step {fmt_ms(r0['ref_ms'])} ms (peak {r0['ref_peak']} "
                      f"B); losses {[f'{x:.6f}' for x in r0['loss']]} against "
                      f"{[f'{x:.6f}' for x in r0['ref_loss']]} (gated over the first "
-                     f"{r0['compared_steps']}); worst shard after step "
+                     f"{r0['compared_steps'] if r0['route_flips'] else len(r0['loss'])}); "
+                     f"worst shard after step "
                      f"{r0['compared_steps']}: {worst} {errs[worst]:.3e} (tol 1e-4)")
             if r0["route_flips"]:
                 line += (f"; tokens whose expert ids differ from the unsharded step's, by "
@@ -4880,6 +5232,19 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
             line += (f"; losses {[f'{x:.4f}' for x in r0['loss']]} on one repeated batch, aux "
                      f"{[f'{x:.4f}' for x in r0['aux']]} (routes per rank: no unsharded twin)")
         log(line + f"; part {r0['seconds']:.1f} s [{smi}]")
+        if r0.get("errs_steps"):
+            def fmt(steps):
+                return ", ".join(f"step {i}: {k} {v:.3e}" for i, (k, v) in sorted(steps.items()))
+            log(f"[sharded-train] {what}, witness (ungated): the worst shard after each step "
+                f"against the unsharded step, rank 0: {fmt(r0['errs_steps'])}; rank 1: "
+                f"{fmt(r1['errs_steps'])}; the unsharded step from its weights perturbed by up "
+                f"to one float32 ulp against itself unperturbed: {fmt(r0['ulp_steps'])} "
+                f"(rounding alone, grown by Adam's u = m / (sqrt(v) + eps) where a gradient "
+                f"entry is near eps) [{smi}]")
+        for r in (r0, r1):
+            p15_gates(part, r, on_card)
+        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(r0["loss"], r1["loss"])):
+            raise AssertionError(f"{part}: the ranks' losses differ: {r0['loss']} / {r1['loss']}")
         if "bf16" in r0:
             b = r0["bf16"]
             log(f"[sharded-train] {what}, bf16: {len(b['loss'])} steps on one repeated batch, "
@@ -4955,10 +5320,11 @@ def main():
     moe_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens, width, smi)
     # phase 12's: a replicated layer's call on one rank, rows 0-3 of 8
     repl_paged = time_paged_decode(PD, cfg, mid_lens[:4], width, smi)
-    # phase 10's serving shapes: mamba2-780m's and zamba2-7b's prefills
+    # phase 10's serving shapes: mamba2-780m's and zamba2-7b's prefills,
+    # whole and at a rank's heads on model 2 (phase 13e-f)
     mamba, zamba = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
     serving_ssd = [
-        shape for c in (mamba, zamba)
+        shape for c in (mamba, zamba, rank_heads(mamba), rank_heads(zamba))
         for shape in serving_ssd_shapes(c, sorted({len(p) for p in prompts}))
     ]
     errs = {
@@ -4989,10 +5355,18 @@ def main():
         "decode_whisper": time_decode(DA, get_config(AUDIO_ARCH), [1500] * 8, 1500, smi),
         # phase 13's: a rank's heads under tensor parallelism (13a) and
         # its 4 rows under expert parallelism (13d)
-        "decode_tp": time_decode(DA, TP_LOCAL_HEADS, mid_lens, 1024, smi),
+        "decode_tp": time_decode(DA, rank_heads(cfg), mid_lens, 1024, smi),
         "decode_ep": time_decode(DA, get_config(MOE_ARCH), mid_lens[:4], 1024, smi),
         "ssd_mamba_768": time_ssd(SS, mamba, 768, smi),
         "ssd_zamba_768": time_ssd(SS, zamba, 768, smi),
+        # phase 13e-g's rank shapes on model 2: zamba2's shared block at
+        # 16 of 32 heads, whisper's cross-attention at 8 of 16, the SSD
+        # scan at mamba2's 24 of 48 heads and zamba2's 56 of 112
+        "decode_zamba_tp": time_decode(DA, rank_heads(zamba), mid_lens, 1024, smi),
+        "decode_whisper_tp": time_decode(DA, rank_heads(get_config(AUDIO_ARCH)),
+                                         [1500] * 8, 1500, smi),
+        "ssd_mamba_tp": time_ssd(SS, rank_heads(mamba), 768, smi),
+        "ssd_zamba_tp": time_ssd(SS, rank_heads(zamba), 768, smi),
     }
 
     # phase 4: small fp32 step, card vs CPU
@@ -5223,18 +5597,29 @@ def main():
     torch.cuda.empty_cache()
     t = time.perf_counter()
     sharded = sharded_phase(TR, smi)
-    row = kernels[2]
-    row["launches"] += sum(sharded.values())
-    for part, timed_key, model in (
+    for row, key, shapes in (
+        (kernels[2], "decode", (
             ("tp", "decode_tp", f"{cfg.name} on model 2 (16 of 32 heads a rank)"),
-            ("ep", "decode_ep", f"{MOE_ARCH} on data 2 (4 of 8 rows a rank)")):
-        k_ms, k_plain, k_lib, (k_bound, k_by) = timed[timed_key]
-        row["shapes"].append({
-            "model": model, "timed": timed_key, "launches": sharded[part], "ms": k_ms,
-            "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib,
-        })
-    log(f"[sharded] phase 13 in {time.perf_counter() - t:.1f} s; dense-decode launches "
-        f"on both ranks {sharded}")
+            ("ep", "decode_ep", f"{MOE_ARCH} on data 2 (4 of 8 rows a rank)"),
+            ("hybrid", "decode_zamba_tp", f"{HYBRID_ARCH} on model 2 (16 of 32 heads a rank)"),
+            ("audio", "decode_whisper_tp",
+             f"{AUDIO_ARCH} cross-attention on model 2 (8 of 16 heads a rank; the "
+             f"launches count self- and cross-attention)"))),
+        (kernels[3], "ssd", (
+            ("ssm", "ssd_mamba_tp", f"{SSM_ARCH} on model 2 (24 of 48 heads a rank)"),
+            ("hybrid", "ssd_zamba_tp", f"{HYBRID_ARCH} on model 2 (56 of 112 heads a "
+                                       f"rank)"))),
+    ):
+        row["launches"] += sum(sharded[key].values())
+        for part, timed_key, model in shapes:
+            k_ms, k_plain, k_lib, (k_bound, k_by) = timed[timed_key]
+            row["shapes"].append({
+                "model": model, "timed": timed_key, "launches": sharded[key][part],
+                "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+                "library_ms": k_lib,
+            })
+    log(f"[sharded] phase 13 in {time.perf_counter() - t:.1f} s; launches on both ranks "
+        f"{sharded}")
 
     # phase 14: the training path, after phase 13's ranks are gone
     gc.collect()

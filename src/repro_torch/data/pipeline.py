@@ -5,7 +5,8 @@ stream shaped like a packed LM dataset (documents separated by an EOS
 id, next-token labels, a loss mask), drawn from the same numpy
 ``default_rng`` stream as the reference, so a batch is bit-identical to
 the reference's. ``sharded_batches`` gives one rank of a mesh its rows
-of each batch, as the reference's places a batch on its mesh.
+of each batch, as the reference's places a batch on its mesh, with an
+audio config's stand-in encoder frames (``synth_frames``) where asked.
 """
 from __future__ import annotations
 
@@ -48,6 +49,19 @@ def synth_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
                          ("mask", mask))}
 
 
+def synth_frames(cfg: ModelConfig, dcfg: DataConfig, step: int,
+                 device="cpu") -> torch.Tensor:
+    """Stand-in encoder frames of batch ``step`` for an audio config:
+    float32 [B, encoder_seq_len, d_model], standard normal from numpy's
+    ``default_rng`` on a stream of their own (the reference's
+    ``launch/train.py`` trains on zero frames; distinct rows show each
+    rank's part)."""
+    rng = np.random.default_rng([dcfg.seed, step, 1])
+    shape = (dcfg.global_batch, cfg.encoder_seq_len, cfg.d_model)
+    return torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+
 def batches(cfg: ModelConfig, dcfg: DataConfig,
             num_steps: Optional[int] = None, device="cpu") -> Iterator[dict]:
     step = 0
@@ -57,13 +71,18 @@ def batches(cfg: ModelConfig, dcfg: DataConfig,
 
 
 def sharded_batches(cfg: ModelConfig, dcfg: DataConfig, mesh, batch_spec,
-                    num_steps: Optional[int] = None) -> Iterator[dict]:
+                    num_steps: Optional[int] = None,
+                    frames: bool = False) -> Iterator[dict]:
     """This rank's part of each ``synth_batch`` global batch under
     ``batch_spec`` (a spec tuple, e.g. ``("data", None)``, the reference's
     ``PartitionSpec`` applied to every leaf) on ``mesh`` (a
     ``parallel.mesh.RankMesh``), on the mesh's device: the rows of the
     row-major split over the batch axes (``mesh.axes_index``). A dim that
-    does not divide raises, as a ``NamedSharding`` would."""
-    for b in batches(cfg, dcfg, num_steps):
+    does not divide raises, as a ``NamedSharding`` would. ``frames``
+    adds the batch's ``synth_frames`` under ``"frames"``, split by rows
+    alike (the reference's ``batch_specs(with_frames=True)``)."""
+    for step, b in enumerate(batches(cfg, dcfg, num_steps)):
+        if frames:
+            b["frames"] = synth_frames(cfg, dcfg, step)
         yield {k: shard_leaf(v, batch_spec, mesh).to(mesh.device)
                for k, v in b.items()}

@@ -19,9 +19,9 @@ bytes}}``, counted as they run, also by phase), ``cost_analysis.flops``
 (``torch.utils.flop_counter.FlopCounterMode`` over the rank's step) and
 ``status``. XLA's ``memory_analysis`` and the HLO-derived fields have no
 torch counterpart: ``unavailable`` names them, and nothing stands in for
-them. A family the sharded step does not cover yet records
-``"not_ported"`` with the reason (ROADMAP A10). Records land in
-``dryrun_artifacts/`` as JSON.
+them. A case whose step raises ``NotImplementedError`` (a part of the
+sharded step not ported yet, ROADMAP A10) records ``"not_ported"`` with
+the reason. Records land in ``dryrun_artifacts/`` as JSON.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch tinyllama-1.1b --shape train_4k

@@ -417,15 +417,21 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     reference does and without it too, where the reference lets GSPMD
     gather the scores: the same attention. Where the query heads split
     over the sequence's axis, the queries are gathered first and this
-    rank keeps its heads of the result.
+    rank keeps its heads of the result. Cross-attention's queries enter
+    this rank's heads too, as do cross K/V kept whole under split query
+    heads; the cross K/V are never sequence-split, so they never take
+    the flash-decoding branch.
     Returns (out [B,S,d], cache_or_None).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     heads = Heads(cfg, p["wq"].shape[-2], p["wk"].shape[-2])
     if kv_override is not None:
-        q = _einsum("bsd,dhk->bshk", x, p["wq"])
-        k, v = heads.select_kv(*kv_override)
+        q = _einsum("bsd,dhk->bshk", heads.enter(x), p["wq"])
+        k, v = kv_override
+        if heads.kv is not None:    # whole K/V read by split query heads
+            k, v = heads.enter(k), heads.enter(v)
+        k, v = heads.select_kv(k, v)
         if impl == "kernel" and S == 1:
             if kv_lengths is None:
                 raise ValueError("the cross-attention kernel route needs "
@@ -588,9 +594,13 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     return torch.einsum("bsh,hd->bsd", out, p["wo"]), pool_k, pool_v
 
 
-def compute_cross_kv(p, enc_out):
+def compute_cross_kv(p, enc_out, cfg: ModelConfig):
     """Cross-attention K/V from the encoder output (the whisper decoder's
-    prefill), at the promoted type of the output and the weights."""
+    prefill), at the promoted type of the output and the weights. Under
+    sharding rules the replicated output enters K/V heads split over
+    ``kv_heads``."""
+    enc_out = enter_split(enc_out, "kv_heads", p["wk"].shape[-2],
+                          cfg.num_kv_heads)
     k = _einsum("bsd,dhk->bshk", enc_out, p["wk"])
     v = _einsum("bsd,dhk->bshk", enc_out, p["wv"])
     return k, v

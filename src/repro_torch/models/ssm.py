@@ -10,6 +10,14 @@ dt) as in the reference; parameters are a dict with the reference's keys.
 ``ssd_chunked`` is the plain chunked scan the SSD kernel
 (``kernels/ssd_scan.py``) is checked against; ``apply_mamba2`` calls
 through an injectable ``ssd_fn`` (``kernels.ops.ssd`` runs the kernel).
+
+Under sharding rules (``parallel.sharding.use_rules``) a mixer runs at
+this rank's heads of the reference's head-aligned split (``ssm_heads``:
+``w_z``, ``w_x``, ``w_dt``, the x conv, ``norm_scale`` and the rows of
+``out_proj``), read from ``w_dt``'s shape (``SSMHeads``). ``B`` and
+``C`` stay whole: every rank computes them and takes the groups its heads
+read. The gated norm's mean over ``d_inner`` becomes a cross-rank sum of
+squares, and the row-parallel ``out_proj`` ends in a ``psum``.
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models.layers import _silu, dense_init
+from repro_torch.parallel import sharding as SH
 
 
 def init_mamba2(cfg: ModelConfig, gen: torch.Generator, dtype):
@@ -152,9 +162,11 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _gated_rmsnorm(y, z, scale, eps=1e-5):
+def _gated_rmsnorm(y, z, scale, heads, eps=1e-5):
+    """RMS norm of ``y * silu(z)`` over the whole ``d_inner``, of which
+    ``heads`` (``SSMHeads``) holds this rank's part."""
     yf = (y * _silu(z)).float()
-    out = yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + eps)
+    out = yf * torch.rsqrt(heads.mean_square(yf) + eps)
     return (out * scale.float()).to(y.dtype)
 
 
@@ -177,10 +189,80 @@ def _causal_conv(xpart, w, b, conv_state=None):
     return out, new_state
 
 
-def _project(p, x):
-    """Per-part projections. x [B,S,d] -> (z, xs, Bm, Cm, dt_raw)."""
-    return tuple(torch.einsum("bsd,dk->bsk", x, p[name])
-                 for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+class SSMHeads:
+    """This rank's Mamba2 heads under the sharding rules installed:
+    ``n`` local heads, read from ``w_dt``'s shape; ``axis``, the mesh
+    axis they are split over (None when this rank holds every head);
+    ``h0``, the first global head it holds; ``groups``, the B/C groups
+    its heads read (head h reads group ``h // (H // G)``): a slice where
+    they form whole groups or share one, else an index of each head's
+    group. Every replicated tensor that enters the split (``x`` of the
+    split projections, the whole ``B`` / ``C``, the per-head leaves
+    ``dt_bias``, ``A_log`` and ``D``) goes through ``RankMesh.enter``,
+    whose backward sums its cotangent over ``axis``
+    (``parallel.mesh``'s convention)."""
+
+    def __init__(self, cfg: ModelConfig, n: int):
+        H, G = cfg.ssm_heads, cfg.ssm_ngroups
+        self.n, self.h0, self.groups, self.mesh = n, 0, None, None
+        self.d_inner = cfg.ssm_d_inner
+        self.axis = L.split_axis("ssm_heads", n, H)
+        if self.axis is None:
+            return
+        self.mesh = L.rule_mesh(SH.current_rules())
+        self.h0 = self.mesh.axes_index(self.axis) * n
+        R = H // G
+        lo, hi = self.h0 // R, (self.h0 + n - 1) // R + 1
+        if hi - lo == 1 or (self.h0 % R == 0 and n % R == 0):
+            self.groups = slice(lo, hi)
+        else:
+            self.groups = torch.arange(self.h0, self.h0 + n) // R
+
+    def enter(self, t):
+        return t if self.axis is None else self.mesh.enter(t, self.axis)
+
+    def local(self, t):
+        """A whole per-head leaf [H] at this rank's heads."""
+        if self.axis is None:
+            return t
+        return self.enter(t).narrow(-1, self.h0, self.n)
+
+    def select(self, t):
+        """Whole B or C [..., G, N] at the groups this rank's heads read,
+        contiguous (the SSD kernel takes contiguous operands)."""
+        if self.axis is None:
+            return t
+        g = self.groups
+        t = self.enter(t)[..., g.to(t.device) if torch.is_tensor(g) else g,
+                          :]
+        return t.contiguous()
+
+    def mean_square(self, yf):
+        """The mean of ``yf``'s squares over the whole ``d_inner``; split,
+        this rank's float32 sum of squares summed over ``axis``, over the
+        global ``d_inner``. The rms is replicated and consumed by split
+        elements, so each rank's cotangent of it is a partial sum: the
+        psum's backward sums them (``grad="psum"``)."""
+        if self.axis is None:
+            return yf.square().mean(-1, keepdim=True)
+        ss = yf.square().sum(-1, keepdim=True)
+        return self.mesh.psum(ss, self.axis, grad="psum") / self.d_inner
+
+    def reduce(self, y):
+        """The row-parallel ``out_proj``'s partial sums over ``axis``."""
+        return y if self.axis is None else self.mesh.psum(y, self.axis)
+
+
+def _project(p, x, heads):
+    """Per-part projections. x [B,S,d] -> (z, xs, Bm, Cm, dt_raw): x
+    enters the split projections; B and C are computed whole."""
+    xs = heads.enter(x)
+
+    def proj(t, name):
+        return torch.einsum("bsd,dk->bsk", t, p[name])
+
+    return (proj(xs, "w_z"), proj(xs, "w_x"), proj(x, "w_B"), proj(x, "w_C"),
+            proj(xs, "w_dt"))
 
 
 def apply_mamba2(p, x, cfg: ModelConfig, *, state=None, ssd_fn=None):
@@ -189,48 +271,50 @@ def apply_mamba2(p, x, cfg: ModelConfig, *, state=None, ssd_fn=None):
     x: [B,S,d]. state: None or {"conv_x","conv_B","conv_C", "ssd"}.
     ``ssd_fn`` is the scan, with ``ssd_chunked``'s signature (default:
     ``ssd_chunked``; ``kernels.ops.ssd`` runs the SSD kernel).
+    Under sharding rules it runs at this rank's heads (``SSMHeads``).
     Returns (out [B,S,d], new_state).
     """
     B_, S, _ = x.shape
-    di = cfg.ssm_d_inner
-    nh, g, N, P = cfg.ssm_heads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
-    z, xh, Bh, Ch, dt = _project(p, x)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    heads = SSMHeads(cfg, p["w_dt"].shape[-1])
+    z, xh, Bh, Ch, dt = _project(p, x, heads)
     st = state or {}
     xh, ncx = _causal_conv(xh, p["conv_x_w"], p["conv_x_b"], st.get("conv_x"))
     Bh, ncB = _causal_conv(Bh, p["conv_B_w"], p["conv_B_b"], st.get("conv_B"))
     Ch, ncC = _causal_conv(Ch, p["conv_C_w"], p["conv_C_b"], st.get("conv_C"))
-    xs = xh.reshape(B_, S, nh, P)
-    Bm = Bh.reshape(B_, S, g, N)
-    Cm = Ch.reshape(B_, S, g, N)
-    dt = _softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    xs = xh.reshape(B_, S, heads.n, P)
+    Bm = heads.select(Bh.reshape(B_, S, cfg.ssm_ngroups, N))
+    Cm = heads.select(Ch.reshape(B_, S, cfg.ssm_ngroups, N))
+    dt = _softplus(dt.float() + heads.local(p["dt_bias"]))
+    A = -torch.exp(heads.local(p["A_log"]))
     fn = ssd_fn or ssd_chunked
     y, final_state = fn(xs, dt, A, Bm, Cm, cfg.ssm_chunk, st.get("ssd"))
-    y = y + p["D"][None, None, :, None].to(y.dtype) * xs
-    y = y.reshape(B_, S, di)
-    y = _gated_rmsnorm(y, z, p["norm_scale"])
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    y = y + heads.local(p["D"])[None, None, :, None].to(y.dtype) * xs
+    y = y.reshape(B_, S, heads.n * P)
+    y = _gated_rmsnorm(y, z, p["norm_scale"], heads)
+    out = heads.reduce(torch.einsum("bsk,kd->bsd", y, p["out_proj"]))
     return out, {"conv_x": ncx, "conv_B": ncB, "conv_C": ncC,
                  "ssd": final_state}
 
 
 def apply_mamba2_decode(p, x, cfg: ModelConfig, *, state):
-    """Single-token decode: x [B,1,d] with state dict. O(1) in history."""
+    """Single-token decode: x [B,1,d] with state dict. O(1) in history.
+    Under sharding rules it runs at this rank's heads (``SSMHeads``)."""
     B_ = x.shape[0]
-    di = cfg.ssm_d_inner
-    nh, g, N, P = cfg.ssm_heads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
-    z, xh, Bh, Ch, dt = _project(p, x)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    heads = SSMHeads(cfg, p["w_dt"].shape[-1])
+    z, xh, Bh, Ch, dt = _project(p, x, heads)
     xh, ncx = _causal_conv(xh, p["conv_x_w"], p["conv_x_b"], state["conv_x"])
     Bh, ncB = _causal_conv(Bh, p["conv_B_w"], p["conv_B_b"], state["conv_B"])
     Ch, ncC = _causal_conv(Ch, p["conv_C_w"], p["conv_C_b"], state["conv_C"])
-    xs = xh[:, 0].reshape(B_, nh, P)
-    Bm = Bh[:, 0].reshape(B_, g, N)
-    Cm = Ch[:, 0].reshape(B_, g, N)
-    dt1 = _softplus(dt[:, 0].float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    xs = xh[:, 0].reshape(B_, heads.n, P)
+    Bm = heads.select(Bh[:, 0].reshape(B_, cfg.ssm_ngroups, N))
+    Cm = heads.select(Ch[:, 0].reshape(B_, cfg.ssm_ngroups, N))
+    dt1 = _softplus(dt[:, 0].float() + heads.local(p["dt_bias"]))
+    A = -torch.exp(heads.local(p["A_log"]))
     y, new_ssd = ssd_decode_step(xs, dt1, A, Bm, Cm, state["ssd"])
-    y = y + p["D"][None, :, None].to(y.dtype) * xs
-    y = y.reshape(B_, 1, di)
-    y = _gated_rmsnorm(y, z, p["norm_scale"])
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    y = y + heads.local(p["D"])[None, :, None].to(y.dtype) * xs
+    y = y.reshape(B_, 1, heads.n * P)
+    y = _gated_rmsnorm(y, z, p["norm_scale"], heads)
+    out = heads.reduce(torch.einsum("bsk,kd->bsd", y, p["out_proj"]))
     return out, {"conv_x": ncx, "conv_B": ncB, "conv_C": ncC, "ssd": new_ssd}

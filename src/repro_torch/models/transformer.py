@@ -23,9 +23,10 @@ rebuilt them functionally.
 
 Under sharding rules (``parallel.sharding.use_rules``) ``forward`` runs
 one rank's part of the reference's sharded serving or train step for
-the decoders (``SHARDED``): a vocab-split embedding (a masked lookup and
-a ``psum``) and logits (an all-gather), the layers at the rank's shard
-(``models/layers.py``, ``models/moe.py``) and its cache shard
+every family: a vocab-split embedding (a masked lookup and a ``psum``)
+and logits (an all-gather), the layers at the rank's shard
+(``models/layers.py``, ``models/moe.py``, ``models/ssm.py``; the audio
+encoder over the rank's rows of the frames) and its cache shard
 (``init_cache_shard``); the collectives carry their backward
 (``parallel.mesh``), where the replicated final norm enters a
 vocab-split ``lm_head`` or tied table.
@@ -80,24 +81,12 @@ def to_device(a, device) -> torch.Tensor:
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
-#: the families the sharded serving step runs
-SHARDED = ("dense", "moe", "vlm")
-
-
 def check_supported(cfg: ModelConfig):
     """Raise ValueError for a family the reference does not know either;
     the port covers all of the reference's (``FAMILIES``), GQA and MLA
-    attention alike. Under sharding rules (``parallel.sharding``) it
-    covers the decoders (``dense``, ``moe``, ``vlm``) and raises
-    NotImplementedError for the others."""
+    attention alike, with and without sharding rules."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
-    if SH.current_rules() is not None and cfg.family not in SHARDED:
-        raise NotImplementedError(
-            f"the {cfg.family} family under sharding rules is not ported "
-            f"(ROADMAP A10): a head-split Mamba2 layer's gated norm needs a "
-            f"cross-rank sum of squares, and the audio encoder-decoder's "
-            f"cross-attention waits with it")
 
 
 # ======================================================================= init
@@ -303,7 +292,9 @@ def init_cache_shard(cfg: ModelConfig, batch: int, max_len: int, rules,
     """This rank's shard of ``init_cache(cfg, batch, max_len)`` under
     ``parallel.sharding.cache_specs(rules)``, allocated at its local
     shape (the whole cache is never made): its rows of the batch, its
-    slots of a sequence-split cache, its KV heads."""
+    slots of a sequence-split cache (never the audio ``cross`` K/V's),
+    its KV heads, its SSM heads of the Mamba2 states ``conv_x`` and
+    ``ssd`` (``conv_B`` / ``conv_C`` whole)."""
     full = init_cache(cfg, batch, max_len, dtype, device="meta")
     local = SH.shard_params(full, SH.cache_specs(full, rules), mesh)
     return SH.tree_map_with_path(
@@ -458,8 +449,9 @@ def _cross_cache(cache, enc_out, params):
     reference's prefill returns them: fp32 frames through bf16 weights
     give fp32 K/V, which the extensions of a chunked prefill read before
     ``kvcache.insert_request`` narrows them into the engine's cache. Where
-    that type is not the cache's, the leaves are replaced (a prefill's
-    throwaway cache; no graph reads it)."""
+    that type is not the cache's, the leaves are replaced at their own
+    shape, a rank's shard under sharding rules (a prefill's throwaway
+    cache; no graph reads it)."""
     cross = cache["cross"]
     dt = torch.promote_types(enc_out.dtype,
                              params["layers"]["xattn"]["wk"].dtype)
@@ -518,7 +510,7 @@ def _forward_decoder(params, cfg, tokens, positions, cache, mode, window,
             if mode == "decode":
                 ckv = (cross["k"][i], cross["v"][i])
             else:
-                ckv = L.compute_cross_kv(lp["xattn"], encoder_out)
+                ckv = L.compute_cross_kv(lp["xattn"], encoder_out, cfg)
                 if cross is not None:
                     cross["k"][i].copy_(ckv[0])
                     cross["v"][i].copy_(ckv[1])
@@ -560,7 +552,10 @@ def encode_audio(params, cfg: ModelConfig, frames, train=False):
     layers, the final norm. It runs in the frames' type promoted with the
     weights' (fp32 frames through bf16 weights run in fp32, as in the
     reference). ``train``: the layers' stacks are unbound once
-    (``_per_layer``); the reference does not checkpoint the encoder."""
+    (``_per_layer``); the reference does not checkpoint the encoder.
+    Under sharding rules ``frames`` are this rank's rows (the reference's
+    ``batch_specs(with_frames=True)``) and the layers run at its
+    heads and ``d_ff`` slice."""
     B, S, _ = frames.shape
     pos = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
     x = frames + L.sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
@@ -788,12 +783,13 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     stacked once.
 
     Under sharding rules (``parallel.sharding.use_rules``, read here as
-    the reference reads them) a decoder runs this rank's shard of the
+    the reference reads them) every family runs this rank's shard of the
     reference's sharded step: ``params`` is this rank's
-    ``shard_params`` tree, ``tokens`` / ``positions`` its rows under
-    ``rules["batch"]``, ``cache`` its shard (``init_cache_shard``); every
-    rank of the mesh calls it together, and the logits are every
-    column's on every rank.
+    ``shard_params`` tree, ``tokens`` / ``positions`` (and an audio
+    config's ``encoder_input``) its rows under ``rules["batch"]``,
+    ``cache`` its shard (``init_cache_shard``); every rank of the mesh
+    calls it together, and the logits are every column's on every
+    rank.
 
     Prefill mode starts a sequence: the SSM and hybrid families scan
     from the ZERO state and ignore the states ``cache`` holds (the

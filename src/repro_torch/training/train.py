@@ -27,8 +27,8 @@ them:
 * the clipping norm sums a split leaf's squares over the axes that split
   it and counts a replicated leaf once (``optimizer.global_norm``).
 
-Families the sharded forward does not cover (ssm, hybrid, audio) raise
-``NotImplementedError`` there (ROADMAP A10).
+Every family runs under rules; an audio batch carries this rank's rows
+of its ``frames`` (``sharded_batches(..., frames=True)``).
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@ meshes (``launch/mesh.py``) and the H100 cluster preset.
 
 * ``RankMesh.dry``'s counted collectives (kind, count, bytes; forward,
   backward and update) equal a thread mesh's real counts for the same
-  reduced case, train (with remat) and serving, and the meta inputs'
-  bytes equal the real shards'.
+  reduced case, train (with remat) and serving, for the decoders and the
+  ssm, hybrid and audio families, and the meta inputs' bytes equal the
+  real shards'.
 * ``model_flops_analytic`` equals the reference's, key for key, for
   every arch x shape.
 * ``main`` over one reduced arch writes records with the reference's
@@ -45,6 +46,18 @@ CASES = {
                           InputShape("p", "prefill", 16, 4), None),
     "dense-decode-1x2": ("tinyllama-1.1b", (), (1, 2),
                          InputShape("d", "decode", 32, 2), None),
+    "ssm-train-1x2": ("mamba2-780m", (), (1, 2),
+                      InputShape("t", "train", 16, 2), None),
+    "ssm-decode-1x2": ("mamba2-780m", (), (1, 2),
+                       InputShape("d", "decode", 32, 2), None),
+    "hybrid-train-1x2": ("zamba2-7b", (("num_layers", 3),), (1, 2),
+                         InputShape("t", "train", 16, 2), None),
+    "hybrid-prefill-2x2": ("zamba2-7b", (("num_layers", 3),), (2, 2),
+                           InputShape("p", "prefill", 16, 4), None),
+    "audio-train-1x2": ("whisper-medium", (), (1, 2),
+                        InputShape("t", "train", 16, 2), None),
+    "audio-prefill-1x2": ("whisper-medium", (), (1, 2),
+                          InputShape("p", "prefill", 16, 2), None),
 }
 #: the keys of the reference's records (``repro.launch.dryrun.run_case``)
 REFERENCE_KEYS = {"arch", "shape", "mesh", "tag", "status", "lower_s",
@@ -60,7 +73,7 @@ def _cfg(arch, changes):
 def _real_args(cfg, shape, rules, mesh):
     """The rank's real inputs, built apart from ``input_specs``: its
     shard of seeded fp32 weights, fresh fp32 moments, its rows of a
-    batch, its cache shard."""
+    batch (an audio config's frames too), its cache shard."""
     full = T.init_params(cfg, torch.Generator().manual_seed(0), "float32")
     params = SH.shard_params(full, SH.param_specs(cfg, full, rules, mesh),
                              mesh)
@@ -68,12 +81,20 @@ def _real_args(cfg, shape, rules, mesh):
     if shape.kind == "train":
         batch = next(TDP.sharded_batches(
             cfg, TDP.DataConfig(seq_len=S, global_batch=B), mesh,
-            SH.batch_specs(rules)["tokens"], 1))
+            SH.batch_specs(rules)["tokens"], 1,
+            frames=cfg.family == "audio"))
+        if "frames" in batch:   # in the dry run's type, the reference's
+            batch["frames"] = batch["frames"].to(torch.bfloat16)
         return (params, TOPT.init_opt_state(params, "float32"), batch)
     n = S if shape.kind == "prefill" else 1
     toks = SH.shard_leaf(torch.zeros((B, n), dtype=torch.int32),
                          (rules["batch"], None), mesh)
     cache = T.init_cache_shard(cfg, B, S, rules, mesh, "float32", "cpu")
+    if shape.kind == "prefill" and cfg.family == "audio":
+        frames = SH.shard_leaf(
+            torch.zeros((B, cfg.encoder_seq_len, cfg.d_model),
+                        dtype=torch.bfloat16), (rules["batch"], None), mesh)
+        return (params, toks, cache, frames)
     if shape.kind == "prefill":
         return (params, toks, cache)
     return (params, toks, torch.full_like(toks, S // 2), cache)
@@ -146,7 +167,8 @@ def test_main_writes_reference_keys(tmp_path, monkeypatch, capsys):
         assert set(v) == {"count", "bytes"} and v["count"] > 0, kind
     ssm = json.loads((tmp_path / "mamba2-780m__decode_32k__16x16.json")
                      .read_text())
-    assert ssm["status"] == "not_ported" and "A10" in ssm["reason"]
+    assert ssm["status"] == "ok" and ssm["collectives"]["all-reduce"][
+        "count"] == 1 + 2 * ssm["num_layers"]
     assert "[dryrun] tinyllama-1.1b__train_4k__16x16: ok" in \
         capsys.readouterr().out
 

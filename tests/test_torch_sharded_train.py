@@ -15,21 +15,17 @@ reference's gradient (1e-5 relative L2) and its updated params (1e-4).
 Also: accumulation against one step, ``sharded_batches`` rows against
 ``synth_batch``, the expert-parallel dispatch's gradient against a
 central finite difference in float64 (it routes per rank, so it has no
-unsharded twin), and the families the sharded forward does not cover
-raising (ROADMAP A10)."""
+unsharded twin), and accumulation under rules for the ssm, hybrid and
+audio families (their parity with the reference's step is in
+``test_torch_ssm_parallel.py`` and ``test_torch_audio_parallel.py``)."""
 import dataclasses
 import functools
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import get_config as jax_config
-from repro.data import pipeline as JDP
-from repro.training import optimizer as JOPT
-from repro.training import train as JTR
 from repro_torch.bridge import shard_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.data import pipeline as TDP
@@ -41,6 +37,8 @@ from repro_torch.training import optimizer as TOPT
 from repro_torch.training import train as TTR
 from _torch_mesh import run_mesh
 from _torch_parity import one_torch_thread  # noqa: F401
+from _torch_sharded import OPT_KW, flat as _flat, global_batch, rank_train
+from _torch_sharded import ref_train, rel as _rel, shard_index as _index
 
 # family -> (arch, config changes)
 FAMILIES = {
@@ -52,17 +50,6 @@ FAMILIES = {
 }
 MESHES = [(1, 2), (2, 1), (2, 2)]
 DATA = dict(seq_len=16, global_batch=4)
-OPT_KW = dict(lr=3e-3, warmup_steps=2, total_steps=50, clip_norm=0.5)
-
-
-def _rel(got, want):
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
-
-
-def _flat(tree):
-    return {"/".join(p): v for p, v in TOPT.tree_items(tree)}
 
 
 @functools.cache
@@ -77,65 +64,19 @@ def _case(family):
 @functools.cache
 def _reference(family):
     """The reference's unsharded loss, gradient and one train step on
-    the whole batch, under one jit: {"loss", "total", "grads" (flat),
-    "params" (flat)}."""
+    the whole batch (``_torch_sharded.ref_train``)."""
     arch, changes = FAMILIES[family]
     jcfg = dataclasses.replace(jax_config(arch).reduced(), **dict(changes))
-    _, np_params = _case(family)
-    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
-    jb = JDP.synth_batch(jcfg, JDP.DataConfig(**DATA), 0)
-    jocfg = JOPT.OptimizerConfig(**OPT_KW)
-
-    def run(p, b):
-        (total, parts), grads = jax.value_and_grad(
-            JTR.make_loss_fn(jcfg), has_aux=True)(p, b)
-        new, _, _ = JTR.make_train_step(jcfg, jocfg)(
-            p, JOPT.init_opt_state(p), b)
-        return total, parts["loss"], grads, new
-
-    total, loss, grads, new = jax.tree_util.tree_map(
-        np.asarray, jax.jit(run)(jp, jb))
-    flat = lambda t: {"/".join(str(getattr(k, "key", k)) for k in path): v  # noqa: E731
-                      for path, v in jax.tree_util.tree_flatten_with_path(t)[0]}
-    return {"total": float(total), "loss": float(loss), "grads": flat(grads),
-            "params": flat(new)}
+    tcfg, np_params = _case(family)
+    return ref_train(jcfg, np_params, global_batch(tcfg, TDP.DataConfig(**DATA)))
 
 
-def _index(shape, spec, mesh):
-    """This rank's slices of a leaf of ``shape`` under ``spec``."""
-    out = []
-    for i, n in enumerate(shape):
-        axes = spec[i] if i < len(spec) else None
-        k, j = mesh.axes_size(axes), mesh.axes_index(axes)
-        out.append(slice(j * (n // k), (j + 1) * (n // k)))
-    return tuple(out)
-
-
-def _rank_step(family, mesh, step_kw=None):
-    """This rank's loss parts, gradient shards (after ``reduce_grads``)
-    and updated params, each with its slice of the global leaf."""
+def _rank_step(family, mesh):
+    """This rank's loss parts, gradient shards and updated params
+    (``_torch_sharded.rank_train``)."""
     tcfg, np_params = _case(family)
     rules = dict(SH.rules_for(tcfg, mesh), mesh=mesh)
-    specs = SH.param_specs(tcfg, np_params, rules, mesh)
-    batch = next(TDP.sharded_batches(tcfg, TDP.DataConfig(**DATA), mesh,
-                                     SH.batch_specs(rules)["tokens"], 1))
-    p = shard_from_numpy(np_params, specs, mesh, "cpu")
-    with SH.use_rules(rules):
-        (total, parts), grads = TTR.value_and_grad(TTR.make_loss_fn(tcfg),
-                                                   p, batch)
-        TTR.reduce_grads(grads, *TTR.rank_specs(tcfg, rules, p)[::-1],
-                         rules)
-        new, _, metrics = TTR.make_train_step(
-            tcfg, TOPT.OptimizerConfig(**OPT_KW))(
-                p, TOPT.init_opt_state(p), batch)
-    where = {k: _index(np_params_leaf.shape, s, mesh)
-             for (k, np_params_leaf), (_, s) in zip(
-                 _flat(np_params).items(), TOPT.tree_items(specs))}
-    return {"total": float(total), "loss": float(parts["loss"]),
-            "step_total": float(metrics["total_loss"]),
-            "grads": {k: v.numpy() for k, v in _flat(grads).items()},
-            "params": {k: v.numpy() for k, v in _flat(new).items()},
-            "where": where}
+    return rank_train(tcfg, np_params, TDP.DataConfig(**DATA), mesh, rules)
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -287,25 +228,41 @@ def test_expert_parallel_gradient_finite_difference(shape):
     assert abs(deriv - fd) <= 1e-6 * abs(fd), (deriv, fd)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
-                                  "whisper-medium"])
-def test_uncovered_families_raise_under_rules(arch):
-    """ssm, hybrid and audio: the sharded forward raises (ROADMAP A10)
-    before any collective, in the loss and both steps."""
-    cfg = get_config(arch).reduced()
-    mesh = RankMesh.dry(("data", "model"), (1, 2), device="cpu")
-    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
-    ocfg = TOPT.OptimizerConfig()
-    batch = TDP.synth_batch(cfg, TDP.DataConfig(seq_len=8, global_batch=2), 0)
-    if cfg.family == "audio":
-        batch["frames"] = torch.zeros((2, cfg.encoder_seq_len, cfg.d_model))
-    p = T.init_params(cfg, torch.Generator().manual_seed(0), "float32")
-    opt = TOPT.init_opt_state(p)
-    with SH.use_rules(rules):
-        for call in (lambda: TTR.make_loss_fn(cfg)(p, batch),
-                     lambda: TTR.make_train_step(cfg, ocfg)(p, opt, batch),
-                     lambda: TTR.make_train_step_accum(
-                         cfg, ocfg, accum_steps=2)(p, opt, batch)):
-            with pytest.raises(NotImplementedError, match="A10"):
-                call()
-    assert mesh.collectives == {}
+@pytest.mark.parametrize("arch,changes", [
+    ("mamba2-780m", ()), ("zamba2-7b", (("num_layers", 3),)),
+    ("whisper-medium", ())], ids=["ssm", "hybrid", "audio"])
+def test_accumulation_under_rules_families(arch, changes):
+    """ssm, hybrid and audio: ``make_train_step_accum`` under rules on
+    (2, 2) (each rank's 2 rows, whisper's with their frames, as 2
+    micro-batches of 1) against the unsharded one step on the same
+    unmasked batch: the loss (1e-5) and every updated shard (1e-4)."""
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
+    full = T.init_params(tcfg, torch.Generator().manual_seed(0), "float32")
+    np_params = TOPT.tree_map(lambda t: t.numpy().copy(), full)
+    dcfg = TDP.DataConfig(**DATA)
+    ocfg = TOPT.OptimizerConfig(**OPT_KW)
+    whole = TDP.synth_batch(tcfg, dcfg, 0)
+    whole["mask"] = torch.ones_like(whole["mask"])
+    if tcfg.family == "audio":
+        whole["frames"] = TDP.synth_frames(tcfg, dcfg, 0)
+    p, _, want = TTR.make_train_step(tcfg, ocfg)(full, TOPT.init_opt_state(full),
+                                                 whole)
+    want_p = {k: v.numpy() for k, v in _flat(p).items()}
+
+    def rank(mesh):
+        rules = dict(SH.rules_for(tcfg, mesh), mesh=mesh)
+        specs = SH.param_specs(tcfg, np_params, rules, mesh)
+        mine = {k: SH.shard_leaf(v, SH.batch_specs(rules, True)[k], mesh)
+                for k, v in whole.items()}
+        q = shard_from_numpy(np_params, specs, mesh, "cpu")
+        with SH.use_rules(rules):
+            q, _, m = TTR.make_train_step_accum(tcfg, ocfg, accum_steps=2)(
+                q, TOPT.init_opt_state(q), mine)
+        where = [_index(v.shape, s, mesh) for v, (_, s) in zip(
+            _flat(np_params).values(), TOPT.tree_items(specs))]
+        return float(m["total_loss"]), _flat(q), where
+
+    for loss, q, where in run_mesh((2, 2), rank):
+        assert _rel(loss, float(want["total_loss"])) <= 1e-5
+        for (k, v), idx in zip(q.items(), where):
+            assert _rel(v.numpy(), want_p[k][idx]) <= 1e-4, k

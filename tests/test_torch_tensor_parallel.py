@@ -8,7 +8,10 @@ greedy decode steps, logits within 1e-4 and the greedy tokens equal.
 Under ``long_context_rules`` + ``flash_decode`` (batch 1, a ring that
 the prompt wraps, its slots split over ``data``) also against the
 reference's ``forward`` under the same rules on the Auto 1x1 mesh. The
-collectives of a decode step are counted against the design's count."""
+collectives of a decode step are counted against the design's count.
+Every family of the reference runs under the rules (the ssm, hybrid and
+audio families' parity with the reference is in
+``test_torch_ssm_parallel.py`` and ``test_torch_audio_parallel.py``)."""
 import dataclasses
 import functools
 
@@ -25,7 +28,6 @@ from repro_torch.bridge import shard_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as SH
-from repro_torch.parallel.mesh import RankMesh
 from _torch_mesh import auto_mesh, rows, run_mesh
 from _torch_parity import one_torch_thread  # noqa: F401
 
@@ -208,16 +210,41 @@ def test_rules_split_what_they_name():
          (2, tcfg.d_model, 2, hd), (2, tcfg.d_model, 2, hd))] * 4
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
-                                  "whisper-medium"])
-def test_unported_families_raise_under_rules(arch):
-    """SSM, hybrid and audio under sharding rules wait for ROADMAP A10."""
-    cfg = get_config(arch).reduced()
-    params = T.init_params(cfg, torch.Generator().manual_seed(0), "float32")
-    mesh = RankMesh(("data", "model"), (1, 1), 0, "cpu")
-    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    frames = torch.zeros((1, cfg.encoder_seq_len, cfg.d_model))
-    with SH.use_rules(rules), pytest.raises(NotImplementedError, match="A10"):
-        T.forward(params, cfg, toks, mode="train",
-                  encoder_input=frames if cfg.family == "audio" else None)
+#: one arch of each family (a hybrid with 3 layers, so its tail runs)
+FAMILY_ARCHS = {"dense": ("tinyllama-1.1b", ()),
+                "moe": ("qwen2-moe-a2.7b", ()),
+                "vlm": ("chameleon-34b", ()),
+                "ssm": ("mamba2-780m", ()),
+                "hybrid": ("zamba2-7b", (("num_layers", 3),)),
+                "audio": ("whisper-medium", ())}
+
+
+@pytest.mark.parametrize("family", T.FAMILIES)
+def test_every_family_runs_under_rules(family):
+    """Every family of the reference runs under sharding rules: on
+    (1, 2) under ``rules_for`` each rank's train-mode logits equal the
+    unsharded forward's on the same weights (1e-5), whisper's over its
+    frames."""
+    arch, changes = FAMILY_ARCHS[family]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
+    assert cfg.family == family
+    full = T.init_params(cfg, torch.Generator().manual_seed(0), "float32")
+    np_params = jax.tree_util.tree_map(lambda t: t.numpy(), full)
+    toks = torch.from_numpy(_tokens(cfg, 2, 8)).long()
+    frames = (torch.randn((2, cfg.encoder_seq_len, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+              if family == "audio" else None)
+    want = T.forward(full, cfg, toks, encoder_input=frames)[0]
+
+    def rank(mesh):
+        rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+        p = shard_from_numpy(np_params, SH.param_specs(cfg, np_params, rules,
+                                                       mesh), mesh, "cpu")
+        with SH.use_rules(rules):
+            T.check_supported(cfg)
+            return T.forward(p, cfg, toks, encoder_input=frames)[0]
+
+    V = cfg.vocab_size
+    for got in run_mesh((1, 2), rank):
+        torch.testing.assert_close(got[..., :V], want[..., :V], rtol=1e-5,
+                                   atol=1e-5)
