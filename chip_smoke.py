@@ -26,7 +26,10 @@ prints no ``ok`` line):
    and zamba2-7b's heads at each workload prompt length, padded as
    ``kernels.ops.ssd`` pads it, and a rank's half of those heads (phase
    13e-f); dense decode at phase 13's rank shapes: zamba2's shared block
-   at 16 of 32 heads and whisper's cross- and self-attention at 8 of 16),
+   at 16 of 32 heads and whisper's cross- and self-attention at 8 of 16;
+   paged decode at phase 13h's rank shapes: tinyllama's 16 of 32 heads
+   and 2 of 4 KV heads, 8 rows, and qwen2-moe's MHA shape at 4 of 8
+   rows),
    with the count of tensor-core instructions (``cuobjdump -sass``: HGMMA
    in each bf16 flash kernel, HMMA in each bf16 SSD kernel with products)
    and each split-K decode call's grid; then each timed beside its bound,
@@ -42,7 +45,8 @@ prints no ``ok`` line):
    decode at a rank's heads of tinyllama (16 of 32), zamba2 (16 of 32)
    and whisper's cross-attention (8 of 16), at qwen2-moe's 4 rows, and
    the SSD scan at mamba2's 24 of 48 heads and zamba2's 56 of 112 (L
-   768);
+   768); paged decode at 13h's two rank shapes (no library call computes
+   paged attention);
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -273,10 +277,33 @@ prints no ``ok`` line):
    ``decode_attention_ref`` (1e-4 / 2e-2), collectives per prefill and
    per decode step as ``predicted_collectives`` says, SSD launches =
    Mamba2 layers x prefills and dense-decode launches = calls a step x
-   steps, a rank. Printed beside each part: the eager decode step's
-   median on each rank and the unsharded step's. The dense-decode and
-   SSD rows of the JSON line add both ranks' launches of 13a, 13d and
-   13e-g and phase 3's rank shapes of them.
+   steps, a rank; h. the paged decode step under sharding rules
+   (``forward_paged``, ``PAGED13``): tinyllama-1.1b at full width and
+   depth on (data 1, model 2) and qwen2-moe-a2.7b at 13d's depth on
+   (data 2, model 1) with ``moe_a2a``, phase 5's 8 prompts prefilled by
+   rank 0's unsharded ``forward`` and handed over, each rank keeping its
+   rows and KV heads in its own pool (``paged_kv.init_paged_shard``),
+   ``PAGED_STEPS`` paged decode steps through the paged-decode kernel at
+   a rank's heads, fp32 then bf16 fed the fp32 tokens, against rank 0's
+   unsharded ``forward_paged`` on the whole pool (``dispatch="dense"``
+   for the MoE): fp32 tokens equal and logits within 1e-4, bf16 no more
+   than ``BF16_GAP`` farther from the unsharded fp32 than the unsharded
+   bf16 (over the rows whose experts agree so far), each rank's pool
+   after the steps against its slice of the unsharded pool (1e-4 / 2e-2),
+   every paged call of step 3 against ``paged_decode_attention_ref``,
+   collectives per step as 13a's and 13d's, paged launches = layers a
+   step a rank; i. after 13b's and 13c's steps, two multi-token decodes
+   (``forward`` in decode mode, S > 1) over the same split rings: 4
+   tokens, then an extension whose writes cross from rank 0's half of
+   the ring into rank 1's, held against rank 0's unsharded ``forward``
+   over the same tokens (fp32: last-row argmax equal, logits 1e-4, each
+   rank's partials of the extension's rows against plain attention over
+   its slice; bf16 by ``BF16_GAP``), 3 x layers collectives a call (13b and
+   13c's bf16 streams are fed the fp32 tokens). Printed beside each
+   part: the eager decode step's median on each rank and the unsharded
+   step's. The dense-decode and SSD rows of the JSON line add both
+   ranks' launches of 13a, 13d and 13e-g and phase 3's rank shapes of
+   them; the paged row 13h's.
 14. the training path (``repro_torch.training``, ``launch.train``), on
    the plain routes: a. ``launch.train.main`` on tinyllama-1.1b at full
    width with the reference's defaults (batch 8, seq 128, lr 1e-3), fp32
@@ -291,7 +318,12 @@ prints no ``ok`` line):
    relative L2; peak memory of each); c. one fp32 train step of each
    reduced config (``TRAIN_CHECK_ARCHS``) on the card against the CPU
    port from the same weights (loss 1e-5, each gradient leaf and updated
-   parameter 1e-4); d. (at ``TRAIN_CUT_LAYERS`` of 22 layers) a bf16
+   parameter 1e-4); a and b also print the dry run's memory prediction
+   of one step (arguments + temp, ``launch.dryrun.MemoryTally`` over the
+   same call on meta copies of its arguments) beside
+   ``torch.cuda.max_memory_allocated()`` over that call, gated within
+   ``MEMORY_TOL`` (a's bf16 step, b's remat call); d. (at
+   ``TRAIN_CUT_LAYERS`` of 22 layers) a bf16
    checkpoint of params and moments after one step, saved and loaded
    with ``like=``, the next step bit-equal to the uninterrupted one (file
    bytes, save and load seconds); e. (the same depth)
@@ -308,7 +340,8 @@ prints no ``ok`` line):
    over a ``TCPStore``, fp32 (TF32 off) from phase 5's seeded weights,
    batch 8 x seq 128 from ``sharded_batches``: a. tinyllama-1.1b at full
    width and depth, tensor parallel on (data 1, model 2), 3 steps; b.
-   the same data parallel on (2, 1); c. qwen2-moe-a2.7b at
+   the same at ``P15_DP_LAYERS`` of 22 layers data parallel on (2, 1);
+   c. qwen2-moe-a2.7b at
    ``P15_MOE_LAYERS`` of 24 layers on (2, 1), experts on ``data``, the
    scatter dispatch (2 steps), then the all-to-all dispatch
    (``rules["moe_a2a"]``, 3 steps on one repeated batch); e. mamba2-780m
@@ -332,7 +365,8 @@ prints no ``ok`` line):
    than ``TRAIN_FALL``; d. the four kernel counters unchanged here and on
    both ranks. Printed: step ms, tokens/s, the staged collectives' ms by
    phase (the data-parallel gradient sums are the largest), collective
-   bytes, peak memory, the unsharded step's ms.
+   bytes, peak memory (a's beside the dry run's memory prediction of the
+   rank's step, gated within ``MEMORY_TOL``), the unsharded step's ms.
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -480,8 +514,10 @@ def check_paged_decode(PD, mid_lens):
     length-0 row; and phase 12's replicated shape, one rank's 4 of 8 rows
     (tinyllama's heads, width 64), at the main path's lengths and with
     inert rows (length 0, every table entry -1), as a rank's rows carry
-    once slots are free or a batch pads to an uneven shard. Returns the
-    max abs error seen."""
+    once slots are free or a batch pads to an uneven shard; and phase
+    13h's rank shapes (tinyllama's 16 of 32 heads and 2 of 4 KV heads,
+    8 rows; qwen2-moe's MHA shape at 4 of 8 rows). Returns the max abs
+    error seen."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (B, H, KV, D, bs, lengths, table width or None: just enough + 2)
         (8, 32, 4, 64, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
@@ -494,6 +530,10 @@ def check_paged_decode(PD, mid_lens):
         (8, 16, 16, 128, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
         (4, 32, 4, 64, 16, mid_lens[:4], 64),
         (4, 32, 4, 64, 16, [mid_lens[4], 0, mid_lens[6], 0], 64),
+        # phase 13h's rank shapes: tinyllama's 16 of 32 heads and 2 of 4 KV
+        # heads on model 2; qwen2-moe's 4 of 8 rows on data 2
+        (8, 16, 2, 64, 16, mid_lens, 64),
+        (4, 16, 16, 128, 16, mid_lens[:4], 64),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
@@ -3633,8 +3673,10 @@ def decode_stream(T, INS, cfg, params, prompts, steps, cache, device, window=Non
     prompt prefilled alone into one and put into its row of ``cache``, as
     the dense engine admits an SSM's prompts), then ``steps`` greedy
     decode steps (or steps fed ``forced`` [B, steps + 1], another stream's
-    tokens). ``impl`` picks both kernel routes (``attn_impl``, and the SSD
-    scan's ``ssd_impl``); ``enc``: an audio config's frames. Returns dict:
+    tokens; the ``timed`` steps then feed its last column, so both
+    streams' caches hold the same tokens). ``impl`` picks both kernel
+    routes (``attn_impl``, and the SSD scan's ``ssd_impl``); ``enc``: an
+    audio config's frames. Returns dict:
     ``tokens`` [B, steps + 1] (each call's argmax over the real
     vocabulary), ``logits`` [calls, B, V] fp32 (the prefill's first where
     it ran), ``prefill_colls`` / ``colls`` (the mesh's collectives of each
@@ -3696,11 +3738,12 @@ def decode_stream(T, INS, cfg, params, prompts, steps, cache, device, window=Non
             out["dropped"].append(int(mesh.moe_dropped - d0))
         logits.append(lg[:, :V].float())
         nxt.append(lg[:, :V].argmax(-1))
+    last = forced[:, -1] if forced is not None else nxt[-1]
     for t in range(steps, steps + timed):
         INS.synchronize(device)
         c0 = mesh.seconds["forward"] if mesh else 0.0
         t0 = time.perf_counter()
-        step(t, nxt[-1])
+        step(t, last)
         INS.synchronize(device)
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["coll_ms"].append(((mesh.seconds["forward"] if mesh else 0.0) - c0) * 1e3)
@@ -3748,31 +3791,71 @@ def recorded(module, name, sink):
 
 
 def check_partials(L, calls, mla):
-    """Each recorded shard-local partial (m, l, o) against the plain
-    attention over the same slice: o / l against ``attention`` (GQA) or
-    the absorbed latent softmax (MLA), and m the masked scores' max.
-    Returns the worst relative L2 of o / l and the calls checked."""
+    """Each recorded shard-local partial (m, l, o) of its S query rows
+    against the plain attention over the same slice: o / l against
+    ``attention`` (GQA) or the absorbed latent softmax (MLA), each row
+    masked by its own position, and m the masked scores' max. Returns the
+    worst relative L2 of o / l and the calls checked."""
     worst = 0.0
     for args, (m, l, o) in calls:
         if mla:
             ql, qr, c, kr, qpos, kpos, window, scale = args
-            s = (torch.einsum("bhr,btr->bht", ql.float(), c.float())
-                 + torch.einsum("bhk,btk->bht", qr.float(), kr.float())) * scale
-            mask = L._attn_mask(qpos, kpos, None, window, True)[:, 0]
-            s = torch.where(mask[:, None, :], s, L.NEG_INF)
-            want = torch.einsum("bht,btr->bhr", torch.softmax(s, -1), c.float())
+            s = (torch.einsum("bshr,btr->bhst", ql.float(), c.float())
+                 + torch.einsum("bshk,btk->bhst", qr.float(), kr.float())) * scale
+            mask = L._attn_mask(qpos, kpos, None, window, True)
+            s = torch.where(mask[:, None], s, L.NEG_INF)
+            want = torch.einsum("bhst,btr->bhsr", torch.softmax(s, -1), c.float())
             got = o / l[..., None]
         else:
             q, k, v, qpos, kpos, window, softcap = args
-            B, _, KV, R, D = q.shape
-            want = L.attention(q.reshape(B, 1, KV * R, D).float(), k.float(),
+            B, S, KV, R, D = q.shape
+            want = L.attention(q.reshape(B, S, KV * R, D).float(), k.float(),
                                v.float(), q_positions=qpos, k_positions=kpos,
-                               window=window, softcap=softcap)[:, 0]
-            got = (o / l[..., None]).reshape(B, KV * R, -1)
+                               window=window, softcap=softcap)
+            got = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, KV * R, -1)
         if not bool(torch.isfinite(m).all()):
             raise AssertionError("a shard-local max is not finite")
         worst = max(worst, rel_l2(got, want))
     return worst, len(calls)
+
+
+def extension_tokens(cfg, window, world, pos0, device):
+    """13i's two multi-token decodes of batch 1 from position ``pos0`` on
+    a ring of ``window`` slots split over ``world`` ranks: 4 tokens, then
+    as many as carry the write across the next boundary of the ranks'
+    slices (4 slots past it), seeded."""
+    rng = np.random.default_rng(SEED + 27)
+    part = window // world
+    s0 = (pos0 + 4) % window
+    n = part - s0 % part + 4
+    return [torch.from_numpy(rng.integers(2, cfg.vocab_size, size=(1, k))).to(device)
+            for k in (4, n)]
+
+
+def extend(T, cfg, params, cache, exts, pos0, window, mesh=None, hook=None):
+    """Each token block of ``exts`` [1, n] decoded (``forward`` in decode
+    mode, S = n) over ``cache`` at the next positions from ``pos0``: the
+    last row's logits over the real vocabulary (fp32), the mesh's
+    collectives and host-clock ms of each call. ``hook(i)`` returns a
+    context manager entered around block i's call."""
+    out = {"logits": [], "colls": [], "ms": []}
+    pos = pos0
+    for i, e in enumerate(exts):
+        n = e.shape[1]
+        positions = (pos + torch.arange(n, dtype=torch.int32, device=e.device))[None]
+        before = collections.Counter(mesh.collectives) if mesh else None
+        sync(e.device)
+        t0 = time.perf_counter()
+        with hook(i) if hook else contextlib.nullcontext():
+            lg = T.forward(params, cfg, e, positions=positions, cache=cache,
+                           mode="decode", window=window)[0]
+        sync(e.device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if mesh:
+            out["colls"].append(dict(mesh.collectives - before))
+        out["logits"].append(lg[:, : cfg.vocab_size].float())
+        pos += n
+    return out
 
 
 def sharded_rank(rank, world, port, results, device="cuda"):
@@ -3873,7 +3956,8 @@ def sharded_rank(rank, world, port, results, device="cuda"):
             torch.cuda.empty_cache()
     res["tp"] = tp
 
-    # 13b / 13c: distributed flash-decoding, (data 2, model 1), batch 1
+    # 13b / 13c: distributed flash-decoding, (data 2, model 1), batch 1;
+    # 13i: then the multi-token decodes over the same split caches
     for part, arch, layers, fn, mla in (
             ("long", "tinyllama-1.1b", None, "_local_partial", False),
             ("mla", "minicpm3-4b", st["mla_layers"], "_mla_local_partial", True)):
@@ -3883,8 +3967,12 @@ def sharded_rank(rank, world, port, results, device="cuda"):
             2, cfg.vocab_size, size=st["long_prompt"]).astype(np.int32)
         mesh = mesh_of(f"13{part}", (world, 1))
         rules = dict(SH.long_context_rules(cfg, mesh), flash_decode=True, mesh=mesh)
+        pos0 = st["long_prompt"] + st["long_steps"] + st["timed"]
+        exts = extension_tokens(cfg, window, world, pos0, device)
         out = {"rules": {k: v for k, v in rules.items() if k != "mesh"},
-               "predicted": predicted_collectives(cfg, "long"), "layers": cfg.num_layers}
+               "predicted": predicted_collectives(cfg, "long"), "layers": cfg.num_layers,
+               "ext_lens": [e.shape[1] for e in exts], "ext_pos": pos0}
+        tokens32 = truth = None
         for dtype in ("float32", "bfloat16"):
             t0 = time.perf_counter()
             full, shard = draw_shard(T, SH, cfg, rules, mesh, dtype, rank == 0)
@@ -3898,24 +3986,51 @@ def sharded_rank(rank, world, port, results, device="cuda"):
             with SH.use_rules(rules):
                 got = decode_stream(T, INS, cfg, shard, [prompt], st["long_steps"], cache,
                                     device, window=window, mesh=mesh, hook=hook,
-                                    timed=st["timed"])
+                                    timed=st["timed"], forced=tokens32)
             r = {"tokens": got["tokens"].tolist(), "colls": got["colls"], "ms": got["ms"],
                  "local_cache": tuple(next(iter(cache["layers"].values())).shape)}
             if calls:
                 r["partials"] = check_partials(L, calls, mla)
             del calls[:]
+            # 13i: a 4-token decode, then an extension whose slots cross from
+            # rank 0's half of the ring into rank 1's (its partials checked)
+            def ext_hook(i, calls=calls, dtype=dtype):
+                return (recorded(DATT, fn, calls) if i == 1 and dtype == "float32"
+                        else contextlib.nullcontext())
+
+            with SH.use_rules(rules):
+                ext = extend(T, cfg, shard, cache, exts, pos0, window, mesh=mesh,
+                             hook=ext_hook)
+            r.update(ext_colls=ext["colls"], ext_ms=ext["ms"])
+            if calls:
+                r["ext_partials"] = check_partials(L, calls, mla)
+            del calls[:]
             if rank == 0:
                 ucache = T.init_cache(cfg, 1, window, dtype, device)
                 want = decode_stream(T, INS, cfg, full, [prompt], st["long_steps"], ucache,
-                                     device, window=window, forced=got["tokens"],
+                                     device, window=window,
+                                     forced=got["tokens"] if tokens32 is None else tokens32,
                                      timed=st["timed"])
                 r["unsharded_ms"] = want["ms"]
                 r["tokens_equal"] = bool((want["tokens"] == got["tokens"]).all())
                 r["rel"] = [rel_l2(a, b) for a, b in zip(got["logits"], want["logits"])]
-                del ucache, want
+                uext = extend(T, cfg, full, ucache, exts, pos0, window)
+                r["ext_unsharded_ms"] = uext["ms"]
+                r["ext_rel"] = [rel_l2(a, b) for a, b in zip(ext["logits"], uext["logits"])]
+                r["ext_tokens_equal"] = [bool((a.argmax(-1) == b.argmax(-1)).all())
+                                         for a, b in zip(ext["logits"], uext["logits"])]
+                r["ext_finite"] = all(bool(torch.isfinite(a).all()) for a in ext["logits"])
+                if dtype == "float32":
+                    truth = uext["logits"]
+                else:   # tests/_bf16_gap.py's rule, against the fp32 unsharded logits
+                    r["ext_gap"] = [(rel_l2(a, w), rel_l2(b, w)) for a, b, w in
+                                    zip(ext["logits"], uext["logits"], truth)]
+                del ucache, want, uext
+            if dtype == "float32":
+                tokens32 = got["tokens"]
             r["seconds"] = time.perf_counter() - t0
             out[dtype] = r
-            del full, shard, cache, got
+            del full, shard, cache, got, ext
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -4019,6 +4134,16 @@ def sharded_rank(rank, world, port, results, device="cuda"):
     for part in FAMILY13:
         res[part] = family_part(T, SH, DA, INS, get_config, st, mesh_of(f"13{part}", (1, world)),
                                 rank, part, device)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # 13h: the paged decode step under sharding rules
+    from repro_torch.kernels import paged_decode as PD
+    for part, (_, shape_of, _) in PAGED13.items():
+        res[f"paged_{part}"] = paged_part(T, SH, PD, MOE, INS, get_config, st,
+                                          mesh_of(f"13h{part}", shape_of(world)), rank,
+                                          part, device)
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -4128,6 +4253,200 @@ def family_part(T, SH, DA, INS, get_config, st, mesh, rank, part, device):
             torch.cuda.empty_cache()
     return out
 
+
+
+#: 13h's paged decode steps, and its parts: (arch, mesh shape, the
+#: rules' extras, the design's collectives of a step)
+PAGED_STEPS = 16
+PAGED13 = {"tp": ("tinyllama-1.1b", lambda w: (1, w), {}),
+           "ep": (MOE_ARCH, lambda w: (w, 1), {"moe_a2a": True})}
+
+
+def paged_rows(cache, rows, kv, pst, slots, lens, steps):
+    """``slots`` of the paged state ``pst``, each taking one prompt's
+    prefill K/V: row ``rows[i]`` of the dense ``cache`` [L, B, S, KV, hd]
+    at the KV heads ``kv``, ``lens[i]`` tokens, with blocks for ``steps``
+    more allocated."""
+    from repro_torch.serving import paged_kv as PK
+
+    for i, n in zip(slots, lens):
+        PK.allocate(pst, i, n + steps)
+    k = cache["layers"]["k"][:, rows][..., kv, :]
+    v = cache["layers"]["v"][:, rows][..., kv, :]
+    PK.write_tokens_batch(pst, slots, k, v, lengths=lens)
+
+
+def row_blocks(pst, slots, n_cols):
+    """The pool's blocks of each of ``slots``' first ``n_cols[i]`` table
+    columns, in row order: (K, V) [L, blocks, KV, bs, hd]."""
+    ids = np.concatenate([pst.block_tables[i, :n] for i, n in zip(slots, n_cols)])
+    idx = torch.from_numpy(ids.astype(np.int64)).to(pst.k.device)
+    return pst.k.index_select(1, idx), pst.v.index_select(1, idx)
+
+
+def paged_part(T, SH, PD, MOE, INS, get_config, st, mesh, rank, part, device):
+    """13h on this rank: the paged decode step under sharding rules
+    (``forward_paged``). ``PAGED13[part]``'s config at full width (13d's
+    depth for qwen2-moe) on ``mesh`` under ``rules_for`` (with
+    ``moe_a2a`` for the MoE part), phase 5's 8 prompts prefilled by rank
+    0's unsharded ``forward`` and handed to every rank (an all-reduce
+    with rank 0 the only writer); each rank keeps its rows and its KV
+    heads of that cache in its own pool (``init_paged_shard``, its own
+    allocator), then ``PAGED_STEPS`` greedy paged decode steps through the
+    paged-decode kernel at its heads, fp32 and then bf16 fed the fp32
+    tokens. Rank 0 runs the unsharded ``forward_paged`` on the whole pool
+    and the same weights, fed the same tokens (an MoE part with
+    ``dispatch="dense"``, exact where nothing drops); every rank's pool
+    after the steps is held against its slice of rank 0's."""
+    from repro_torch.serving import paged_kv as PK
+    from repro_torch.training.optimizer import tree_items
+
+    arch, shape_of, extra = PAGED13[part]
+    moe = part == "ep"
+    cfg = p13_config(get_config, arch, st, layers=st["ep_layers"] if moe else None,
+                     experts=12 if moe else None)
+    prompts, _ = workload(cfg)
+    if st["cut"]:
+        prompts = [p[: st["cut"]] for p in prompts]
+    B, V, bs = len(prompts), cfg.vocab_size, 16
+    steps = PAGED_STEPS if not st["reduced"] else 3
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh, **extra)
+    bat = rules["batch"]
+    nb = mesh.axes_size(bat)
+    b = B // nb
+    mine = list(range(mesh.axes_index(bat) * b, (mesh.axes_index(bat) + 1) * b))
+    n_kv = cfg.num_kv_heads // mesh.axes_size(rules["kv_heads"])
+    kv = slice(mesh.axes_index(rules["kv_heads"]) * n_kv,
+               (mesh.axes_index(rules["kv_heads"]) + 1) * n_kv)
+    lens = [len(p) for p in prompts]
+    cols = [-(-(n + steps) // bs) for n in lens]
+    axis = "model" if mesh.axis_size("model") > 1 else "data"
+    out = {"rules": {k: v for k, v in rules.items() if k != "mesh"},
+           "predicted": predicted_collectives(cfg, part), "layers": cfg.num_layers,
+           "steps": steps, "rows": len(mine), "kv_heads": n_kv}
+    tokens32 = truth = None
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        full, shard = draw_shard(T, SH, cfg, rules, mesh, dtype, rank == 0)
+        toks, lens_t = padded_prompts(prompts, device)
+        ucache = T.init_cache(cfg, B, toks.shape[1], dtype, device)
+        first = torch.zeros((B,), dtype=torch.int64, device=device)
+        if rank == 0:
+            lg = T.forward(full, cfg, toks, cache=ucache, mode="prefill",
+                           last_idx=(lens_t - 1).long(), attn_impl="kernel",
+                           dispatch="dense")[0]
+            first = lg[:, :V].argmax(-1)
+        handed = {"k": mesh.psum(ucache["layers"]["k"], axis),
+                  "v": mesh.psum(ucache["layers"]["v"], axis),
+                  "first": mesh.psum(first, axis)}
+        del ucache
+        pst = PK.init_paged_shard(cfg, B, sum(cols[g] for g in mine) + 2, rules, mesh,
+                                  block_size=bs, dtype=dtype, max_len=1024, device=device)
+        slots = list(range(len(mine)))
+        paged_rows({"layers": handed}, mine, kv, pst, slots, [lens[g] for g in mine], steps)
+
+        def handle(ps, n):
+            return {"k": ps.k, "v": ps.v,
+                    "block_tables": T.to_device(ps.block_tables, device),
+                    "lengths": T.to_device(ps.lengths, device),
+                    "active": torch.ones((n,), dtype=torch.bool, device=device)}
+
+        def run(params, h, first_tok, feed, routes, sharded):
+            """The decode steps from ``first_tok`` (or fed ``feed``): logits
+            [steps, rows, V], tokens, and per step the collectives, paged
+            launches and host-clock ms (the checked step's left out)."""
+            res = {"logits": [], "tok": [first_tok], "colls": [], "launches": [],
+                   "ms": [], "checks": {}}
+            for t in range(steps):
+                tok = feed[:, t] if feed is not None else res["tok"][-1]
+                before = collections.Counter(mesh.collectives)
+                l0 = PD.paged_decode_attention.launches
+                check = sharded and t == min(3, steps - 1)
+                with (SH.use_rules(rules) if sharded else contextlib.nullcontext()), \
+                        (checked_kernel_calls(res["checks"]) if check
+                         else contextlib.nullcontext()), \
+                        (recorded(MOE, "route", routes) if moe else contextlib.nullcontext()):
+                    sync(device)
+                    t1 = time.perf_counter()
+                    lg, h, _ = T.forward_paged(params, cfg, tok[:, None], h,
+                                               attn_impl="kernel",
+                                               dispatch="auto" if sharded else "dense")
+                    sync(device)
+                    if not check:
+                        res["ms"].append((time.perf_counter() - t1) * 1e3)
+                res["colls"].append(dict(mesh.collectives - before))
+                res["launches"].append(PD.paged_decode_attention.launches - l0)
+                res["logits"].append(lg[:, :V].float())
+                res["tok"].append(lg[:, :V].argmax(-1))
+            return res
+
+        feed = None if tokens32 is None else tokens32[mine]
+        routes = []
+        got = run(shard, handle(pst, len(mine)), handed["first"][mine], feed, routes, True)
+        r = {"colls": got["colls"], "launches": got["launches"], "ms": got["ms"],
+             "checks": got["checks"].get("paged", []),
+             "local_wq": tuple(shard["layers"]["attn"]["wq"].shape),
+             "local_pool": tuple(pst.k.shape)}
+        logits = torch.stack(got["logits"])                   # [steps, rows, V]
+        tokens = torch.stack(got["tok"], 1)                   # [rows, steps + 1]
+        if nb > 1:   # every rank's rows on every rank
+            logits = mesh.all_gather(logits, bat, 1)
+            tokens = mesh.all_gather(tokens, bat, 0)
+        r["tokens"] = tokens.tolist()
+        n_sh = len(routes)
+        if moe:
+            all_routes = torch.stack([o[1] for _, o in routes])   # [steps*L, rows, 1, k]
+            all_routes = mesh.all_gather(all_routes, bat, 1) if nb > 1 else all_routes
+        # the reference's blocks of every row after the steps, to every rank
+        ref_k = torch.zeros((cfg.num_layers, sum(cols), cfg.num_kv_heads, bs,
+                             cfg.resolved_head_dim), dtype=pst.k.dtype, device=device)
+        ref_v = torch.zeros_like(ref_k)
+        if rank == 0:
+            ust = PK.init_paged(cfg, B, sum(cols) + 2, block_size=bs, dtype=dtype,
+                                max_len=1024, device=device)
+            paged_rows({"layers": handed}, list(range(B)), slice(None), ust,
+                       list(range(B)), lens, steps)
+            want = run(full, handle(ust, B), handed["first"],
+                       tokens32 if tokens32 is not None else tokens, routes, False)
+            wlog = torch.stack(want["logits"])
+            r["unsharded_ms"] = want["ms"]
+            r["tokens_equal"] = bool((torch.stack(want["tok"], 1) == tokens).all())
+            same = torch.ones((steps, B), dtype=torch.bool, device=device)
+            if moe:   # rows whose top-k experts agree in every layer so far
+                uroutes = torch.stack([o[1] for _, o in routes[n_sh:]])
+                agree = (all_routes.sort(-1).values == uroutes.sort(-1).values).all(-1)
+                same = agree.reshape(steps, -1, B).all(1).int().cumprod(0).bool()
+            r["flipped_rows"] = {i: int((~same[:, i]).nonzero()[0]) for i in range(B)
+                                 if not bool(same[-1, i])}
+            r["rel"] = [rel_l2(a[k], w[k]) for a, w, k in zip(logits, wlog, same)
+                        if bool(k.any())]
+            r["finite"] = bool(torch.isfinite(logits).all())
+            if dtype == "float32":
+                truth = wlog
+            else:   # tests/_bf16_gap.py's rule, over the rows not flipped
+                r["gap"] = [(rel_l2(a[k], w[k]), rel_l2(u[k], w[k])) for a, u, w, k in
+                            zip(logits, wlog, truth, same) if bool(k.any())]
+            ref_k, ref_v = row_blocks(ust, list(range(B)), cols)
+            del ust, want
+        ref_k, ref_v = mesh.psum(ref_k, axis), mesh.psum(ref_v, axis)
+        at = sum(cols[g] for g in range(mine[0]))
+        n_mine = sum(cols[g] for g in mine)
+        got_k, got_v = row_blocks(pst, slots, [cols[g] for g in mine])
+        r["pool_rel"] = max(rel_l2(got_k, ref_k[:, at:at + n_mine, kv]),
+                            rel_l2(got_v, ref_v[:, at:at + n_mine, kv]))
+        r["pool_equal"] = bool(torch.equal(got_k, ref_k[:, at:at + n_mine, kv])
+                               and torch.equal(got_v, ref_v[:, at:at + n_mine, kv]))
+        if dtype == "float32":
+            tokens32 = tokens
+        r["local"] = {"/".join(k): tuple(v.shape) for k, v in tree_items(shard)
+                      if k[-1] in ("wq", "wk", "w_gate")}
+        r["seconds"] = time.perf_counter() - t0
+        out[dtype] = r
+        del full, shard, pst, got, logits, handed, ref_k, ref_v, got_k, got_v
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def sharded_phase(TR, smi, device="cuda"):
@@ -4263,6 +4582,7 @@ def sharded_phase(TR, smi, device="cuda"):
                          f"attention over its slice: worst relative L2 "
                          f"{a['partials'][0]:.3e} / {r1[part][what]['partials'][0]:.3e} "
                          f"(rank 0 / 1, {a['partials'][1]} calls, tol 1e-4)")
+            ext_gates(part, what, info, r0, r1, smi)
             log(
                 f"[sharded] {name} ({info['layers']} layers) on (data 2, model 1) under "
                 f"long_context_rules + flash_decode, {what}: batch 1, a "
@@ -4320,9 +4640,132 @@ def sharded_phase(TR, smi, device="cuda"):
     for part, name in (("ssm", "13e mamba2-780m"), ("hybrid", "13f zamba2-7b"),
                        ("audio", "13g whisper-medium")):
         launches[part], ssd_launches[part] = family_gates(part, name, r0, r1, on_card, smi)
+    # 13h
+    paged = {part: paged_gates(part, r0, r1, on_card, smi) for part in PAGED13}
     log(f"[sharded] the ranks' phase took {r0['phase_seconds']:.1f} / "
         f"{r1['phase_seconds']:.1f} s after their start")
-    return {"decode": launches, "ssd": ssd_launches}
+    return {"decode": launches, "ssd": ssd_launches, "paged": paged}
+
+
+#: 13h and 13i's bf16 gate: no more than this farther from the unsharded
+#: fp32 logits than the unsharded bf16 ones are (tests/_bf16_gap.py's rule)
+BF16_GAP = 5e-3
+
+
+def ext_gates(part, what, info, r0, r1, smi):
+    """13i's gates on both ranks' multi-token decodes over 13b's or 13c's
+    split cache, and its line."""
+    a = info[what]
+    for res in (r0, r1):
+        b = res[part][what]
+        if any(c != info["predicted"] for c in b["ext_colls"]):
+            raise AssertionError(f"13i {part} {what}: collectives per call "
+                                 f"{b['ext_colls']}, predicted {info['predicted']}")
+        if what == "float32":
+            worst, n = b["ext_partials"]
+            if n != info["layers"] or worst > 1e-4:
+                raise AssertionError(f"13i {part}: shard partials {worst:.3e} over {n}")
+    if not a["ext_finite"]:
+        raise AssertionError(f"13i {part} {what}: non-finite logits")
+    if what == "float32":
+        if not all(a["ext_tokens_equal"]) or max(a["ext_rel"]) > 1e-4:
+            raise AssertionError(f"13i {part} fp32: argmax equal {a['ext_tokens_equal']}, "
+                                 f"logits {a['ext_rel']} (tol 1e-4)")
+        gate = (f"last-row argmax equal to the unsharded: {a['ext_tokens_equal']}; logits "
+                f"relative L2 {fmt_errs(a['ext_rel'])} (tol 1e-4); each rank's (m, l, o) of "
+                f"every layer's {info['ext_lens'][1]} rows of the second decode against the "
+                f"plain attention over its slice: worst "
+                f"{a['ext_partials'][0]:.3e} / {r1[part][what]['ext_partials'][0]:.3e}")
+    else:
+        worst = max(g - p for g, p in a["ext_gap"])
+        if worst > BF16_GAP:
+            raise AssertionError(f"13i {part} bf16: logits farther from fp32 than the "
+                                 f"unsharded bf16 by {worst:.3e} (tol {BF16_GAP})")
+        gate = (f"fed the fp32 stream's tokens; against the unsharded fp32: sharded "
+                f"{fmt_errs([g for g, _ in a['ext_gap']])}, unsharded "
+                f"{fmt_errs([p for _, p in a['ext_gap']])}: no more than {worst:.3e} "
+                f"farther (tol {BF16_GAP})")
+    log(f"[sharded] 13i {part} ({info['layers']} layers), {what}: decodes of "
+        f"{info['ext_lens']} tokens from position {info['ext_pos']} over 13"
+        f"{'b' if part == 'long' else 'c'}'s split ring (the second's slots cross into "
+        f"rank 1's half): {gate}; collectives per call {a['ext_colls']} (predicted "
+        f"{info['predicted']}); ms {fmt_errs(a['ext_ms'], '.1f')} / "
+        f"{fmt_errs(r1[part][what]['ext_ms'], '.1f')} (rank 0 / 1, host clock) against "
+        f"the unsharded {fmt_errs(a['ext_unsharded_ms'], '.1f')} [{smi}]")
+
+
+def fmt_errs(xs, f=".3e"):
+    return "[" + ", ".join(format(x, f) for x in xs) + "]"
+
+
+def paged_gates(part, r0, r1, on_card, smi):
+    """13h's gates on both ranks' paged steps under rules, and its lines.
+    Returns the paged-decode launches of both ranks' sharded steps."""
+    key = f"paged_{part}"
+    info = r0[key]
+    arch = PAGED13[part][0]
+    L, steps = info["layers"], info["steps"]
+    launches = 0
+    for what, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        a = info[what]
+        if a["tokens"] != r1[key][what]["tokens"]:
+            raise AssertionError(f"13h {part} {what}: the ranks' tokens differ")
+        for res in (r0, r1):
+            b = res[key][what]
+            if any(c != info["predicted"] for c in b["colls"]):
+                raise AssertionError(f"13h {part} {what}: collectives per step "
+                                     f"{b['colls'][:2]}..., predicted {info['predicted']}")
+            if on_card and b["launches"] != [L] * steps:
+                raise AssertionError(f"13h {part} {what}: paged launches per step "
+                                     f"{b['launches']}, {L} expected")
+            if len(b["checks"]) != L or max(b["checks"]) > tol:
+                raise AssertionError(f"13h {part} {what}: paged calls of step 3 against "
+                                     f"paged_decode_attention_ref: {b['checks']} (tol {tol})")
+            if b["pool_rel"] > tol:
+                raise AssertionError(f"13h {part} {what}: the rank's pool against its "
+                                     f"slice of the unsharded pool: {b['pool_rel']:.3e}")
+            launches += sum(b["launches"])
+        if not a["finite"]:
+            raise AssertionError(f"13h {part} {what}: non-finite logits")
+        if what == "float32":
+            if not a["tokens_equal"] or a["flipped_rows"] or max(a["rel"]) > tol:
+                raise AssertionError(f"13h {part} fp32: tokens equal {a['tokens_equal']}, "
+                                     f"flipped rows {a['flipped_rows']}, logits "
+                                     f"{max(a['rel']):.3e} (tol {tol})")
+            gate = (f"tokens equal to the unsharded paged stream's: {a['tokens_equal']}; "
+                    f"logits relative L2 worst {max(a['rel']):.3e} (tol {tol})")
+        else:
+            worst = max(g - p for g, p in a["gap"])
+            if worst > BF16_GAP:
+                raise AssertionError(f"13h {part} bf16: logits farther from fp32 than the "
+                                     f"unsharded bf16 by {worst:.3e} (tol {BF16_GAP})")
+            gate = (f"fed the fp32 tokens; logits against the unsharded bf16 worst "
+                    f"{max(a['rel']):.3e}; against the unsharded fp32: sharded "
+                    f"{max(g for g, _ in a['gap']):.3e}, unsharded "
+                    f"{max(p for _, p in a['gap']):.3e}, no more than {worst:.3e} farther "
+                    f"(tol {BF16_GAP})")
+            if part == "ep":
+                gate += (f" over the rows whose experts agree with the unsharded bf16 "
+                         f"route's so far (flipped rows: first step {a['flipped_rows']})")
+        log(
+            f"[sharded] 13h paged step under rules, {arch} ({L} layers) on "
+            f"{'(data 1, model 2)' if part == 'tp' else '(data 2, model 1)'} under "
+            f"rules_for {info['rules']}, {what}: {info['rows']} of 8 rows and "
+            f"{info['kv_heads']} KV heads a rank, pool shard {a['local_pool']}, local "
+            f"{a['local']}; 8 prompts from rank 0's unsharded prefill, {steps} paged decode "
+            f"steps (attn_impl kernel): {gate}; the rank's pool after the steps against its "
+            f"slice of the unsharded pool: relative L2 {a['pool_rel']:.3e} / "
+            f"{r1[key][what]['pool_rel']:.3e}, bit-equal {a['pool_equal']} / "
+            f"{r1[key][what]['pool_equal']} (tol {tol}); the {len(a['checks'])} paged calls "
+            f"of step 3 against paged_decode_attention_ref worst {max(a['checks']):.3e} / "
+            f"{max(r1[key][what]['checks']):.3e}; collectives per step {a['colls'][0]} "
+            f"(predicted {info['predicted']}); paged launches per step {a['launches'][0]} a "
+            f"rank; eager step median {median(a['ms']):.3f} / "
+            f"{median(r1[key][what]['ms']):.3f} ms (rank 0 / 1, host clock) against the "
+            f"unsharded paged step's {median(a['unsharded_ms']):.3f} ms; "
+            f"{a['seconds']:.1f} s [{smi}]"
+        )
+    return launches
 
 
 def family_gates(part, name, r0, r1, on_card, smi):
@@ -4502,6 +4945,65 @@ def profile_train(step, args, n, out_dir, smi):
         f"top device time per step: {top5}")
 
 
+#: the measured peak of a step against the dry run's prediction (arguments
+#: + temp): within this share of the prediction
+MEMORY_TOL = 0.15
+
+
+def meta_like(tree):
+    """A copy of a tree of tensors on the meta device (shapes, strides and
+    types; no memory)."""
+    if isinstance(tree, dict):
+        return {k: meta_like(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(meta_like(v) for v in tree)
+    if torch.is_tensor(tree):
+        return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype, device="meta")
+    return tree
+
+
+def step_memory(fn, args, device):
+    """(arguments, temp, measured, allocated at the start): the dry run's
+    meta tally (``launch.dryrun.MemoryTally``) of ``fn(*args)`` on meta
+    copies of the arguments, and the card's ``max_memory_allocated`` over
+    one call of ``fn(*args)`` after ``reset_peak_memory_stats`` (0 off the
+    card). The cuBLAS workspaces that earlier phases' streams left in the
+    allocator (one a stream, kept for the process's life) are released
+    first: they are not the call's."""
+    from repro_torch.launch import dryrun as DR
+
+    meta = meta_like(args)
+    tally = DR.MemoryTally(meta)
+    with tally:
+        fn(*meta)
+    del meta
+    if torch.device(device).type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    reset_peak(device)
+    start = torch.cuda.memory_allocated() if torch.device(device).type == "cuda" else 0
+    out = fn(*args)
+    sync(device)
+    measured = peak_bytes(device)
+    del out
+    return DR.tree_bytes(args), tally.temp, measured, start
+
+
+def memory_gate(what, arg_bytes, temp, measured, start, on_card, smi, how=""):
+    """Prints the dry run's memory prediction of a step (arguments + temp)
+    beside the card's measured peak (and the bytes allocated when the
+    call began), and gates their gap at ``MEMORY_TOL`` of the prediction
+    (on the card)."""
+    predicted = arg_bytes + temp
+    gap = (measured - predicted) / predicted
+    log(f"{what}: the dry run's memory prediction (arguments {arg_bytes} B + temp {temp} B "
+        f"= {predicted} B; {how}) against torch.cuda.max_memory_allocated() {measured} B "
+        f"({start} B allocated when it began): {gap:+.2%} (gate +-{MEMORY_TOL:.0%}) "
+        f"[{smi}]")
+    if on_card and abs(gap) > MEMORY_TOL:
+        raise AssertionError(f"{what}: measured peak {measured} B is {gap:+.2%} from the "
+                             f"dry run's {predicted} B")
+
+
 def train_driver(mods, cfg, st, out_dir, smi):
     """14a: ``launch.train.main`` at the reference's defaults in fp32 and
     bf16, then a timed run of the same step on one repeated batch."""
@@ -4557,6 +5059,10 @@ def train_driver(mods, cfg, st, out_dir, smi):
             f"{peak_flops / 1e12:.0f} TFLOP/s (H100 SXM data sheet); peak device memory "
             f"allocated {peak} B against params + grads + fp32 moments {predicted} B "
             f"({n_params} parameters) [{smi}]")
+        if dtype == "bfloat16":   # one more step, its peak against the dry run's
+            memory_gate(f"[train] 14a {cfg.name} bf16 step", *step_memory(
+                step, (params, opt, batch), dev), dev == "cuda", smi,
+                "meta tally of the same step, fp32 moments as the steps leave them")
         if dtype == "bfloat16" and dev == "cuda":
             profile_train(lambda p, o: step(p, o, batch)[:2], (params, opt), 2, out_dir,
                           smi)
@@ -4577,7 +5083,15 @@ def train_remat(mods, cfg, st, smi):
         (total, _), grads = TR.value_and_grad(TR.make_loss_fn(cfg, remat=remat), params,
                                               batch)
         sync(dev)
-        out[remat] = (total, grads, (time.perf_counter() - t) * 1e3, peak_bytes(dev))
+        # on the host, so the next call's peak holds only its own arguments
+        out[remat] = (total.cpu(), OPT.tree_map(lambda t: t.cpu(), grads),
+                      (time.perf_counter() - t) * 1e3, peak_bytes(dev))
+        del total, grads
+    memory_gate(f"[train] 14b {cfg.name} bf16 remat loss and gradients, batch 8 x seq "
+                f"{st.long_seq}", *step_memory(
+                    lambda p, b: TR.value_and_grad(TR.make_loss_fn(cfg, remat=True), p, b),
+                    (params, batch), dev), dev == "cuda", smi,
+                "meta tally of the same call")
     rel = rel_tree(OPT.tree_items(out[True][1]), OPT.tree_items(out[False][1]))
     equal = sum(torch.equal(a, b) for a, b in zip(OPT.tree_leaves(out[True][1]),
                                                    OPT.tree_leaves(out[False][1])))
@@ -4600,7 +5114,7 @@ def train_card_vs_cpu(mods, get_config, st, smi):
     for arch in TRAIN_CHECK_ARCHS:
         cfg = get_config(arch).reduced()
         params = T.init_params(cfg, torch.Generator().manual_seed(SEED), "float32")
-        batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=32, global_batch=2), 0)
+        batch = DP.synth_batch(cfg, DP.DataConfig(seq_len=32, global_batch=2), 0, "cpu")
         if cfg.family == "audio":
             batch["frames"] = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
                 (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
@@ -4812,6 +5326,9 @@ TRAIN_RANKS = 2
 #: 15c's qwen2-moe-a2.7b depth (of 24): two fp32 ranks and the unsharded
 #: step must fit the card one after another
 P15_MOE_LAYERS = 2
+#: 15b's tinyllama-1.1b depth (of 22), to keep the script's time: its
+#: gradient sums stage through the host at ~1 GB/s
+P15_DP_LAYERS = 11
 P15_AXES = ("data", "model")
 
 
@@ -4935,7 +5452,8 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
         cfg.name, InputShape(tag, "train", st["seq"], st["batch"]), dry, dtype="float32",
         moments_dtype="float32", rules_override=extra, cfg_override=cfg, remat=False)
     out["dry_bytes"] = DR.tree_bytes(dargs[0]) + DR.tree_bytes(dargs[1])
-    out["dry"] = tally_counts(DR.run_step(drules, dstep, dargs)[1])
+    _, dtally, out["dry_memory"] = DR.run_step(drules, dstep, dargs)
+    out["dry"] = tally_counts(dtally)
     del dargs
 
     reset_peak(device)
@@ -4944,6 +5462,7 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     params = SH.shard_params(full, specs, mesh)
     del full
     reset_peak(device)
+    out["start"] = peak_bytes(device)
     opt = OPT.init_opt_state(params)
     n = (st["ep_steps"] if repeat else st["moe_steps"] if cfg.num_experts
          else st["steps"])
@@ -5099,12 +5618,13 @@ def sharded_train_rank(rank, world, port, results, device="cuda"):
     res = {"device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
     args = (mods, st, store, rank, world, device)
     cfg = p13_config(get_config, "tinyllama-1.1b", st)
+    dp_cfg = p13_config(get_config, "tinyllama-1.1b", st, layers=P15_DP_LAYERS)
     mcfg = p13_config(get_config, MOE_ARCH, st, layers=st["moe_layers"], experts=12)
     scfg = p13_config(get_config, SSM_ARCH, st, cut=FAMILY13["ssm"][1])
     acfg = p13_config(get_config, AUDIO_ARCH, st, cut=FAMILY13["audio"][1])
     for part, tag, c, shape, kw in (
             ("tp", "15a", cfg, (1, 2), dict(bf16=True)),
-            ("dp", "15b", cfg, (2, 1), dict(bf16=True)),
+            ("dp", "15b", dp_cfg, (2, 1), dict(bf16=True)),
             ("moe", "15c", mcfg, (2, 1), dict(compare_at=1)),
             ("ep", "15c-a2a", mcfg, (2, 1), dict(extra={"moe_a2a": True}, ref=False,
                                                  repeat=True)),
@@ -5243,6 +5763,13 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
                 f"entry is near eps) [{smi}]")
         for r in (r0, r1):
             p15_gates(part, r, on_card)
+        if part == "tp":   # the dry run's memory prediction of the rank's step
+            for i, r in enumerate((r0, r1)):
+                m = r["dry_memory"]
+                memory_gate(f"[sharded-train] {what}, rank {i}", m["argument_size_in_bytes"],
+                            m["temp_size_in_bytes"], r["peak"], r["start"], on_card, smi,
+                            "launch.dryrun on RankMesh.dry, the same case; measured over "
+                            "the optimizer state's init and the fp32 steps")
         if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(r0["loss"], r1["loss"])):
             raise AssertionError(f"{part}: the ranks' losses differ: {r0['loss']} / {r1['loss']}")
         if "bf16" in r0:
@@ -5320,6 +5847,10 @@ def main():
     moe_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens, width, smi)
     # phase 12's: a replicated layer's call on one rank, rows 0-3 of 8
     repl_paged = time_paged_decode(PD, cfg, mid_lens[:4], width, smi)
+    # phase 13h's: a rank's heads of tinyllama on model 2, and a rank's 4
+    # of 8 rows of qwen2-moe on data 2
+    tp_paged = time_paged_decode(PD, rank_heads(cfg), mid_lens, width, smi)
+    ep_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens[:4], width, smi)
     # phase 10's serving shapes: mamba2-780m's and zamba2-7b's prefills,
     # whole and at a rank's heads on model 2 (phase 13e-f)
     mamba, zamba = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
@@ -5618,6 +6149,17 @@ def main():
                 "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
                 "library_ms": k_lib,
             })
+    kernels[0]["launches"] += sum(sharded["paged"].values())
+    for part, timed_paged, model in (
+            ("tp", tp_paged, f"{cfg.name} paged step under rules on model 2 (16 of 32 "
+                             f"heads, 2 of 4 KV heads a rank)"),
+            ("ep", ep_paged, f"{MOE_ARCH} paged step under rules on data 2 (4 of 8 rows "
+                             f"a rank)")):
+        kernels[0]["shapes"].append({
+            "model": model, "launches": sharded["paged"][part], "ms": timed_paged[0],
+            "plain_ms": timed_paged[1], "bound_ms": timed_paged[2],
+            "bound_by": timed_paged[3], "library_ms": None,
+        })
     log(f"[sharded] phase 13 in {time.perf_counter() - t:.1f} s; launches on both ranks "
         f"{sharded}")
 

@@ -7,6 +7,11 @@ id, next-token labels, a loss mask), drawn from the same numpy
 the reference's. ``sharded_batches`` gives one rank of a mesh its rows
 of each batch, as the reference's places a batch on its mesh, with an
 audio config's stand-in encoder frames (``synth_frames``) where asked.
+
+The draws are numpy, so a batch is the same bits on every device. Each
+function puts its tensors on the card unless the caller passes
+``device="cpu"``; without CUDA and without a device it raises, as the
+engine does.
 """
 from __future__ import annotations
 
@@ -20,6 +25,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import shard_leaf
 
 
+def _device(device):
+    """``device``, or the card where the caller names none (raising
+    without CUDA)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to draw the "
+                           "batches on the CPU")
+    return torch.device("cuda")
+
+
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     seq_len: int = 1024
@@ -30,7 +46,7 @@ class DataConfig:
 
 
 def synth_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
-                device="cpu") -> dict:
+                device=None) -> dict:
     """One packed batch on ``device``: ``tokens`` and ``labels`` int32
     [B, S], ``mask`` float32 [B, S] (0 where the label is the EOS id)."""
     rng = np.random.default_rng(dcfg.seed * 1_000_003 + step)
@@ -44,13 +60,14 @@ def synth_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
     tokens = toks[:, :-1].astype(np.int32)
     labels = toks[:, 1:].astype(np.int32)
     mask = (labels != dcfg.eos_id).astype(np.float32)
+    device = _device(device)
     return {k: torch.from_numpy(v).to(device)
             for k, v in (("tokens", tokens), ("labels", labels),
                          ("mask", mask))}
 
 
 def synth_frames(cfg: ModelConfig, dcfg: DataConfig, step: int,
-                 device="cpu") -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """Stand-in encoder frames of batch ``step`` for an audio config:
     float32 [B, encoder_seq_len, d_model], standard normal from numpy's
     ``default_rng`` on a stream of their own (the reference's
@@ -59,11 +76,12 @@ def synth_frames(cfg: ModelConfig, dcfg: DataConfig, step: int,
     rng = np.random.default_rng([dcfg.seed, step, 1])
     shape = (dcfg.global_batch, cfg.encoder_seq_len, cfg.d_model)
     return torch.from_numpy(
-        rng.standard_normal(shape, dtype=np.float32)).to(device)
+        rng.standard_normal(shape, dtype=np.float32)).to(_device(device))
 
 
 def batches(cfg: ModelConfig, dcfg: DataConfig,
-            num_steps: Optional[int] = None, device="cpu") -> Iterator[dict]:
+            num_steps: Optional[int] = None, device=None) -> Iterator[dict]:
+    device = _device(device)
     step = 0
     while num_steps is None or step < num_steps:
         yield synth_batch(cfg, dcfg, step, device)
@@ -80,9 +98,10 @@ def sharded_batches(cfg: ModelConfig, dcfg: DataConfig, mesh, batch_spec,
     row-major split over the batch axes (``mesh.axes_index``). A dim that
     does not divide raises, as a ``NamedSharding`` would. ``frames``
     adds the batch's ``synth_frames`` under ``"frames"``, split by rows
-    alike (the reference's ``batch_specs(with_frames=True)``)."""
-    for step, b in enumerate(batches(cfg, dcfg, num_steps)):
+    alike (the reference's ``batch_specs(with_frames=True)``). The
+    global batch is drawn on the CPU and only this rank's rows move."""
+    for step, b in enumerate(batches(cfg, dcfg, num_steps, device="cpu")):
         if frames:
-            b["frames"] = synth_frames(cfg, dcfg, step)
+            b["frames"] = synth_frames(cfg, dcfg, step, device="cpu")
         yield {k: shard_leaf(v, batch_spec, mesh).to(mesh.device)
                for k, v in b.items()}

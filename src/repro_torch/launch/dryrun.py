@@ -16,12 +16,24 @@ exists: ``analytic`` (``model_flops_analytic``, the reference's
 function), ``per_device_arg_bytes`` (and its parts by input),
 ``n_devices``, ``num_layers``, ``collectives`` (``{kind: {count,
 bytes}}``, counted as they run, also by phase), ``cost_analysis.flops``
-(``torch.utils.flop_counter.FlopCounterMode`` over the rank's step) and
-``status``. XLA's ``memory_analysis`` and the HLO-derived fields have no
-torch counterpart: ``unavailable`` names them, and nothing stands in for
-them. A case whose step raises ``NotImplementedError`` (a part of the
-sharded step not ported yet, ROADMAP A10) records ``"not_ported"`` with
-the reason. Records land in ``dryrun_artifacts/`` as JSON.
+(``torch.utils.flop_counter.FlopCounterMode`` over the rank's step),
+``memory_analysis`` and ``status``.
+
+``memory_analysis`` holds the reference's ``argument_size_in_bytes``,
+``output_size_in_bytes`` and ``temp_size_in_bytes`` of the rank's step,
+from ``MemoryTally``, a dispatch mode nested with the FLOP counter: it
+tallies the live bytes of the storages the step's ops create (a storage
+once across its views, freed when it dies) and keeps their peak. The
+arguments are the inputs' bytes (``tree_bytes``), the output the step's
+outputs', and temp the peak live bytes beyond the arguments: the eager
+counterpart of XLA's buffer assignment, where a buffer lives from the op
+that makes it to the death of its last tensor (an op's internal
+scratch only where ``MemoryTally.SCRATCH`` names the op). Arguments +
+temp predicts the step's peak on a card. XLA's generated-code size and
+the HLO-derived fields have no torch counterpart: ``unavailable`` names
+them, and nothing stands in for them. A case whose step raises
+``NotImplementedError`` records ``"not_ported"`` with the reason.
+Records land in ``dryrun_artifacts/`` as JSON.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch tinyllama-1.1b --shape train_4k
@@ -36,8 +48,12 @@ import json
 import os
 import time
 import traceback
+import weakref
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import (ASSIGNED_ARCHS, INPUT_SHAPES, InputShape,
@@ -51,7 +67,9 @@ from repro_torch.training import train as TR
 
 #: what the reference's records hold that a torch run cannot measure
 UNAVAILABLE = {
-    "memory_analysis": "XLA's buffer assignment of the compiled program",
+    "memory_analysis.generated_code_size_in_bytes": "XLA's compiled code "
+                                                    "(a torch step runs "
+                                                    "eager kernels)",
     "hlo_ops": "the partitioned HLO's line count",
     "lower_s / compile_s": "XLA's lowering and compilation (run_s is the "
                            "meta step's wall time)",
@@ -214,15 +232,115 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+class MemoryTally(TorchDispatchMode):
+    """The live bytes of a step's storages and their peak beyond its
+    arguments (the step's ``temp_size_in_bytes``).
+
+    The arguments' storages are live from the start (``base`` bytes). A
+    storage an op returns is counted once, whatever its views; an
+    in-place op or a view of one counted already adds nothing. Each
+    tensor counted carries a weak-reference finaliser; when the last of
+    a storage's tensors dies, the storage is checked at the next op and
+    uncounted once it is gone (a tensor that autograd saves keeps it
+    alive; an argument the step replaces, as an update replaces bf16
+    moments by fp32 ones, is freed). The peak is read after each op's
+    outputs are counted, the frees before it already taken: the live
+    bytes when the op's outputs are allocated. Only tensors on the
+    arguments' device count (a real step's meta stand-ins hold no
+    memory); on the meta device the tally is the real device's.
+
+    An op's kernel may hold scratch of its own while it runs, which no
+    dispatch mode sees: ``SCRATCH`` gives it, as a multiple of the op's
+    output bytes, for the ops where the card's kernels were seen to
+    (``chip_memory_probe.py``); it raises the peak at that op only."""
+
+    #: op -> scratch bytes a kernel holds while it runs, per output byte:
+    #: the CUDA softmax backward holds two buffers of its output's size
+    #: (measured on an H100 for every softmax backward of the attention)
+    SCRATCH = {"aten._softmax_backward_data.default": 2}
+
+    def __init__(self, args=()):
+        super().__init__()
+        leaves = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+        self.device = leaves[0].device if leaves else None
+        self.live = {}        # key -> [weak ref, bytes, tensors seen alive]
+        self.maybe_dead = set()
+        self.bytes = 0
+        for t in leaves:
+            self._count(t)
+        self.base = self.peak = self.bytes
+
+    def _count(self, t):
+        st = t.untyped_storage()
+        key = st._cdata
+        entry = self.live.get(key)
+        if entry is not None and entry[0].expired():      # address reused
+            self.bytes -= entry[1]
+            self.maybe_dead.discard(key)
+            entry = None
+        if entry is None:
+            entry = self.live[key] = [StorageWeakRef(st), st.nbytes(), 0]
+            self.bytes += entry[1]
+        entry[2] += 1
+        weakref.finalize(t, self._dropped, key, entry[0])
+
+    def _sweep(self):
+        for key in list(self.maybe_dead):
+            ref, n, alive = self.live[key]
+            if alive == 0 and ref.expired():
+                del self.live[key]
+                self.bytes -= n
+            if alive or ref.expired():
+                self.maybe_dead.discard(key)
+
+    def _dropped(self, key, ref):
+        entry = self.live.get(key)
+        if entry is not None and entry[0] is ref:
+            entry[2] -= 1
+            if entry[2] == 0:
+                self.maybe_dead.add(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self._sweep()
+        out = func(*args, **(kwargs or {}))
+        out_bytes = 0
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.device == self.device:
+                self._count(t)
+                out_bytes += t.untyped_storage().nbytes()
+        self.peak = max(self.peak,
+                        self.bytes + self.SCRATCH.get(str(func), 0) * out_bytes)
+        return out
+
+    @property
+    def temp(self) -> int:
+        return self.peak - self.base
+
+
+def memory_analysis(arg_bytes: int, out, tally: MemoryTally) -> dict:
+    """The reference's ``memory_analysis`` keys of one step: its inputs'
+    bytes (``tree_bytes`` before the step), its outputs' and the peak of
+    what it allocated beyond its arguments."""
+    out_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor))
+    return {"argument_size_in_bytes": int(arg_bytes),
+            "output_size_in_bytes": int(out_bytes),
+            "temp_size_in_bytes": int(tally.temp)}
+
+
 def run_step(rules, step, args):
-    """(flops, tally): ``step(*args)`` run under ``rules`` and counted:
-    the FLOPs ``FlopCounterMode`` sees and the mesh's collectives by
-    phase (``RankMesh.tally``)."""
+    """(flops, tally, memory): ``step(*args)`` run under ``rules`` and
+    counted: the FLOPs ``FlopCounterMode`` sees, the mesh's collectives
+    by phase (``RankMesh.tally``) and ``memory_analysis`` from a
+    ``MemoryTally`` nested inside the FLOP counter."""
     mesh = rules["mesh"]
     mesh.reset_tally()
-    with SH.use_rules(rules), FlopCounterMode(display=False) as fc:
-        step(*args)
-    return fc.get_total_flops(), mesh.tally()
+    arg_bytes = tree_bytes(args)
+    mem = MemoryTally(args)
+    with SH.use_rules(rules), FlopCounterMode(display=False) as fc, mem:
+        out = step(*args)
+    return fc.get_total_flops(), mesh.tally(), memory_analysis(arg_bytes,
+                                                               out, mem)
 
 
 def collectives_of(tally) -> dict:
@@ -264,11 +382,12 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         # moments by fp32 ones, as the reference's does
         kind = INPUT_SHAPES[shape_name].kind
         parts = dict(zip(INPUT_NAMES[kind], (tree_bytes(a) for a in args)))
-        flops, tally = run_step(rules, step, args)
+        flops, tally, memory = run_step(rules, step, args)
         rec["run_s"] = round(time.time() - t0, 1)
         rec["cost_analysis"] = {"flops": float(flops)}
         rec["collectives"] = collectives_of(tally)
         rec["collectives_by_phase"] = tally
+        rec["memory_analysis"] = memory
         rec["analytic"] = model_flops_analytic(cfg, INPUT_SHAPES[shape_name])
         rec["num_layers"] = cfg.num_layers
         # per-device input footprint from the shards (proves it fits)

@@ -411,11 +411,13 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
     runs at this rank's heads (``Heads``, from the weights' shapes), and
     the row-parallel ``wo`` ends in a ``psum`` over the heads' axis. A
     cache whose sequence is split (``cache_seq``) takes only the slots
-    this rank holds (``write_slots``); a single-token decode over it
-    combines the ranks' partials by distributed flash-decoding
-    (``_decode_split_cache``), with ``rules["flash_decode"]`` as the
-    reference does and without it too, where the reference lets GSPMD
-    gather the scores: the same attention. Where the query heads split
+    this rank holds (``write_slots``); a decode over it, of one token or
+    of S > 1 (a chunk extension), combines the ranks' partials by
+    distributed flash-decoding (``_decode_split_cache``), each query row
+    masked by its own position: with ``rules["flash_decode"]`` as the
+    reference does for one token, and otherwise too, where the reference
+    attends the whole cache plainly and lets GSPMD gather its keys: the
+    same attention, with no cache gathered. Where the query heads split
     over the sequence's axis, the queries are gathered first and this
     rank keeps its heads of the result. Cross-attention's queries enter
     this rank's heads too, as do cross K/V kept whole under split query
@@ -458,14 +460,10 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
             out = attention(q, *heads.select_kv(k, v), q_positions=positions,
                             window=window, causal=causal,
                             softcap=cfg.logit_softcap)
-        elif S == 1 and seq_axis is not None and (
-                rules.get("flash_decode") or M > ck.shape[1]):
+        elif seq_axis is not None and (
+                M > ck.shape[1] or (S == 1 and rules.get("flash_decode"))):
             out = _decode_split_cache(heads, q, ck, cv, positions,
                                       k_positions, window, cfg, seq_axis)
-        elif M > ck.shape[1]:
-            raise NotImplementedError(
-                "a multi-token decode over a sequence-split cache is not "
-                "ported (ROADMAP A10)")
         elif (impl == "kernel" and S == 1 and causal and window is None
               and not cfg.logit_softcap and heads.kv is None):
             lengths = (positions[:, 0] + 1).to(torch.int32)
@@ -484,11 +482,12 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, slots=None,
 
 def _decode_split_cache(heads, q, ck, cv, positions, k_positions, window,
                         cfg, seq_axis):
-    """One token's attention over this rank's slice of a sequence-split
+    """The attention of S query rows (one token's decode or a
+    multi-token extension) over this rank's slice of a sequence-split
     cache, combined across ``seq_axis`` (``flash_decode``). Every rank of
     that axis must bring the same queries: where they hold different
-    heads of it, the queries are gathered over the axis and each rank
-    keeps its own heads of the output."""
+    heads of it, the queries (all S rows) are gathered over the axis and
+    each rank keeps its own heads of the output."""
     from repro_torch.parallel.distributed_attention import flash_decode
 
     mesh = rule_mesh(SH.current_rules())
@@ -548,6 +547,17 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     only, so logit-softcap archs and sliding windows route back to
     "gather".
 
+    Under sharding rules (``parallel.sharding.use_rules``) the layer runs
+    at this rank's heads (``Heads``, from the weights' shapes) over this
+    rank's rows and its own pool: where ``kv_heads`` splits the K/V heads
+    the pool holds this rank's KV heads, and the kernel route launches at
+    the rank's query and KV heads; where the K/V heads stay whole under
+    split query heads, the pool holds them all, the new token's K/V are
+    computed whole and written whole, and the layer attends on the gather
+    route, each query head reading its KV head (``Heads.select_kv``), as
+    ``apply_gqa`` does. The row-parallel ``wo`` ends in a ``psum`` over
+    the heads' axis (``Heads.reduce``).
+
     Returns (out [B,1,d], pool_k, pool_v).
     """
     B, S, _ = x.shape
@@ -558,7 +568,11 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     n_blocks -= 1                                   # the scratch block
     if meta is None:
         meta = paged_step_meta(positions, block_tables, active, n_blocks, bs)
-    q, k, v = _qkv(p, x, cfg, positions, rope)
+    heads = Heads(cfg, p["wq"].shape[-2], p["wk"].shape[-2])
+    q, k, v = _qkv(p, x, cfg, positions, rope, heads)
+    if k.shape[2] != KV:
+        raise ValueError(f"the pool holds {KV} KV heads, the layer computes "
+                         f"{k.shape[2]}")
     if kv_rows is not None:
         k, v = kv_rows(k, v)
 
@@ -569,8 +583,11 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
     pool_v[blk, :, off] = v[:, 0].to(pool_v.dtype)
 
     kv_len = meta["kv_len"]
-    if impl == "kernel" and (cfg.logit_softcap or window is not None):
-        impl = "gather"  # kernel has no softcap/window support
+    if impl == "kernel" and (cfg.logit_softcap or window is not None
+                             or heads.kv is not None):
+        # no softcap / window in the kernel; whole K/V heads read by split
+        # query heads pick their KV head on the gather route
+        impl = "gather"
     if impl == "kernel":
         out = paged_decode_attention(
             q[:, 0].contiguous(), pool_k[:n_blocks], pool_v[:n_blocks],
@@ -584,14 +601,16 @@ def apply_gqa_paged(p, x, cfg: ModelConfig, *, positions, pool_k, pool_v,
             B, max_blocks * bs, KV, hd)
         vv = pool_v[tbl].permute(0, 1, 3, 2, 4).reshape(
             B, max_blocks * bs, KV, hd)
+        kk, vv = heads.select_kv(kk, vv)
         out = attention(q, kk, vv, q_positions=positions, kv_len=kv_len,
                         k_positions=torch.arange(max_blocks * bs,
                                                  dtype=torch.int32,
                                                  device=x.device),
                         window=window, causal=True,
                         softcap=cfg.logit_softcap)
-    out = out.reshape(B, S, q.shape[2] * hd)
-    return torch.einsum("bsh,hd->bsd", out, p["wo"]), pool_k, pool_v
+    out = out.reshape(B, S, heads.n * hd)
+    return (heads.reduce(torch.einsum("bsh,hd->bsd", out, p["wo"])), pool_k,
+            pool_v)
 
 
 def compute_cross_kv(p, enc_out, cfg: ModelConfig):
@@ -712,11 +731,12 @@ def apply_mla_decode(p, x, cfg: ModelConfig, *, positions, cache, slots,
     ``wv_b``. The new latents are written at ``slots`` (in place) BEFORE
     attending; ``k_positions`` [B,M] are the already-updated absolute row
     positions. Under sharding rules it runs at this rank's heads; over a
-    sequence-split cache a single token's latent attention is combined
-    across the ranks by ``flash_decode_mla`` (with ``rules
-    ["flash_decode"]``, as the reference, or without it, as
-    ``apply_gqa``), its output rounded to ``q_lat``'s type and widened.
-    Returns (out, cache)."""
+    sequence-split cache the latent attention of one token or of S > 1
+    (a chunk extension) is combined across the ranks by
+    ``flash_decode_mla``, each query row masked by its own position
+    (with ``rules["flash_decode"]``, as the reference for one token, or
+    without it, as ``apply_gqa``), its output rounded to ``q_lat``'s
+    type and widened. Returns (out, cache)."""
     B, S, _ = x.shape
     heads, wk_b, wv_b = _mla_heads(p, cfg)
     q_nope, q_rope = _mla_q(p, x, cfg, positions, rope, heads)
@@ -728,8 +748,8 @@ def apply_mla_decode(p, x, cfg: ModelConfig, *, positions, cache, slots,
     qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     kpos = torch.broadcast_to(k_positions, (B, m_local)).to(torch.int32)
     rules = SH.current_rules()
-    if S == 1 and seq_axis is not None and (rules.get("flash_decode")
-                                            or M > m_local):
+    if seq_axis is not None and (
+            M > m_local or (S == 1 and rules.get("flash_decode"))):
         from repro_torch.parallel.distributed_attention import (
             flash_decode_mla)
         mesh = rule_mesh(rules)
@@ -742,10 +762,6 @@ def apply_mla_decode(p, x, cfg: ModelConfig, *, positions, cache, slots,
                                  window=window, qk_dim=qk_dim).float()
         if gather:
             o_lat = heads.local(o_lat)
-    elif M > m_local:
-        raise NotImplementedError(
-            "a multi-token decode over a sequence-split cache is not "
-            "ported (ROADMAP A10)")
     else:
         cc = cache["c"].float()
         s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc)

@@ -1,7 +1,8 @@
 """Decoder stacks of every family the JAX package serves: the GQA and MLA
 decoders (dense, MoE, VLM), SSM (Mamba2), hybrid (Zamba2) and the audio
 encoder-decoder (whisper): prefill/decode over a dense cache, and the GQA
-decoders' single-token decode over a paged block pool.
+decoders' single-token decode over a paged block pool, with and without
+sharding rules.
 
 PyTorch counterpart of ``repro.models.transformer``: ``dense``, ``moe``
 and ``vlm`` decoders with GQA or MLA attention (an MoE layer takes the
@@ -29,7 +30,11 @@ and logits (an all-gather), the layers at the rank's shard
 encoder over the rank's rows of the frames) and its cache shard
 (``init_cache_shard``); the collectives carry their backward
 (``parallel.mesh``), where the replicated final norm enters a
-vocab-split ``lm_head`` or tied table.
+vocab-split ``lm_head`` or tied table. ``forward_paged`` runs a rank's
+part of the paged decode step alike, over its rows and its own pool
+(``serving.paged_kv.init_paged_shard``). A decode of S > 1 tokens over
+a sequence-split cache attends by distributed flash-decoding partials,
+one query row each (``layers.apply_gqa``, ``apply_mla_decode``).
 
 Two routes pick kernels where the reference computes plainly, the same
 function held to the same computation: ``attn_impl="kernel"`` sends a
@@ -84,7 +89,10 @@ FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 def check_supported(cfg: ModelConfig):
     """Raise ValueError for a family the reference does not know either;
     the port covers all of the reference's (``FAMILIES``), GQA and MLA
-    attention alike, with and without sharding rules."""
+    attention alike, with and without sharding rules: every family's
+    ``forward`` in each mode (a multi-token decode over a
+    sequence-split cache included) and the GQA decoders' paged step
+    (``forward_paged``)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
 
@@ -682,7 +690,7 @@ def _paged_rows(hook, positions, meta, active, rope):
 
 
 def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
-                  attn_impl="gather", layer_hook=None):
+                  attn_impl="gather", layer_hook=None, dispatch="auto"):
     """Single-token decode step against a PAGED KV pool.
 
     tokens: [B, 1] on the pool's device. ``cache`` is the paged handle:
@@ -700,20 +708,43 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
     (serving/graphs.py). The pool-write index, lengths, int32 tables and
     rope's tables are computed once per step, at fixed shapes, for every
     layer. An MoE layer dispatches ``"auto"``, as the reference's paged
-    step does. ``layer_hook`` (``core.replication.LayerHook``, the live
+    step does (``dispatch`` picks another, ``moe.apply_moe``'s).
+    ``layer_hook`` (``core.replication.LayerHook``, the live
     engine's replication plan) splits each layer's batch: a replicated
     layer attends with this rank's rows, their tables, lengths and
     ``active``, and writes every row's K/V (``LayerHook.gather_kv``),
     so every rank's pool stays a full replica; the logits are the full
-    batch's on every rank. Returns (logits [B, Vpad], new_cache, aux).
+    batch's on every rank.
+
+    Under sharding rules (``parallel.sharding.use_rules``, the
+    reference's ``lshard(x, "batch", "seq", None)``) it runs one rank's
+    part of the reference's paged step; every rank of the mesh calls it
+    together. ``params`` is this rank's ``shard_params`` tree;
+    ``tokens``, ``block_tables``, ``lengths`` and ``active`` are its rows
+    under ``rules["batch"]``; ``k`` / ``v`` are its own pool
+    (``serving.paged_kv.init_paged_shard``), ``[L, n_blocks + 1,
+    KV_local, bs, hd]``, holding its rows' blocks (its tables index it)
+    at its KV heads where ``kv_heads`` splits them, else at every KV
+    head. The reference's ``cache_specs`` has no paged entry and its
+    pool is a plain operand, so a pool is never split over its blocks:
+    ``cache_seq`` does not apply to it. The layers run at the rank's
+    heads with a row-parallel ``wo`` (``layers.apply_gqa_paged``), the
+    embedding and logits over the vocab split, the MLP over its ``d_ff``
+    slice and an MoE layer's ``"auto"`` dispatch under the rules (the
+    expert-parallel one under ``moe_a2a``). The step stays shape-stable
+    and makes no host sync beyond its collectives. A ``layer_hook``
+    under rules raises: both split the batch, and the reference's engine
+    never combines them.
+    Returns (logits [B, Vpad], new_cache, aux).
     """
     if not cfg.supports_paged_kv:
         raise ValueError(f"paged decode needs a GQA attention decoder "
                          f"(family={cfg.family}, attn={cfg.attention_kind})")
     check_supported(cfg)
-    if SH.current_rules() is not None:
-        raise NotImplementedError("the paged decode step under sharding "
-                                  "rules is not ported (ROADMAP A10)")
+    if layer_hook is not None and SH.current_rules() is not None:
+        raise NotImplementedError(
+            "a replication layer_hook under sharding rules is not ported "
+            "(ROADMAP, after the port: engines across a rank group)")
     dev = cache["k"].device
     operands = (tokens, cache["block_tables"], cache["lengths"],
                 cache["active"])
@@ -747,7 +778,7 @@ def forward_paged(params, cfg: ModelConfig, tokens, cache, *, window=None,
             active=act_i, window=window, impl=attn_impl, meta=meta_i,
             rope=rope_i, kv_rows=kv_rows)
         x = x + h
-        x, a = _mlp_sublayer(lp, x, cfg, layer_hook)
+        x, a = _mlp_sublayer(lp, x, cfg, layer_hook, dispatch)
         aux = aux + a
     if layer_hook is not None:
         x = layer_hook.full(x)
@@ -759,9 +790,12 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             mode="train", encoder_input=None, window=None, last_idx=None,
             attn_impl="gather", ssd_impl="chunked", layer_hook=None,
             dispatch="auto", remat=False):
-    """Dense-cache entry point (the paged decode step is
-    ``forward_paged``). tokens [B,S] int; positions [B,S] absolute
-    (default arange). An MoE layer dispatches ``"auto"``.
+    """Uniform entry point. A paged handle (a ``cache`` holding
+    ``block_tables``) takes the paged decode step, ``forward_paged``
+    (decode mode only, ``positions`` read from the handle's lengths), as
+    in the reference, under sharding rules too. tokens [B,S] int;
+    positions [B,S] absolute (default arange). An MoE layer dispatches
+    ``"auto"``.
     Returns (logits, new_cache, aux_loss):
     train -> full-seq logits [B,S,Vpad]; prefill/decode -> last-token
     [B,Vpad]. ``last_idx`` [B] (decoders only, as in the reference)
@@ -800,6 +834,12 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     check_supported(cfg)
     if attn_impl not in ("kernel", "gather"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    if cache is not None and "block_tables" in cache:
+        if mode != "decode":
+            raise ValueError("a paged cache handle is decode-only")
+        return forward_paged(params, cfg, tokens, cache, window=window,
+                             attn_impl=attn_impl, layer_hook=layer_hook,
+                             dispatch=dispatch)
     if mode == "train" and cache is not None:
         raise ValueError("a train call takes no cache: its in-place writes "
                          "are not differentiable")

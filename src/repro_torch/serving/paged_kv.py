@@ -147,13 +147,14 @@ class PagedState:
 def init_paged(cfg: ModelConfig, max_batch: int, n_blocks: int,
                block_size: int = 16, dtype="bfloat16",
                max_len: int = 4096, prefix_cache: bool = False,
-               device="cuda") -> PagedState:
+               device="cuda", kv_heads: Optional[int] = None) -> PagedState:
     """Build a pool of ``n_blocks`` blocks (and the scratch block) on
     ``device``. ``prefix_cache=True`` enables prompt-prefix sharing (the
-    Engine turns it on by default)."""
+    Engine turns it on by default). ``kv_heads``: the KV heads the pool
+    holds (default every one of ``cfg``'s; ``init_paged_shard``)."""
     dtype = torch_dtype(dtype)
     hd = cfg.resolved_head_dim
-    L, KV = cfg.num_layers, cfg.num_kv_heads
+    L, KV = cfg.num_layers, kv_heads or cfg.num_kv_heads
     max_blocks = -(-max_len // block_size)
     shape = (L, n_blocks + 1, KV, block_size, hd)
     return PagedState(
@@ -164,6 +165,25 @@ def init_paged(cfg: ModelConfig, max_batch: int, n_blocks: int,
         free=list(range(n_blocks)), block_size=block_size,
         refcount=np.zeros((n_blocks,), np.int32),
         enable_prefix_cache=prefix_cache)
+
+
+def init_paged_shard(cfg: ModelConfig, max_batch: int, n_blocks: int, rules,
+                     mesh, **kw) -> PagedState:
+    """One rank's pool under sharding rules (``forward_paged``'s): its
+    rows of ``max_batch`` under ``rules["batch"]`` and its own
+    ``n_blocks`` blocks (and scratch block) for them, at its KV heads
+    where ``rules["kv_heads"]`` splits them, else at every KV head. It
+    is allocated at that local shape, the whole pool never made. The
+    reference's ``cache_specs`` has no paged entry, so no rule splits a
+    pool over its blocks (``cache_seq`` does not apply). ``kw`` are
+    ``init_paged``'s."""
+    n_rows = mesh.axes_size(rules.get("batch"))
+    n_kv = mesh.axes_size(rules.get("kv_heads"))
+    if max_batch % n_rows or cfg.num_kv_heads % n_kv:
+        raise ValueError(f"{max_batch} rows and {cfg.num_kv_heads} KV heads "
+                         f"do not split {n_rows} and {n_kv} ways")
+    return init_paged(cfg, max_batch // n_rows, n_blocks,
+                      kv_heads=cfg.num_kv_heads // n_kv, **kw)
 
 
 class OutOfBlocks(RuntimeError):

@@ -35,6 +35,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -113,7 +114,12 @@ def value_and_grad(loss_fn, params, batch):
 
 @functools.lru_cache(maxsize=None)
 def _global_params(cfg: ModelConfig):
-    return T.init_params_meta(cfg, "float32")
+    """The global tree's shapes, as meta tensors. They are built outside
+    any dispatch mode: a tree of shapes is neither the step's work nor
+    its memory, which a dry run's FLOP counter and memory tally
+    (``launch.dryrun``) count."""
+    with _disable_current_modes():
+        return T.init_params_meta(cfg, "float32")
 
 
 def rank_specs(cfg: ModelConfig, rules, params):

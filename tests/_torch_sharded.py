@@ -85,12 +85,14 @@ def frames(cfg, B, seed=1):
         (B, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32)
 
 
-def ref_stream(jcfg, np_params, toks, M, steps, ext=None, enc=None):
+def ref_stream(jcfg, np_params, toks, M, steps, ext=None, enc=None,
+               window=None):
     """The reference's prefill of ``toks`` over a fresh cache of ``M``
     slots, ``steps`` greedy decode steps and, given ``ext`` [B, n], an
     n-token extension (decode mode, from the cache's states), under one
     jit: (logits [calls, B, V] of each call, greedy tokens [B, steps +
-    1]). ``enc``: an audio config's frames."""
+    1]). ``enc``: an audio config's frames; ``window`` every call's
+    attention window (a ring where ``M`` is shorter than the stream)."""
     B, S = toks.shape
     jp = jax.tree_util.tree_map(jnp.asarray, np_params)
     dtype = str(np_params["embed"].dtype)
@@ -98,7 +100,7 @@ def ref_stream(jcfg, np_params, toks, M, steps, ext=None, enc=None):
     def run(p, enc):
         cache = JT.init_cache(jcfg, B, M, dtype)
         lg, cache, _ = JT.forward(p, jcfg, toks, cache=cache, mode="prefill",
-                                  encoder_input=enc)
+                                  encoder_input=enc, window=window)
         first = jnp.argmax(lg[:, :jcfg.vocab_size], -1)
 
         def step(carry, t):
@@ -106,7 +108,7 @@ def ref_stream(jcfg, np_params, toks, M, steps, ext=None, enc=None):
             pos = jnp.full((B, 1), S + t, jnp.int32)
             lg, cache, _ = JT.forward(p, jcfg, tok[:, None].astype(jnp.int32),
                                       positions=pos, cache=cache,
-                                      mode="decode")
+                                      mode="decode", window=window)
             nxt = jnp.argmax(lg[:, :jcfg.vocab_size], -1)
             return (cache, nxt), (lg, nxt)
 
@@ -117,7 +119,7 @@ def ref_stream(jcfg, np_params, toks, M, steps, ext=None, enc=None):
             n = ext.shape[1]
             pos = (S + steps + jnp.arange(n, dtype=jnp.int32))[None]
             lg, _, _ = JT.forward(p, jcfg, ext, positions=jnp.broadcast_to(
-                pos, (B, n)), cache=cache, mode="decode")
+                pos, (B, n)), cache=cache, mode="decode", window=window)
             out.append(lg[None])
         return (jnp.concatenate(out).astype(jnp.float32),
                 jnp.concatenate([first[:, None], nxt.T], 1))
@@ -126,14 +128,17 @@ def ref_stream(jcfg, np_params, toks, M, steps, ext=None, enc=None):
 
 
 def port_stream(tcfg, np_params, toks, M, steps, rules, mesh, ext=None,
-                enc=None, impl="gather", forced=None):
+                enc=None, impl="gather", forced=None, window=None,
+                ext_colls=None):
     """This rank's counterpart of ``ref_stream`` under ``rules`` (its
     shard of the weights and the cache, its rows of the tokens, the
     extension and the frames): (its logits [calls, b, V] as float32, its
     greedy tokens [b, steps + 1], the collectives of each decode step).
     ``impl="kernel"`` takes both kernel routes (their plain versions on
     the CPU). ``forced`` [B, steps + 1]: the tokens each decode step is
-    fed (the reference's), in place of this rank's own greedy ones."""
+    fed (the reference's), in place of this rank's own greedy ones.
+    ``window``: every call's attention window; ``ext_colls``: a list
+    that takes the extension's collectives."""
     specs = SH.param_specs(tcfg, np_params, rules, mesh)
     p = shard_from_numpy(np_params, specs, mesh, "cpu")
     B = toks.shape[0]
@@ -142,7 +147,7 @@ def port_stream(tcfg, np_params, toks, M, steps, rules, mesh, ext=None,
     b, S = mine.shape
     dtype = str(p["embed"].dtype).replace("torch.", "")
     cache = T.init_cache_shard(tcfg, B, M, rules, mesh, dtype, "cpu")
-    kw = dict(attn_impl=impl,
+    kw = dict(attn_impl=impl, window=window,
               ssd_impl="kernel" if impl == "kernel" else "chunked")
     outs, colls = [], []
     with SH.use_rules(rules):
@@ -166,9 +171,14 @@ def port_stream(tcfg, np_params, toks, M, steps, rules, mesh, ext=None,
         if ext is not None:
             n = ext.shape[1]
             pos = (S + steps + torch.arange(n, dtype=torch.int32)).expand(b, n)
+            before = dict(mesh.collectives)
             lg, _, _ = T.forward(p, tcfg, torch.from_numpy(ext[sl]).long(),
                                  positions=pos, cache=cache, mode="decode",
                                  **kw)
+            if ext_colls is not None:
+                ext_colls.append({k: v - before.get(k, 0)
+                                  for k, v in mesh.collectives.items()
+                                  if v - before.get(k, 0)})
             outs.append(lg)
     return (torch.stack(outs).float().numpy(), torch.stack(nxt, 1).numpy(),
             colls)
@@ -177,9 +187,9 @@ def port_stream(tcfg, np_params, toks, M, steps, rules, mesh, ext=None,
 def global_batch(tcfg, dcfg):
     """The train step's global batch 0 as numpy (``synth_batch``, and an
     audio config's ``synth_frames``)."""
-    b = TDP.synth_batch(tcfg, dcfg, 0)
+    b = TDP.synth_batch(tcfg, dcfg, 0, "cpu")
     if tcfg.family == "audio":
-        b["frames"] = TDP.synth_frames(tcfg, dcfg, 0)
+        b["frames"] = TDP.synth_frames(tcfg, dcfg, 0, "cpu")
     return {k: v.numpy() for k, v in b.items()}
 
 

@@ -118,7 +118,9 @@ def test_flash_decode(case, W):
                                  qpt, kps, window, softcap)
         out = DA.flash_decode(qt, ks, vs, qpt, kps, mesh=mesh, seq_axis=axis,
                               window=window, softcap=softcap)
-        return r, [t.numpy() for t in part], out.numpy(), dict(mesh.collectives)
+        # the partials of the one query row (their row axis is 3)
+        return (r, [t.select(3, 0).numpy() for t in part], out.numpy(),
+                dict(mesh.collectives))
 
     masked = 0
     for r, part, out, colls in run_mesh(shape, rank):
@@ -150,11 +152,12 @@ def test_flash_decode_mla(case, W):
         cs, krs, kps = (torch.from_numpy(_shard(a, r, W).copy())
                         for a in (c, kr, kp))
         qlt, qrt, qpt = (torch.from_numpy(a) for a in (ql, qr, qp))
-        part = DA._mla_local_partial(qlt[:, 0], qrt[:, 0], cs, krs, qpt, kps,
-                                     window, 1 / np.sqrt(40))
+        part = DA._mla_local_partial(qlt, qrt, cs, krs, qpt, kps, window,
+                                     1 / np.sqrt(40))
         out = DA.flash_decode_mla(qlt, qrt, cs, krs, qpt, kps, mesh=mesh,
                                   seq_axis=axis, window=window, qk_dim=40)
-        return r, [t.numpy() for t in part], out.numpy()
+        # the partials of the one query row (their row axis is 2)
+        return r, [t.select(2, 0).numpy() for t in part], out.numpy()
 
     for r, part, out in run_mesh(shape, rank):
         np.testing.assert_allclose(out, sharded, rtol=TOL, atol=TOL)

@@ -9,7 +9,10 @@ meshes (``launch/mesh.py``) and the H100 cluster preset.
 * ``model_flops_analytic`` equals the reference's, key for key, for
   every arch x shape.
 * ``main`` over one reduced arch writes records with the reference's
-  keys where the quantity exists, and names the ones that do not.
+  keys where the quantity exists, ``memory_analysis`` among them, and
+  names the ones that do not.
+* ``MemoryTally``'s meta tally of a step's memory equals the same step's
+  on real CPU tensors, and a hand-counted toy step gives its bytes.
 * Nothing is allocated off the meta device."""
 import dataclasses
 import json
@@ -28,6 +31,7 @@ from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.training import optimizer as TOPT
+from repro_torch.training import train as TTR
 from _torch_mesh import AXES, run_mesh
 from _torch_parity import one_torch_thread  # noqa: F401
 
@@ -110,16 +114,27 @@ def test_dry_counts_equal_real(case):
                   rules_override=override, cfg_override=cfg)
         _, rules, step, meta = DR.input_specs(arch, ishape, mesh, **kw)
         real = _real_args(cfg, ishape, rules, mesh)
-        _, real_tally = DR.run_step(rules, step, real)
+        _, real_tally, real_mem = DR.run_step(rules, step, real)
         dry = RankMesh.dry(AXES, shape_, mesh.rank)
         _, rules, step, dry_args = DR.input_specs(arch, ishape, dry, **kw)
         sizes = [DR.tree_bytes(a) for a in dry_args]
         assert sizes == [DR.tree_bytes(a) for a in real]
-        _, dry_tally = DR.run_step(rules, step, dry_args)
-        return real_tally, dry_tally
+        # the train step's global shapes built afresh inside the dry step:
+        # shape-only stand-ins are neither its memory nor its work
+        TTR._global_params.cache_clear()
+        _, dry_tally, dry_mem = DR.run_step(rules, step, dry_args)
+        return real_tally, dry_tally, real_mem, dry_mem
 
-    for real, dry in run_mesh(shape_, run):
+    for real, dry, real_mem, dry_mem in run_mesh(shape_, run):
         assert real == dry
+        # the meta tally of the step's memory is the real tensors' one;
+        # gloo's worker thread drops its hold on a collective's operand
+        # after the wait returns, so on a loaded host a real run may see
+        # that buffer die an op late: temp within 1%, the rest exact
+        temp, want = real_mem.pop("temp_size_in_bytes"), dry_mem.pop(
+            "temp_size_in_bytes")
+        assert real_mem == dry_mem
+        assert want > 0 and abs(temp - want) <= 0.01 * want
         if ishape.kind == "train":
             assert real["backward"] and real["forward"]
 
@@ -154,11 +169,18 @@ def test_main_writes_reference_keys(tmp_path, monkeypatch, capsys):
     rec = json.loads((tmp_path / "tinyllama-1.1b__train_4k__16x16.json")
                      .read_text())
     assert rec["status"] == "ok"
-    missing = {"memory_analysis", "hlo_ops", "lower_s", "compile_s"}
+    missing = {"hlo_ops", "lower_s", "compile_s"}
     assert REFERENCE_KEYS - missing <= set(rec)
     assert not missing & set(rec)
     for k in missing:
         assert any(k in name for name in rec["unavailable"])
+    mem = rec["memory_analysis"]
+    assert set(mem) == {"argument_size_in_bytes", "output_size_in_bytes",
+                        "temp_size_in_bytes"}
+    assert mem["argument_size_in_bytes"] == rec["per_device_arg_bytes"]
+    assert mem["temp_size_in_bytes"] > 0 and mem["output_size_in_bytes"] > 0
+    assert [k for k in rec["unavailable"] if k.startswith("memory")] == [
+        "memory_analysis.generated_code_size_in_bytes"]
     assert rec["n_devices"] == 256 and rec["num_layers"] == 2
     assert rec["cost_analysis"]["flops"] > 0
     assert rec["per_device_arg_bytes"] == sum(
@@ -171,6 +193,38 @@ def test_main_writes_reference_keys(tmp_path, monkeypatch, capsys):
         "count"] == 1 + 2 * ssm["num_layers"]
     assert "[dryrun] tinyllama-1.1b__train_4k__16x16: ok" in \
         capsys.readouterr().out
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_memory_tally_of_a_toy_step(device):
+    """A hand-counted step: a new buffer counts its bytes, a view and an
+    in-place op none, a buffer counts until its last view dies, and one
+    autograd saves lives on while its graph does."""
+    x = torch.zeros(256, device=device)              # the argument, 1 KiB
+    a = torch.ones(256, device=device, requires_grad=True)
+    mem = DR.MemoryTally((x, a))
+    assert mem.base == 2048
+    with mem:
+        y = x * 2                                    # +1024
+        v = y.view(16, 16)                           # a view: +0
+        z = v + 1                                    # +1024: the peak
+        del y
+        z.add_(1)                                    # y lives on in v
+        assert mem.bytes - mem.base == 2048
+        del v
+        z.add_(1)                                    # y is gone
+        assert mem.bytes - mem.base == 1024
+        e = a.exp()                                  # +1024, saved
+        s = e.sum()                                  # +4
+        del e
+        s.add(0)                                     # +4; e held by s
+        assert mem.bytes - mem.base == 1024 + 1024 + 4 + 4
+        del s
+        out = z.sum()                                # all but z gone; +4
+        assert mem.bytes - mem.base == 1024 + 4
+    assert DR.memory_analysis(DR.tree_bytes((x, a)), out, mem) == {
+        "argument_size_in_bytes": 2048, "output_size_in_bytes": 4,
+        "temp_size_in_bytes": 1024 + 1024 + 4 + 4}
 
 
 class _Devices(TorchDispatchMode):

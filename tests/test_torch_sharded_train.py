@@ -103,7 +103,7 @@ def test_accumulation_matches_one_step():
     tcfg, np_params = _case("dense")
     dcfg = TDP.DataConfig(**DATA)
     ocfg = TOPT.OptimizerConfig(**OPT_KW)
-    whole = TDP.synth_batch(tcfg, dcfg, 0)
+    whole = TDP.synth_batch(tcfg, dcfg, 0, "cpu")
     whole["mask"] = torch.ones_like(whole["mask"])
     ref = {k: torch.from_numpy(v).clone() for k, v in _flat(np_params).items()}
     p = TOPT.tree_from([tuple(k.split("/")) for k in ref], list(ref.values()))
@@ -145,7 +145,7 @@ def test_sharded_batches_rows():
     for i, got in run_mesh((2, 2, 1), rank, axes=("pod", "data", "model")):
         assert len(got) == 2
         for step, b in enumerate(got):
-            whole = TDP.synth_batch(cfg, dcfg, step)
+            whole = TDP.synth_batch(cfg, dcfg, step, "cpu")
             for k, v in whole.items():
                 assert b[k].device.type == "cpu"
                 torch.testing.assert_close(b[k], v[2 * i:2 * i + 2],
@@ -241,10 +241,10 @@ def test_accumulation_under_rules_families(arch, changes):
     np_params = TOPT.tree_map(lambda t: t.numpy().copy(), full)
     dcfg = TDP.DataConfig(**DATA)
     ocfg = TOPT.OptimizerConfig(**OPT_KW)
-    whole = TDP.synth_batch(tcfg, dcfg, 0)
+    whole = TDP.synth_batch(tcfg, dcfg, 0, "cpu")
     whole["mask"] = torch.ones_like(whole["mask"])
     if tcfg.family == "audio":
-        whole["frames"] = TDP.synth_frames(tcfg, dcfg, 0)
+        whole["frames"] = TDP.synth_frames(tcfg, dcfg, 0, "cpu")
     p, _, want = TTR.make_train_step(tcfg, ocfg)(full, TOPT.init_opt_state(full),
                                                  whole)
     want_p = {k: v.numpy() for k, v in _flat(p).items()}

@@ -82,7 +82,7 @@ def _case(family, dtype="float32", batch=2, seq=32):
     jb = JDP.synth_batch(jcfg, JDP.DataConfig(seq_len=seq, global_batch=batch),
                          0)
     tb = TDP.synth_batch(tcfg, TDP.DataConfig(seq_len=seq, global_batch=batch),
-                         0)
+                         0, "cpu")
     if jcfg.family == "audio":
         frames = np.random.default_rng(0).standard_normal(
             (batch, jcfg.encoder_seq_len, jcfg.d_model)).astype(np.float32)
@@ -165,7 +165,7 @@ def test_params_after_steps_match_reference():
         jb = JDP.synth_batch(jcfg, JDP.DataConfig(seq_len=32, global_batch=2),
                              i)
         tb = TDP.synth_batch(tcfg, TDP.DataConfig(seq_len=32, global_batch=2),
-                             i)
+                             i, "cpu")
         jp, jopt, jm = jstep(jp, jopt, jb)
         tparams, topt, tm = tstep(tparams, topt, tb)
         for k in ("loss", "total_loss", "lr", "grad_norm"):

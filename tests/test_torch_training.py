@@ -141,16 +141,31 @@ def test_synth_batch_bit_identical(arch, seq, batch, seed, step):
     jd = JDP.DataConfig(seq_len=seq, global_batch=batch, seed=seed)
     td = TDP.DataConfig(seq_len=seq, global_batch=batch, seed=seed)
     want = JDP.synth_batch(jcfg, jd, step)
-    got = TDP.synth_batch(tcfg, td, step)
+    got = TDP.synth_batch(tcfg, td, step, "cpu")
     assert set(got) == set(want) == {"tokens", "labels", "mask"}
     for k in want:
         w = np.asarray(want[k])
         assert got[k].numpy().dtype == w.dtype, k
         np.testing.assert_array_equal(got[k].numpy(), w)
-    it = TDP.batches(tcfg, td, num_steps=step + 1)
+    it = TDP.batches(tcfg, td, num_steps=step + 1, device="cpu")
     last = list(it)[-1]
     np.testing.assert_array_equal(last["tokens"].numpy(),
                                   np.asarray(want["tokens"]))
+
+
+def test_pipeline_needs_cuda_without_a_device(monkeypatch):
+    """The pipeline's entry points put their tensors on the card unless
+    the caller names a device: without CUDA they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, dcfg = get_config("tinyllama-1.1b").reduced(), TDP.DataConfig(
+        seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TDP.synth_batch(cfg, dcfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TDP.synth_frames(get_config("whisper-medium").reduced(), dcfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(TDP.batches(cfg, dcfg, 1))
+    assert TDP.synth_batch(cfg, dcfg, 0, "cpu")["tokens"].device.type == "cpu"
 
 
 def _ckpt_trees(dtype):
