@@ -46,7 +46,14 @@ prints no ``ok`` line):
    and whisper's cross-attention (8 of 16), at qwen2-moe's 4 rows, and
    the SSD scan at mamba2's 24 of 48 heads and zamba2's 56 of 112 (L
    768); paged decode at 13h's two rank shapes (no library call computes
-   paged attention);
+   paged attention); and phase 16's: paged decode at llama2-13b's (H = KV
+   = 40, D 128), gemma-7b's (H = KV = 16, D 256), stablelm-12b's (H 32,
+   KV 8, D 160) and chameleon-34b's (H 64, KV 8, D 128) heads, dense
+   decode at gemma-7b's and stablelm-12b's (B 8, S 1024); the gelu
+   kernel and its gradient (``kernels.gelu``: jax.nn.gelu's op chain in
+   one pass, replacing no Pallas kernel) bit-equal to their plain
+   versions in fp32 and bf16, timed at ``GELU_SHAPES`` and
+   ``GELU_GRAD_SHAPES`` with torch's fused tanh gelu as the library call;
 4. a small fp32 decode step on the card (kernel) against the same step on
    the CPU (plain version), logits within rtol = atol = 1e-4;
 5. the main path end to end at full width: tinyllama-1.1b (random bf16
@@ -237,12 +244,13 @@ prints no ``ok`` line):
    all-reduce, its own all-to-all). a. tensor parallel: tinyllama-1.1b
    on (data 1, model 2) under ``rules_for`` (heads, KV heads, d_ff and
    vocab split), phase 5's 8 prompts over a 1024-slot dense cache and
-   32 greedy decode steps through the dense-decode kernel at a rank's 16
+   ``TP_STEPS`` greedy decode steps through the dense-decode kernel at a rank's 16
    of 32 heads: fp32 tokens equal and logits within 1e-4, bf16 last-step
    logits within 2e-2, every dense-decode call of decode step 3 against
    ``decode_attention_ref`` (1e-4 / 2e-2), collectives per decode step as
    ``predicted_collectives`` says, launches = 22 x steps a rank; b.
-   distributed flash-decoding: tinyllama-1.1b on (data 2, model 1) under
+   distributed flash-decoding: tinyllama-1.1b at ``LONG13_LAYERS`` of 22
+   layers on (data 2, model 1) under
    ``long_context_rules`` + ``flash_decode`` (the reference's long_500k
    step): batch 1, an 8320-token prompt wrapping the 8192-slot ring of
    the window, 4096 slots a rank, 16 decode steps; fp32 tokens and
@@ -333,18 +341,21 @@ prints no ``ok`` line):
    bf16 moments, two steps through the scatter dispatch's backward
    (finite loss and aux loss; step ms, peak memory); g. the four kernel
    wrappers' launch counts unchanged across the phase, and each wrapper
-   raising, unlaunched, on an input that requires grad.
+   raising, unlaunched, on an input that requires grad; the gelu kernel
+   and its gradient launched (14c's whisper-medium on the card: the
+   gradient row's launches in the JSON line).
 15. the sharded train step (``training.train`` under sharding rules, the
    collectives' backward from ``parallel.mesh``): two more spawned rank
    processes, each building ``RankMesh``es (gloo groups per axis line)
    over a ``TCPStore``, fp32 (TF32 off) from phase 5's seeded weights,
    batch 8 x seq 128 from ``sharded_batches``: a. tinyllama-1.1b at full
-   width and depth, tensor parallel on (data 1, model 2), 3 steps; b.
-   the same at ``P15_DP_LAYERS`` of 22 layers data parallel on (2, 1);
+   width and ``P15_TP_LAYERS`` of 22 layers, tensor parallel on (data 1,
+   model 2), 3 steps; b. the same at ``P15_DP_LAYERS`` of 22 layers data
+   parallel on (2, 1);
    c. qwen2-moe-a2.7b at
    ``P15_MOE_LAYERS`` of 24 layers on (2, 1), experts on ``data``, the
    scatter dispatch (2 steps), then the all-to-all dispatch
-   (``rules["moe_a2a"]``, 3 steps on one repeated batch); e. mamba2-780m
+   (``rules["moe_a2a"]``, 2 steps on one repeated batch); e. mamba2-780m
    at 13e's 12 layers, head-split on (1, 2), 3 steps; f. whisper-medium
    at 13g's depth, data parallel on (2, 1), 3 steps, each rank's rows of
    the frames from ``sharded_batches(..., frames=True)``. Gates: each
@@ -358,7 +369,14 @@ prints no ``ok`` line):
    c after its first step: its routing is discontinuous, and Adam turns
    the two steps' ~1e-6 differences into expert ids that differ later,
    printed by step and layer; the first step's ids are gated equal;
-   e and f);
+   and f); e's shards are gated in float64: step 1 again in float64
+   (``float64_math``), sharded and unsharded from the same weights,
+   within ``F64_TOL`` of each other, since in float32 the unsharded step
+   alone lies 3.2e-4 from the float64 one on ``conv_x_b`` (Adam's first
+   update of a zero bias whose gradient holds entries near eps grows
+   rounding); e prints its float32 shards after each step, the
+   unsharded step from weights one float32 ulp apart against itself,
+   and each float32 step 1's distance from the float64 one;
    the ranks' losses equal; the all-to-all dispatch's aux loss finite and
    its loss falling (it routes per rank: no unsharded twin); a and b's
    bf16 run of ``TRAIN_STEPS`` on one repeated batch falling by more
@@ -367,6 +385,30 @@ prints no ``ok`` line):
    phase (the data-parallel gradient sums are the largest), collective
    bytes, peak memory (a's beside the dry run's memory prediction of the
    rank's step, gated within ``MEMORY_TOL``), the unsharded step's ms.
+16. the paper's own evaluation model, llama2-13b, and gemma-7b,
+   stablelm-12b and chameleon-34b at their published widths and depths in
+   bf16, one at a time on the card emptied of phase 15's ranks (device
+   memory allocated printed before each): a. each through the paged
+   engine at phase 5's settings and workload, graphs and eager, cold and
+   warm, with phase 5's gates (paged launches = layers x decode steps:
+   40, 28, 40, 48 a step); a graph run whose first steady step is probed
+   on the live pool (each paged call against its plain version, 2e-2;
+   the bf16 logits kernel vs gather, 2e-2) and profiled; the steady step
+   beside the weight-read bound at 3.35 TB/s; ``init_params``' peak gated
+   to the weights + ``INIT_SLACK``; b. gemma-7b (D 256) and stablelm-12b
+   (D 160) through the dense engine's graphs, cold and warm (phase 10's
+   settings and gates, each dense-decode call against its plain
+   version, kernel vs gather); after
+   each model is freed, its first ``WIDE_FP32_LAYERS`` layers with the
+   probed pool or cache, stashed in host memory, widened to fp32 (TF32
+   off): kernel vs gather logits within 1e-4 and greedy tokens equal; c.
+   the serving entry point ``launch.serve.run(ServeConfig(arch=
+   "llama2-13b", reduced=False, instances=2, requests=24, rps=4))``, the
+   live CoCoServe loop (gates: 24 of 24 finished, 0 dropped; printed: the
+   controller's actions, migrations with bytes and ms, each engine's
+   median decode step). The gelu kernel's launches over the phase (graph
+   replays counted through ``launches_run``) are gated above 0: gemma-7b's
+   GeGLU runs through it.
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -516,8 +558,10 @@ def check_paged_decode(PD, mid_lens):
     inert rows (length 0, every table entry -1), as a rank's rows carry
     once slots are free or a batch pads to an uneven shard; and phase
     13h's rank shapes (tinyllama's 16 of 32 heads and 2 of 4 KV heads,
-    8 rows; qwen2-moe's MHA shape at 4 of 8 rows). Returns the max abs
-    error seen."""
+    8 rows; qwen2-moe's MHA shape at 4 of 8 rows); and phase 16a's
+    (llama2-13b, gemma-7b, stablelm-12b and chameleon-34b at the main
+    path's lengths; D 160 and 256 on ragged lengths too). Returns the max
+    abs error seen."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (B, H, KV, D, bs, lengths, table width or None: just enough + 2)
         (8, 32, 4, 64, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
@@ -534,6 +578,16 @@ def check_paged_decode(PD, mid_lens):
         # heads on model 2; qwen2-moe's 4 of 8 rows on data 2
         (8, 16, 2, 64, 16, mid_lens, 64),
         (4, 16, 16, 128, 16, mid_lens[:4], 64),
+        # phase 16a's shapes: llama2-13b (H = KV = 40, D 128), gemma-7b
+        # (H = KV = 16, D 256), stablelm-12b (H 32, KV 8, D 160: 20 vectors
+        # a bf16 row) and chameleon-34b (H 64, KV 8, D 128); D 160 and 256
+        # on ragged lengths with a length-0 row too
+        (8, 40, 40, 128, 16, mid_lens, 64),
+        (8, 16, 16, 256, 16, mid_lens, 64),
+        (8, 32, 8, 160, 16, mid_lens, 64),
+        (8, 64, 8, 128, 16, mid_lens, 64),
+        (8, 16, 16, 256, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
+        (8, 32, 8, 160, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
@@ -670,7 +724,9 @@ def check_decode(DA, mid_lens):
     passes it; whisper-medium's cross-attention (H = KV = 16, D 64, S
     1500, all lengths 1500) and self-attention (S 448) the same way; the
     rank shapes of phase 13 (tinyllama's and zamba2's heads on model 2,
-    whisper's at 8 of 16 heads, qwen2-moe's 4 rows)."""
+    whisper's at 8 of 16 heads, qwen2-moe's 4 rows); phase 16b's gemma-7b
+    (D 256) and stablelm-12b (D 160) at the main path's lengths and on
+    lengths at split boundaries with a length-0 row."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [  # (H, KV, S, D, lengths, bshd)
         (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
@@ -694,6 +750,12 @@ def check_decode(DA, mid_lens):
         (16, 16, 1024, 112, list(mid_lens), True),
         (8, 8, 1500, 64, [1500] * 8, True),
         (8, 8, 448, 64, [0, 1, 63, 64, 65, 300, 447, 448], True),
+        # phase 16b: gemma-7b (H = KV = 16, D 256) and stablelm-12b (H 32,
+        # KV 8, D 160) against their dense caches
+        (16, 16, 1024, 256, list(mid_lens), True),
+        (32, 8, 1024, 160, list(mid_lens), True),
+        (16, 16, 1024, 256, [0, 1, 63, 64, 65, 640, 1023, 1024], True),
+        (32, 8, 1024, 160, [0, 1, 63, 64, 65, 640, 1023, 1024], True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -1153,7 +1215,7 @@ def run_engine(
     return eng, reqs, stats
 
 
-def serve_graphs_and_eager(engine_args, PD, GR, work, smi):
+def serve_graphs_and_eager(engine_args, PD, GR, work, smi, after=None):
     """The main path's gated runs: the workload through a fresh engine's
     CUDA graphs, then its warm workload (same lengths, other tokens) on
     the same engine; the same two through a fresh eager engine. The
@@ -1162,8 +1224,9 @@ def serve_graphs_and_eager(engine_args, PD, GR, work, smi):
     decode steps, decode replays = steps - captures and no capture in the
     warm run, one host sync per steady step, prefix hits, and the graph
     and eager streams token-identical. ``work``: (prompts, warm prompts,
-    sampled). Returns {"graphs" / "eager": (reqs, warm reqs, stats,
-    launches)}."""
+    sampled). ``after(engine)``, if given, runs on the graph engine after
+    its gated runs (ungated). Returns {"graphs" / "eager": (reqs, warm
+    reqs, stats, launches)}."""
     prompts, warm_prompts, sampled = work
     cfg = engine_args[3]
     runs = {}
@@ -1216,6 +1279,8 @@ def serve_graphs_and_eager(engine_args, PD, GR, work, smi):
             raise AssertionError(f"prefix-cache hits: {pstats}")
         engine_report(f"{what}, warm", eng, wreqs, wstats, wlaunches, wraw, smi)
         runs[what] = (reqs, wreqs, stats, launches)
+        if graphs and after is not None:
+            after(eng)
         del eng
     reqs, wreqs = runs["graphs"][:2]
     for a, b in zip(reqs + wreqs, runs["eager"][0] + runs["eager"][1]):
@@ -2487,10 +2552,11 @@ def submit_all(eng, RS, SP, prompts, sampled, max_tokens):
     return reqs
 
 
-def serve_dense(mods, cfg, params, work, smi, per_step, per_prefill, tag, **kw):
+def serve_dense(mods, cfg, params, work, smi, per_step, per_prefill, tag, eager=True,
+                **kw):
     """Phase 5's gated runs on the dense engine: the workload through a
     fresh engine's CUDA graphs, then its warm workload on the same engine;
-    the same two eagerly. The launch counts are reset just before and read
+    the same two eagerly (unless ``eager`` is False). The launch counts are reset just before and read
     just after each engine's runs. Gates: every request 32 in-vocab
     tokens, dense-decode launches = ``per_step`` x decode steps, SSD
     launches = ``per_prefill`` x prefills, dense replays = steps -
@@ -2501,7 +2567,7 @@ def serve_dense(mods, cfg, params, work, smi, per_step, per_prefill, tag, **kw):
     Engine, RS, SP, DA, SS, GR = mods
     prompts, warm_prompts, sampled = work
     runs = {}
-    for what, graphs in (("graphs", True), ("eager", False)):
+    for what, graphs in (("graphs", True), ("eager", False))[: 2 if eager else 1]:
         DA.decode_attention.launches = 0
         SS.ssd_scan.launches = 0
         eng = Engine(cfg, params, device="cuda", cuda_graphs=graphs, **dict(DENSE_KW, **kw))
@@ -2563,6 +2629,8 @@ def serve_dense(mods, cfg, params, work, smi, per_step, per_prefill, tag, **kw):
             )
         runs[what] = (reqs, wreqs, stats, {"decode": dec, "ssd": ssd})
         del eng
+    if not eager:
+        return runs
     reqs, wreqs = runs["graphs"][:2]
     for a, b in zip(reqs + wreqs, runs["eager"][0] + runs["eager"][1]):
         if a.generated != b.generated:
@@ -3585,13 +3653,18 @@ def rank_heads(cfg, m=2):
 #: (launch/dryrun.py: batch 1, window = sliding_window, a ring of that
 #: many slots): a prompt that wraps the ring, then decode steps
 LONG_PROMPT, LONG_STEPS = 8320, 16
-#: 13a's greedy decode steps; 13d's decode steps and qwen2-moe depth
-TP_STEPS, EP_STEPS, EP_LAYERS = 32, 16, 6
+#: 13a's greedy decode steps (cut from 32 for the script's time, PERF.md
+#: §4); 13d's decode steps and qwen2-moe depth
+TP_STEPS, EP_STEPS, EP_LAYERS = 16, 16, 6
+#: 13b's and 13i's tinyllama-1.1b depth (of 22; cut for the script's time)
+LONG13_LAYERS = 11
 #: 13c's minicpm3-4b depth (of 62), to keep the script's time: cut from
-#: 31 and then 16 as phases 13 and 15 lengthened the script (PERF.md)
-MLA13_LAYERS = 8
-#: every stream's eager decode steps timed after its gated run
-TIMED_STEPS = 8
+#: 31, 16 and then 8 as phases 13, 15 and 16 lengthened the script
+#: (PERF.md)
+MLA13_LAYERS = 4
+#: every stream's eager decode steps timed after its gated run (cut from
+#: 8 for the script's time)
+TIMED_STEPS = 4
 #: 13e-g on (data 1, model 2): part -> (arch, depth on the card): mamba2
 #: at phase 10's 12 of 48 layers, zamba2 at one block of 6 and a tail
 #: layer (7 of 81), whisper at 4 of 24 encoder and 4 of 24 decoder layers
@@ -3959,7 +4032,7 @@ def sharded_rank(rank, world, port, results, device="cuda"):
     # 13b / 13c: distributed flash-decoding, (data 2, model 1), batch 1;
     # 13i: then the multi-token decodes over the same split caches
     for part, arch, layers, fn, mla in (
-            ("long", "tinyllama-1.1b", None, "_local_partial", False),
+            ("long", "tinyllama-1.1b", LONG13_LAYERS, "_local_partial", False),
             ("mla", "minicpm3-4b", st["mla_layers"], "_mla_local_partial", True)):
         cfg = p13_config(get_config, arch, st, layers=layers)
         window = cfg.sliding_window
@@ -5323,12 +5396,16 @@ def training_phase(kernel_fns, get_config, out_dir, smi, device="cuda", reduced=
 #: thread per device, in which two thread-ranks' backward collectives
 #: would wait on each other)
 TRAIN_RANKS = 2
+#: 15e's float64 witness: the sharded step 1 against the unsharded one,
+#: both in float64, at most this far apart (relative L2 of every shard)
+F64_TOL = 1e-9
 #: 15c's qwen2-moe-a2.7b depth (of 24): two fp32 ranks and the unsharded
 #: step must fit the card one after another
 P15_MOE_LAYERS = 2
-#: 15b's tinyllama-1.1b depth (of 22), to keep the script's time: its
-#: gradient sums stage through the host at ~1 GB/s
-P15_DP_LAYERS = 11
+#: 15a's and 15b's tinyllama-1.1b depths (of 22), to keep the script's
+#: time: their collectives stage through the host (15b's gradient sums at
+#: ~1 GB/s); cut from 22 and 22, then 22 and 11 (PERF.md §4)
+P15_TP_LAYERS, P15_DP_LAYERS = 11, 6
 P15_AXES = ("data", "model")
 
 
@@ -5337,7 +5414,7 @@ def p15_settings(device):
     a CPU rehearsal's (reduced configs)."""
     if torch.device(device).type == "cuda":
         return dict(reduced=False, batch=8, seq=128, steps=3, moe_steps=2,
-                    bf16_steps=TRAIN_STEPS, ep_steps=3, moe_layers=P15_MOE_LAYERS)
+                    bf16_steps=TRAIN_STEPS, ep_steps=2, moe_layers=P15_MOE_LAYERS)
     return dict(reduced=True, batch=4, seq=16, steps=2, moe_steps=2, bf16_steps=4,
                 ep_steps=3, moe_layers=None)
 
@@ -5387,6 +5464,23 @@ def tally_counts(tally):
     return {ph: {k: v["count"] for k, v in by.items()} for ph, by in tally.items()}
 
 
+@contextlib.contextmanager
+def float64_math():
+    """Inside, ``Tensor.float()`` leaves a float64 tensor float64: the port
+    computes its norms, scans and optimizer moments through ``.float()``,
+    so a float64 step under this context rounds nowhere to float32."""
+    cast = torch.Tensor.float
+
+    def keep(self, *args, **kwargs):
+        return self if self.dtype == torch.float64 else cast(self, *args, **kwargs)
+
+    torch.Tensor.float = keep
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+
+
 def p15_turns(store, tag, rank, world, fn):
     """``fn()`` on each rank in turn, rank order, the others waiting: the
     unsharded step runs on one rank at a time (memory)."""
@@ -5431,7 +5525,13 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     also compared after every step (``errs_steps``, each step's worst
     leaf, ungated), and rank 0 runs the unsharded step a second time from
     its weights perturbed by up to one float32 ulp, in lockstep, against
-    the first (``ulp_steps``): the spread that rounding alone grows to."""
+    the first (``ulp_steps``): the spread that rounding alone grows to;
+    and step 1 runs again in float64 (``float64_math``), sharded and
+    unsharded from the same weights widened, each rank's shards of the
+    two compared (``f64``, gated to ``F64_TOL``: a sharding fault would
+    show at any precision, rounding at float64's), and each float32 step
+    1 against the float64 unsharded one (``f64_sharded``,
+    ``f64_unsharded``): which of the two float32 steps lies nearer."""
     import datetime
 
     import torch.distributed as dist
@@ -5495,7 +5595,20 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
         out["bytes"] = sum(t.numel() * t.element_size()
                            for t in [*tree_leaves(params), *tree_leaves(opt)])
     out.update(run, peak=peak_bytes(device), compared_steps=k)
-    del params, opt, batches
+    del params, opt
+    if witness:   # step 1 again, sharded, in float64
+        with float64_math():
+            full = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED),
+                                 "float32")
+            p64 = SH.shard_params(OPT.tree_map(torch.Tensor.double, full), specs, mesh)
+            del full
+            o64 = OPT.init_opt_state(p64)
+            with SH.use_rules(rules):
+                p64, o64, _ = step(p64, o64, batches[0])
+            hosts64 = {name: {p: t.to("cpu", copy=True) for p, t in OPT.tree_items(tree)}
+                       for name, tree in trees(p64, o64)}
+            del p64, o64
+    del batches
     reset_peak(device)
 
     def rel_errs(p, o, other):
@@ -5535,7 +5648,18 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
                 pp = OPT.tree_from(list(pp), list(pp.values()))
                 oo = OPT.init_opt_state(pp)
             step = TR.make_train_step(cfg, ocfg)
-            losses, ms, errs, ulp = [], [], {}, {}
+            losses, ms, errs, ulp, f64 = [], [], {}, {}, {}
+            if witness:   # step 1 in float64 from the same weights
+                with float64_math():
+                    p64 = OPT.tree_map(lambda t: t.to(torch.float64, copy=True), p)
+                    p64, o64, _ = step(p64, OPT.init_opt_state(p64),
+                                       DP.synth_batch(cfg, dcfg, 0, device))
+                f64["f64"] = rel_errs(p64, o64, lambda name, path, leaf: (
+                    SH.shard_leaf(leaf, spec_of[path], mesh),
+                    hosts64[name][path].to(device)))
+                f64["f64_sharded"] = rel_errs(p64, o64, lambda name, path, leaf: (
+                    SH.shard_leaf(leaf, spec_of[path], mesh),
+                    hosts[1][name][path].to(device).double()))
             with routing(ref_routes):
                 for i in range(n):
                     b = DP.synth_batch(cfg, dcfg, 0 if repeat else i, device)
@@ -5548,6 +5672,11 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
                     ms.append((time.perf_counter() - t) * 1e3)
                     if i + 1 in hosts:
                         errs[i + 1] = rel_errs(p, o, against_host(i + 1))
+                    if f64 and i == 0:
+                        mine = {name: dict(OPT.tree_items(tree)) for name, tree in trees(p, o)}
+                        f64["f64_unsharded"] = rel_errs(p64, o64, lambda name, path, leaf: (
+                            leaf, mine[name][path].double()))
+                        del p64, o64, mine
                     if control:
                         pp, oo, _ = step(pp, oo, b)
                         other = {name: dict(OPT.tree_items(tree))
@@ -5559,7 +5688,7 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
             reset_peak(device)
             return {"ref_loss": losses, "ref_ms": ms, "errs": errs[k], "ref_peak": peak,
                     "errs_steps": {s: worst(e) for s, e in errs.items()} if witness else None,
-                    "ulp_steps": ulp or None}
+                    "ulp_steps": ulp or None, **f64}
 
         out.update(p15_turns(store, f"{tag}/ref", rank, world, reference))
         out["route_flips"] = [int((a[1][1] != b[1][1]).any(-1).sum())
@@ -5617,7 +5746,7 @@ def sharded_train_rank(rank, world, port, results, device="cuda"):
     mods = (T, SH, OPT, TR, DP, DR, RankMesh, InputShape)
     res = {"device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
     args = (mods, st, store, rank, world, device)
-    cfg = p13_config(get_config, "tinyllama-1.1b", st)
+    cfg = p13_config(get_config, "tinyllama-1.1b", st, layers=P15_TP_LAYERS)
     dp_cfg = p13_config(get_config, "tinyllama-1.1b", st, layers=P15_DP_LAYERS)
     mcfg = p13_config(get_config, MOE_ARCH, st, layers=st["moe_layers"], experts=12)
     scfg = p13_config(get_config, SSM_ARCH, st, cut=FAMILY13["ssm"][1])
@@ -5661,10 +5790,13 @@ def p15_gates(part, r, on_card):
         for got, ref in zip(r["loss"][:k] if r["route_flips"] else r["loss"], r["ref_loss"]):
             if abs(got - ref) > 1e-5 * abs(ref):
                 raise AssertionError(f"{part}: loss {got} against the unsharded {ref}")
-        worst = max(r["errs"], key=r["errs"].get)
-        if r["errs"][worst] > 1e-4:
-            raise AssertionError(f"{part}: {worst} {r['errs'][worst]:.3e} from the unsharded "
-                                 f"step (tol 1e-4)")
+        # a float64 witness gates the shards where it runs: in float32 the
+        # unsharded step alone lies past 1e-4 of the float64 one (15e)
+        errs, tol = (r["f64"], F64_TOL) if "f64" in r else (r["errs"], 1e-4)
+        worst = max(errs, key=errs.get)
+        if errs[worst] > tol:
+            raise AssertionError(f"{part}: {worst} {errs[worst]:.3e} from the unsharded "
+                                 f"step{' in float64' if 'f64' in r else ''} (tol {tol})")
     else:   # the expert-parallel dispatch: no unsharded twin (ROADMAP C3)
         if not (np.isfinite(r["aux"]).all() and r["loss"][-1] < r["loss"][0]):
             raise AssertionError(f"{part}: aux {r['aux']}, loss {r['loss']}")
@@ -5744,7 +5876,9 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
                      f"{[f'{x:.6f}' for x in r0['ref_loss']]} (gated over the first "
                      f"{r0['compared_steps'] if r0['route_flips'] else len(r0['loss'])}); "
                      f"worst shard after step "
-                     f"{r0['compared_steps']}: {worst} {errs[worst]:.3e} (tol 1e-4)")
+                     f"{r0['compared_steps']}: {worst} {errs[worst]:.3e} "
+                     + ("(ungated: the float64 witness below gates the shards)"
+                        if "f64" in r0 else "(tol 1e-4)"))
             if r0["route_flips"]:
                 line += (f"; tokens whose expert ids differ from the unsharded step's, by "
                          f"step and layer: {r0['route_flips']}")
@@ -5761,6 +5895,21 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
                 f"to one float32 ulp against itself unperturbed: {fmt(r0['ulp_steps'])} "
                 f"(rounding alone, grown by Adam's u = m / (sqrt(v) + eps) where a gradient "
                 f"entry is near eps) [{smi}]")
+        if "f64" in r0:
+            both = [(i, r) for i, r in enumerate((r0, r1))]
+            w64 = max(((i, k, v) for i, r in both for k, v in r["f64"].items()),
+                      key=lambda t: t[2])
+            near = {k: [(f"rank {i}", r["f64_sharded"][k], r["f64_unsharded"][k])
+                        for i, r in both]
+                    for k in sorted({max(r[key], key=r[key].get) for _, r in both
+                                     for key in ("errs", "f64_sharded", "f64_unsharded")})}
+            log(f"[sharded-train] {what}, float64 witness of step 1 (gate {F64_TOL}): the "
+                f"sharded step against the unsharded one, both in float64 from the same "
+                f"weights, worst shard {w64[1]} {w64[2]:.3e} (rank {w64[0]}); the float32 "
+                f"sharded and unsharded steps against the float64 unsharded one, by leaf "
+                f"(rank, sharded, unsharded): "
+                + "; ".join(f"{k} " + ", ".join(f"({a}, {b:.3e}, {c:.3e})" for a, b, c in v)
+                            for k, v in near.items()) + f" [{smi}]")
         for r in (r0, r1):
             p15_gates(part, r, on_card)
         if part == "tp":   # the dry run's memory prediction of the rank's step
@@ -5791,6 +5940,426 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
         f"{got[0]['launches'][1]}, rank 1 {got[1]['launches'][1]} (paged, flash, decode, SSD)")
 
 
+# ------------------------------------- published widths: the paper's models
+#: phase 16's models: the paper's own evaluation model and three assigned
+#: configurations, each at its published width and depth in bf16
+WIDE_ARCHS = ("llama2-13b", "gemma-7b", "stablelm-12b", "chameleon-34b")
+#: the models also served through the dense engine (16b): D 256 and D 160
+WIDE_DENSE = ("gemma-7b", "stablelm-12b")
+#: the fp32 cut of each model (its first layers widened): an fp32 copy of a
+#: whole model would not fit beside the bf16 one, nor chameleon-34b's cut
+#: beside its 68.6 GB (that cut is widened after the model is freed)
+WIDE_FP32_LAYERS = {"llama2-13b": 8, "gemma-7b": 8, "stablelm-12b": 8,
+                    "chameleon-34b": 6}
+#: an init_params peak may exceed the weights by at most this (the draw
+#: holds one fp32 layer slice, <= 0.27 GB, beside its result)
+INIT_SLACK = 2e9
+
+
+def wide_bound(T, MIG, cfg, params):
+    """Weight bytes a decode step reads (every weight but the embedding
+    table, of which it reads a row a token; a tied table is read whole as
+    the head) and their least time at the card's memory rate, without the
+    K/V the step reads."""
+    step = MIG.tree_bytes(params)
+    if not cfg.tie_embeddings:
+        step -= MIG.tree_bytes(params, "^embed")
+    return step, step / HBM_BYTES_PER_S * 1e3
+
+
+def to_host(tree):
+    """A copy of a tensor tree in host memory."""
+    return _tree_map(lambda t: t.to("cpu", copy=True), tree)
+
+
+def cut_params(params, n):
+    """The first ``n`` layers of a dense decoder's weights, with its
+    embedding, final norm and head."""
+    return {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": _tree_map(lambda t: t[:n], params["layers"])}
+
+
+def wide_fp32_cut(T, what, cfg, stash, smi):
+    """The first layers of a model widened to fp32 (weights and the live
+    pool or cache a probe stashed in host memory), one decode step through
+    the kernel and the gather route (TF32 off): logits within 1e-4 and
+    each row's greedy token equal. Returns the relative L2 error."""
+    n = stash["layers"]
+    cut = dataclasses.replace(cfg, num_layers=n)
+
+    def fresh(t):  # a new card copy, floating leaves in fp32
+        return t.cuda().to(torch.float32 if t.is_floating_point() else t.dtype, copy=True)
+
+    p32 = _tree_map(fresh, stash["params"])
+    logits = {}
+    for impl in ("kernel", "gather"):
+        state = _tree_map(fresh, stash["state"])  # each route writes its step
+        if "pool" in stash:
+            out = T.forward_paged(p32, cut, stash["tokens"].cuda(), state,
+                                  attn_impl=impl)[0]
+        else:
+            out = T.forward(p32, cut, stash["tokens"].cuda(), stash["positions"].cuda(),
+                            state, mode="decode", attn_impl=impl)[0]
+        logits[impl] = out[stash["rows"], : cfg.vocab_size]
+        del state
+    rel = gate_rel(f"{what}: the first {n} layers in fp32, kernel vs gather",
+                   logits["kernel"], logits["gather"], tol=1e-4)
+    tok_k, tok_g = logits["kernel"].argmax(-1), logits["gather"].argmax(-1)
+    if not torch.equal(tok_k, tok_g):
+        raise AssertionError(f"{what}: fp32 greedy tokens differ: {tok_k.tolist()} / "
+                             f"{tok_g.tolist()}")
+    log(f"[wide] {what}: the first {n} of {cfg.num_layers} layers widened to fp32, "
+        f"one decode step kernel vs gather: logits relative L2 {rel:.3e} (tol 1e-4), "
+        f"greedy tokens equal in all {len(tok_k)} rows [{smi}]")
+    return rel
+
+
+def wide_paged(mods, cfg, params, out_dir, smi, bound_ms):
+    """16a: ``cfg`` through the paged engine at phase 5's settings and
+    workload (``serve_graphs_and_eager``'s gated runs, graphs and eager,
+    cold and warm); then a third workload of the same lengths on the warm
+    graph engine (no capture), whose first steady step is probed on the
+    live pool: each paged call against its plain version (2e-2) and the
+    bf16 logits kernel vs gather (2e-2), the fp32 cut stashed in host
+    memory for ``wide_fp32_cut``; and a profiled window. Returns (paged
+    launches of the cold graph run, the fp32 stash)."""
+    Engine, RS, SP, PD, GR, T = mods
+    prompts, sampled = workload(cfg)
+    warm_prompts, _ = workload(cfg, seed=SEED + 1)
+    probe_prompts, _ = workload(cfg, seed=SEED + 2)
+    engine_args = (Engine, RS, SP, cfg, params)
+    n = WIDE_FP32_LAYERS[cfg.name]
+    calls, busy, out, stash = {}, {}, {}, {}
+
+    def probe(eng):
+        tk, act, handle = paged_probe_inputs(eng)
+        rows = torch.from_numpy(act).cuda()
+        with checked_kernel_calls(calls):
+            got = T.forward_paged(eng.params, cfg, tk, handle, attn_impl="kernel")[0]
+        want = T.forward_paged(eng.params, cfg, tk, handle, attn_impl="gather")[0]
+        out["rel"] = gate_rel(f"{cfg.name} paged kernel vs gather logits (bf16)",
+                              got[rows, : cfg.vocab_size], want[rows, : cfg.vocab_size])
+        stash.update(layers=n, tokens=tk.cpu(), rows=rows.cpu(), pool=True,
+                     params=to_host(cut_params(eng.params, n)),
+                     state=to_host(dict(handle, k=handle["k"][:n], v=handle["v"][:n])))
+        profile_decode(eng, out_dir, smi, tag=f"_{cfg.name}", sink=busy, keep_trace=False)
+
+    runs = serve_graphs_and_eager(
+        engine_args, PD, GR, (prompts, warm_prompts, sampled), smi,
+        after=lambda eng: run_engine(*engine_args, "kernel", probe_prompts, sampled,
+                                     probe=probe, eng=eng))
+    launches, stats = runs["graphs"][3], runs["graphs"][2]
+    worst = max(calls.get("paged", [float("inf")]))
+    if len(calls.get("paged", ())) != cfg.num_layers or worst > 2e-2:
+        raise AssertionError(f"{cfg.name}: {len(calls.get('paged', ()))} paged calls "
+                             f"checked, worst relative L2 {worst}")
+    ms = stats["steady_step_ms"]
+    median_ms = ms[len(ms) // 2]
+    tag = f"_{cfg.name}"
+    log(
+        f"[wide] {cfg.name} paged: one decode step on the live pool, each of the "
+        f"{cfg.num_layers} bf16 paged calls against its plain version, worst relative L2 "
+        f"{worst:.3e} (tol 2e-2); logits kernel vs gather {out['rel']:.3e} (tol 2e-2); "
+        f"graphs, cold: steady step median {median_ms:.3f} ms (min {ms[0]:.3f}, max "
+        f"{ms[-1]:.3f}) against the weight-read bound {bound_ms:.3f} ms "
+        f"({bound_ms / median_ms:.1%} of bound); eager "
+        f"{runs['eager'][2]['steady_step_ms'][len(runs['eager'][2]['steady_step_ms']) // 2]:.3f} "
+        f"ms; device busy {busy[tag]:.3f} ms per steady step (profiled), idle share "
+        f"outside the profiler {1 - busy[tag] / median_ms:.3f} [{smi}]"
+    )
+    return launches, stash
+
+
+def wide_dense(mods, cfg, params, smi):
+    """16b: ``cfg`` through the dense engine at phase 10's settings
+    (``serve_dense``'s gated graph runs, cold and warm: dense-decode
+    launches = layers x steps), then a probe of the first steady step on the live cache: each
+    dense-decode call against its plain version (2e-2) and the bf16
+    logits kernel vs gather (2e-2), the fp32 cut stashed in host memory.
+    Returns (dense-decode launches of the cold graph run, the fp32
+    stash)."""
+    Engine, RS, SP, DA, SS, GR, T = mods
+    prompts, sampled = workload(cfg)
+    warm_prompts, _ = workload(cfg, seed=SEED + 1)
+    runs = serve_dense(mods[:6], cfg, params, (prompts, warm_prompts, sampled), smi,
+                       cfg.num_layers, 0, "wide", eager=False)
+    n = WIDE_FP32_LAYERS[cfg.name]
+    calls, out, stash = {}, {}, {}
+
+    def probe(e):
+        with checked_kernel_calls(calls):
+            out["kernel"] = dense_decode_logits(T, e, attn_impl="kernel")
+        out["gather"] = dense_decode_logits(T, e, attn_impl="gather")
+        toks = np.zeros((e.max_batch,), np.int64)
+        for s, r in e.active.items():
+            toks[s] = r.generated[-1]
+        cache = dict(e.cache, layers=_tree_map(lambda t: t[:n], e.cache["layers"]))
+        stash.update(layers=n, tokens=torch.from_numpy(toks[:, None]),
+                     positions=torch.from_numpy(e._host_lengths[:, None].astype(np.int32)),
+                     rows=torch.tensor(sorted(e.active)),
+                     params=to_host(cut_params(e.params, n)), state=to_host(cache))
+
+    eng = Engine(cfg, params, device="cuda", **DENSE_KW)
+    run_engine(Engine, RS, SP, cfg, params, None, prompts, sampled, probe=probe, eng=eng)
+    del eng
+    worst = max(calls.get("decode", [float("inf")]))
+    if len(calls.get("decode", ())) != cfg.num_layers or worst > 2e-2:
+        raise AssertionError(f"{cfg.name}: {len(calls.get('decode', ()))} dense-decode "
+                             f"calls checked, worst relative L2 {worst}")
+    rel = gate_rel(f"{cfg.name} dense kernel vs gather logits (bf16)", out["kernel"],
+                   out["gather"])
+    log(f"[wide] {cfg.name} dense: one decode step on the live cache, each of the "
+        f"{cfg.num_layers} bf16 dense-decode calls against its plain version, worst "
+        f"relative L2 {worst:.3e} (tol 2e-2); logits kernel vs gather {rel:.3e} (tol "
+        f"2e-2) [{smi}]")
+    return runs["graphs"][3]["decode"], stash
+
+
+def wide_serve(PD, GR, smi):
+    """16c: the port's serving entry point, ``launch.serve.run``, at
+    llama2-13b's published widths on two in-process instances (the live
+    loop: Orchestrator -> Monitor -> Controller, scale-up degrees,
+    scale-down migration). Gates: all 24 requests finish, none dropped,
+    the paged kernel launched. Prints the controller's actions, the
+    migrations (bytes, ms) and each engine's median decode step (steps
+    with no prompt waiting or mid-prefill). Returns the paged launches."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving import orchestrator as ORC
+
+    seen, steps = {}, collections.defaultdict(list)
+    step, close = ENG.Engine.step, ORC.Orchestrator.close
+
+    def timed_step(self, *args, **kwargs):
+        steady = bool(self.active) and not self.queue and not self.prefilling
+        t = time.perf_counter()
+        out = step(self, *args, **kwargs)
+        if steady:
+            steps[id(self)].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def closing(self):
+        seen.update(stats=self.stats(), migrations=list(self.migrations),
+                    launches=GR.launches_run(PD.paged_decode_attention,
+                                             [e.graphs for e in self.engines]))
+        return close(self)
+
+    PD.paged_decode_attention.launches = 0
+    ENG.Engine.step, ORC.Orchestrator.close = timed_step, closing
+    t = time.perf_counter()
+    try:
+        n = SV.run(SV.ServeConfig(arch="llama2-13b", reduced=False, instances=2,
+                                  requests=24, rps=4))
+    finally:
+        ENG.Engine.step, ORC.Orchestrator.close = step, close
+    wall = time.perf_counter() - t
+    st = seen["stats"]
+    if n != 24 or st["finished"] != 24 or st["dropped"] or not seen["launches"]:
+        raise AssertionError(f"launch.serve.run: {n} of 24 requests finished, dropped "
+                             f"{st['dropped']}, paged launches {seen['launches']}")
+    medians = [round(sorted(v)[len(v) // 2], 3) for v in steps.values()]
+    moves = [(m.rid, m.src, m.dst, m.mode, m.bytes_moved, round(m.seconds * 1e3, 3))
+             for m in seen["migrations"]]
+    log(f"[wide] 16c launch.serve.run(arch=llama2-13b, reduced=False, instances=2, "
+        f"requests=24, rps=4): {n} of 24 finished, dropped {st['dropped']}, in "
+        f"{wall:.1f} s (weights drawn, captures included); controller actions "
+        f"{st['controller_log']}; final plan P {st['plan_p'][:8]}; migrations executed "
+        f"(rid, src, dst, mode, bytes, ms) {moves}; paged kernel launches "
+        f"{seen['launches']}; decode steps per engine {[len(v) for v in steps.values()]}, "
+        f"median ms {medians} [{smi}]")
+    return seen["launches"]
+
+
+def wide_kernel_times(PD, DA, get_config, mid_lens, width, smi):
+    """Phase 3's rows for phase 16: the paged kernel at each model's decode
+    shape, the dense-decode kernel at 16b's (with SDPA beside it)."""
+    paged = {a: time_paged_decode(PD, get_config(a), mid_lens, width, smi)
+             for a in WIDE_ARCHS}
+    dense = {a: time_decode(DA, get_config(a), mid_lens, 1024, smi) for a in WIDE_DENSE}
+    return paged, dense
+
+
+def wide_rows(kernels, times, launches):
+    """Phase 16's shapes and launches into the JSON line's paged-decode
+    (``kernels[0]``) and dense-decode (``kernels[2]``) rows."""
+    paged, dense = times
+    for arch, (ms, plain_ms, bound_ms, bound_by) in paged.items():
+        kernels[0]["shapes"].append({
+            "model": f"{arch} (phase 16a)", "launches": launches["paged"][arch], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+    kernels[0]["shapes"].append({
+        "model": "llama2-13b through launch.serve.run (phase 16c, the shape timed above)",
+        "launches": launches["serve"], "ms": None, "plain_ms": None, "bound_ms": None,
+        "bound_by": None, "library_ms": None})
+    kernels[0]["launches"] += sum(launches["paged"].values()) + launches["serve"]
+    for arch, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in dense.items():
+        kernels[2]["shapes"].append({
+            "model": f"{arch} (phase 16b)", "timed": f"decode_{arch}",
+            "launches": launches["decode"][arch], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+    kernels[2]["launches"] += sum(launches["decode"].values())
+
+
+# ------------------------------------------------------------ the gelu kernel
+#: the gelu kernel's timed shapes: gemma-7b's GeGLU in a decode step of 8
+#: rows and in a 600-token prefill (d_ff 24576), whisper-medium's MLP over
+#: its 1500 encoder frames (d_ff 4096), bf16; its gradient at whisper's
+#: train step of 8 x 128 tokens in fp32 (phases 14-15) and at gemma's
+#: prefill in bf16
+GELU_SHAPES = (("gemma-7b decode", (8, 1, 24576), torch.bfloat16),
+               ("gemma-7b prefill", (1, 600, 24576), torch.bfloat16),
+               ("whisper-medium encoder", (1, 1500, 4096), torch.bfloat16))
+GELU_GRAD_SHAPES = (("whisper-medium train", (8, 128, 4096), torch.float32),
+                    ("gemma-7b prefill", (1, 600, 24576), torch.bfloat16))
+
+
+def check_gelu(GK):
+    """The gelu kernel and its gradient against their plain versions (the
+    op chain, a launch an op) on the card, in fp32 and bf16, at the timed
+    shapes, at an odd length (the vector loop's scalar tail) and on a view
+    one element off 16-byte alignment (the scalar loop); inputs normal x 3
+    (gelu's flat tails), cotangents normal. Gate: every element equal, as
+    the kernel rounds where the chain does. Returns the max abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    shapes = sorted({s for _, s, _ in GELU_SHAPES + GELU_GRAD_SHAPES}) + [(1_000_003,)]
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes + [None]:
+            if shape is None:     # 4098 elements one element past alignment
+                x, g = randn(gen, (4099,), dtype, 3.0)[1:], randn(gen, (4099,), dtype)[1:]
+            else:
+                x, g = randn(gen, shape, dtype, 3.0), randn(gen, shape, dtype)
+            for what, got, want in (("gelu", GK.gelu(x), GK.gelu_ref(x)),
+                                    ("gradient", GK.gelu_grad(x, g), GK.gelu_grad_ref(x, g))):
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                differ = int((got != want).sum())
+                if differ or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"gelu kernel, {what} {dtype} {tuple(x.shape)}: "
+                                         f"{differ} of {x.numel()} elements differ from the "
+                                         f"plain version's, max abs {err:.3e}")
+                worst, n = max(worst, err), n + x.numel()
+    log(f"[kernel] gelu and its gradient in fp32 and bf16 at {shapes} and on a misaligned "
+        f"view: all {n} elements of each equal to the plain version's (max abs err "
+        f"{worst:.3e}; gate: bit-equal)")
+    return worst
+
+
+def time_gelu(GK, what, shape, dtype, grad, smi):
+    """The gelu kernel (or its gradient) at ``shape``: kernel, plain
+    version and torch's fused tanh-form gelu (``F.gelu`` or
+    ``aten.gelu_backward``, which rounds once: the same function, other
+    roundings) over input sets that exceed the L2 cache; the bound reads
+    x (and g) once and writes the output once."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    n = int(np.prod(shape))
+    nbytes = (3 if grad else 2) * n * torch.empty((), dtype=dtype).element_size()
+    if grad:
+        calls = [(randn(gen, shape, dtype, 3.0), randn(gen, shape, dtype))
+                 for _ in range(n_sets(nbytes))]
+        fns = (GK.gelu_grad, GK.gelu_grad_ref,
+               lambda x, g: torch.ops.aten.gelu_backward(g, x, approximate="tanh"))
+    else:
+        calls = [(randn(gen, shape, dtype, 3.0),) for _ in range(n_sets(nbytes))]
+        fns = (GK.gelu, GK.gelu_ref, lambda x: F.gelu(x, approximate="tanh"))
+    ms, plain_ms, lib_ms = time_calls(calls, *fns)
+    # the chain's fp32 operations an element: 10 forward, 24 with the gradient
+    bound = least_time_ms(nbytes, (24 if grad else 10) * n, dtype)
+    name = "gelu_grad" if grad else "gelu"
+    report(name, f"{what} {str(dtype)[6:]} {shape}", ms, plain_ms, lib_ms, bound, smi)
+    return ms, plain_ms, lib_ms, bound
+
+
+def gelu_row(name, times, launches, err, path):
+    """A JSON row of the gelu kernel (``name``): the first timed shape's
+    numbers, each shape's in ``shapes``, ``launches`` those of ``path``."""
+    rows = [{"model": what, "shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": lib_ms}
+            for (what, shape, dtype), (ms, plain_ms, lib_ms, bound) in times]
+    top = rows[0]
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/gelu.cu",
+            "replaces": "src/repro/models/layers.py:457", "launches": launches,
+            "max_abs_err": err, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "launches_on": path, "shapes": rows}
+
+
+@contextlib.contextmanager
+def step_graphs(GR, sink):
+    """Inside, every ``serving.graphs.StepGraphs`` made is appended to
+    ``sink`` (for ``launches_run`` over every engine of a phase)."""
+    init = GR.StepGraphs.__init__
+
+    def rec(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        sink.append(self)
+
+    GR.StepGraphs.__init__ = rec
+    try:
+        yield sink
+    finally:
+        GR.StepGraphs.__init__ = init
+
+
+def wide_phase(mods, get_config, out_dir, smi):
+    """Phase 16 (module docstring). Returns {"paged": {arch: launches},
+    "decode": {arch: launches}, "serve": launches}."""
+    Engine, RS, SP, PD, DA, SS, GR, T, MIG = mods
+    launches = {"paged": {}, "decode": {}}
+    for arch in WIDE_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = T.init_params(cfg, gen, "bfloat16")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - before
+        weight_bytes = MIG.tree_bytes(params)
+        if weight_bytes != MIG.tree_bytes(T.init_params_meta(cfg, "bfloat16")):
+            raise AssertionError(f"{arch}: {weight_bytes} B of weights")
+        if peak > weight_bytes + INIT_SLACK:
+            raise AssertionError(f"{arch}: init_params peaked at {peak} B for "
+                                 f"{weight_bytes} B of weights")
+        step_bytes, bound_ms = wide_bound(T, MIG, cfg, params)
+        log(f"[wide] {arch}: {cfg.num_layers} layers, d={cfg.d_model}, H={cfg.num_heads}, "
+            f"KV={cfg.num_kv_heads}, D={cfg.resolved_head_dim}, d_ff={cfg.d_ff} "
+            f"({cfg.ffn_kind}), vocab={cfg.vocab_size}, tied {cfg.tie_embeddings}, qk-norm "
+            f"{cfg.use_qk_norm}; device memory allocated before {before} B; bf16 weights "
+            f"{weight_bytes} B in {init_s:.2f} s, init_params peak {peak} B (gate: weights "
+            f"+ {INIT_SLACK:.0f} B); a decode step reads {step_bytes} B of weights, bound "
+            f"{bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s [{smi}]")
+        torch.cuda.reset_peak_memory_stats()
+        paged, stash = wide_paged((Engine, RS, SP, PD, GR, T), cfg, params, out_dir,
+                                  smi, bound_ms)
+        launches["paged"][arch] = paged
+        stashes = [("paged", stash)]
+        if arch in WIDE_DENSE:
+            dense, dstash = wide_dense((Engine, RS, SP, DA, SS, GR, T), cfg, params, smi)
+            launches["decode"][arch] = dense
+            stashes.append(("dense", dstash))
+        log(f"[wide] {arch}: peak device memory allocated while serving "
+            f"{torch.cuda.max_memory_allocated()} B [{smi}]")
+        # the fp32 cuts after the bf16 model is freed (chameleon-34b's 21 GB
+        # cut does not fit beside its 68.6 GB)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for what, st in stashes:
+            wide_fp32_cut(T, f"{arch} {what}", cfg, st, smi)
+        del stashes, stash
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[wide] device memory allocated before 16c {torch.cuda.memory_allocated()} B")
+    launches["serve"] = wide_serve(PD, GR, smi)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5801,6 +6370,7 @@ def main():
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gelu as GK
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import moe as MOE
@@ -5842,6 +6412,8 @@ def main():
     mid_lens = [len(p) + 16 for p in prompts]  # halfway through decode
     err = check_paged_decode(PD, mid_lens)
     width = 64  # pow2 bucket of the widest table prefix on the main path
+    wide_times = wide_kernel_times(PD, DA, get_config, mid_lens, width, smi)
+    wide_mods = (Engine, RequestSpec, SamplingParams, PD, DA, SS, GR, T, MIG)
     ms, plain_ms, bound_ms, bound_by = time_paged_decode(PD, cfg, mid_lens, width, smi)
     # phase 9's shape: qwen2-moe-a2.7b's heads, the same lengths
     moe_paged = time_paged_decode(PD, get_config(MOE_ARCH), mid_lens, width, smi)
@@ -5871,6 +6443,7 @@ def main():
         f"[kernel] ssd_scan bf16 tensor-core instructions (cuobjdump -sass HMMA "
         f"count per kernel): {hmma_counts(libs['ssd_scan'])}"
     )
+    errs["gelu"] = check_gelu(GK)
     gemma = get_config("gemma-7b")
     timed = {
         "flash": time_flash(FA, 1, 2048, cfg.num_heads, cfg.num_kv_heads, 64, smi),
@@ -5898,6 +6471,10 @@ def main():
                                          [1500] * 8, 1500, smi),
         "ssd_mamba_tp": time_ssd(SS, rank_heads(mamba), 768, smi),
         "ssd_zamba_tp": time_ssd(SS, rank_heads(zamba), 768, smi),
+    }
+    gelu_times = {
+        "gelu": [(c, time_gelu(GK, *c, False, smi)) for c in GELU_SHAPES],
+        "gelu_grad": [(c, time_gelu(GK, *c, True, smi)) for c in GELU_GRAD_SHAPES],
     }
 
     # phase 4: small fp32 step, card vs CPU
@@ -6126,6 +6703,10 @@ def main():
     # phase 13: the sharded serving step across two ranks sharing the card
     gc.collect()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[sharded] before phase 13 this process holds {torch.cuda.memory_allocated()} B "
+        f"allocated, {torch.cuda.memory_reserved()} B reserved; the card has {free} B free "
+        f"of {total} B")
     t = time.perf_counter()
     sharded = sharded_phase(TR, smi)
     for row, key, shapes in (
@@ -6167,9 +6748,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    GK.gelu.launches = GK.gelu_grad.launches = 0
     training_phase((PD.paged_decode_attention, FA.flash_attention, DA.decode_attention,
                     SS.ssd_scan), get_config, out_dir, smi)
-    log(f"[train] phase 14 in {time.perf_counter() - t:.1f} s")
+    grad_launches = GK.gelu_grad.launches
+    if grad_launches == 0 or GK.gelu.launches == 0:
+        raise AssertionError(f"phase 14: gelu kernel launches {GK.gelu.launches}, its "
+                             f"gradient's {grad_launches}")
+    log(f"[train] phase 14 in {time.perf_counter() - t:.1f} s; gelu kernel launches "
+        f"{GK.gelu.launches}, its gradient's {grad_launches} (14c's whisper-medium on the "
+        f"card)")
 
     # phase 15: the sharded train step across two ranks sharing the card
     gc.collect()
@@ -6178,6 +6766,25 @@ def main():
     sharded_train_phase(TR, smi, (PD.paged_decode_attention, FA.flash_attention,
                                   DA.decode_attention, SS.ssd_scan))
     log(f"[sharded-train] phase 15 in {time.perf_counter() - t:.1f} s")
+
+    # phase 16: the paper's llama2-13b and three assigned models at their
+    # published widths, on the card emptied of phase 15's ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    GK.gelu.launches = 0
+    with step_graphs(GR, []) as graphs:
+        wide = wide_phase(wide_mods, get_config, out_dir, smi)
+    gelu_launches = GR.launches_run(GK.gelu, graphs)
+    if gelu_launches == 0:
+        raise AssertionError("phase 16: the gelu kernel never launched (gemma-7b's GeGLU)")
+    wide_rows(kernels, wide_times, wide)
+    log(f"[wide] phase 16 in {time.perf_counter() - t:.1f} s; launches {wide}, gelu "
+        f"{gelu_launches} (wrapper calls {GK.gelu.launches})")
+    kernels.append(gelu_row("gelu", gelu_times["gelu"], gelu_launches, errs["gelu"],
+                            "phase 16 (gemma-7b's GeGLU, graph replays counted)"))
+    kernels.append(gelu_row("gelu_grad", gelu_times["gelu_grad"], grad_launches,
+                            errs["gelu"], "phase 14 (14c's whisper-medium train step)"))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

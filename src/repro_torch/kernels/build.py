@@ -30,6 +30,7 @@ SOURCES = {
     "decode_attention": "decode_attention.cu",
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
+    "gelu": "gelu.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -41,9 +41,9 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import gelu as _gelu_kernel
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.parallel import sharding as SH
@@ -52,16 +52,62 @@ NEG_INF = -2.0 ** 20  # large-negative that is safe in bf16 softmax
 
 
 # --------------------------------------------------------------------------- init
+#: the fp32 elements of one chunk of a weight draw (256 MiB): the draw's
+#: only transient, and large enough that a chunk's launches cost nothing
+DRAW_ELEMS = 1 << 26
+
+
+def draw_into(w, draw, scale: float, rows: Optional[int] = None):
+    """Fill ``w`` in place with ``draw(t) * scale``: fp32 chunks ``t`` of
+    the rows of ``w`` viewed as ``[-1, w.shape[-1]]``, each drawn by
+    ``draw``, scaled in place and cast into ``w``'s type. A chunk is at
+    most ``rows`` rows (a layer's slice of a stacked leaf) and about
+    ``DRAW_ELEMS`` elements (a multiple of 16 rows), so the draw holds one
+    fp32 chunk beside its result, where a whole-leaf fp32 draw of a stack
+    held two of the stack's size. On the CPU a chunked draw reads the
+    generator as one draw of the whole does (the uniform fill element by
+    element, the normal fill in blocks of 16 from a uniform fill), so
+    the chunks do not change the values; on the card they do."""
+    if w.device.type == "meta":
+        return w
+    flat = w.view(-1, w.shape[-1])
+    step = max(16, DRAW_ELEMS // flat.shape[1] // 16 * 16)
+    if rows is not None:
+        step = min(step, rows)
+    for i in range(0, flat.shape[0], step):
+        dst = flat[i:i + step]
+        t = torch.empty(dst.shape, dtype=torch.float32, device=w.device)
+        draw(t)
+        dst.copy_(t.mul_(scale))
+        del t  # before the next chunk is allocated
+    return w
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype, *,
                lead=()) -> torch.Tensor:
     """Truncated-normal fan-in init; out_shape may be a tuple (heads, dim).
-    ``lead`` prepends stacked-layer dims (the ``[L, ...]`` layout)."""
+    ``lead`` prepends stacked-layer dims (the ``[L, ...]`` layout). Drawn
+    straight into ``dtype``, a layer's ``[in_dim, ...]`` slice at a time
+    (``draw_into``), each chunk sampled in place (``truncated_normal_``;
+    torch's ``trunc_normal_`` may redraw rejections into temporaries of
+    the whole tensor's size)."""
     if isinstance(out_shape, int):
         out_shape = (out_shape,)
-    w = torch.empty((*lead, in_dim, *out_shape), dtype=torch.float32,
-                    device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    w = torch.empty((*lead, in_dim, *out_shape), dtype=dtype, device=gen.device)
+    return draw_into(w.view(-1, math.prod(out_shape)),
+                     lambda t: truncated_normal_(t, gen),
+                     1.0 / math.sqrt(in_dim), rows=in_dim).view(w.shape)
+
+
+_ERF2 = math.erf(2.0 / math.sqrt(2.0))
+
+
+def truncated_normal_(t, gen):
+    """A standard normal truncated to [-2, 2], in place, as
+    ``jax.random.truncated_normal`` draws it: sqrt(2) * erfinv of a
+    uniform in (erf(-2 / sqrt 2), erf(2 / sqrt 2)), with no temporary."""
+    t.uniform_(-_ERF2, _ERF2, generator=gen).erfinv_()
+    return t.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
 
 # --------------------------------------------------------------------------- norms
@@ -789,8 +835,30 @@ def init_mlp(cfg: ModelConfig, gen, dtype, d_ff: Optional[int] = None, *,
             "w_down": dense_init(gen, d_ff, cfg.d_model, dtype, lead=lead)}
 
 
+class _GeluGrad(torch.autograd.Function):
+    """``_gelu`` under autograd: the forward and JAX's VJP of its op chain
+    through ``kernels.gelu`` (one launch each on the card), saving only x
+    (the backward recomputes the chain)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_kernel.gelu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _gelu_kernel.gelu_grad(x, g.contiguous())
+
+
 def _gelu(x):
-    return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    """``jax.nn.gelu`` (tanh form, its default) as XLA lowers it, each op
+    rounded to x's type (``kernels.gelu``): for bf16 this reproduces the
+    reference bit for bit, where torch's fused ``F.gelu`` rounds once.
+    Under autograd its backward is JAX's (``_GeluGrad``)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GeluGrad.apply(x)
+    return _gelu_kernel.gelu(x)
 
 
 def _sigmoid(x):

@@ -125,7 +125,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     # ---- inter-chunk recurrence
     chunk_decay = torch.exp(dA_cs[:, :, -1, :])             # [b,nc,H]
     h = (initial_state.float() if initial_state is not None
-         else x.new_zeros((b, H, P, N), dtype=torch.float32))
+         else xc.new_zeros((b, H, P, N)))
     h_prev = []
     for c in range(nc):
         h_prev.append(h)                                    # state BEFORE chunk

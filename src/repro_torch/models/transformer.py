@@ -164,7 +164,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     ``blocks`` ``[nb, every, ...]`` of them, a ``tail`` of the
     remaining ``num_layers % every`` where there are any, and the
     ``shared`` attention block (with its ``mlp`` when the config has a
-    ``d_ff``). Mamba2 layers are drawn one at a time into ``dtype``. An
+    ``d_ff``). Mamba2 layers are drawn one at a time into ``dtype``, and
+    every other leaf a layer's slice at a time (``layers.draw_into``). An
     MLA config's attention is ``layers.init_mla``'s; an audio config gets
     decoder ``layers`` with cross-attention and an ``encoder`` of
     ``num_encoder_layers`` layers and its ``final_norm``."""
@@ -172,10 +173,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     dtype = torch_dtype(dtype)
     dev = gen.device
     lead = (cfg.num_layers,)
-    embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
-                        device=dev, dtype=torch.float32)
+    embed = torch.empty((cfg.padded_vocab, cfg.d_model), dtype=dtype,
+                        device=dev)
     params = {
-        "embed": (embed * (1.0 / math.sqrt(cfg.d_model))).to(dtype),
+        "embed": L.draw_into(embed, lambda t: t.normal_(generator=gen),
+                             1.0 / math.sqrt(cfg.d_model)),
         "final_norm": L.init_norm(cfg, dtype, dev),
     }
     if not cfg.tie_embeddings:

@@ -55,12 +55,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.gelu import gelu
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.models.transformer import to_device
 from repro_torch.serving import instrument
 
 #: kernel wrappers whose launches ``launches_run`` accounts through replays
-COUNTED = (paged_decode_attention, decode_attention)
+COUNTED = (paged_decode_attention, decode_attention, gelu)
 
 
 def pack(*arrays) -> np.ndarray:

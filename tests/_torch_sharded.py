@@ -3,6 +3,7 @@
 and train step under one jit each, and one thread-rank's counterparts
 under sharding rules, on weights drawn by the reference's
 ``init_params`` and bridged through numpy."""
+import contextlib
 import dataclasses
 import functools
 
@@ -33,6 +34,27 @@ def rel(got, want):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+@contextlib.contextmanager
+def float64_math():
+    """Inside, ``Tensor.float()`` leaves a float64 tensor float64. The port
+    computes its norms, scans and optimizer moments through ``.float()``;
+    a float64 run under this context rounds nowhere to float32, so a
+    sharded step and the unsharded one differ by float64 rounding alone,
+    where in float32 Adam's first update can grow rounding past 1e-4 (an
+    entry of a gradient near eps moves u = m / (sqrt(v) + eps) by as
+    much as the entry's own rounding)."""
+    cast = torch.Tensor.float
+
+    def keep(self, *args, **kwargs):
+        return self if self.dtype == torch.float64 else cast(self, *args, **kwargs)
+
+    torch.Tensor.float = keep
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
 
 
 def flat(tree):

@@ -292,3 +292,29 @@ def test_wrappers_reject_bad_inputs_and_count_only_launches():
         .transpose(2, 3), ValueError)                         # contiguity
     with pytest.raises(ValueError, match="multiple of the chunk"):
         SS.ssd_scan(*ssd_args, chunk=48)
+
+
+def test_gelu_wrappers_run_plain_on_cpu():
+    """The gelu kernel's wrappers on CPU tensors are its plain versions
+    (the chain and JAX's VJP of it), count no launch, and refuse other
+    types and a mismatched cotangent; ``layers._gelu`` takes its gradient
+    through ``gelu_grad``."""
+    from repro_torch.kernels import gelu as GK
+    from repro_torch.models import layers as TL
+
+    rng = np.random.default_rng(9)
+    x, g = (torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32)
+                             * 3).to(torch.bfloat16) for _ in range(2))
+    counts = (GK.gelu.launches, GK.gelu_grad.launches)
+    assert torch.equal(GK.gelu(x), GK.gelu_ref(x))
+    assert torch.equal(GK.gelu_grad(x, g), GK.gelu_grad_ref(x, g))
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(TL._gelu(xg), xg, g)
+    assert torch.equal(dx, GK.gelu_grad_ref(x, g))
+    assert counts == (GK.gelu.launches, GK.gelu_grad.launches)
+    with pytest.raises(TypeError):
+        GK.gelu(x.int())
+    with pytest.raises(ValueError):
+        GK.gelu_grad(x, g[:2])
+    with pytest.raises(ValueError):
+        GK.gelu_grad(x, g.float())

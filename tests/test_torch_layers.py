@@ -253,7 +253,7 @@ def test_apply_gqa_paged_softcap_window_route_to_gather():
 
 @pytest.mark.parametrize("ffn,dtype", [
     ("swiglu", "float32"), ("geglu", "float32"), ("gelu", "float32"),
-    ("swiglu", "bfloat16")])
+    ("swiglu", "bfloat16"), ("geglu", "bfloat16"), ("gelu", "bfloat16")])
 def test_apply_mlp(ffn, dtype):
     jcfg, tcfg = _cfgs(ffn_kind=ffn)
     jp = jit(JL.init_mlp, jcfg, KEY, getattr(jnp, dtype))
@@ -262,6 +262,89 @@ def test_apply_mlp(ffn, dtype):
         (2, 3, jcfg.d_model)).astype(np.float32)
     _close(TL.apply_mlp(tp, _t(x, dtype), tcfg),
            jit(JL.apply_mlp, jp, _j(x, dtype), jcfg), TOL[dtype])
+
+
+def _gelu_draws(dtype):
+    """10^5 seeded inputs (wide enough to reach gelu's flat tails) and
+    cotangents, as (numpy, jax, torch) of ``dtype``."""
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal(100_000) * 3).astype(np.float32)
+    g = rng.standard_normal(100_000).astype(np.float32)
+    return x, g, _j(x, dtype), _j(g, dtype), _t(x, dtype), _t(g, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_matches_jax(dtype):
+    """``layers._gelu`` is XLA's op chain of ``jax.nn.gelu``: bf16 bit for
+    bit (torch's fused gelu differs in 42.8% of bf16 outputs), fp32
+    within 3e-5."""
+    *_, jx, _, tx, _ = _gelu_draws(dtype)
+    got = TL._gelu(tx).float().numpy()
+    want = np.asarray(jax.jit(jax.nn.gelu)(jx).astype(jnp.float32))
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_backward_is_jax_vjp(dtype):
+    """``layers._gelu``'s gradient equals ``jax.vjp`` of ``jax.nn.gelu``:
+    bf16 bit for bit (autograd through the chain's ops differs in 47.5%
+    of them), fp32 within 3e-5."""
+    *_, jx, jg, tx, tg = _gelu_draws(dtype)
+    want = jax.jit(lambda x, g: jax.vjp(jax.nn.gelu, x)[1](g)[0])(jx, jg)
+    want = np.asarray(want.astype(jnp.float32))
+    tx.requires_grad_()
+    (got,) = torch.autograd.grad(TL._gelu(tx), tx, tg)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+def test_draw_holds_one_layer_slice():
+    """A stacked leaf is drawn a layer's slice at a time into its own
+    dtype: the draw's peak (``launch.dryrun.MemoryTally``) is the bf16
+    result plus one fp32 ``[in, out]`` slice, where a whole-leaf fp32
+    draw held the result plus two fp32 copies of the stack; the values
+    are one whole in-place draw's on the CPU (the generator is read in
+    the same order), scaled by the fan-in."""
+    from repro_torch.launch.dryrun import MemoryTally
+
+    L, d_in, d_out = 6, 384, 1024
+    gen = torch.Generator().manual_seed(0)
+    with MemoryTally((torch.empty(0),)) as tally:
+        w = TL.dense_init(gen, d_in, d_out, torch.bfloat16, lead=(L,))
+    result = L * d_in * d_out * 2
+    assert tally.peak - tally.base <= result + d_in * d_out * 4
+    whole = torch.empty(L * d_in, d_out)
+    TL.truncated_normal_(whole, torch.Generator().manual_seed(0))
+    want = (whole * (1.0 / d_in ** 0.5)).bfloat16().view(L, d_in, d_out)
+    assert torch.equal(w, want)
+
+
+def test_truncated_normal_matches_jax_moments():
+    """``truncated_normal_`` against ``jax.random.truncated_normal(-2, 2)``
+    on 2^20 draws each: both within [-2, 2], and their means, standard
+    deviations, fourth moments and quantiles agree within a few standard
+    errors of the sample (the truncated unit normal's std is 0.8796)."""
+    n = 1 << 20
+    got = TL.truncated_normal_(torch.empty(n), torch.Generator().manual_seed(0))
+    got = got.double().numpy()
+    want = np.asarray(jax.random.truncated_normal(KEY, -2.0, 2.0, (n,)),
+                      np.float64)
+    for x in (got, want):
+        assert np.abs(x).max() <= 2.0
+        assert abs(x.std() / 0.8796 - 1) < 2e-3
+    se = 0.8796 / n ** 0.5
+    assert abs(got.mean() - want.mean()) < 6 * se
+    assert abs(got.std() - want.std()) < 6 * se
+    assert abs((got ** 4).mean() - (want ** 4).mean()) < 6e-3
+    qs = [0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99]
+    np.testing.assert_allclose(np.quantile(got, qs), np.quantile(want, qs),
+                               atol=6e-3)
 
 
 def test_init_shapes_match_reference():

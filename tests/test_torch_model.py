@@ -4,6 +4,7 @@ through numpy), plus the weight bridge and the copied configs.
 Tolerances: fp32 1e-4, bf16 2e-2."""
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -274,3 +275,52 @@ def test_unknown_family_raises():
         TT.init_params(cfg, torch.Generator().manual_seed(0), "float32")
     with pytest.raises(ValueError, match="unknown family rnn"):
         TT.init_cache(cfg, 1, 8, "float32", "cpu")
+
+
+@pytest.mark.parametrize("arch", torch_configs.list_archs())
+def test_init_draw_keeps_shapes_and_scale(arch, monkeypatch):
+    """Every config's ``.reduced()`` tree from the port's own draw, with
+    ``DRAW_ELEMS`` lowered so that every leaf is drawn in chunks of 16
+    rows (a layer's slice or less): the reference's keys, shapes and
+    types (``jax.eval_shape``), every ``dense_init`` leaf a fan-in
+    truncated normal (within [-2, 2] / sqrt(fan_in), std 0.8796 /
+    sqrt(fan_in), the truncated unit normal's, within 5% over the tree)
+    and the embedding a normal of std 1 / sqrt(d_model)."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models import ssm as TS
+
+    draws, rows, chunks = [], [], []
+    dense_init, truncated_normal_ = TL.dense_init, TL.truncated_normal_
+
+    def recording(gen, in_dim, out_shape, dtype, *, lead=()):
+        w = dense_init(gen, in_dim, out_shape, dtype, lead=lead)
+        draws.append((in_dim, w))
+        rows.append(w.numel() // math.prod(np.atleast_1d(out_shape)))
+        return w
+
+    def chunk(t, gen):
+        chunks.append(t.shape[0])
+        return truncated_normal_(t, gen)
+
+    monkeypatch.setattr(TL, "DRAW_ELEMS", 256)
+    monkeypatch.setattr(TL, "truncated_normal_", chunk)
+    monkeypatch.setattr(TL, "dense_init", recording)
+    monkeypatch.setattr(TS, "dense_init", recording)
+    jcfg = jax_configs.get_config(arch).reduced()
+    tcfg = torch_configs.get_config(arch).reduced()
+    jp = jax.eval_shape(lambda: JT.init_params(jcfg, KEY, "bfloat16"))
+    tp = TT.init_params(tcfg, torch.Generator().manual_seed(0), "bfloat16")
+    jleaves = {jax.tree_util.keystr(k): (v.shape, str(v.dtype)) for k, v in
+               jax.tree_util.tree_flatten_with_path(jp)[0]}
+    tleaves = {jax.tree_util.keystr(k): (tuple(v.shape), str(v.dtype)[6:])
+               for k, v in jax.tree_util.tree_flatten_with_path(tp)[0]}
+    assert tleaves == jleaves
+    assert draws
+    assert max(chunks) <= 16
+    assert sum(chunks) == sum(rows)
+    unit = torch.cat([(w.float() * in_dim ** 0.5).flatten()
+                      for in_dim, w in draws])
+    assert float(unit.abs().max()) <= 2.0 * (1 + 2 ** -7)
+    assert abs(float(unit.std()) / 0.8796 - 1) < 0.05
+    embed = tp["embed"].float() * tcfg.d_model ** 0.5
+    assert abs(float(embed.std()) - 1) < 0.05

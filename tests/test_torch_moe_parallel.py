@@ -122,7 +122,12 @@ def test_expert_parallel_matches_dense(shape):
     """W = 2 and 4 ranks on ``data`` (and d_ff split over ``model`` at
     (2, 2)), 2 rows of 3 tokens a rank: no slot drops, and every rank's
     rows equal the reference's exact all-experts dispatch; two
-    all-to-alls a call, plus the ``d_ff`` sums where it is split."""
+    all-to-alls a call, plus the ``d_ff`` sums where it is split. The
+    capacity factor is the padded expert count, so that a rank's buckets
+    hold all its slots and an expert's rows all the tokens of every rank
+    whatever the draw routes. At the default 1.3 a draw that crowds one
+    expert drops slots by design, as the reference does
+    (``test_expert_parallel_w1_matches_reference_with_drops``)."""
     jcfg, tcfg, p = _layer(12)
     B = 2 * shape[0]
     x = _x(tcfg, B, 3, seed=2)
@@ -137,8 +142,9 @@ def test_expert_parallel_matches_dense(shape):
         sl = rows(mesh, rules, B)
         ws, ids, _ = MOE.route(sp, torch.from_numpy(x[sl]), tcfg)
         with SH.use_rules(rules):
-            out = MOE._moe_expert_parallel(sp, torch.from_numpy(x[sl]), ws,
-                                           ids, tcfg, rules)
+            out = MOE._moe_expert_parallel(
+                sp, torch.from_numpy(x[sl]), ws, ids, tcfg, rules,
+                capacity_factor=float(tcfg.padded_experts(MOE.EXPERT_AXIS_PAD)))
         return sl, out.numpy(), int(mesh.moe_dropped), dict(mesh.collectives)
 
     ffn = {"all-reduce": 1} if shape[1] > 1 else {}

@@ -37,7 +37,7 @@ from repro_torch.training import optimizer as TOPT
 from repro_torch.training import train as TTR
 from _torch_mesh import run_mesh
 from _torch_parity import one_torch_thread  # noqa: F401
-from _torch_sharded import OPT_KW, flat as _flat, global_batch, rank_train
+from _torch_sharded import OPT_KW, flat as _flat, float64_math, global_batch, rank_train
 from _torch_sharded import ref_train, rel as _rel, shard_index as _index
 
 # family -> (arch, config changes)
@@ -235,18 +235,25 @@ def test_accumulation_under_rules_families(arch, changes):
     """ssm, hybrid and audio: ``make_train_step_accum`` under rules on
     (2, 2) (each rank's 2 rows, whisper's with their frames, as 2
     micro-batches of 1) against the unsharded one step on the same
-    unmasked batch: the loss (1e-5) and every updated shard (1e-4)."""
+    unmasked batch: the loss (1e-5) and every updated shard (1e-4). Both
+    run in float64 (``float64_math``) from the port's float32 draw: in
+    float32 a zero-initialised bias whose gradient holds entries near
+    Adam's eps (whisper's ``norm_x/bias``, |g| 2.3e-8) lands 1.8e-4 from
+    the unsharded step while each float32 step is 0.7-1.0e-4 from the
+    float64 one, which sharded and unsharded share to 1.5e-13."""
     tcfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
     full = T.init_params(tcfg, torch.Generator().manual_seed(0), "float32")
+    full = TOPT.tree_map(torch.Tensor.double, full)
     np_params = TOPT.tree_map(lambda t: t.numpy().copy(), full)
     dcfg = TDP.DataConfig(**DATA)
     ocfg = TOPT.OptimizerConfig(**OPT_KW)
     whole = TDP.synth_batch(tcfg, dcfg, 0, "cpu")
     whole["mask"] = torch.ones_like(whole["mask"])
     if tcfg.family == "audio":
-        whole["frames"] = TDP.synth_frames(tcfg, dcfg, 0, "cpu")
-    p, _, want = TTR.make_train_step(tcfg, ocfg)(full, TOPT.init_opt_state(full),
-                                                 whole)
+        whole["frames"] = TDP.synth_frames(tcfg, dcfg, 0, "cpu").double()
+    with float64_math():
+        p, _, want = TTR.make_train_step(tcfg, ocfg)(
+            full, TOPT.init_opt_state(full), whole)
     want_p = {k: v.numpy() for k, v in _flat(p).items()}
 
     def rank(mesh):
@@ -262,7 +269,10 @@ def test_accumulation_under_rules_families(arch, changes):
             _flat(np_params).values(), TOPT.tree_items(specs))]
         return float(m["total_loss"]), _flat(q), where
 
-    for loss, q, where in run_mesh((2, 2), rank):
+    with float64_math():
+        ranks = run_mesh((2, 2), rank)
+    for loss, q, where in ranks:
         assert _rel(loss, float(want["total_loss"])) <= 1e-5
         for (k, v), idx in zip(q.items(), where):
+            assert v.dtype == torch.float64
             assert _rel(v.numpy(), want_p[k][idx]) <= 1e-4, k
