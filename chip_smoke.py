@@ -232,6 +232,26 @@ prints no ``ok`` line):
    (eager, degree 1 against replicated), collectives and host syncs per
    step, one staged all-reduce alone. The paged row of the JSON line
    adds both ranks' launches and phase 3's replicated shape (rows 0-3).
+   Then re-placement (``migrate_by_path`` / ``migrate_kv_cache``, each
+   rank sent only the part of a leaf it lacks, one all-to-all a leaf):
+   rank 0 draws llama2-13b at published width, ``REPLACE_LAYERS`` of 40
+   layers, and a bf16 dense KV cache of 8 rows x 1024; rank 1 holds
+   ``meta`` placeholders of both. a. the attention projections split
+   over r0 on their heads (wo on its rows); b. back replicated; c. every
+   other leaf replicated, w_up / w_down split on d_ff (each rank holds
+   its half already) and replicated again; d. the cache split on its KV
+   heads, then replicated; e. one paged decode step (8 rows) on the
+   re-placed weights through the paged-decode kernel. Gates: after each
+   move each rank's leaves bit-equal to rank 0's original slices
+   (``bits_checksum`` sent as plain values), the bytes each rank received
+   equal to the plan's (``planned_bytes``) and to the share of the move
+   ``REPLACE_MOVES`` states (0 for c's split, half the leaves for its
+   return), one all-to-all a leaf and none for c's split; rank 1's peak
+   device memory over a grown by its shards and at most
+   ``REPLACE_SLACK``; e's logits bit-equal on both ranks and to rank 0's
+   step before any move, ``REPLACE_LAYERS`` paged launches a step.
+   Printed: bytes received per rank, seconds and ``estimate_cost`` per
+   move. The paged row adds e's launches.
 13. the reference's sharded serving step (``repro_torch.parallel``): two
    spawned rank processes share the card, each building its meshes as
    gloo groups (one per axis line) over a ``TCPStore``, each drawing
@@ -427,6 +447,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -3371,6 +3392,222 @@ def repl_run(c, params, dtype, plans, probe=None, rec=None, migrate_at=None,
     return out
 
 
+#: phase 12's re-placement part: llama2-13b at published width, cut to
+#: these of its 40 layers
+REPLACE_LAYERS = 10
+#: what rank 1's peak device memory may grow by in step (a) beyond the
+#: shards it receives
+REPLACE_SLACK = 64 << 20
+#: the moves of the re-placement part, in order: (step, tree, path regex,
+#: placement, the share of the moved leaves' bytes rank 0 and rank 1
+#: receive). Step (a) splits the attention projections on their heads
+#: (wo on its rows), (b) takes them back replicated, (c) replicates every
+#: other leaf, splits w_up / w_down on d_ff (each rank holds its half
+#: already) and replicates them again, (d) splits the dense KV cache on
+#: its KV heads and replicates it again
+REPLACE_MOVES = (
+    ("a", "params", r"layers/attn/w[qkv]$", (None, None, "r0"), (0, 0.5)),
+    ("a", "params", r"layers/attn/wo$", (None, "r0"), (0, 0.5)),
+    ("b", "params", r"layers/attn/", (), (0.5, 0.5)),
+    ("c", "params", r"^(?!layers/attn/)", (), (0, 1)),
+    ("c split", "params", r"layers/mlp/w_up$", (None, None, "r0"), (0, 0)),
+    ("c split", "params", r"layers/mlp/w_down$", (None, "r0"), (0, 0)),
+    ("c back", "params", r"layers/mlp/w_(up|down)$", (), (0.5, 0.5)),
+    ("d", "cache", r"layers/", (None, None, None, "r0"), (0, 0.5)),
+    ("d back", "cache", r"layers/", (), (0.5, 0.5)),
+)
+
+
+def path_leaves(tree, regex, prefix=""):
+    """(path, leaf) of each leaf of a dict tree whose '/'-joined path
+    matches ``regex`` (``migrate_by_path``'s matching)."""
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from path_leaves(v, regex, path + "/")
+        elif re.search(regex, path):
+            yield path, v
+
+
+def bits_checksum(t, chunk=1 << 25):
+    """Two int64 sums of a tensor's bits on its device, plain and
+    position-weighted, both wrapping: equal bits give equal sums, and the
+    shape goes beside them."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = t.reshape(-1).view(ints[t.element_size()])
+    sums = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for i in range(0, flat.numel(), chunk):
+        x = flat[i:i + chunk].long()
+        w = torch.arange(i, i + x.numel(), device=t.device) % 65521 + 1
+        sums[0] += x.sum()
+        sums[1] += (x * w).sum()
+    return (*sums.tolist(), tuple(t.shape))
+
+
+def replacement_step(T, PK, cfg, params, device, rows=8, bs=16):
+    """One paged decode step of ``cfg`` on ``params`` through the
+    paged-decode kernel: 8 rows of 64 to 561 tokens in a pool drawn from
+    a fixed seed, tokens likewise. Returns the logits over the vocabulary."""
+    lens = [64 + 71 * i for i in range(rows)]
+    st = PK.init_paged(cfg, rows, sum(-(-(n + 1) // bs) for n in lens), block_size=bs,
+                       dtype="bfloat16", max_len=1024, device=device)
+    for slot, n in enumerate(lens):
+        PK.allocate(st, slot, n + 1)
+        st.lengths[slot] = n
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    st.k.normal_(generator=gen)
+    st.v.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen, device=device)
+    handle = {
+        "k": st.k,
+        "v": st.v,
+        "block_tables": torch.from_numpy(st.block_tables.copy()).to(device),
+        "lengths": torch.from_numpy(st.lengths.copy()).to(device),
+        "active": torch.ones(rows, dtype=torch.bool, device=device),
+    }
+    return T.forward_paged(params, cfg, tokens, handle, attn_impl="kernel")[0][:, : cfg.vocab_size]
+
+
+def replacement_part(c, reduced=False):
+    """Phase 12's re-placement part on this rank (module docstring):
+    rank 0 draws llama2-13b at ``REPLACE_LAYERS`` layers and a dense KV
+    cache of 8 rows x 1024, rank 1 holds ``meta`` placeholders of both;
+    ``REPLACE_MOVES`` run in order, each timed, with the bytes this rank
+    received and the plan's, its collectives and the bits checksum of
+    every leaf it re-placed; rank 1's peak device memory over step (a);
+    then (e), one paged decode step on the re-placed weights (rank 0 also
+    runs it first, on its own weights before any move). ``reduced``
+    rehearses it at the config's reduced widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import paged_kv as PK
+
+    T, MIG, group, device = c.T, c.MIG, c.group, c.device
+    rank = group.rank
+    cfg = get_config("llama2-13b")
+    cfg = cfg.reduced() if reduced else dataclasses.replace(cfg, num_layers=REPLACE_LAYERS)
+    if rank == 0:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        trees = {"params": T.init_params(cfg, gen, "bfloat16"),
+                 "cache": T.init_cache(cfg, 8, 1024, "bfloat16", device)}
+        for x in trees["cache"]["layers"].values():
+            x.normal_(generator=gen)
+    else:
+        trees = {"params": T.init_params_meta(cfg, "bfloat16"),
+                 "cache": T.init_cache(cfg, 8, 1024, "bfloat16", "meta")}
+    res = {"layers": cfg.num_layers, "name": cfg.name, "moves": [], "expect": {}}
+    launches = c.PD.paged_decode_attention.launches
+    if rank == 0:   # every rank's block of every leaf a move places, unmoved
+        for _, tree, regex, spec, _ in REPLACE_MOVES:
+            for path, leaf in path_leaves(trees[tree], regex):
+                for q in range(group.size):
+                    block = MIG.replacement_plan(leaf.shape, None, spec, group.size).after[q]
+                    key = f"{tree}/{path} {block}"
+                    if key not in res["expect"]:
+                        res["expect"][key] = bits_checksum(leaf[tuple(slice(*b) for b in block)])
+        res["logits_before"] = bits_checksum(
+            replacement_step(T, PK, cfg, trees["params"], device))
+    group.all_reduce(torch.zeros(1, device=device))   # both ranks start together
+    t0 = time.perf_counter()
+    pending = []    # a step's leaves, checksummed once the step (and its peak) is done
+    for i, (step, tree, regex, spec, _) in enumerate(REPLACE_MOVES):
+        planned = MIG.planned_bytes(trees[tree], regex, spec, group.size, rank)
+        counts, received = collections.Counter(group.counts), group.bytes_received
+        if step == "a" and "a_base" not in res and device.type == "cuda":
+            c.INS.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            res["a_base"] = torch.cuda.memory_allocated(device)
+        move = MIG.migrate_kv_cache if tree == "cache" else functools.partial(
+            MIG.migrate_by_path, path_regex=regex)
+        trees[tree], cost = move(trees[tree], new_spec=spec, group=group, measure=True)
+        res["moves"].append({
+            "step": step, "regex": regex, "spec": spec, "planned": planned,
+            "received": group.bytes_received - received,
+            "collectives": dict(group.counts - counts), "moved": cost.bytes_moved,
+            "seconds": cost.measured_seconds, "estimate": cost.est_seconds,
+        })
+        leaves = {}
+        for path, leaf in path_leaves(trees[tree], regex):
+            block = MIG.replacement_plan(MIG.placement_of(leaf).shape, None, spec,
+                                         group.size).after[rank]
+            leaves[f"{tree}/{path} {block}"] = leaf
+        pending.append((res["moves"][-1], leaves))
+        if i + 1 < len(REPLACE_MOVES) and REPLACE_MOVES[i + 1][0] == step:
+            continue
+        if step == "a" and device.type == "cuda":
+            res["a_peak"] = torch.cuda.max_memory_allocated(device)
+            res["a_shards"] = sum(x.numel() * x.element_size() for x in tree_leaves(
+                trees["params"]["layers"]["attn"]))
+        for record, done in pending:
+            record["checksums"] = {k: bits_checksum(x) for k, x in done.items()}
+        pending.clear()
+    res["seconds"] = time.perf_counter() - t0
+    res["logits"] = bits_checksum(replacement_step(T, PK, cfg, trees["params"], device))
+    res["launches"] = c.PD.paged_decode_attention.launches - launches
+    return res
+
+
+def replacement_gates(r0, r1, on_card, smi):
+    """Gates and prints phase 12's re-placement part (``replacement_part``
+    on both ranks). Returns the paged kernel's launches on both ranks."""
+    name, L = r0["name"], r0["layers"]
+    expect = r0["expect"]
+    for i, (a, b) in enumerate(zip(r0["moves"], r1["moves"])):
+        what = f"re-placement {a['step']} ({a['regex']} -> {a['spec']})"
+        for r, m in ((0, a), (1, b)):
+            share = REPLACE_MOVES[i][4][r]
+            if not m["received"] == m["planned"] == share * m["moved"]:
+                raise AssertionError(f"{what} rank {r}: received {m['received']} B, "
+                                     f"the plan {m['planned']} B, {share} of the "
+                                     f"{m['moved']} B moved")
+            for key, ck in m["checksums"].items():
+                if expect.get(key) != ck:
+                    raise AssertionError(f"{what} rank {r}: {key} is not rank 0's "
+                                         f"original slice ({ck} / {expect.get(key)})")
+        n = [m["collectives"] for m in (a, b)]
+        if a["step"] == "c split":
+            if a["received"] or b["received"] or n != [{}, {}]:
+                raise AssertionError(f"{what}: each rank holds its half already, yet "
+                                     f"{a['received']} / {b['received']} B, {n}")
+        elif n != [{"all-to-all": len(a["checksums"])}] * 2:
+            raise AssertionError(f"{what}: collectives {n}, one all-to-all a leaf")
+        log(
+            f"[replacement] {name} ({L} of 40 layers, bf16) move {i} step "
+            f"{a['step']}: {a['regex']} -> {a['spec']}: {len(a['checksums'])} leaves, "
+            f"bytes_moved {a['moved']} B; received rank 0 / 1 {a['received']} / "
+            f"{b['received']} B (= the plan's); collectives {n[0]} / {n[1]}; "
+            f"{a['seconds']:.3f} / {b['seconds']:.3f} s (estimate_cost "
+            f"{a['estimate']:.3f} s); each rank's leaves bit-equal to rank 0's "
+            f"original slices [{smi}]"
+        )
+    if on_card:
+        grew = r1["a_peak"] - r1["a_base"]
+        if grew > r1["a_shards"] + REPLACE_SLACK:
+            raise AssertionError(f"step (a): rank 1's peak grew {grew} B for "
+                                 f"{r1['a_shards']} B of shards")
+        log(
+            f"[replacement] step (a) on rank 1 (meta placeholders): peak device "
+            f"memory grew {grew} B for its {r1['a_shards']} B of attention shards "
+            f"(gate: + {REPLACE_SLACK} B); the whole leaves are "
+            f"{2 * r1['a_shards']} B"
+        )
+    log(f"[replacement] the {len(r0['moves'])} moves took {r0['seconds']:.3f} / "
+        f"{r1['seconds']:.3f} s on rank 0 / 1, checksums included [{smi}]")
+    before, got0, got1 = r0["logits_before"], r0["logits"], r1["logits"]
+    if not got0 == got1 == before:
+        raise AssertionError(f"step (e): logits {got0} / {got1}, before any move {before}")
+    launches = r0["launches"] + r1["launches"]
+    if on_card and (r0["launches"], r1["launches"]) != (2 * L, L):
+        raise AssertionError(f"step (e): paged launches {r0['launches']} / "
+                             f"{r1['launches']}, {L} a step")
+    log(
+        f"[replacement] step (e): one paged decode step (8 rows, 64-561 tokens) on "
+        f"the re-placed {L}-layer {name} through the paged-decode kernel: logits "
+        f"{list(got0[2])} bit-equal on both ranks and to rank 0's step before any "
+        f"move; paged launches {r0['launches']} / {r1['launches']} [{smi}]"
+    )
+    return launches
+
+
 def replication_rank(rank, world, port, reference, out_dir, results, device="cuda"):
     """One rank of phase 12, a spawned process: its gloo group on the
     card, tinyllama-1.1b's weights (rank 0's broadcast), the runs of the
@@ -3400,7 +3637,7 @@ def replication_rank(rank, world, port, reference, out_dir, results, device="cud
     cfg = get_config("tinyllama-1.1b")
     prompts, sampled = workload(cfg)
     c = types.SimpleNamespace(Engine=Engine, RS=RequestSpec, SP=SamplingParams, PD=PD,
-                              INS=INS, R=R, MIG=MIG, cfg=cfg, group=group,
+                              INS=INS, R=R, MIG=MIG, T=T, cfg=cfg, group=group,
                               prompts=prompts, sampled=sampled, device=device)
     res = {"device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
     # phase 5's weights on rank 0; rank 1 draws others, then takes rank 0's
@@ -3477,6 +3714,11 @@ def replication_rank(rank, world, port, reference, out_dir, results, device="cud
                         cost.measured_seconds, tensor_sha(*tree_leaves(params)))
     res["runs"] = runs
     res["reference_ok"] = runs["bf16 degree 1"]["streams"] == reference
+    del params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res["replacement"] = replacement_part(c, reduced=device.type != "cuda")
     group.all_reduce(torch.zeros(1, device=device))   # both ranks are done
     results.put((rank, res))
 
@@ -3484,7 +3726,8 @@ def replication_rank(rank, world, port, reference, out_dir, results, device="cud
 def replication_phase(TR, reference, out_dir, smi, device="cuda"):
     """Phase 12 (module docstring): spawns the two ranks, waits for both
     (a rank that fails fails the phase), gates and prints their runs.
-    Returns the paged kernel's launches on both ranks."""
+    Returns the paged kernel's launches on both ranks: the tinyllama runs',
+    then the re-placement part's (``replacement_gates``)."""
     import multiprocessing as mp
     import queue
 
@@ -3629,13 +3872,15 @@ def replication_phase(TR, reference, out_dir, smi, device="cuda"):
         f"(= tree_bytes) in {a[2]:.3f} s; rank 1's zeroed attention weights back "
         f"to rank 0's, bit for bit"
     )
+    replaced = replacement_gates(r0["replacement"], r1["replacement"],
+                                 torch.device(device).type == "cuda", smi)
     log(
         f"[replication] one staged all-reduce alone (the hooks' all-gather), "
         f"median of 21, bf16, by shape: "
         f"{ {s: round(ms, 4) for s, ms in r0['collective_ms'].items()} } ms (rank 0) "
         f"[{smi}]"
     )
-    return launches
+    return launches, replaced
 
 
 # --------------------------------------- the sharded serving step (phase 13)
@@ -3653,9 +3898,10 @@ def rank_heads(cfg, m=2):
 #: (launch/dryrun.py: batch 1, window = sliding_window, a ring of that
 #: many slots): a prompt that wraps the ring, then decode steps
 LONG_PROMPT, LONG_STEPS = 8320, 16
-#: 13a's greedy decode steps (cut from 32 for the script's time, PERF.md
-#: §4); 13d's decode steps and qwen2-moe depth
-TP_STEPS, EP_STEPS, EP_LAYERS = 16, 16, 6
+#: 13a's greedy decode steps (cut from 32, then 16, for the script's
+#: time, PERF.md §4); 13d's decode steps and qwen2-moe depth (13h b's
+#: too; cut from 6)
+TP_STEPS, EP_STEPS, EP_LAYERS = 8, 16, 3
 #: 13b's and 13i's tinyllama-1.1b depth (of 22; cut for the script's time)
 LONG13_LAYERS = 11
 #: 13c's minicpm3-4b depth (of 62), to keep the script's time: cut from
@@ -5400,12 +5646,13 @@ TRAIN_RANKS = 2
 #: both in float64, at most this far apart (relative L2 of every shard)
 F64_TOL = 1e-9
 #: 15c's qwen2-moe-a2.7b depth (of 24): two fp32 ranks and the unsharded
-#: step must fit the card one after another
-P15_MOE_LAYERS = 2
+#: step must fit the card one after another (cut from 2 for the script's
+#: time, PERF.md §4)
+P15_MOE_LAYERS = 1
 #: 15a's and 15b's tinyllama-1.1b depths (of 22), to keep the script's
 #: time: their collectives stage through the host (15b's gradient sums at
-#: ~1 GB/s); cut from 22 and 22, then 22 and 11 (PERF.md §4)
-P15_TP_LAYERS, P15_DP_LAYERS = 11, 6
+#: ~1 GB/s); cut from 22 and 22, then 22 and 11, then 11 and 6 (PERF.md §4)
+P15_TP_LAYERS, P15_DP_LAYERS = 6, 3
 P15_AXES = ("data", "model")
 
 
@@ -6690,15 +6937,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    repl = replication_phase(TR, reference, out_dir, smi)
-    kernels[0]["launches"] += repl
+    repl, replaced = replication_phase(TR, reference, out_dir, smi)
+    kernels[0]["launches"] += repl + replaced
     kernels[0]["shapes"].append({
         "model": f"{cfg.name} replicated (4 of 8 rows a rank)", "launches": repl,
         "ms": repl_paged[0], "plain_ms": repl_paged[1], "bound_ms": repl_paged[2],
         "bound_by": repl_paged[3],
     })
     log(f"[replication] phase 12 in {time.perf_counter() - t:.1f} s; paged launches "
-        f"on both ranks {repl}")
+        f"on both ranks {repl}, and {replaced} in its re-placement part's steps")
 
     # phase 13: the sharded serving step across two ranks sharing the card
     gc.collect()

@@ -32,11 +32,12 @@ Every function takes an explicit group, never the default one, so ranks
 can be threads of one process (the CPU tests) or one process per card.
 The backend is the caller's: NCCL where each rank has its own card,
 gloo where ranks share a card or run on the CPU. Only the collectives
-both accept for CUDA tensors are used (``all_reduce`` and
-``broadcast``): the all-gather is an all-reduce of a zero-filled full
-buffer into which one rank of each shard has written its rows, which is
-exact (each element sums one value and zeros) and the same on every
-rank. Nothing falls back: a collective that fails raises.
+both accept for CUDA tensors are used (``all_reduce``, ``broadcast``
+and ``alltoall_base`` with uneven splits, the last for
+``core.migration``'s re-placement): the all-gather is an all-reduce of
+a zero-filled full buffer into which one rank of each shard has written
+its rows, which is exact (each element sums one value and zeros) and the
+same on every rank. Nothing falls back: a collective that fails raises.
 """
 from __future__ import annotations
 
@@ -58,18 +59,38 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def axis_names(size: int) -> Tuple[str, ...]:
+    """``r0 .. r{k-1}`` for 2**k ranks; one axis ``r0`` of size 1 for one
+    rank, as the reference's one-device mesh."""
+    k = int(math.log2(size))
+    return tuple(f"r{i}" for i in range(max(k, 1)))
+
+
+def axis_index(rank: int, size: int, name: str) -> int:
+    """``rank``'s coordinate on axis ``name`` of a group of ``size`` ranks
+    (r0: the top bit; 0 in a group of one)."""
+    if name not in axis_names(size):
+        raise ValueError(f"no replication axis {name!r} in "
+                         f"{axis_names(size)}")
+    k = int(math.log2(size))
+    return (rank >> (k - 1 - int(name[1:]))) & 1 if k else 0
+
+
 @dataclasses.dataclass(eq=False)
 class ReplicationGroup:
-    """W ranks (a power of two) that replicate layers between them.
-    ``pg`` is the ``torch.distributed`` process group (None for the
-    size-1 group); ``counts`` the collectives run so far, by the
-    reference's names (``count_collectives``)."""
+    """W ranks (a power of two) that replicate layers between them, the
+    port's mesh of axes ``r0 .. r{k-1}``. ``pg`` is the
+    ``torch.distributed`` process group (None for the size-1 group);
+    ``counts`` the collectives run so far, by the reference's names
+    (``count_collectives``); ``bytes_received`` the bytes this rank's
+    all-to-alls (re-placement) brought in from the other ranks."""
     pg: Optional[object]
     rank: int
     size: int
     device: torch.device
     counts: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    bytes_received: int = 0
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -91,23 +112,11 @@ class ReplicationGroup:
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
-        """``r0 .. r{k-1}`` for 2**k ranks; one axis ``r0`` of size 1 for
-        the size-1 group, as the reference's one-device mesh."""
-        k = int(math.log2(self.size))
-        return tuple(f"r{i}" for i in range(max(k, 1)))
-
-    def axis_size(self, name: str) -> int:
-        if name not in self.axis_names:
-            raise ValueError(f"no replication axis {name!r} in "
-                             f"{self.axis_names}")
-        return 1 if self.size == 1 else 2
+        return axis_names(self.size)
 
     def axis_index(self, name: str) -> int:
         """This rank's coordinate on axis ``name`` (r0: the top bit)."""
-        if self.axis_size(name) == 1:
-            return 0
-        k = len(self.axis_names)
-        return (self.rank >> (k - 1 - int(name[1:]))) & 1
+        return axis_index(self.rank, self.size, name)
 
     @property
     def staged(self) -> bool:
@@ -135,6 +144,20 @@ class ReplicationGroup:
             opts.rootRank = 0
             self._run("broadcast", lambda: self.pg.broadcast([t], opts).wait())
         return t
+
+    def all_to_all(self, out: torch.Tensor, inp: torch.Tensor,
+                   out_splits: Sequence[int], in_splits: Sequence[int]):
+        """One exchange of pieces of uneven size between every pair of
+        ranks: ``inp`` holds, in rank order, ``in_splits[q]`` elements
+        for each rank q; ``out`` receives, in rank order,
+        ``out_splits[q]`` elements from each rank q. Counted as
+        ``all-to-all``; ``out``'s bytes add to ``bytes_received``."""
+        if self.size > 1:
+            self.bytes_received += out.numel() * out.element_size()
+            self._run("all-to-all", lambda: self.pg.alltoall_base(
+                out, inp, list(out_splits), list(in_splits),
+                dist.AllToAllOptions()).wait())
+        return out
 
 
 def same_device(a, b) -> bool:
@@ -262,7 +285,8 @@ def layer_hook_from_plan(plan, group: ReplicationGroup) -> LayerHook:
 def count_collectives(group: ReplicationGroup):
     """Yields a dict that holds, when the block ends, the collectives
     ``group`` ran inside it by kind (``all-gather``, ``broadcast``,
-    ``all-reduce``) — the reference's HLO histogram, counted as they run."""
+    ``all-reduce``, ``all-to-all``) — the reference's HLO histogram,
+    counted as they run."""
     out: dict = {}
     before = collections.Counter(group.counts)
     try:
