@@ -1,0 +1,1112 @@
+"""The port across four cards of one host over NCCL (card only: four
+H100s joined by NVLink).
+
+    python3 chip_multicard.py [--parts M1,M2,M3,M4]
+
+``chip_smoke.py`` stays the one-card script; this one runs the paths
+that exist only across cards, one rank process per card
+(``torch.cuda.set_device(rank)``), over a ``TCPStore`` on localhost. Every
+group is NCCL (``parallel.mesh.backend_for``: a card per rank). It
+raises unless four cards are visible, fails when any rank fails, and
+exits 0 only when every gate of every part it ran holds. It prints each
+card's ``nvidia-smi`` name and power limit and ``nvidia-smi topo -m``.
+``--cpu`` rehearses the same rank code on four CPU processes over gloo
+at reduced sizes, without the card-only gates (graphs, kernels, times).
+
+K. The paged-decode kernel at this slice's new shapes, on every card:
+   llama2-13b's replicated rows (B 4 at degree 2, B 2 at degree 4; H =
+   KV = 40, D 128) and llama2-70b's rank (B 8, H 16, KV 2, D 128), held
+   against ``paged_decode_attention_ref`` (fp32 3e-5, bf16 2e-2), and
+   timed on card 0 beside its bound and its plain version.
+M1. Groups: ``RankMesh.build`` on (1, 4) and (2, 2), ``make_host_mesh``
+   and ``ReplicationGroup.build`` give NCCL groups on every axis line, rank
+   r on ``cuda:r``; all-reduce (sum, max), the mesh's all-gather, the
+   replication hooks' gather and an uneven uint8 ``alltoall_base`` equal a
+   host computation. Printed: a 128 KB all-reduce eager and replayed in a
+   CUDA graph, a 1 GiB all-reduce's bus bandwidth.
+M2. llama2-13b at published width and depth replicated across 2 and 4
+   cards: rank 0 draws it (26.0 GB of bf16), ``replicate_params_for_plan``
+   broadcasts it; each rank serves phase 5's workload through an
+   ``Engine(group=...)`` on its card, in graphs and eagerly: all ones,
+   ``[2]*20 + [1]*20`` on two pairs of ranks and on all four, ``[4]*40``
+   on four, and a plan changed mid-serve. Gates: a replicated plan's decode
+   steps replay from graphs (no eager decode step, one capture per decode
+   key), one host sync per replayed steady step (sync-debug "error"),
+   all-gathers per step as ``predicted_gathers``, every rank's tokens
+   equal at every step and pools bit-equal, graph streams equal to eager
+   ones, and each replicated plan's eager greedy streams equal to degree
+   1's but where a top-2 tie within ``BF16_TIE`` flips (phase 12's rule at
+   the bf16 tolerance); every paged call of one steady replicated step
+   against its plain version (2e-2). Printed: step ms per plan, graphs and
+   eager, against the 7.673 ms weight-read bound.
+M3. llama2-13b's modules re-placed card to card (``migrate_by_path`` /
+   ``migrate_kv_cache``, one all-to-all a leaf), at full depth with a bf16
+   KV cache of 8 x 1024, ranks 1-3 on ``meta`` placeholders: phase 12's
+   re-placement moves of ``chip_smoke.py`` at W = 4 (``MOVES``). Gates:
+   each rank's bytes received equal the plan's and the move's share,
+   every re-placed leaf bit-equal to rank 0's
+   original slice, each non-owner's peak over (a) grown by its shards and
+   at most ``CS.REPLACE_SLACK`` more, one paged decode step on the re-placed
+   weights bit-equal on every rank to rank 0's unmoved step (``L``
+   paged launches a rank). Printed: the group's first all-to-all (NCCL's
+   point-to-point set-up, timed apart), GB/s per move, ``estimate_cost``
+   beside the measured seconds, the constants fitted to the moves.
+M4. llama2-70b tensor-parallel on (data 1, model 4) at published width and
+   depth: each rank's 34.49 GB of bf16 shards from the sharded draw
+   (``transformer.init_params_shard``; peak gated to the shard + one fp32
+   chunk), its pool at 2 KV heads (8 x 1024); phase 5's prompts prefilled
+   under rules, then ``M4_STEPS`` greedy decode steps of ``forward_paged``
+   under rules, eagerly and as one CUDA graph per rank. Gates: replayed
+   logits bit-equal to the eager step's, the two streams equal, 161
+   all-reduces and 1 all-gather a step (on ``RankMesh.collectives``), 80
+   paged launches a step, one host sync per replayed step; the fp32 cut
+   (``M4_CUT`` of 80 layers, TF32 off) sharded against the unsharded step
+   on card 0, logits within 1e-4. Printed: step ms eager and graph against
+   the per-rank weight-read bound, device busy and the NCCL kernels'
+   share of a replayed step (profiled on rank 0).
+
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import dataclasses
+import datetime
+import functools
+import gc
+import json
+import queue
+import subprocess
+import sys
+import time
+import traceback
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import chip_smoke as CS  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent
+WORLD = 4
+AXES = ("data", "model")
+TIMEOUT = datetime.timedelta(seconds=600)
+#: M2's greedy flips: a replicated plan's stream may leave degree 1's only
+#: where both runs' top-2 logits lie within this share of the top one
+#: (phase 12's 1e-4 rule, at the bf16 logits' tolerance)
+BF16_TIE = 2e-2
+#: M4's greedy decode steps, and the fp32 cut's depth and steps
+M4_STEPS, M4_CUT, CUT_STEPS = 32, 8, 4
+#: M3's moves at W = 4: (step, tree, path regex, placement, the share of
+#: the moved leaves' bytes rank 0 and each other rank receive). (a) the
+#: attention projections split over r0 and r1 on their heads (wo on its
+#: rows), (b) back replicated, (c) every other leaf replicated, w_up /
+#: w_down split on d_ff (each rank holds its quarter already) and
+#: replicated again, (d) the KV cache split on its KV heads and back
+R01 = ("r0", "r1")
+MOVES = (
+    ("a", "params", r"layers/attn/w[qkv]$", (None, None, R01), (0, 0.25)),
+    ("a", "params", r"layers/attn/wo$", (None, R01), (0, 0.25)),
+    ("b", "params", r"layers/attn/", (), (0.75, 0.75)),
+    ("c", "params", r"^(?!layers/attn/)", (), (0, 1)),
+    ("c split", "params", r"layers/mlp/w_up$", (None, None, R01), (0, 0)),
+    ("c split", "params", r"layers/mlp/w_down$", (None, R01), (0, 0)),
+    ("c back", "params", r"layers/mlp/w_(up|down)$", (), (0.75, 0.75)),
+    ("d", "cache", r"layers/", (None, None, None, R01), (0, 0.25)),
+    ("d back", "cache", r"layers/", (), (0.75, 0.75)),
+)
+log = CS.log
+
+
+def cards_smi():
+    """Each card's ``nvidia-smi`` name and power limit, and the topology."""
+    q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       check=True, timeout=60).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60).stdout
+    return q, topo
+
+
+def sizes(on_card):
+    """The configs and depths of a run: published on the card, reduced in
+    a CPU rehearsal."""
+    from repro_torch.configs import get_config
+
+    c13, c70 = get_config("llama2-13b"), get_config("llama2-70b")
+    if on_card:
+        return types.SimpleNamespace(c13=c13, c70=c70, cut=M4_CUT, steps=M4_STEPS,
+                                     max_len=1024, cut_steps=CUT_STEPS)
+    return types.SimpleNamespace(
+        c13=dataclasses.replace(c13.reduced(), num_layers=4),
+        c70=dataclasses.replace(c70.reduced(), num_heads=8, num_kv_heads=4),
+        cut=1, steps=4, max_len=1024, cut_steps=2)
+
+
+def half_plan(L):
+    return [2] * (L // 2) + [1] * (L - L // 2)
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_reset(device):
+    if device.type == "cuda":
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+    return 0
+
+
+def peak(device):
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def free(device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- K: kernel
+def kernel_part(c):
+    """The paged kernel at this slice's shapes on this rank's card, against
+    its plain version; timed on card 0."""
+    from repro_torch.kernels import paged_decode as PD
+
+    mid = [n + 16 for n in (600, 32, 200, 96, 130, 64, 300, 80)]
+    shapes = {"13b degree 2 (B 4)": (4, 40, 40, 128, mid[:4]),
+              "13b degree 4 (B 2)": (2, 40, 40, 128, mid[:2]),
+              "70b rank (B 8, H 16, KV 2)": (8, 16, 2, 128, mid)}
+    gen = torch.Generator(device=c.device).manual_seed(CS.SEED)
+    out = {}
+    for what, (B, H, KV, D, lens) in shapes.items():
+        errs = []
+        for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
+            for ln in (lens, [0] + lens[1:]):
+                width = 64
+                n_blocks = max(128, sum(-(-n // 16) for n in ln) + 8)
+                args = CS.paged_inputs(gen, B, H, KV, D, 16, ln, n_blocks, width, dtype)
+                got = PD.paged_decode_attention(*args).float()
+                want = PD.paged_decode_attention_ref(*args).float()
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+                errs.append((got - want).abs().max().item())
+        out[what] = {"max_abs_err": max(errs)}
+        if c.rank == 0:   # the profiler's trace file is one path: one card times
+            shape = types.SimpleNamespace(num_heads=H, num_kv_heads=KV, resolved_head_dim=D)
+            ms, plain_ms, bound_ms, bound_by = CS.time_paged_decode(PD, shape, lens, 64,
+                                                                    c.smi)
+            out[what].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    PD.paged_decode_attention.launches = 0
+    return out
+
+
+# ------------------------------------------------------------------ M1: groups
+def m1_part(c):
+    """M1 on this rank: backends, collectives against the host, times."""
+    import torch.distributed as dist
+
+    from repro_torch.core import replication as R
+    from repro_torch.launch import mesh as LM
+    from repro_torch.parallel.mesh import RankMesh
+
+    rank, dev = c.rank, c.device
+    st = dist.PrefixStore("m1", c.store)
+    m14 = RankMesh.build(dist.PrefixStore("m14", st), AXES, (1, WORLD), rank, dev, TIMEOUT)
+    m22 = RankMesh.build(dist.PrefixStore("m22", st), AXES, (2, 2), rank, dev, TIMEOUT)
+    host = LM.make_host_mesh(dist.PrefixStore("host", st), rank,
+                             dev.type if dev.type == "cuda" else "cpu", n=WORLD)
+    group = R.ReplicationGroup.build(dist.PrefixStore("repl", st), rank, WORLD, dev, TIMEOUT)
+    out = {"backends": {"(1,4) model": m14.groups["model"].name(),
+                        "(2,2) data": m22.groups["data"].name(),
+                        "(2,2) model": m22.groups["model"].name(),
+                        "host data": host.groups["data"].name(),
+                        "replication": group.pg.name()},
+           "host_device": str(host.device), "capturable": group.capturable,
+           "staged": group.staged}
+    checks = {}
+    n = 1000
+    base = np.arange(n, dtype=np.float32)
+    mine = np.sin(base + rank).astype(np.float32) * (rank + 1)
+    every = [np.sin(base + r).astype(np.float32) * (r + 1) for r in range(WORLD)]
+    x = torch.from_numpy(mine).to(dev)
+    checks["psum"] = np.allclose(m14.psum(x, "model").cpu().numpy(), np.sum(every, 0),
+                                 rtol=1e-6, atol=1e-5)
+    checks["pmax"] = np.array_equal(m14.pmax(x, "model").cpu().numpy(), np.max(every, 0))
+    checks["mesh all_gather"] = np.array_equal(
+        m14.all_gather(x.view(10, 100), "model", 1).cpu().numpy(),
+        np.concatenate([e.reshape(10, 100) for e in every], 1))
+    d, m = m22.axis_index("data"), m22.axis_index("model")
+    y = torch.full((2,), float(10 * d + m), device=dev)
+    checks["(2,2) lines"] = (
+        m22.psum(y, "model").tolist() == [20 * d + 1] * 2
+        and m22.psum(y, "data").tolist() == [10 + 2 * m] * 2)
+    full = torch.arange(8 * 6, dtype=torch.float32, device=dev).view(8, 1, 6)
+    for deg in (2, 4):
+        hook = R.LayerHook([deg], group)
+        rows = hook(0, full)
+        kv = hook.gather_kv(rows[..., :2], rows[..., 2:])
+        checks[f"hook gather degree {deg}"] = (
+            torch.equal(hook.full(rows), full) and torch.equal(torch.cat(kv, -1), full))
+    outs = [1 + 3 * s + rank for s in range(WORLD)]          # bytes from s
+    ins = [1 + 3 * rank + q for q in range(WORLD)]           # bytes to q
+    send = torch.cat([torch.full((ins[q],), 16 * rank + q, dtype=torch.uint8)
+                      for q in range(WORLD)]).to(dev)
+    recv = torch.empty(sum(outs), dtype=torch.uint8, device=dev)
+    group.all_to_all(recv, send, outs, ins)
+    want = np.concatenate([np.full(outs[s], 16 * s + rank, np.uint8) for s in range(WORLD)])
+    checks["uneven uint8 all-to-all"] = np.array_equal(recv.cpu().numpy(), want)
+    out["checks"] = checks
+    if dev.type != "cuda":
+        return out
+    buf = torch.zeros(32768, dtype=torch.float32, device=dev)     # 128 KB
+    reps = 100
+    for _ in range(5):
+        group.all_reduce(buf)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        group.all_reduce(buf)
+    sync(dev)
+    out["eager_128k_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        group.all_reduce(buf)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            group.all_reduce(buf)
+    graph.replay()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        graph.replay()
+    sync(dev)
+    out["graph_128k_ms"] = (time.perf_counter() - t0) * 1e3 / (5 * reps)
+    big = torch.ones(1 << 29, dtype=torch.bfloat16, device=dev)    # 1 GiB
+    group.all_reduce(big)
+    sync(dev)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        group.all_reduce(big)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    s = sorted(times)[2]
+    out["big"] = {"bytes": big.numel() * 2, "s": s, "alg_GBps": big.numel() * 2 / s / 1e9,
+                  "bus_GBps": big.numel() * 2 / s / 1e9 * 2 * (WORLD - 1) / WORLD}
+    del big, graph
+    free(dev)
+    return out
+
+
+def m1_gates(res, on_card, smi):
+    for r, x in res.items():
+        want = "nccl" if on_card else "gloo"
+        if set(x["backends"].values()) != {want}:
+            raise AssertionError(f"M1 rank {r}: backends {x['backends']}")
+        if on_card and (x["host_device"] != f"cuda:{r}" or not x["capturable"]
+                        or x["staged"]):
+            raise AssertionError(f"M1 rank {r}: host mesh on {x['host_device']}, "
+                                 f"capturable {x['capturable']}, staged {x['staged']}")
+        if not all(x["checks"].values()):
+            raise AssertionError(f"M1 rank {r}: {x['checks']}")
+    x = res[0]
+    log(f"[multicard] M1: every axis line's group {sorted(set(x['backends']))} is "
+        f"{x['backends']['replication']} on every rank, make_host_mesh's rank r on "
+        f"cuda:r, the replication group capturable and not staged; "
+        f"{sorted(x['checks'])} equal the host's on every rank [{smi}]")
+    if on_card:
+        b = x["big"]
+        log(f"[multicard] M1: a 128 KB fp32 all-reduce over 4 cards, 100 back to back: "
+            f"{x['eager_128k_ms']:.4f} ms each eagerly, {x['graph_128k_ms']:.4f} ms "
+            f"replayed in a CUDA graph (rank 0; ranks 1-3 "
+            f"{[round(res[r]['graph_128k_ms'], 4) for r in (1, 2, 3)]}); a 1 GiB bf16 "
+            f"all-reduce {b['s'] * 1e3:.2f} ms: {b['alg_GBps']:.1f} GB/s algorithm, "
+            f"{b['bus_GBps']:.1f} GB/s bus [{smi}]")
+
+
+# -------------------------------------------------- M2: replicated llama2-13b
+def m2_runs(L):
+    half, four = half_plan(L), [4] * L
+    return (("degree 1", "quad", {}),
+            ("half on 2", "pair", {0: half}),
+            ("half on 4", "quad", {0: half}),
+            ("four on 4", "quad", {0: four}),
+            ("mid-serve", "quad", {0: four, 4: half, 8: [1] * L, 12: four}))
+
+
+def serve(c, cfg, params, group, plans, graphs, rec=None, check=None):
+    """Phase 5's workload through a fresh ``Engine(group=group)``, ``plans[i]``
+    applied before step i: per step the tokens, and per steady decode step
+    (ms, all-gathers, host syncs, degrees, whether it captured); the
+    streams, the pool's checksum and the graph counts. ``rec`` (a
+    ``CS.Top2``) records eager decode logits; ``check`` holds every
+    paged call of the first steady replicated step against its plain
+    version (that step is not timed)."""
+    from repro_torch.core import replication as R
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.serving import graphs as GR
+    from repro_torch.serving import instrument as INS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import RequestSpec, SamplingParams
+
+    eng = Engine(cfg, params, paged_attn_impl="kernel", device=c.device,
+                 cuda_graphs=graphs, group=group, **CS.ENGINE_KW)
+    prompts, sampled = CS.workload(cfg)
+    reqs = []
+    for i, p in enumerate(prompts):
+        temp, top_k = (0.8, 8) if i in sampled else (0.0, 0)
+        sp = SamplingParams(temperature=temp, top_k=top_k, seed=100 + i)
+        reqs.append(eng.submit(RequestSpec(rid=i, prompt=p, max_tokens=32, sampling=sp)))
+    PD.paged_decode_attention.launches = 0
+    out, chk = {"steady": [], "steps": []}, {}
+    strict = graphs and c.device.type == "cuda"
+    i = 0
+    with rec.installed(eng) if rec else contextlib.nullcontext():
+        while eng.queue or eng.active or eng.prefilling:
+            if i in plans:
+                eng.apply_plan(plans[i])
+            steady = not eng.queue and not eng.prefilling
+            degrees = eng._step_degrees
+            replicated = degrees is not None and max(degrees) > 1
+            checked = check is not None and steady and replicated and not chk
+            caps = eng.graphs.counts.captures["decode"]
+            sync(c.device)
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                n = stack.enter_context(R.count_collectives(group))
+                syncs = stack.enter_context(INS.count_host_syncs())
+                if checked:
+                    stack.enter_context(CS.checked_kernel_calls(chk))
+                if steady and strict:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.step()
+                finally:
+                    if strict:
+                        torch.cuda.set_sync_debug_mode(0)
+            ms = (time.perf_counter() - t0) * 1e3
+            if steady and not checked:
+                out["steady"].append({
+                    "ms": ms, "gathers": n.get("all-gather", 0), "syncs": syncs.n,
+                    "degrees": list(degrees) if replicated else None,
+                    "captured": eng.graphs.counts.captures["decode"] > caps})
+            out["steps"].append([(r.rid, r.generated[-1] if r.generated else -1)
+                                 for r in reqs])
+            i += 1
+    nb = eng.pstate.k.shape[1] - 1
+    g = eng.graphs
+    out.update(
+        streams={r.rid: r.generated for r in reqs},
+        launches=GR.launches_run(PD.paged_decode_attention, [g]),
+        decode_steps=eng._step_count,
+        counts={k: dict(getattr(g.counts, k)) for k in ("captures", "replays", "eager")},
+        decode_keys=len({k for k in g.keys if k[0] == "decode"}),
+        pool=(CS.bits_checksum(eng.pstate.k[:, :nb]), CS.bits_checksum(eng.pstate.v[:, :nb])),
+        checks=chk.get("paged", []),
+    )
+    del eng
+    free(c.device)
+    return out
+
+
+def m2_part(c):
+    """M2 on this rank (module docstring). Returns its measurements and
+    keeps the weights on ``c`` for M3 (rank 0's draw)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import replication as R
+    from repro_torch.models import transformer as T
+
+    rank, dev, cfg = c.rank, c.device, c.sz.c13
+    st = dist.PrefixStore("m2", c.store)
+    quad = R.ReplicationGroup.build(dist.PrefixStore("quad", st), rank, WORLD, dev, TIMEOUT)
+    pair = R.ReplicationGroup.build(dist.PrefixStore(f"pair{rank // 2}", st), rank % 2, 2,
+                                    dev, TIMEOUT)
+    c.quad = quad
+    for g in (quad, pair):    # each communicator made before any step
+        g.all_reduce(torch.zeros(1, device=dev))
+    t0 = time.perf_counter()
+    if rank == 0:
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(CS.SEED),
+                               "bfloat16")
+    else:
+        params = CS._tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                              T.init_params_meta(cfg, "bfloat16"))
+    sync(dev)
+    out = {"draw_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    R.replicate_params_for_plan(params, quad)
+    sync(dev)
+    leaves = list(CS.tree_leaves(params))
+    out["broadcast"] = (time.perf_counter() - t0, sum(x.numel() * x.element_size()
+                                                      for x in leaves))
+    out["weights"] = [CS.bits_checksum(x) for x in leaves]
+    runs, recs = {}, {}
+    for what, grp, plans in m2_runs(cfg.num_layers):
+        group = quad if grp == "quad" else pair
+        for graphs in (True, False):
+            rec = None if graphs else CS.Top2(c.T, cfg)
+            check = {} if (not graphs and plans) else None
+            runs[(what, graphs)] = serve(c, cfg, params, group, plans, graphs, rec, check)
+            if rec is not None:
+                recs[what] = rec.rec
+    one = runs[("degree 1", False)]["streams"]
+    for (what, graphs), r in runs.items():
+        if not graphs and what != "degree 1":
+            r["flips"] = CS.repl_flips(c.work, one, recs["degree 1"], r["streams"],
+                                       recs[what])
+    out["runs"] = {f"{what} {'graphs' if g else 'eager'}": r for (what, g), r in runs.items()}
+    out["plans"] = {what: plans for what, _, plans in m2_runs(cfg.num_layers)}
+    c.params13 = params
+    return out
+
+
+def m2_gates(res, on_card, smi, L):
+    bound = 7.673
+    r0 = res[0]
+    secs, nbytes = r0["broadcast"]
+    for r in res:
+        if res[r]["weights"] != r0["weights"]:
+            raise AssertionError(f"M2: rank {r}'s weights differ from rank 0's")
+    log(f"[multicard] M2: llama2-13b ({L} layers, bf16) drawn on rank 0 in "
+        f"{r0['draw_s']:.2f} s; replicate_params_for_plan broadcast {nbytes} B over 4 "
+        f"cards in {secs:.3f} s ({nbytes / secs / 1e9:.1f} GB/s); every rank's weights "
+        f"bit-equal [{smi}]")
+    runs0 = r0["runs"]
+    for name in runs0:
+        what = name.rsplit(" ", 1)[0]
+        graphs = name.endswith("graphs")
+        plans = r0["plans"][what]
+        members = [(0, 1), (2, 3)] if what == "half on 2" else [(0, 1, 2, 3)]
+        for ranks in members:
+            a = res[ranks[0]]["runs"][name]
+            for q in ranks[1:]:
+                b = res[q]["runs"][name]
+                if a["steps"] != b["steps"] or a["streams"] != b["streams"]:
+                    raise AssertionError(f"M2 {name}: ranks {ranks[0]} and {q} differ")
+                if a["pool"] != b["pool"]:
+                    raise AssertionError(f"M2 {name}: the pools of ranks {ranks[0]} and "
+                                         f"{q} differ")
+        if what == "half on 2" and res[2]["runs"][name]["streams"] != runs0[name]["streams"]:
+            raise AssertionError(f"M2 {name}: the two pairs' streams differ")
+        eager_twin = runs0[f"{what} eager"]
+        for r in res:
+            run = res[r]["runs"][name]
+            if on_card and run["launches"] != L * run["decode_steps"]:
+                raise AssertionError(f"M2 {name} rank {r}: {run['launches']} paged "
+                                     f"launches for {run['decode_steps']} decode steps")
+            for s in run["steady"]:
+                if s["degrees"] is not None and s["gathers"] != CS.predicted_gathers(
+                        s["degrees"]):
+                    raise AssertionError(f"M2 {name} rank {r}: {s['gathers']} all-gathers "
+                                         f"under {s['degrees']}")
+            if graphs and on_card:
+                if run["counts"]["eager"].get("decode", 0):
+                    raise AssertionError(f"M2 {name} rank {r}: eager decode steps "
+                                         f"{run['counts']['eager']}")
+                if run["counts"]["captures"].get("decode", 0) != run["decode_keys"]:
+                    raise AssertionError(f"M2 {name} rank {r}: {run['counts']['captures']} "
+                                         f"captures for {run['decode_keys']} decode keys")
+                bad = [s for s in run["steady"] if not s["captured"] and s["syncs"] != 1]
+                if bad:
+                    raise AssertionError(f"M2 {name} rank {r}: replayed steps with host "
+                                         f"syncs {[s['syncs'] for s in bad]}")
+            if graphs and run["streams"] != eager_twin["streams"] and r == 0:
+                raise AssertionError(f"M2 {what}: graph streams differ from eager ones")
+            if not graphs and plans and on_card:
+                errs = run["checks"]
+                if len(errs) != L or max(errs) > 2e-2:
+                    raise AssertionError(f"M2 {name} rank {r}: paged calls of a replicated "
+                                         f"step against their plain version {errs}")
+            for rid, t, one, rep in run.get("flips", []):
+                ok = (one and rep and set(one[1]) == set(rep[1])
+                      and abs(one[0][0] - one[0][1]) <= BF16_TIE * max(1.0, abs(one[0][0]))
+                      and abs(rep[0][0] - rep[0][1]) <= BF16_TIE * max(1.0, abs(rep[0][0])))
+                if not ok:
+                    raise AssertionError(f"M2 {name} rank {r}: rid {rid} token {t} flips, "
+                                         f"top-2 {one} against {rep}")
+        steady = runs0[name]["steady"]
+        rep = [s["ms"] for s in steady if s["degrees"] and not s["captured"]]
+        one = [s["ms"] for s in steady if not s["degrees"] and not s["captured"]]
+        caps = [round(s["ms"], 1) for s in steady if s["captured"]]
+        log(f"[multicard] M2 {name}: {runs0[name]['decode_steps']} decode steps, counts "
+            f"{runs0[name]['counts']}, {runs0[name]['decode_keys']} decode keys; steady "
+            f"step median ms (rank 0): replicated {CS.median(rep):.3f} over {len(rep)}, "
+            f"degree 1 {CS.median(one):.3f} over {len(one)} (weight-read bound {bound} ms; "
+            f"capture steps {caps}); all-gathers per replicated step "
+            f"{sorted({s['gathers'] for s in steady if s['degrees']})}, host syncs per "
+            f"steady step {sorted({s['syncs'] for s in steady if not s['captured']})}; "
+            f"paged launches {runs0[name]['launches']}; flips {runs0[name].get('flips', [])}; "
+            f"worst paged call of a replicated step {max(runs0[name]['checks'], default=0):.3e}; "
+            f"tokens equal on every rank at every step, pools bit-equal [{smi}]")
+
+
+# ------------------------------------------------ M3: re-placement over 4 cards
+def m3_part(c):
+    """M3 on this rank (module docstring): rank 0 keeps M2's weights (or
+    draws them), ranks 1-3 hold meta placeholders."""
+    from repro_torch.core import migration as MIG
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import paged_kv as PK
+
+    rank, dev, cfg, group = c.rank, c.device, c.sz.c13, c.quad
+    params = getattr(c, "params13", None)
+    c.params13 = None
+    if rank:
+        params = None
+        free(dev)
+        trees = {"params": T.init_params_meta(cfg, "bfloat16"),
+                 "cache": T.init_cache(cfg, 8, c.sz.max_len, "bfloat16", "meta")}
+    else:
+        gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+        if params is None:
+            params = T.init_params(cfg, gen, "bfloat16")
+        trees = {"params": params, "cache": T.init_cache(cfg, 8, c.sz.max_len, "bfloat16", dev)}
+        for x in trees["cache"]["layers"].values():
+            x.normal_(generator=gen)
+    del params
+    res = {"layers": cfg.num_layers, "moves": [], "expect": {}}
+    if rank == 0:
+        for _, tree, regex, spec, _ in MOVES:
+            for path, leaf in CS.path_leaves(trees[tree], regex):
+                for q in range(WORLD):
+                    block = MIG.replacement_plan(leaf.shape, None, spec, WORLD).after[q]
+                    key = f"{tree}/{path} {block}"
+                    if key not in res["expect"]:
+                        res["expect"][key] = CS.bits_checksum(
+                            leaf[tuple(slice(*b) for b in block)])
+        res["logits_before"] = CS.bits_checksum(
+            CS.replacement_step(c.T, PK, cfg, trees["params"], dev))
+    group.all_reduce(torch.zeros(1, device=dev))      # every rank starts together
+    # the group's first all-to-all sets up NCCL's point-to-point channels:
+    # timed apart, so the moves time their transfers
+    sync(dev)
+    t0 = time.perf_counter()
+    one = torch.zeros(WORLD, dtype=torch.uint8, device=dev)
+    group.all_to_all(torch.empty_like(one), one, [1] * WORLD, [1] * WORLD)
+    sync(dev)
+    res["first_a2a_s"] = time.perf_counter() - t0
+    launches = c.PD.paged_decode_attention.launches
+    pending = []
+    for i, (step, tree, regex, spec, _) in enumerate(MOVES):
+        planned = MIG.planned_bytes(trees[tree], regex, spec, WORLD, rank)
+        counts, received = collections.Counter(group.counts), group.bytes_received
+        if step == "a" and "a_base" not in res:
+            res["a_base"] = peak_reset(dev)
+        move = MIG.migrate_kv_cache if tree == "cache" else functools.partial(
+            MIG.migrate_by_path, path_regex=regex)
+        trees[tree], cost = move(trees[tree], new_spec=spec, group=group, measure=True)
+        res["moves"].append({
+            "step": step, "regex": regex, "spec": spec, "planned": planned,
+            "received": group.bytes_received - received,
+            "collectives": dict(group.counts - counts), "moved": cost.bytes_moved,
+            "seconds": cost.measured_seconds, "estimate": cost.est_seconds})
+        leaves = {}
+        for path, leaf in CS.path_leaves(trees[tree], regex):
+            block = MIG.replacement_plan(MIG.placement_of(leaf).shape, None, spec,
+                                         WORLD).after[rank]
+            leaves[f"{tree}/{path} {block}"] = leaf
+        pending.append((res["moves"][-1], leaves))
+        if i + 1 < len(MOVES) and MOVES[i + 1][0] == step:
+            continue
+        if step == "a":
+            res["a_peak"] = peak(dev)
+            res["a_shards"] = sum(x.numel() * x.element_size() for x in CS.tree_leaves(
+                trees["params"]["layers"]["attn"]))
+        for record, done in pending:
+            record["checksums"] = {k: CS.bits_checksum(x) for k, x in done.items()}
+        pending.clear()
+    res["logits"] = CS.bits_checksum(CS.replacement_step(c.T, PK, cfg, trees["params"], dev))
+    res["launches"] = c.PD.paged_decode_attention.launches - launches
+    del trees
+    free(dev)
+    return res
+
+
+def m3_gates(res, on_card, smi):
+    r0 = res[0]
+    L, expect = r0["layers"], r0["expect"]
+    fit = []
+    for i, (step, _, regex, spec, share) in enumerate(MOVES):
+        moves = {r: res[r]["moves"][i] for r in res}
+        for r, m in moves.items():
+            want = share[0 if r == 0 else 1] * m["moved"]
+            if not m["received"] == m["planned"] == want:
+                raise AssertionError(f"M3 {step} {regex} rank {r}: received {m['received']} "
+                                     f"B, the plan {m['planned']} B, the share {want} B")
+            for key, ck in m["checksums"].items():
+                if expect.get(key) != ck:
+                    raise AssertionError(f"M3 {step} rank {r}: {key} is not rank 0's "
+                                         f"original slice")
+            n_leaves = len(m["checksums"])
+            if step == "c split":
+                if m["collectives"]:
+                    raise AssertionError(f"M3 {step} rank {r}: {m['collectives']}")
+            elif m["collectives"] != {"all-to-all": n_leaves}:
+                raise AssertionError(f"M3 {step} rank {r}: {m['collectives']}, one "
+                                     f"all-to-all a leaf")
+        secs = max(m["seconds"] for m in moves.values())
+        got = max(m["received"] for m in moves.values())
+        if got:
+            fit.append((got, secs))
+        log(f"[multicard] M3 move {i} ({step}): {regex} -> {spec}: bytes_moved "
+            f"{moves[0]['moved']} B; received by rank "
+            f"{ {r: m['received'] for r, m in moves.items()} } B (= the plan's); "
+            f"{secs:.4f} s (slowest rank), {got / secs / 1e9 if secs else 0:.1f} GB/s into "
+            f"the fullest rank; estimate_cost {moves[0]['estimate']:.3f} s; leaves bit-equal "
+            f"to rank 0's original slices [{smi}]")
+    if on_card:
+        for r in (1, 2, 3):
+            grew = res[r]["a_peak"] - res[r]["a_base"]
+            if grew > res[r]["a_shards"] + CS.REPLACE_SLACK:
+                raise AssertionError(f"M3 (a): rank {r}'s peak grew {grew} B for "
+                                     f"{res[r]['a_shards']} B of shards")
+        log(f"[multicard] M3 (a) on ranks 1-3 (meta placeholders): peak grew "
+            f"{[res[r]['a_peak'] - res[r]['a_base'] for r in (1, 2, 3)]} B for their "
+            f"{res[1]['a_shards']} B of attention shards (gate: + {CS.REPLACE_SLACK} B)")
+    logits = {r: res[r]["logits"] for r in res}
+    if any(v != r0["logits_before"] for v in logits.values()):
+        raise AssertionError(f"M3 (e): logits {logits}, before any move {r0['logits_before']}")
+    if on_card and any(res[r]["launches"] != L for r in res):
+        raise AssertionError(f"M3 (e): paged launches {[res[r]['launches'] for r in res]}")
+    if len(fit) >= 2:
+        (b0, s0), (b1, s1) = min(fit), max(fit)
+        bw = (b1 - b0) / (s1 - s0) if s1 > s0 else float("inf")
+        fixed = s0 - b0 / bw
+        log(f"[multicard] M3: a line through the smallest and the largest move: "
+            f"{bw / 1e9:.1f} GB/s and {fixed * 1e3:.2f} ms fixed, against "
+            f"estimate_cost's 50 GB/s and 240 ms (defaults unchanged)")
+    log(f"[multicard] M3: the group's first all-to-all (4 B a rank, NCCL's point-to-point "
+        f"set-up) {[round(res[r]['first_a2a_s'], 3) for r in res]} s, before the moves")
+    log(f"[multicard] M3 (e): one paged step (8 rows) on the re-placed {L}-layer llama2-13b: "
+        f"logits bit-equal on all 4 ranks and to rank 0's unmoved step; paged launches "
+        f"{[res[r]['launches'] for r in res]} [{smi}]")
+
+
+# -------------------------------------------- M4: llama2-70b tensor-parallel
+def m4_prefill(c, cfg, params, rules, mesh, n_blocks, steps, dtype):
+    """Phase 5's prompts prefilled under ``rules`` into this rank's pool:
+    (pool state, first tokens [B], prompt lengths)."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.serving import paged_kv as PK
+
+    T, dev = c.T, c.device
+    prompts, _ = CS.workload(cfg)
+    toks, lens = CS.padded_prompts(prompts, dev)
+    B = len(prompts)
+    with SH.use_rules(rules):
+        cache = T.init_cache_shard(cfg, B, toks.shape[1], rules, mesh, dtype, dev)
+        lg = T.forward(params, cfg, toks, cache=cache, mode="prefill",
+                       last_idx=(lens - 1).long(), attn_impl="kernel")[0]
+    first = lg[:, :cfg.vocab_size].argmax(-1)
+    pst = PK.init_paged_shard(cfg, B, n_blocks, rules, mesh, block_size=16, dtype=dtype,
+                              max_len=c.sz.max_len, device=dev)
+    n = [len(p) for p in prompts]
+    CS.paged_rows(cache, list(range(B)), slice(None), pst, list(range(B)), n, steps)
+    del cache, lg
+    return pst, first, n
+
+
+def m4_handle(T, pst, dev):
+    B = pst.block_tables.shape[0]
+    return {"k": pst.k, "v": pst.v, "block_tables": T.to_device(pst.block_tables, dev),
+            "lengths": T.to_device(pst.lengths, dev),
+            "active": torch.ones((B,), dtype=torch.bool, device=dev)}
+
+
+def m4_part(c):
+    """M4 on this rank (module docstring)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models import layers as LY
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import RankMesh
+    from repro_torch.serving import graphs as GR
+    from repro_torch.serving import instrument as INS
+
+    T, PD, rank, dev, cfg = c.T, c.PD, c.rank, c.device, c.sz.c70
+    V, steps, on_card = cfg.vocab_size, c.sz.steps, dev.type == "cuda"
+    mesh = RankMesh.build(dist.PrefixStore("m4", c.store), AXES, (1, WORLD), rank, dev, TIMEOUT)
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+    out = {"backend": mesh.groups["model"].name(), "rules": {
+        k: v for k, v in rules.items() if k != "mesh"}}
+    base = peak_reset(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    shard = T.init_params_shard(cfg, gen, rules, mesh, "bfloat16")
+    sync(dev)
+    out["draw"] = {"s": time.perf_counter() - t0, "shard": tree_bytes(shard),
+                   "grew": peak(dev) - base, "chunk": 4 * LY.DRAW_ELEMS,
+                   "wq": tuple(shard["layers"]["attn"]["wq"].shape),
+                   "wk": tuple(shard["layers"]["attn"]["wk"].shape)}
+    # phase 5's prompts prefilled under rules, then the decode steps
+    pst, first, lens = m4_prefill(c, cfg, shard, rules, mesh, 512, steps, "bfloat16")
+    out["pool"] = {"shape": tuple(pst.k.shape), "bytes": 2 * pst.k.numel() * pst.k.element_size()}
+    snap = (pst.k.clone(), pst.v.clone(), pst.lengths.copy())
+    handle = m4_handle(T, pst, dev)
+    eager = {"logits": [], "tok": [first], "colls": [], "launches": [], "ms": [],
+             "checks": {}}
+    with SH.use_rules(rules):
+        for t in range(steps):
+            before = collections.Counter(mesh.collectives)
+            l0 = PD.paged_decode_attention.launches
+            check = t == min(3, steps - 1)
+            with CS.checked_kernel_calls(eager["checks"]) if check else contextlib.nullcontext():
+                sync(dev)
+                t1 = time.perf_counter()
+                lg, handle, _ = T.forward_paged(shard, cfg, eager["tok"][-1][:, None], handle,
+                                                attn_impl="kernel")
+                sync(dev)
+            if not check:
+                eager["ms"].append((time.perf_counter() - t1) * 1e3)
+            eager["colls"].append(dict(mesh.collectives - before))
+            eager["launches"].append(PD.paged_decode_attention.launches - l0)
+            eager["logits"].append(lg[:, :V].float())
+            eager["tok"].append(lg[:, :V].argmax(-1))
+    # the same steps from the same state as one CUDA graph, replayed
+    pst.k.copy_(snap[0])
+    pst.v.copy_(snap[1])
+    del snap
+    lengths0 = T.to_device(pst.lengths, dev)
+    tables, active = handle["block_tables"], handle["active"]
+
+    def step_fn(tok, lengths):
+        h = {"k": pst.k, "v": pst.v, "block_tables": tables, "lengths": lengths,
+             "active": active}
+        return T.forward_paged(shard, cfg, tok, h, attn_impl="kernel")[0][:, :V].float()
+
+    graphs = GR.StepGraphs(dev, tally=mesh.collectives, capture_error_mode="thread_local")
+    PD.paged_decode_attention.launches = 0
+    graph = {"tok": [first], "colls": [], "syncs": [], "ms": [], "diff": []}
+    lengths = lengths0
+    prof_at = steps - 4 if on_card and rank == 0 else None
+    with SH.use_rules(rules):
+        for t in range(steps):
+            before = collections.Counter(mesh.collectives)
+            sync(dev)
+            replay = t > 0
+            strict = replay and on_card and t != prof_at
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                with INS.count_host_syncs() as syncs, (
+                        profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        if t == prof_at else contextlib.nullcontext()) as p:
+                    t1 = time.perf_counter()
+                    lg = graphs.run(("m4",), step_fn, graph["tok"][-1][:, None], lengths)
+                    nxt = lg.argmax(-1)
+                    INS.fetch(nxt)            # the step's one host sync
+                    ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                if strict:
+                    torch.cuda.set_sync_debug_mode(0)
+            if t == prof_at:
+                trace = c.out_dir / "m4_graph_step_trace_rank0.json"
+                p.export_chrome_trace(str(trace))
+                n_ops, busy, by_name = CS.device_time(trace)
+
+                def kind_ms(*marks):
+                    return sum(v for k, v in by_name.items()
+                               if any(m in k.lower() for m in marks)) / 1e3
+
+                out["profile"] = {"ops": n_ops, "wall_ms": ms, "busy_ms": busy / 1e3,
+                                  "nccl_ms": kind_ms("nccl"),
+                                  "gemm_ms": kind_ms("nvjet", "gemm", "splitkreduce"),
+                                  "paged_ms": kind_ms("split_decode")}
+            graph["diff"].append((lg != eager["logits"][t]).any())
+            graph["colls"].append(dict(mesh.collectives - before))
+            graph["syncs"].append(syncs.n)
+            if replay and t != prof_at:
+                graph["ms"].append(ms)
+            graph["tok"].append(nxt)
+            lengths = lengths + 1
+    out["graph_launches"] = GR.launches_run(PD.paged_decode_attention, [graphs])
+    out["counts"] = {k: dict(getattr(graphs.counts, k)) for k in ("captures", "replays")}
+    out["eager"] = {"colls": eager["colls"], "launches": eager["launches"], "ms": eager["ms"],
+                    "checks": eager["checks"].get("paged", [])}
+    out["graph"] = {"colls": graph["colls"], "syncs": graph["syncs"], "ms": graph["ms"]}
+    out["bitequal"] = not bool(torch.stack(graph["diff"]).any())
+    out["streams_equal"] = bool(torch.equal(torch.stack(eager["tok"], 1),
+                                            torch.stack(graph["tok"], 1)))
+    out["tokens"] = torch.stack(eager["tok"], 1).tolist()
+    out["finite"] = bool(torch.isfinite(torch.stack(eager["logits"])).all())
+    del shard, pst, handle, eager, graph, graphs, lg
+    free(dev)
+    out["cut"] = m4_cut(c, mesh)
+    return out
+
+
+def m4_cut(c, mesh):
+    """The fp32 cut: ``c.sz.cut`` layers of llama2-70b, TF32 off, sharded
+    under rules on every rank against the unsharded step on rank 0 (fed
+    the sharded tokens): the prefill's and each decode step's logits."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.serving import paged_kv as PK
+
+    T, rank, dev = c.T, c.rank, c.device
+    cfg = dataclasses.replace(c.sz.c70, num_layers=c.sz.cut)
+    V, steps = cfg.vocab_size, c.sz.cut_steps
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+    shard = CS.widened(T.init_params_shard(
+        cfg, torch.Generator(device=dev).manual_seed(CS.SEED), rules, mesh, "bfloat16"))
+    pst, first, lens = m4_prefill(c, cfg, shard, rules, mesh, 128, steps, "float32")
+    # the prefill's logits: the first token's, all-gathered over the vocab
+    handle = m4_handle(T, pst, dev)
+    logits, toks = [], [first]
+    with SH.use_rules(rules):
+        for _ in range(steps):
+            lg, handle, _ = T.forward_paged(shard, cfg, toks[-1][:, None], handle,
+                                            attn_impl="kernel")
+            logits.append(lg[:, :V].float())
+            toks.append(lg[:, :V].argmax(-1))
+    del shard, pst, handle
+    free(dev)
+    out = {"layers": cfg.num_layers, "steps": steps}
+    if rank == 0:
+        full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(CS.SEED), "bfloat16")
+        full = CS._tree_map(lambda x: x.float(), full)
+        out["unsharded_bytes"] = sum(x.numel() * x.element_size() for x in CS.tree_leaves(full))
+        prompts, _ = CS.workload(cfg)
+        toks_p, lens_t = CS.padded_prompts(prompts, dev)
+        cache = T.init_cache(cfg, len(prompts), toks_p.shape[1], "float32", dev)
+        lg = T.forward(full, cfg, toks_p, cache=cache, mode="prefill",
+                       last_idx=(lens_t - 1).long(), attn_impl="kernel")[0]
+        out["first_equal"] = bool(torch.equal(lg[:, :V].argmax(-1), first))
+        ust = PK.init_paged(cfg, len(prompts), 128, block_size=16, dtype="float32",
+                            max_len=c.sz.max_len, device=dev)
+        CS.paged_rows(cache, list(range(len(prompts))), slice(None), ust,
+                      list(range(len(prompts))), lens, steps)
+        del cache
+        uh = m4_handle(T, ust, dev)
+        rel = []
+        for t in range(steps):
+            ulg, uh, _ = T.forward_paged(full, cfg, toks[t][:, None], uh, attn_impl="kernel")
+            rel.append(CS.rel_l2(logits[t], ulg[:, :V]))
+        out["rel"] = rel
+        del full, ust, uh
+        free(dev)
+    mesh.psum(torch.zeros(1, device=dev), "model")    # every rank waits for rank 0
+    return out
+
+
+def m4_gates(res, on_card, smi, L):
+    want = {"all-reduce": 1 + 2 * L, "all-gather": 1}
+    for r, x in res.items():
+        if x["backend"] != ("nccl" if on_card else "gloo"):
+            raise AssertionError(f"M4 rank {r}: backend {x['backend']}")
+        d = x["draw"]
+        if on_card and d["grew"] > d["shard"] + d["chunk"] + CS.REPLACE_SLACK:
+            raise AssertionError(f"M4 rank {r}: the sharded draw's peak grew {d['grew']} B "
+                                 f"for {d['shard']} B of shards")
+        if not (x["bitequal"] and x["streams_equal"] and x["finite"]):
+            raise AssertionError(f"M4 rank {r}: graph logits bit-equal {x['bitequal']}, "
+                                 f"streams equal {x['streams_equal']}, finite {x['finite']}")
+        if x["tokens"] != res[0]["tokens"]:
+            raise AssertionError(f"M4 rank {r}: tokens differ from rank 0's")
+        for kind in ("eager", "graph"):
+            if any(cl != want for cl in x[kind]["colls"]):
+                raise AssertionError(f"M4 rank {r} {kind}: collectives a step "
+                                     f"{x[kind]['colls']}, want {want}")
+        if on_card:
+            steps = len(x["eager"]["launches"])
+            if set(x["eager"]["launches"]) != {L} or x["graph_launches"] != L * steps:
+                raise AssertionError(f"M4 rank {r}: paged launches {x['eager']['launches']} "
+                                     f"eager, {x['graph_launches']} in graphs")
+            if x["graph"]["syncs"][1:] != [1] * (steps - 1):
+                raise AssertionError(f"M4 rank {r}: host syncs {x['graph']['syncs']}")
+            if x["counts"]["captures"] != {"m4": 1}:
+                raise AssertionError(f"M4 rank {r}: {x['counts']}")
+            errs = x["eager"]["checks"]
+            if len(errs) != L or max(errs) > 2e-2:
+                raise AssertionError(f"M4 rank {r}: paged calls against plain {errs}")
+    x = res[0]
+    d = x["draw"]
+    bound = d["shard"] / CS.HBM_BYTES_PER_S * 1e3
+    log(f"[multicard] M4: llama2-70b ({L} layers) on (data 1, model 4), rules "
+        f"{x['rules']}; each rank's shards {[res[r]['draw']['shard'] for r in res]} B drawn "
+        f"in {[round(res[r]['draw']['s'], 2) for r in res]} s (wq {d['wq']}, wk {d['wk']}), "
+        f"the draw's peak grew {[res[r]['draw']['grew'] for r in res]} B (gate: the shard + "
+        f"one fp32 chunk of {d['chunk']} B + {CS.REPLACE_SLACK} B); pool {x['pool']} [{smi}]")
+    prof = x.get("profile", {})
+    log(f"[multicard] M4: {len(x['eager']['ms']) + 1} greedy paged decode steps under rules: "
+        f"eager median {CS.median(x['eager']['ms']):.3f} ms, graph replay median "
+        f"{CS.median(x['graph']['ms']):.3f} ms (rank 0; ranks 1-3 "
+        f"{[round(CS.median(res[r]['graph']['ms']), 3) for r in (1, 2, 3)]}) against the "
+        f"per-rank weight-read bound {bound:.3f} ms ({d['shard']} B at 3.35 TB/s); replayed "
+        f"logits bit-equal to the eager step's on every rank, streams equal; collectives a "
+        f"step {want}; paged launches {x['eager']['launches'][0]} a step, "
+        f"{x['graph_launches']} over the graph run; host syncs per replayed step 1; worst "
+        f"paged call against plain {max(x['eager']['checks'], default=0):.3e}; profiled "
+        f"replay (rank 0): {prof} [{smi}]")
+    cut = x["cut"]
+    if not cut["first_equal"] or max(cut["rel"]) > 1e-4:
+        raise AssertionError(f"M4 fp32 cut: {cut}")
+    log(f"[multicard] M4 fp32 cut ({cut['layers']} of {L} layers, TF32 off, unsharded "
+        f"{cut['unsharded_bytes']} B on card 0): first tokens equal, {cut['steps']} decode "
+        f"steps' logits against the unsharded step, relative L2 "
+        f"{[f'{e:.2e}' for e in cut['rel']]} (tol 1e-4) [{smi}]")
+
+
+# ------------------------------------------------------------------- the ranks
+def rank_main(rank, port, parts, on_card, out_dir, results):
+    """One rank process: its card, the store, the parts in order; puts
+    (rank, {part: measurements}) or (rank, {"error": traceback})."""
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.kernels import paged_decode as PD
+        from repro_torch.models import transformer as T
+
+        device = torch.device("cuda", rank) if on_card else torch.device("cpu")
+        if on_card:
+            torch.cuda.set_device(rank)
+        else:
+            torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        store = dist.TCPStore("127.0.0.1", port, WORLD, is_master=rank == 0,
+                              timeout=TIMEOUT)
+        sz = sizes(on_card)
+        c = types.SimpleNamespace(rank=rank, device=device, store=store, sz=sz, T=T, PD=PD,
+                                  out_dir=out_dir, smi="", quad=None)
+        c.work = types.SimpleNamespace(prompts=CS.workload(sz.c13)[0],
+                                       sampled=CS.workload(sz.c13)[1])
+        res = {}
+        for part in parts:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                if part == "K":
+                    res[part] = kernel_part(c) if on_card else {}
+                elif part == "M1":
+                    res[part] = m1_part(c)
+                elif part in ("M2", "M3"):
+                    if c.quad is None and part == "M3":
+                        from repro_torch.core import replication as R
+                        c.quad = R.ReplicationGroup.build(
+                            dist.PrefixStore("m3", store), rank, WORLD, device, TIMEOUT)
+                    res[part] = (m2_part if part == "M2" else m3_part)(c)
+                elif part == "M4":
+                    res[part] = m4_part(c)
+            res[f"{part} s"] = time.perf_counter() - t0
+            free(device)
+        results.put((rank, res))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parts", default="K,M1,M2,M3,M4")
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on four CPU processes over gloo at reduced sizes")
+    args = ap.parse_args(argv)
+    on_card = not args.cpu
+    if on_card and (not torch.cuda.is_available() or torch.cuda.device_count() < WORLD):
+        print(f"chip_multicard: needs {WORLD} CUDA devices, found "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 1
+    parts = [p for p in args.parts.split(",") if p]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    smi = "cpu rehearsal"
+    if on_card:
+        lines, topo = cards_smi()
+        for i, line in enumerate(lines):
+            log(f"[card] {i}: {line}")
+        log(f"[card] nvidia-smi topo -m:\n{topo}")
+        smi = lines[0]
+        log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} nccl "
+            f"{torch.cuda.nccl.version()}")
+        from repro_torch.kernels import build
+
+        t = time.perf_counter()
+        build.build_all()
+        log(f"[build] the kernels in {time.perf_counter() - t:.2f} s")
+    import multiprocessing as mp
+
+    from repro_torch.serving import transport as TR
+
+    port = int(TR.free_tcp_endpoint().rsplit(":", 1)[1])
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=rank_main, args=(r, port, parts, on_card, out_dir, results))
+             for r in range(WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + 1100
+        while len(got) < WORLD:
+            try:
+                rank, res = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"a rank failed (exit codes "
+                                         f"{[p.exitcode for p in procs]})")
+                continue
+            if "error" in res:
+                raise AssertionError(f"rank {rank} failed:\n{res['error']}")
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if [p.exitcode for p in procs] != [0] * WORLD:
+        raise AssertionError(f"rank exit codes {[p.exitcode for p in procs]}")
+    log(f"[multicard] {WORLD} ranks ran {parts} in {time.perf_counter() - t0:.1f} s; by part "
+        f"(rank 0): { {k: round(v, 1) for k, v in got[0].items() if k.endswith(' s')} }")
+    by = {part: {r: got[r][part] for r in got} for part in parts}
+    sz = sizes(on_card)
+    summary = {}
+    if "K" in by and on_card:
+        for what, k in by["K"][0].items():
+            each = [by["K"][r][what] for r in sorted(by["K"])]
+            log(f"[kernel] paged_decode at {what}: max_abs_err against the plain "
+                f"version on cards 0-3 {[float(f'{e['max_abs_err']:.2e}') for e in each]}; "
+                f"card 0: kernel {k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound "
+                f"{k['bound_ms']:.5f} ms ({k['bound_by']}), {k['bound_ms'] / k['ms']:.1%} "
+                f"of bound [{smi}]")
+        summary["paged_decode"] = by["K"][0]
+    gates = {"M1": lambda: m1_gates(by["M1"], on_card, smi),
+             "M2": lambda: m2_gates(by["M2"], on_card, smi, sz.c13.num_layers),
+             "M3": lambda: m3_gates(by["M3"], on_card, smi),
+             "M4": lambda: m4_gates(by["M4"], on_card, smi, sz.c70.num_layers)}
+    failed = []
+    for part, gate in gates.items():   # every part gated, then the failures
+        if part in by:
+            try:
+                gate()
+            except AssertionError as e:
+                log(f"[multicard] {part} FAILED: {e}")
+                failed.append(part)
+    if failed:
+        raise AssertionError(f"parts {failed} failed their gates")
+    print(json.dumps({"multicard": summary}))
+    print(json.dumps({"ok": True, "parts": parts, "device": {
+        "platform": "gpu" if on_card else "cpu",
+        "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
+        "count": torch.cuda.device_count() if on_card else WORLD}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

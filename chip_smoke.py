@@ -3765,7 +3765,8 @@ def replication_phase(TR, reference, out_dir, smi, device="cuda"):
         f"[replication] {REPL_RANKS} rank processes on one card ({r0['device']}) in a "
         f"gloo group: NCCL refuses two ranks on one device, and gloo stages each "
         f"collective through the host. Two ranks sharing one card measure the "
-        f"program, not replication's speed [{smi}]"
+        f"program, not replication's speed; chip_multicard.py runs the ranks "
+        f"across cards, one a card over NCCL [{smi}]"
     )
     secs, n_bc, nbytes = r0["broadcast"]
     if r0["weights_sha"] != r1["weights_sha"]:

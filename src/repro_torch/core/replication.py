@@ -30,8 +30,12 @@ its own process, and the hooks run those collectives themselves:
 
 Every function takes an explicit group, never the default one, so ranks
 can be threads of one process (the CPU tests) or one process per card.
-The backend is the caller's: NCCL where each rank has its own card,
-gloo where ranks share a card or run on the CPU. Only the collectives
+``ReplicationGroup.build`` picks the backend from where the ranks lie
+(``parallel.mesh.backend_for``): NCCL where each rank has its own card,
+gloo where ranks share a card or run on the CPU; ``ReplicationGroup.of``
+wraps a process group the caller made. An NCCL group's collectives run
+on the card, so a CUDA graph can hold them (``capturable``); gloo's
+stage through the host (``staged``). Only the collectives
 both accept for CUDA tensors are used (``all_reduce``, ``broadcast``
 and ``alltoall_base`` with uneven splits, the last for
 ``core.migration``'s re-placement): the all-gather is an all-reduce of
@@ -44,12 +48,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import datetime
 import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel import mesh as M
 from repro_torch.serving import instrument as INS
 
 
@@ -110,6 +116,21 @@ class ReplicationGroup:
         ``ProcessGroupGloo``), this rank's tensors on ``device``."""
         return cls(pg, pg.rank(), pg.size(), device)
 
+    @classmethod
+    def build(cls, store, rank: int, size: int, device,
+              timeout=datetime.timedelta(seconds=120)) -> "ReplicationGroup":
+        """The group of ``size`` ranks over ``store``, this rank's
+        tensors on ``device``: NCCL where each rank has a card of its own
+        (each process calls ``torch.cuda.set_device`` to its card first),
+        gloo where they share one or run on the CPU
+        (``parallel.mesh.backend_for``; the ranks publish their devices
+        on ``store``). Every rank calls it at the same time, over a store
+        of its own (a fresh prefix); a failing NCCL group raises."""
+        backend = M.backend_for(M.rank_devices(store, rank, size, device))
+        pg = (M.new_group(backend, dist.PrefixStore("pg", store), rank,
+                          size, timeout) if size > 1 else None)
+        return cls(pg, rank, size, device)
+
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return axis_names(self.size)
@@ -124,6 +145,13 @@ class ReplicationGroup:
         tensors copies them to host memory and back."""
         return (self.pg is not None and self.device.type == "cuda"
                 and self.pg.name() == "gloo")
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this group's collectives: NCCL
+        runs them on the card; gloo stages them through the host. A group
+        of one rank runs none."""
+        return self.pg is None or self.pg.name() == "nccl"
 
     def _run(self, kind: str, op):
         self.counts[kind] += 1
@@ -163,12 +191,7 @@ class ReplicationGroup:
 def same_device(a, b) -> bool:
     """Whether two device names are one device: a bare ``"cuda"`` names
     the current card, so it equals ``"cuda:<current index>"``."""
-    def explicit(d):
-        d = torch.device(d)
-        if d.type == "cuda" and d.index is None:
-            return torch.device("cuda", torch.cuda.current_device())
-        return d
-    return explicit(a) == explicit(b)
+    return M.explicit_device(a) == M.explicit_device(b)
 
 
 def default_replication_group(device="cpu") -> ReplicationGroup:

@@ -5,9 +5,11 @@ importing this module touches no device and forms no group.
 Each returns THIS rank's ``parallel.mesh.RankMesh``: every rank of the
 mesh calls the same function with its own ``rank`` over one shared
 ``store`` (a ``torch.distributed`` store, e.g. a ``TCPStore``), and the
-mesh forms when all of them have joined (``RankMesh.build``: one gloo
-group per axis line). ``launch/dryrun.py`` takes the same shapes with
-``RankMesh.dry``, which needs no store and no other rank.
+mesh forms when all of them have joined (``RankMesh.build``: one
+process group per axis line, NCCL where each rank has a card of its
+own, gloo where the ranks share one or run on the CPU).
+``launch/dryrun.py`` takes the same shapes with ``RankMesh.dry``, which
+needs no store and no other rank.
 """
 from __future__ import annotations
 
@@ -30,10 +32,14 @@ def make_production_mesh(store, rank: int, device, *,
 def make_host_mesh(store, rank: int, device, n: int = None,
                    axes=("data",)) -> RankMesh:
     """The small mesh of tests and examples: ``n`` ranks on the first of
-    ``axes`` (the others of size 1). ``n`` defaults to the CUDA devices
-    of this host on a CUDA ``device``, else 1."""
+    ``axes`` (the others of size 1). On a CUDA ``device`` rank r takes
+    the card ``cuda:r``, so the groups are NCCL's, as the reference's
+    host mesh spans ``jax.devices()[:n]``; ``n`` then defaults to the
+    CUDA devices of this host, else to 1."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        device = torch.device("cuda", rank)
     if n is None:
-        n = (torch.cuda.device_count()
-             if torch.device(device).type == "cuda" else 1)
+        n = torch.cuda.device_count() if cuda else 1
     shape = (n,) + (1,) * (len(axes) - 1)
     return RankMesh.build(store, tuple(axes), shape, rank, device)

@@ -37,7 +37,9 @@ distributed flash-decoding.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -57,6 +59,33 @@ NEG_INF = -2.0 ** 20  # large-negative that is safe in bf16 softmax
 DRAW_ELEMS = 1 << 26
 
 
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def drawing_shards(sink):
+    """Inside, on this thread, ``new_leaf`` and ``draw_into`` defer to
+    ``sink`` (a ``parallel.sharding.ShardDraw``): a leaf whose shard it
+    keeps is a ``meta`` tensor, and each chunk drawn for it goes to
+    ``sink.take``, which keeps this rank's part (``transformer.
+    init_params_shard``)."""
+    prev = getattr(_draws, "sink", None)
+    _draws.sink = sink
+    try:
+        yield sink
+    finally:
+        _draws.sink = prev
+
+
+def new_leaf(shape, dtype, device) -> torch.Tensor:
+    """``torch.empty`` of a weight leaf ``draw_into`` will fill, or what
+    the sink of ``drawing_shards`` makes of it."""
+    sink = getattr(_draws, "sink", None)
+    if sink is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return sink.new_leaf(tuple(shape), dtype, device)
+
+
 def draw_into(w, draw, scale: float, rows: Optional[int] = None):
     """Fill ``w`` in place with ``draw(t) * scale``: fp32 chunks ``t`` of
     the rows of ``w`` viewed as ``[-1, w.shape[-1]]``, each drawn by
@@ -67,18 +96,29 @@ def draw_into(w, draw, scale: float, rows: Optional[int] = None):
     held two of the stack's size. On the CPU a chunked draw reads the
     generator as one draw of the whole does (the uniform fill element by
     element, the normal fill in blocks of 16 from a uniform fill), so
-    the chunks do not change the values; on the card they do."""
+    the chunks do not change the values; on the card they do. A ``meta``
+    ``w`` is left as it is, unless ``drawing_shards``' sink is drawing:
+    its chunks are then drawn on the sink's device, the same calls on
+    the same generator, and handed to ``sink.take``."""
+    sink = None
     if w.device.type == "meta":
-        return w
+        sink = getattr(_draws, "sink", None)
+        if sink is None or not sink.drawing:
+            return w
     flat = w.view(-1, w.shape[-1])
     step = max(16, DRAW_ELEMS // flat.shape[1] // 16 * 16)
     if rows is not None:
         step = min(step, rows)
     for i in range(0, flat.shape[0], step):
-        dst = flat[i:i + step]
-        t = torch.empty(dst.shape, dtype=torch.float32, device=w.device)
+        n = min(step, flat.shape[0] - i)
+        t = torch.empty((n, flat.shape[1]), dtype=torch.float32,
+                        device=w.device if sink is None else sink.device)
         draw(t)
-        dst.copy_(t.mul_(scale))
+        t.mul_(scale)
+        if sink is None:
+            flat[i:i + n].copy_(t)
+        else:
+            sink.take(w, i, t)
         del t  # before the next chunk is allocated
     return w
 
@@ -93,7 +133,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype, *,
     the whole tensor's size)."""
     if isinstance(out_shape, int):
         out_shape = (out_shape,)
-    w = torch.empty((*lead, in_dim, *out_shape), dtype=dtype, device=gen.device)
+    w = new_leaf((*lead, in_dim, *out_shape), dtype, gen.device)
     return draw_into(w.view(-1, math.prod(out_shape)),
                      lambda t: truncated_normal_(t, gen),
                      1.0 / math.sqrt(in_dim), rows=in_dim).view(w.shape)

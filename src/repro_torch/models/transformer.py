@@ -173,8 +173,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype="bfloat16"):
     dtype = torch_dtype(dtype)
     dev = gen.device
     lead = (cfg.num_layers,)
-    embed = torch.empty((cfg.padded_vocab, cfg.d_model), dtype=dtype,
-                        device=dev)
+    embed = L.new_leaf((cfg.padded_vocab, cfg.d_model), dtype, dev)
     params = {
         "embed": L.draw_into(embed, lambda t: t.normal_(generator=gen),
                              1.0 / math.sqrt(cfg.d_model)),
@@ -231,6 +230,48 @@ def init_params_meta(cfg: ModelConfig, dtype="bfloat16"):
     """``init_params``' tree as meta tensors: every shape and type,
     nothing allocated (the reference's ``jax.eval_shape(init_params)``)."""
     return init_params(cfg, _MetaGenerator(), dtype)
+
+
+def init_params_shard(cfg: ModelConfig, gen: torch.Generator, rules, mesh,
+                      dtype="bfloat16"):
+    """This rank's shard of ``init_params(cfg, gen, dtype)`` under
+    ``parallel.sharding.param_specs(cfg, ·, rules, mesh)``, bit for bit
+    the leaves of ``shard_params`` of that draw, without ever holding the
+    whole tree: every rank draws the whole stream from ``gen`` (seeded
+    alike on every rank), the same calls in the same order, and each leaf
+    drawn by ``layers.draw_into`` keeps only this rank's part of each
+    fp32 chunk as it is drawn (``parallel.sharding.ShardDraw``). The
+    peak is this rank's shards, one fp32 chunk (at most one layer's
+    slice of a leaf, ``layers.DRAW_ELEMS``) and the leaves drawn whole:
+    the norms, and the pieces a draw copies into a leaf (an MoE's
+    experts, a Mamba2 stack's layers), which are then sliced. A first
+    pass on the meta device records the draw's allocations and maps each
+    to its leaf's spec."""
+    record = SH.ShardDraw()
+    with L.drawing_shards(record):
+        meta = init_params(cfg, _MetaGenerator(), dtype)
+    specs = SH.param_specs(cfg, meta, rules, mesh)
+    spec_of = {}
+    SH.tree_map(lambda leaf, spec: spec_of.setdefault(
+        id(leaf if leaf._base is None else leaf._base), spec), meta, specs)
+    sink = SH.ShardDraw([(tuple(w.shape), spec_of.get(id(w)))
+                         for w in record.allocated], mesh, gen.device)
+    del meta
+    with L.drawing_shards(sink):
+        tree = init_params(cfg, gen, dtype)
+    if sink.done != len(sink.plan):
+        raise RuntimeError(f"the draw made {sink.done} of the "
+                           f"{len(sink.plan)} recorded allocations")
+
+    def shard(x, spec):
+        kept = sink.shard_of(x)
+        if kept is not None:
+            return kept
+        if all(a is None for a in spec):    # replicated: the leaf is its shard
+            return x
+        return SH.shard_leaf(x, spec, mesh)
+
+    return SH.tree_map(shard, tree, specs)
 
 
 # ====================================================================== cache

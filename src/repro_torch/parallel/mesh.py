@@ -13,7 +13,10 @@ itself:
   the ranks that share every other coordinate with this one (this rank's
   line along the axis). A size-1 axis has no group, and its collectives
   return their input. ``RankMesh.build`` makes those groups as
-  ``ProcessGroupGloo(PrefixStore(f"{axis}/{line}", store), i, n)``.
+  ``ProcessGroupNCCL(PrefixStore(f"{axis}/{line}", store), i, n, ...)``
+  where each rank has a card of its own, and as ``ProcessGroupGloo``
+  over the same stores where the ranks share a card or run on the CPU
+  (``backend_for``: the ranks publish their devices on the store).
   ``RankMesh.dry`` is rank 0's view of a mesh with no group at all: its
   collectives record their kind and bytes and return tensors of the
   right shape without reducing, so a step runs on meta tensors
@@ -65,11 +68,13 @@ same order, backward too; the same program on every rank builds the
 same autograd graph.
 
 Every group is explicit, never the default one, so ranks can be threads
-of one process (the CPU tests) or one process per card; two ranks that
-share a card take gloo (NCCL refuses two ranks on one device). On the
-card two ranks must be processes: CUDA autograd runs one worker thread
-per device, so two thread-ranks' backward collectives would wait on each
-other in it.
+of one process (the CPU tests) or one process per card; ranks that
+share a card take gloo (NCCL refuses two ranks on one device), ranks
+with a card each take NCCL, and a mesh that mixes the two raises. On
+the card two ranks must be processes: CUDA autograd runs one worker
+thread per device, so two thread-ranks' backward collectives would wait
+on each other in it. An NCCL group that fails raises; nothing drops
+back to gloo.
 """
 from __future__ import annotations
 
@@ -122,21 +127,25 @@ class RankMesh:
     @classmethod
     def build(cls, store, axis_names, shape, rank, device,
               timeout=datetime.timedelta(seconds=120)) -> "RankMesh":
-        """The mesh with one gloo group per axis line through ``rank``,
-        over ``store`` (each line under its own prefix). Every rank of
-        the mesh must build it at the same time: a group forms when all
-        of its ranks have joined."""
+        """The mesh with one process group per axis line through
+        ``rank``, over ``store`` (each line under its own prefix), of the
+        backend ``backend_for`` picks from every rank's device. Every
+        rank of the mesh must build it at the same time, over a store of
+        its own (a fresh prefix): a group forms when all of its ranks
+        have joined."""
         shape = tuple(shape)
         coords = np.unravel_index(rank, shape)
+        backend = backend_for(rank_devices(store, rank, int(np.prod(shape)),
+                                           device))
         groups = {}
         for i, (a, n) in enumerate(zip(axis_names, shape)):
             if n == 1:
                 continue
             line = "-".join(str(int(c)) for j, c in enumerate(coords)
                             if j != i)
-            groups[a] = dist.ProcessGroupGloo(
-                dist.PrefixStore(f"{a}/{line}", store), int(coords[i]), n,
-                timeout)
+            groups[a] = new_group(backend,
+                                  dist.PrefixStore(f"{a}/{line}", store),
+                                  int(coords[i]), n, timeout)
         return cls(axis_names, shape, rank, device, groups)
 
     @classmethod
@@ -359,6 +368,52 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         return ctx.mesh._a2a(g.contiguous(), ctx.axis, phase="backward"), \
             None, None
+
+
+def explicit_device(device) -> torch.device:
+    """``device`` with its index: a bare ``"cuda"`` names the current
+    card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def backend_for(devices) -> str:
+    """The backend of ranks on ``devices`` (one per rank): ``"nccl"``
+    where each rank has a card of its own, ``"gloo"`` where they all
+    share one card (NCCL refuses two ranks on one device) or all run on
+    the CPU. Any other mix raises."""
+    devs = [explicit_device(d) for d in devices]
+    kinds = {d.type for d in devs}
+    cards = {d.index for d in devs}
+    if kinds == {"cpu"}:
+        return "gloo"
+    if kinds == {"cuda"} and len(cards) == len(devs):
+        return "nccl"
+    if kinds == {"cuda"} and len(cards) == 1:
+        return "gloo"
+    raise ValueError(f"ranks on {[str(d) for d in devs]}: neither one card "
+                     f"each (NCCL) nor all on one card or the CPU (gloo)")
+
+
+def rank_devices(store, rank: int, size: int, device) -> list:
+    """Every rank's device, in rank order: each of the ``size`` ranks
+    publishes its own on ``store`` and reads the others' (waiting for
+    them)."""
+    store.set(f"device/{rank}", str(explicit_device(device)))
+    return [torch.device(store.get(f"device/{q}").decode())
+            for q in range(size)]
+
+
+def new_group(backend: str, store, rank: int, size: int, timeout):
+    """A process group of ``size`` ranks over ``store``: NCCL (this
+    rank's tensors on its current card) or gloo, as ``backend`` says."""
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
+    return dist.ProcessGroupGloo(store, rank, size, timeout)
 
 
 def _names(axes) -> Tuple[str, ...]:

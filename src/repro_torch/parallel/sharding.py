@@ -27,9 +27,12 @@ port therefore makes no ``lshard`` calls at the reference's sites.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 from typing import Optional
+
+import torch
 
 _state = threading.local()
 
@@ -246,24 +249,115 @@ def opt_state_specs(pspecs):
 
 
 # ------------------------------------------------------------ this rank's shard
-def shard_leaf(x, spec, mesh):
-    """This rank's shard of one leaf (a tensor, meta included, or a
-    numpy array) under ``spec``, in storage of its own: one slice per
-    dimension, a dim split over several axes taking the first as
+def leaf_slices(shape, spec, mesh):
+    """This rank's (start, stop) on each dimension of a ``shape`` leaf
+    under ``spec``, a dim split over several axes taking the first as
     major."""
-    index = []
-    for i, n in enumerate(x.shape):
+    out = []
+    for i, n in enumerate(shape):
         axes = spec[i] if i < len(spec) else None
         k = mesh.axes_size(axes)
         if n % k:
-            raise ValueError(f"dim {i} of {tuple(x.shape)} does not split "
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
                              f"{k} ways over {axes}")
         j = mesh.axes_index(axes)
-        index.append(slice(j * (n // k), (j + 1) * (n // k)))
-    part = x[tuple(index)]
+        out.append((j * (n // k), (j + 1) * (n // k)))
+    return out
+
+
+def shard_leaf(x, spec, mesh):
+    """This rank's shard of one leaf (a tensor, meta included, or a
+    numpy array) under ``spec``, in storage of its own: one slice per
+    dimension."""
+    part = x[tuple(slice(a, b) for a, b in leaf_slices(x.shape, spec, mesh))]
     return part.clone() if hasattr(part, "clone") else part.copy()
 
 
 def shard_params(params, specs, mesh):
     """This rank's shard of every leaf of ``params`` under ``specs``."""
     return tree_map(lambda x, s: shard_leaf(x, s, mesh), params, specs)
+
+
+class ShardDraw:
+    """The sink of ``models.layers.drawing_shards``: what a weight draw
+    keeps of each leaf (``models.transformer.init_params_shard``).
+
+    Without a ``plan`` it records: every ``new_leaf`` is a ``meta``
+    tensor, kept in ``allocated`` in the order the draw makes them, and
+    nothing is drawn. With one, ``plan[i]`` is the i-th allocation's
+    (shape, spec): a spec keeps this rank's shard of the leaf, allocated
+    at its local shape on ``device``, and the leaf itself is a ``meta``
+    tensor whose chunks ``take`` as ``layers.draw_into`` draws them; None
+    allocates the leaf whole on its device and draws it as usual (a
+    piece the draw copies into another leaf, as the MoE's experts)."""
+
+    def __init__(self, plan=None, mesh=None, device=None):
+        self.plan, self.mesh = plan, mesh
+        self.device = None if device is None else torch.device(device)
+        self.drawing = plan is not None
+        self.allocated = []
+        self.shards = {}       # id(meta leaf) -> (leaf, slices, shard)
+        self.done = 0          # allocations made so far
+
+    def new_leaf(self, shape, dtype, device):
+        if not self.drawing:
+            w = torch.empty(shape, dtype=dtype, device="meta")
+            self.allocated.append(w)
+            return w
+        want, spec = self.plan[self.done]
+        self.done += 1
+        if tuple(want) != tuple(shape):
+            raise RuntimeError(f"allocation {self.done - 1} of the draw is "
+                               f"{shape}, the recorded one {want}")
+        if spec is None:
+            return torch.empty(shape, dtype=dtype, device=device)
+        slices = leaf_slices(shape, spec, self.mesh)
+        shard = torch.empty([b - a for a, b in slices], dtype=dtype,
+                            device=self.device)
+        w = torch.empty(shape, dtype=dtype, device="meta")
+        self.shards[id(w)] = (w, slices, shard)
+        return w
+
+    def shard_of(self, leaf):
+        """The shard kept for ``leaf`` (a meta leaf or a view of one),
+        else None."""
+        root = leaf if leaf._base is None else leaf._base
+        entry = self.shards.get(id(root))
+        return None if entry is None else entry[2]
+
+    def take(self, w, row0: int, chunk):
+        """Keep this rank's part of rows ``row0 ..`` of ``w`` (a view
+        ``[-1, C]`` of a leaf whose shard is kept), drawn as ``chunk``
+        [n, C] float32: it is cast into the shard's type as it is
+        copied, as the whole draw casts each chunk."""
+        root = w if w._base is None else w._base
+        _, sl, shard = self.shards[id(root)]
+        shape, n, C = tuple(root.shape), chunk.shape[0], chunk.shape[1]
+        k = next(j for j in range(len(shape) + 1)
+                 if math.prod(shape[j:]) == C)
+        if k == 0:      # one row: the whole leaf
+            shard.copy_(chunk.view(shape)[tuple(slice(a, b) for a, b in sl)])
+            return
+        rows, inner = shape[:k], shape[k:]
+        last, (a_last, b_last) = rows[-1], sl[k - 1]
+        inner_index = tuple(slice(a, b) for a, b in sl[k:])
+        r, end = row0, row0 + n
+        while r < end:      # runs of rows along the last row dim
+            unit, at = divmod(r, last)
+            stop = min(end, r - at + last)
+            outer = _unravel(unit, rows[:-1])
+            lo, hi = max(at, a_last), min(at + stop - r, b_last)
+            if lo < hi and all(a <= o < b for o, (a, b) in zip(outer, sl)):
+                src = chunk[r - row0 + lo - at:r - row0 + hi - at]
+                src = src.view(hi - lo, *inner)[(slice(None),) + inner_index]
+                dst = tuple(o - a for o, (a, _) in zip(outer, sl))
+                shard[dst + (slice(lo - a_last, hi - a_last),)].copy_(src)
+            r = stop
+
+
+def _unravel(i: int, shape) -> tuple:
+    out = []
+    for n in reversed(shape):
+        i, j = divmod(i, n)
+        out.append(j)
+    return tuple(reversed(out))

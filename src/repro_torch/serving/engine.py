@@ -53,10 +53,14 @@ decode step, quantized to the engine's replication group
 each run this engine with the same calls): a step under degrees above 1
 splits each replicated layer's batch between the ranks and gathers it
 back, every rank's pool staying a full replica and every rank sampling
-the same tokens. Such a step runs eagerly (``graphs.counts.eager``): a
-collective staged through the host cannot be captured. Without a group
-the engine is its own size-1 group, every degree quantizes to 1, and the
-step keeps its graph.
+the same tokens. Over a ``capturable`` group (NCCL, a card per rank)
+such a step is a CUDA graph of its own key, as the reference's
+``degrees`` static argument recompiles it, so a plan change recaptures
+exactly this step; every rank captures and replays the same keys in
+the same order, and a replay counts its gathers on the group. Over
+gloo, which stages each collective through the host, it runs eagerly
+(``graphs.counts.eager``). Without a group the engine is its own size-1
+group, every degree quantizes to 1, and the step keeps its graph.
 
 **The dense path** (``cache_kind="dense"``) serves the families the
 pool cannot hold — SSM (Mamba2) and hybrid (Zamba2) states, MLA's
@@ -214,7 +218,8 @@ def _decode_step(params, k, v, buf, *, cfg, nb, width, window, impl,
     active, then the sampling operands, then the block tables
     [B, width]) — the whole tables, so the graphs of every table width
     ``nb`` share one input buffer; the step reads ``tables[:, :nb]``.
-    ``hook``: the replication plan's ``LayerHook`` (an eager step)."""
+    ``hook``: the replication plan's ``LayerHook`` (a replicated step:
+    a graph of its own key over NCCL, eager over gloo)."""
     B = buf.numel() // (7 + width)
     tokens, lengths, active, sampling, tables = G_.unpack(
         buf, (B,), (B,), (B,), (4 * B,), (B, width))
@@ -358,8 +363,14 @@ class Engine:
         self.replication_degrees: Optional[tuple] = None  # plan intent
         self._step_degrees: Optional[tuple] = None        # quantized
         # the compiled steps: one CUDA graph per static key on the card
-        # (eager with cuda_graphs=False, and on the CPU)
-        self.graphs = G_.StepGraphs(self.device, enabled=cuda_graphs)
+        # (eager with cuda_graphs=False, and on the CPU); a replay counts
+        # its collectives on the group, and a capture beside an NCCL
+        # group's watchdog thread takes the thread-local mode
+        self.graphs = G_.StepGraphs(self.device, enabled=cuda_graphs,
+                                    tally=self.group.counts)
+        if (self.graphs.enabled and self.group.size > 1
+                and self.group.capturable):
+            self.graphs.capture_error_mode = "thread_local"
 
     # ------------------------------------------------------------- sampling
     def _sample_batch(self, logits, reqs) -> np.ndarray:
@@ -1041,7 +1052,7 @@ class Engine:
         for all active slots, retire finished requests. Exactly one
         device→host sync (the sampled-token fetch) in steady state, and
         one more per collective of a replicated step staged through the
-        host (gloo on the card)."""
+        host (gloo on the card; NCCL's run on the card)."""
         self.clock += dt
         self.last_step_packed = None   # set by the token-budget planner
         self._admit()
@@ -1104,11 +1115,14 @@ class Engine:
         if degrees is None:
             toks_dev = self.graphs.run(key, fn, operands)
         else:
-            # a replicated step: its collectives run eagerly, outside any
-            # graph (gloo stages them through the host)
-            hook = R.layer_hook_from_degrees(degrees, self.group)
-            toks_dev = self.graphs.eager(key, functools.partial(
-                fn, hook=hook), operands)
+            # a replicated step: a graph where the group's collectives run
+            # on the card (NCCL), else eager (gloo stages them through the
+            # host)
+            fn = functools.partial(
+                fn, hook=R.layer_hook_from_degrees(degrees, self.group))
+            run = (self.graphs.run if self.group.capturable
+                   else self.graphs.eager)
+            toks_dev = run(key, fn, operands)
         toks = fetch(toks_dev)     # the ONE host sync
         st.lengths[active_mask] += 1
         # dirty-set bookkeeping: the step wrote each active slot's token

@@ -38,6 +38,17 @@ engine's graphs share (replays are sequential). So a capture step
 computes its result once, like any step, and the replay count is the
 call count less the captures.
 
+A step may hold collectives over NCCL (a replicated decode step whose
+group is ``capturable``): the warm-up runs them once more, which also
+makes the communicator before the first capture, so every rank must
+warm up and capture the same keys in the same order, and replay them in
+the same order. Such a capture takes ``capture_error_mode=
+"thread_local"``: the process group's watchdog thread queries CUDA
+events while another thread captures, which the default mode forbids.
+A counter given as ``tally`` (a group's or a mesh's collectives) counts
+what a replay ran: the recording ran nothing, so its counts are taken
+back, and each replay adds them.
+
 On the CPU, and on the card with ``enabled=False`` (the engine's
 ``cuda_graphs=False``, the eager comparison), ``run`` calls the same
 function eagerly on the same inputs: the code the graph holds. On the
@@ -103,6 +114,7 @@ class _Graph:
     inputs: tuple           # static input buffers
     output: torch.Tensor    # static output
     recorded: dict          # kernel name -> launches the capture recorded
+    tallied: collections.Counter   # what a replay adds to ``tally``
 
 
 class StepGraphs:
@@ -114,11 +126,16 @@ class StepGraphs:
     ``capture_seconds`` holds (kind, warm-up, capture) host seconds of
     each capture — the warm-up's launches, then ``torch.cuda.graph``'s
     entry (which waits for the warm-up), the recording and the
-    instantiation."""
+    instantiation. ``tally``: a ``collections.Counter`` the captured
+    functions count on, kept true through replays (module docstring);
+    ``capture_error_mode``: ``torch.cuda.graph``'s."""
 
-    def __init__(self, device, enabled: bool = True):
+    def __init__(self, device, enabled: bool = True, *, tally=None,
+                 capture_error_mode: str = "global"):
         self.device = torch.device(device)
         self.enabled = bool(enabled) and self.device.type == "cuda"
+        self.tally = tally
+        self.capture_error_mode = capture_error_mode
         self.keys: collections.Counter = collections.Counter()
         self.counts = instrument.GraphCounter()
         # wrapper calls made while a graph was recorded, and the launches
@@ -146,12 +163,15 @@ class StepGraphs:
         g.graph.replay()
         self.counts.replays[key[0]] += 1
         self.replayed.update(g.recorded)
+        if self.tally is not None:
+            self.tally.update(g.tallied)
         return g.output
 
     def eager(self, key, fn, *inputs) -> torch.Tensor:
         """``fn(*inputs)`` eagerly whatever ``enabled`` says, counted
         under ``counts.eager``: a step whose collectives a graph cannot
-        hold (a replicated decode step; gloo stages through the host)."""
+        hold (a replicated decode step over gloo, which stages them
+        through the host)."""
         self.keys[key] += 1
         self.counts.eager[key[0]] += 1
         return self._call(fn, inputs)
@@ -188,19 +208,25 @@ class StepGraphs:
             out = fn(*static)              # the warm-up: this call's result
         t1 = time.perf_counter()
         before = _counts()
+        counted = collections.Counter(self.tally or ())
         graph = torch.cuda.CUDAGraph()
         with instrument.graph_capture():
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                  capture_error_mode=self.capture_error_mode):
                 output = fn(*static)
         after = _counts()
+        tallied = collections.Counter()
+        if self.tally is not None:   # the recording ran none of them
+            tallied = self.tally - counted
+            self.tally.clear()
+            self.tally.update(counted)
         self.capture_seconds.append((key[0], t1 - t0, time.perf_counter() - t1))
         main.wait_stream(self._stream)
         out.record_stream(main)
         recorded = {n: after[n] - before[n] for n in after
                     if after[n] != before[n]}
         self.recorded_calls.update(recorded)
-        self._graphs[key] = _Graph(graph, static, output, recorded)
+        self._graphs[key] = _Graph(graph, static, output, recorded, tallied)
         self.counts.captures[key[0]] += 1
         return out
 
