@@ -1,7 +1,7 @@
 """The port across four cards of one host over NCCL (card only: four
 H100s joined by NVLink).
 
-    python3 chip_multicard.py [--parts M1,M2,M3,M4]
+    python3 chip_multicard.py [--parts K,M1,M2,M3,M4,T]
 
 ``chip_smoke.py`` stays the one-card script; this one runs the paths
 that exist only across cards, one rank process per card
@@ -64,6 +64,35 @@ M4. llama2-70b tensor-parallel on (data 1, model 4) at published width and
    on card 0, logits within 1e-4. Printed: step ms eager and graph against
    the per-rank weight-read bound, device busy and the NCCL kernels'
    share of a replayed step (profiled on rank 0).
+T. The sharded train step (``training.train`` under sharding rules), one
+   rank process a card over NCCL, phase 15's machinery (``CS.p15_part``)
+   with each rank's unsharded twin on its own card at the same time;
+   fp32, TF32 off, phase 14's batch of 8 x 128 (``sharded_batches``), 3
+   steps. T1 tinyllama-1.1b at published width and depth (22 layers) on
+   (data 1, model 4), (4, 1) and (2, 2) (a rank in two groups, one an
+   axis line), each also in bf16 for ``TRAIN_STEPS`` on one repeated
+   batch; T2 qwen2-moe-a2.7b at published width (60 experts, padded to
+   64: 16 a rank on ``data``) at ``T2_LAYERS`` of 24 on (4, 1), the
+   scatter dispatch (gated as 15c: expert ids equal at step 1, losses and
+   shards after it) and the all-to-all dispatch (``rules["moe_a2a"]``, as
+   15c-a2a); T3 llama2-13b on (1, 4): an fp32 cut of ``T3_CUT`` layers
+   against its twin, and at published depth (40 layers) bf16 shards from
+   the sharded draw with fp32 moments, ``TRAIN_STEPS`` on one repeated
+   batch. Gates, every rank: collectives by phase and kind a step =
+   ``CS.p15_predicted`` = the dry run's (``RankMesh.dry``); params +
+   moments bytes = the dry run's; losses within 1e-5 and shards of the
+   params and both moments within 1e-4 of the twin (T1's after step 1;
+   T1 runs phase 15e's witness over all three steps: each step sharded
+   against unsharded in float64 within ``CS.F64_TOL``, the float32 shards
+   after each step beside the ulp control, ungated); bf16 losses fall by
+   more than ``TRAIN_FALL``; T3's full-depth peak within ``T3_MEMORY_TOL``
+   of the dry run's ``memory_analysis`` (arguments + temp); the four
+   kernels' launch counters unchanged; no step more host syncs (sync-debug
+   "warn", one warning a sync) than its twin's, after one backward through
+   an NCCL all-reduce has warmed the process. Printed: step ms beside
+   14a's, collective ms by phase (CUDA events around each NCCL
+   all-reduce), the logits' all-gather, each group's warm-up, each rank's
+   peak, the NCCL kernels' share of one profiled step (rank 0).
 
 """
 from __future__ import annotations
@@ -101,6 +130,17 @@ TIMEOUT = datetime.timedelta(seconds=600)
 BF16_TIE = 2e-2
 #: M4's greedy decode steps, and the fp32 cut's depth and steps
 M4_STEPS, M4_CUT, CUT_STEPS = 32, 8, 4
+#: T2's qwen2-moe-a2.7b depth (of 24): its unsharded fp32 twin must fit
+#: one card (~9.1 GB of params, gradients and moments a layer, ~10 GB for
+#: the embedding and lm_head)
+T2_LAYERS = 4
+#: T3's fp32 cut of llama2-13b (of 40 layers), held against the unsharded
+#: fp32 step on each rank's card
+T3_CUT = 4
+#: T3's full-depth peak a rank against the dry run's memory_analysis
+T3_MEMORY_TOL = 0.05
+#: phase 14a's unsharded tinyllama-1.1b step on one card (PERF.md §5)
+STEP14 = "14a's unsharded tinyllama-1.1b step on one card: bf16 248-257 ms, fp32 247.1 ms"
 #: M3's moves at W = 4: (step, tree, path regex, placement, the share of
 #: the moved leaves' bytes rank 0 and each other rank receive). (a) the
 #: attention projections split over r0 and r1 on their heads (wo on its
@@ -134,17 +174,23 @@ def cards_smi():
 
 def sizes(on_card):
     """The configs and depths of a run: published on the card, reduced in
-    a CPU rehearsal."""
+    a CPU rehearsal (T's qwen2-moe there with 12 experts, so that it takes
+    the scatter dispatch as at published width)."""
     from repro_torch.configs import get_config
 
     c13, c70 = get_config("llama2-13b"), get_config("llama2-70b")
+    tiny, moe = get_config("tinyllama-1.1b"), get_config("qwen2-moe-a2.7b")
     if on_card:
-        return types.SimpleNamespace(c13=c13, c70=c70, cut=M4_CUT, steps=M4_STEPS,
-                                     max_len=1024, cut_steps=CUT_STEPS)
+        return types.SimpleNamespace(
+            c13=c13, c70=c70, cut=M4_CUT, steps=M4_STEPS, max_len=1024, cut_steps=CUT_STEPS,
+            tiny=tiny, moe=dataclasses.replace(moe, num_layers=T2_LAYERS), l13=c13,
+            cut13=dataclasses.replace(c13, num_layers=T3_CUT))
     return types.SimpleNamespace(
         c13=dataclasses.replace(c13.reduced(), num_layers=4),
         c70=dataclasses.replace(c70.reduced(), num_heads=8, num_kv_heads=4),
-        cut=1, steps=4, max_len=1024, cut_steps=2)
+        cut=1, steps=4, max_len=1024, cut_steps=2, tiny=tiny.reduced(),
+        moe=dataclasses.replace(moe.reduced(), num_experts=12), l13=c13.reduced(),
+        cut13=dataclasses.replace(c13.reduced(), num_layers=1))
 
 
 def half_plan(L):
@@ -959,6 +1005,324 @@ def m4_gates(res, on_card, smi, L):
         f"{[f'{e:.2e}' for e in cut['rel']]} (tol 1e-4) [{smi}]")
 
 
+# ------------------------------------ T: the sharded train step across cards
+def t_settings(device):
+    """Phase 15's sizes (``CS.p15_settings``), every fp32 run at 3 steps
+    on the card."""
+    st = CS.p15_settings(device)
+    if not st["reduced"]:
+        st.update(moe_steps=3, ep_steps=3)
+    return st
+
+
+def t_cases(sz):
+    """Part T's cases but the full-depth llama2-13b: (name, store tag,
+    ``p15_predicted`` part, config, mesh, ``p15_part`` options)."""
+    t1 = dict(bf16=True, witness=True)
+    return (("T1 (1, 4)", "T1-1x4", "tp", sz.tiny, (1, WORLD), t1),
+            ("T1 (4, 1)", "T1-4x1", "dp", sz.tiny, (WORLD, 1), t1),
+            ("T1 (2, 2)", "T1-2x2", "2d", sz.tiny, (2, 2), t1),
+            ("T2 scatter", "T2-scatter", "moe", sz.moe, (WORLD, 1), dict(compare_at=1)),
+            ("T2 all-to-all", "T2-a2a", "ep", sz.moe, (WORLD, 1),
+             dict(extra={"moe_a2a": True}, ref=False, repeat=True)),
+            ("T3 fp32 cut", "T3-cut", "tp", sz.cut13, (1, WORLD), {}))
+
+
+def t_part(c):
+    """T on this rank (module docstring): phase 15's machinery
+    (``CS.p15_part``), each rank's unsharded twin on its own card at the
+    same time, then the full-depth llama2-13b."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputShape
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import RankMesh
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train as TR
+
+    kernels = (c.PD.paged_decode_attention, FA.flash_attention, DA.decode_attention,
+               SS.ssd_scan)
+    before = [k.launches for k in kernels]
+    dev, on_card = c.device, c.device.type == "cuda"
+    st = t_settings(dev)
+    mods = (c.T, SH, OPT, TR, DP, DR, RankMesh, InputShape)
+    store = dist.PrefixStore("T", c.store)
+
+    def trace(tag):   # the profiler's trace file is one path: rank 0 profiles
+        return c.out_dir / f"train_step_trace_{tag}_rank0.json" if on_card and not c.rank else None
+
+    out = {"warm": t_warm_up(c, store)}
+    for name, tag, part, cfg, shape, kw in t_cases(c.sz):
+        t0 = time.perf_counter()
+        r = CS.p15_part(mods, st, store, c.rank, WORLD, dev, tag, cfg, shape, trace=trace(tag),
+                        **kw)
+        r["predicted"] = CS.p15_predicted(c.T, cfg, part, shape)
+        r["seconds"] = time.perf_counter() - t0
+        out[name] = r
+        free(dev)
+    t0 = time.perf_counter()
+    out["T3 full"] = t3_full(c, st, mods, store, trace("T3-full"))
+    out["T3 full"]["seconds"] = time.perf_counter() - t0
+    out["launches"] = (before, [k.launches for k in kernels])
+    return out
+
+
+def t_warm_up(c, store):
+    """One backward through an NCCL all-reduce before the cases, its host
+    syncs counted: a process's first backward on the card starts
+    autograd's device thread, whose first collective and events the
+    first case's first step would otherwise pay for."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import RankMesh
+
+    dev = c.device
+    mesh = RankMesh.build(dist.PrefixStore("T-warm", store), AXES, (1, WORLD), c.rank, dev,
+                          TIMEOUT)
+    out = {"groups_s": CS.warm_groups(mesh, dev)}
+    x = torch.ones(8, device=dev, requires_grad=True)
+    with CS.counted_syncs() if dev.type == "cuda" else contextlib.nullcontext() as found:
+        with torch.enable_grad():
+            y = mesh.psum(mesh.enter(x, "model") * 2, "model", grad="psum")
+            y.sum().backward()
+    sync(dev)
+    out["syncs"] = list(found or [])
+    return out
+
+
+def t3_full(c, st, mods, store, trace):
+    """llama2-13b at published width and depth on (1, 4): bf16 shards
+    from the sharded draw, fp32 moments, ``bf16_steps`` steps on one
+    repeated batch; the dry run's count, bytes and memory of the case."""
+    import torch.distributed as dist
+
+    T, SH, OPT, TR, DP, DR, RankMesh, InputShape = mods
+    cfg, dev, rank, shape = c.sz.l13, c.device, c.rank, (1, WORLD)
+    mesh = RankMesh.build(dist.PrefixStore("T3-full", store), AXES, shape, rank, dev, TIMEOUT)
+    out = {"shape": shape, "layers": cfg.num_layers, "warm_s": CS.warm_groups(mesh, dev),
+           "predicted": CS.p15_predicted(T, cfg, "tp", shape)}
+    rules = dict(SH.rules_for(cfg, mesh), mesh=mesh)
+    _, drules, dstep, dargs = DR.input_specs(
+        cfg.name, InputShape("T3-full", "train", st["seq"], st["batch"]),
+        RankMesh.dry(AXES, shape, rank), dtype="bfloat16", moments_dtype="float32",
+        cfg_override=cfg, remat=False)
+    out["dry_bytes"] = DR.tree_bytes(dargs[0]) + DR.tree_bytes(dargs[1])
+    _, dtally, out["dry_memory"] = DR.run_step(drules, dstep, dargs)
+    out["dry"] = CS.tally_counts(dtally)
+    del dargs
+    CS.reset_peak(dev)
+    t0 = time.perf_counter()
+    params = T.init_params_shard(cfg, torch.Generator(device=dev).manual_seed(CS.SEED), rules,
+                                 mesh, "bfloat16")
+    sync(dev)
+    out["draw_s"] = time.perf_counter() - t0
+    CS.reset_peak(dev)
+    out["start"] = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    opt = OPT.init_opt_state(params)
+    batch = next(DP.sharded_batches(cfg, DP.DataConfig(seq_len=st["seq"],
+                                                       global_batch=st["batch"]),
+                                    mesh, SH.batch_specs(rules)["tokens"], 1))
+    ocfg = OPT.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    with SH.use_rules(rules):
+        params, opt, run = CS.p15_timed_steps(
+            TR.make_train_step(cfg, ocfg), params, opt, [batch] * st["bf16_steps"], mesh, dev,
+            trace=trace)
+    out["bytes"] = sum(x.numel() * x.element_size()
+                       for x in [*CS.tree_leaves(params), *CS.tree_leaves(opt)])
+    out.update(run, peak=peak(dev))
+    del params, opt, batch
+    free(dev)
+    return out
+
+
+def t_warm_ms(xs, r):
+    """The steps' ms after the first (warm-up), the profiled one left
+    out."""
+    skip = r.get("profile", {}).get("step")
+    return [x for i, x in enumerate(xs) if i and i != skip]
+
+
+def t_coll(r, skip=None):
+    """Median collective ms a warm step, by phase, and of the logits'
+    all-gather (a zero-filled all-reduce W times its bytes)."""
+    kept = [i for i in range(len(r["coll_ms"])) if i and i != skip]
+    out = {ph: CS.median([r["coll_ms"][i].get(ph, 0.0) for i in kept])
+           for ph in ("forward", "backward", "update")}
+    out["all-gather"] = CS.median([r["kind_ms"][i].get("forward all-gather", 0.0)
+                                   for i in kept])
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def t_syncs_gate(res, name, twin):
+    """Raises where a step of ``name``'s sharded runs made more host syncs
+    on a rank than the fewest a step of the unsharded twin ``twin`` made
+    there."""
+    for r, x in res.items():
+        most = min(res[r][twin]["ref_syncs"])
+        runs = [x[name], x[name].get("bf16", {"syncs": [], "sync_sites": []})]
+        over = [sites for run in runs for n, sites in zip(run["syncs"], run["sync_sites"])
+                if n > most]
+        if over:
+            raise AssertionError(
+                f"T {name} rank {r}: host syncs a step {[run['syncs'] for run in runs]}, the "
+                f"unsharded step's {res[r][twin]['ref_syncs']} (at "
+                f"{res[r][twin]['ref_sync_sites'][0]}); the steps over it synchronised at "
+                f"{over}")
+
+
+def t_gates(res, on_card, smi, sz):
+    """Part T's gates on every rank and its lines, case by case; raises
+    after the last case if any failed."""
+    twins = {"T2 all-to-all": "T2 scatter", "T3 full": "T3 fp32 cut"}
+    failed = []
+    if on_card:
+        log(f"[multicard] T: a backward through an NCCL all-reduce before the cases (autograd's "
+            f"device thread, its first collective and events) synchronised at "
+            f"{[res[r]['warm']['syncs'] for r in res]} by rank; the group's warm-up s "
+            f"{[round(sum(res[r]['warm']['groups_s'].values()), 3) for r in res]} [{smi}]")
+    for name, *_ in t_cases(sz):
+        try:
+            t_case_gates(res, on_card, smi, name, twins)
+        except AssertionError as e:
+            log(f"[multicard] T {name} FAILED: {e}")
+            failed.append(name)
+    try:
+        t3_gates(res, on_card, smi, twins)
+    except AssertionError as e:
+        log(f"[multicard] T3 full FAILED: {e}")
+        failed.append("T3 full")
+    for r, x in res.items():
+        a, b = x["launches"]
+        if a != b:
+            log(f"[multicard] T rank {r}: kernel launches {a} -> {b}")
+            failed.append(f"launches rank {r}")
+    log(f"[multicard] T: kernel launches (paged, flash, decode, SSD) before -> after part T, "
+        f"by rank: { {r: res[r]['launches'] for r in sorted(res)} } (training takes the plain "
+        f"routes)")
+    if failed:
+        raise AssertionError(f"T cases {failed} failed their gates")
+
+
+def t_case_gates(res, on_card, smi, name, twins):
+    """One case of part T: its lines, then its gates on every rank."""
+    r0 = res[0][name]
+    syncs = [r0["syncs"], r0.get("bf16", {}).get("syncs", [])] if on_card else None
+    prof = r0.get("profile") or r0.get("bf16", {}).get("profile")
+    nbytes = {ph: {k: v["bytes"] for k, v in by.items()} for ph, by in r0["tally"][0].items()}
+    line = (f"[multicard] T {name}: {r0['layers']} layers, fp32 on {r0['shape']}; "
+            f"collectives a step {r0['predicted']} = predicted = the dry run's on every "
+            f"rank, their bytes (rank 0) {nbytes}; params + moments "
+            f"{[res[r][name]['bytes'] for r in res]} B by rank = the dry run's; group "
+            f"warm-up s (rank 0) { {k: round(v, 3) for k, v in r0['warm_s'].items()} }; "
+            f"step ms (rank 0) {CS.fmt_ms(r0['ms'])}, collective ms a warm step by phase "
+            f"(rank 0; CUDA events on NCCL, the host clock on gloo) "
+            f"{t_coll(r0, r0.get('profile', {}).get('step'))}, beside {STEP14}; peak B by "
+            f"rank {[res[r][name]['peak'] for r in res]}")
+    if "ref_loss" in r0:
+        errs = {f"{k} (rank {r})": v for r in res for k, v in res[r][name]["errs"].items()}
+        worst = max(errs, key=errs.get)
+        line += (f"; the unsharded twin on each rank's card {CS.fmt_ms(r0['ref_ms'])} ms "
+                 f"(peak {r0['ref_peak']} B); losses {[f'{v:.6f}' for v in r0['loss']]} "
+                 f"against {[f'{v:.6f}' for v in r0['ref_loss']]}; worst shard after step "
+                 f"{r0['compared_steps']} over the ranks {worst} {errs[worst]:.3e} "
+                 + ("(ungated: the float64 witness gates the shards)" if "f64" in r0
+                    else "(tol 1e-4)"))
+        if r0["route_flips"]:
+            line += f"; tokens whose expert ids flip by step and layer {r0['route_flips']}"
+    else:
+        line += (f"; losses {[f'{v:.4f}' for v in r0['loss']]} on one repeated batch, aux "
+                 f"{[f'{v:.4f}' for v in r0['aux']]}")
+    if syncs is not None:
+        line += (f"; host syncs a step (rank 0; fp32, bf16) {syncs}, the unsharded twin's "
+                 f"{res[0][twins.get(name, name)]['ref_syncs']}")
+    log(line + f"; case {r0['seconds']:.1f} s [{smi}]")
+    if "bf16" in r0:
+        b = r0["bf16"]
+        log(f"[multicard] T {name}, bf16: {len(b['loss'])} steps on one repeated batch, loss "
+            f"{b['loss'][0]:.4f} -> {b['loss'][-1]:.4f} (gate: falls more than "
+            f"{CS.TRAIN_FALL}), step ms (rank 0) {CS.fmt_ms(b['ms'])}, warm median "
+            f"{CS.median(t_warm_ms(b['ms'], b)):.1f}, collective ms a warm step "
+            f"{t_coll(b, b.get('profile', {}).get('step'))}, peak B by rank "
+            f"{[res[r][name]['bf16']['peak'] for r in res]} [{smi}]")
+    if prof:
+        log(f"[multicard] T {name}: profiled step (rank 0, the last of its last run): "
+            f"{prof['wall_ms']:.1f} ms wall, {prof['busy_ms']:.1f} ms device busy over "
+            f"{prof['ops']} device ops, NCCL kernels {prof['nccl_ms']:.2f} ms "
+            f"({prof['nccl_ms'] / prof['wall_ms']:.1%} of the step) [{smi}]")
+    for ln in CS.witness_lines(f"T {name}", [res[r][name] for r in sorted(res)]):
+        log(f"{ln.replace('[sharded-train]', '[multicard]')} [{smi}]")
+    for r, x in res.items():
+        CS.p15_gates(f"T {name} rank {r}", x[name], on_card)
+        if "f64" in x[name]:   # the float32 shards after step 1 too, as without it
+            k, v = x[name]["errs_steps"][1]
+            if v > 1e-4:
+                raise AssertionError(f"T {name} rank {r}: {k} {v:.3e} from the unsharded "
+                                     f"step after step 1 (tol 1e-4)")
+        for i, t in enumerate(x[name].get("bf16", {}).get("tally", [])):
+            if CS.tally_counts(t) != x[name]["predicted"]:
+                raise AssertionError(f"T {name} rank {r}: bf16 step {i}'s collectives "
+                                     f"{CS.tally_counts(t)}, predicted "
+                                     f"{x[name]['predicted']}")
+        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(x[name]["loss"],
+                                                           res[0][name]["loss"])):
+            raise AssertionError(f"T {name}: rank {r}'s losses {x[name]['loss']}, rank "
+                                 f"0's {res[0][name]['loss']}")
+    if on_card:
+        t_syncs_gate(res, name, twins.get(name, name))
+
+
+def t3_gates(res, on_card, smi, twins):
+    """T3 at published depth: its lines, then its gates on every rank."""
+    name = "T3 full"
+    t = res[0][name]
+    log(f"[multicard] T3 full: llama2-13b at {t['layers']} layers on {t['shape']}, bf16 shards "
+        f"from the sharded draw ({t['draw_s']:.2f} s, rank 0) and fp32 moments: params + "
+        f"moments {[res[r][name]['bytes'] for r in res]} B by rank (the dry run's "
+        f"{t['dry_bytes']}); collectives a step {CS.tally_counts(t['tally'][0])}, predicted "
+        f"{t['predicted']}, the dry run's {t['dry']}; {len(t['loss'])} steps on one repeated "
+        f"batch, loss {t['loss'][0]:.4f} -> {t['loss'][-1]:.4f} (gate: falls more than "
+        f"{CS.TRAIN_FALL}); step ms (rank 0) {CS.fmt_ms(t['ms'])}, warm median "
+        f"{CS.median(t_warm_ms(t['ms'], t)):.1f}, collective ms a warm step "
+        f"{t_coll(t, t.get('profile', {}).get('step'))}; peak B by rank "
+        f"{[res[r][name]['peak'] for r in res]}; host syncs a step (rank 0) "
+        f"{t['syncs'] if on_card else None}, the fp32 cut's unsharded twin's "
+        f"{res[0][twins[name]].get('ref_syncs')}; group warm-up s "
+        f"{ {k: round(v, 3) for k, v in t['warm_s'].items()} }; case {t['seconds']:.1f} s "
+        f"[{smi}]")
+    prof = t.get("profile")
+    if prof:
+        log(f"[multicard] T3 full: profiled step (rank 0, the last): {prof['wall_ms']:.1f} ms "
+            f"wall, {prof['busy_ms']:.1f} ms device busy over {prof['ops']} device ops, NCCL "
+            f"kernels {prof['nccl_ms']:.2f} ms ({prof['nccl_ms'] / prof['wall_ms']:.1%} of the "
+            f"step) [{smi}]")
+    for r, x in res.items():
+        t = x[name]
+        m = t["dry_memory"]
+        CS.memory_gate(f"[multicard] T3 full rank {r}", m["argument_size_in_bytes"],
+                       m["temp_size_in_bytes"], t["peak"], t["start"], on_card, smi,
+                       "launch.dryrun on RankMesh.dry, bf16 params and fp32 moments; measured "
+                       "over the optimizer state's init and the bf16 steps", tol=T3_MEMORY_TOL)
+        for i, tally in enumerate(t["tally"]):
+            if CS.tally_counts(tally) != t["predicted"]:
+                raise AssertionError(f"T3 full rank {r}: step {i}'s collectives "
+                                     f"{CS.tally_counts(tally)}, predicted {t['predicted']}")
+        if t["dry"] != t["predicted"] or t["bytes"] != t["dry_bytes"]:
+            raise AssertionError(f"T3 full rank {r}: the dry run counts {t['dry']} and "
+                                 f"{t['dry_bytes']} B, predicted {t['predicted']}, "
+                                 f"{t['bytes']} B")
+        losses = t["loss"]
+        if not np.isfinite(losses).all() or losses[0] - losses[-1] <= (
+                CS.TRAIN_FALL if on_card else 0.0):
+            raise AssertionError(f"T3 full rank {r}: losses {losses}")
+    if on_card:
+        t_syncs_gate(res, name, twins[name])
+
+
 # ------------------------------------------------------------------- the ranks
 def rank_main(rank, port, parts, on_card, out_dir, results):
     """One rank process: its card, the store, the parts in order; puts
@@ -986,7 +1350,8 @@ def rank_main(rank, port, parts, on_card, out_dir, results):
         res = {}
         for part in parts:
             t0 = time.perf_counter()
-            with torch.no_grad():
+            # part T trains: the others run no backward
+            with contextlib.nullcontext() if part == "T" else torch.no_grad():
                 if part == "K":
                     res[part] = kernel_part(c) if on_card else {}
                 elif part == "M1":
@@ -999,6 +1364,8 @@ def rank_main(rank, port, parts, on_card, out_dir, results):
                     res[part] = (m2_part if part == "M2" else m3_part)(c)
                 elif part == "M4":
                     res[part] = m4_part(c)
+                elif part == "T":
+                    res[part] = t_part(c)
             res[f"{part} s"] = time.perf_counter() - t0
             free(device)
         results.put((rank, res))
@@ -1009,7 +1376,7 @@ def rank_main(rank, port, parts, on_card, out_dir, results):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="K,M1,M2,M3,M4")
+    ap.add_argument("--parts", default="K,M1,M2,M3,M4,T")
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on four CPU processes over gloo at reduced sizes")
     args = ap.parse_args(argv)
@@ -1089,7 +1456,8 @@ def main(argv=None):
     gates = {"M1": lambda: m1_gates(by["M1"], on_card, smi),
              "M2": lambda: m2_gates(by["M2"], on_card, smi, sz.c13.num_layers),
              "M3": lambda: m3_gates(by["M3"], on_card, smi),
-             "M4": lambda: m4_gates(by["M4"], on_card, smi, sz.c70.num_layers)}
+             "M4": lambda: m4_gates(by["M4"], on_card, smi, sz.c70.num_layers),
+             "T": lambda: t_gates(by["T"], on_card, smi, sz)}
     failed = []
     for part, gate in gates.items():   # every part gated, then the failures
         if part in by:

@@ -5308,18 +5308,19 @@ def step_memory(fn, args, device):
     return DR.tree_bytes(args), tally.temp, measured, start
 
 
-def memory_gate(what, arg_bytes, temp, measured, start, on_card, smi, how=""):
+def memory_gate(what, arg_bytes, temp, measured, start, on_card, smi, how="",
+                tol=MEMORY_TOL):
     """Prints the dry run's memory prediction of a step (arguments + temp)
     beside the card's measured peak (and the bytes allocated when the
-    call began), and gates their gap at ``MEMORY_TOL`` of the prediction
-    (on the card)."""
+    call began), and gates their gap at ``tol`` of the prediction (on the
+    card)."""
     predicted = arg_bytes + temp
     gap = (measured - predicted) / predicted
     log(f"{what}: the dry run's memory prediction (arguments {arg_bytes} B + temp {temp} B "
         f"= {predicted} B; {how}) against torch.cuda.max_memory_allocated() {measured} B "
-        f"({start} B allocated when it began): {gap:+.2%} (gate +-{MEMORY_TOL:.0%}) "
+        f"({start} B allocated when it began): {gap:+.2%} (gate +-{tol:.0%}) "
         f"[{smi}]")
-    if on_card and abs(gap) > MEMORY_TOL:
+    if on_card and abs(gap) > tol:
         raise AssertionError(f"{what}: measured peak {measured} B is {gap:+.2%} from the "
                              f"dry run's {predicted} B")
 
@@ -5667,15 +5668,23 @@ def p15_settings(device):
                 ep_steps=3, moe_layers=None)
 
 
-def p15_predicted(T, cfg, part):
-    """The collectives of one train step of phase 15's parts, by phase
-    and kind, from the design (``parallel.mesh``'s convention; no remat).
-    tp, (1, 2): the embedding's psum, two row-parallel psums a layer and
-    the logits' all-gather forward; backward, an ``enter`` psum a layer's
-    attention input, one its MLP input and one the final norm's output
-    entering the vocab-split ``lm_head``; update, one scalar psum of the
-    norm (the model-split leaves). dp, (2, 1): the loss's psum forward;
-    update, one gradient sum a leaf. moe, (2, 1), experts on data: a
+def p15_predicted(T, cfg, part, shape=None):
+    """The collectives of one train step of phase 15's parts (and of
+    ``chip_multicard.py``'s part T), by phase and kind, from the design
+    (``parallel.mesh``'s convention; no remat). A dense decoder on (data
+    d, model m), ``shape`` (tp's (1, 2) and dp's (2, 1) by default, 2d's
+    (2, 2)): over model, the embedding's psum, two row-parallel psums a
+    layer and the logits' all-gather forward; backward, an ``enter`` psum
+    a layer's attention input, one its MLP input and one the final norm's
+    output entering the vocab-split ``lm_head``; update, one scalar psum
+    of the norm (the model-split leaves; the replicated ones count once,
+    unsummed). Over data: the loss's psum forward; update, one gradient
+    sum a leaf (none is split over data). On (2, 2) the two add up. No
+    count depends on an axis's size beyond it being > 1, nor on the
+    params' type: llama2-13b on (1, 4) in bf16 is tp, its 40 K/V heads
+    split with its 40 query heads, so no K/V ``enter`` is added (a K/V
+    head kept whole under split query heads would add one a layer, which
+    no case here has). moe, (2, 1) or (4, 1), experts on data: a
     layer gathers the rows and sums the experts forward, a reduce-scatter
     and a psum backward; update, a gradient sum a leaf but the three
     routed-expert leaves, and the norm's psum over data. ep: two
@@ -5690,12 +5699,18 @@ def p15_predicted(T, cfg, part):
     if part == "ssm":
         return {"forward": {"all-gather": 1, "all-reduce": 1 + 2 * L},
                 "backward": {"all-reduce": 7 * L + 1}, "update": {"all-reduce": 1}}
-    if part == "audio":
-        part = "dp"
+    if part in ("tp", "dp", "2d", "audio"):
+        d, m = shape or {"tp": (1, 2), "2d": (2, 2)}.get(part, (2, 1))
+        fwd, bwd, upd = collections.Counter(), collections.Counter(), collections.Counter()
+        if m > 1:
+            fwd.update({"all-gather": 1, "all-reduce": 1 + 2 * L})
+            bwd["all-reduce"] += 2 * L + 1
+            upd["all-reduce"] += 1
+        if d > 1:
+            fwd["all-reduce"] += 1
+            upd["all-reduce"] += n
+        return {"forward": dict(fwd), "backward": dict(bwd), "update": dict(upd)}
     return {
-        "tp": {"forward": {"all-gather": 1, "all-reduce": 1 + 2 * L},
-               "backward": {"all-reduce": 2 * L + 1}, "update": {"all-reduce": 1}},
-        "dp": {"forward": {"all-reduce": 1}, "backward": {}, "update": {"all-reduce": n}},
         "moe": {"forward": {"all-gather": L, "all-reduce": L + 1},
                 "backward": {"all-reduce": L, "reduce-scatter": L},
                 "update": {"all-reduce": n - 3 + 1}},
@@ -5729,37 +5744,89 @@ def float64_math():
         torch.Tensor.float = cast
 
 
-def p15_turns(store, tag, rank, world, fn):
-    """``fn()`` on each rank in turn, rank order, the others waiting: the
-    unsharded step runs on one rank at a time (memory)."""
-    if rank:
+def p15_turns(store, tag, rank, world, fn, serial):
+    """``fn()`` on every rank, then a barrier. ``serial``: each rank in
+    turn, rank order, the others waiting, so that the unsharded step runs
+    on one rank at a time (ranks sharing one card: memory); else all at
+    once (a card each)."""
+    if serial and rank:
         store.wait([f"{tag}/{rank - 1}"])
     out = fn()
     store.set(f"{tag}/{rank}", "1")
-    store.wait([f"{tag}/{world - 1}"])
+    store.wait([f"{tag}/{q}" for q in range(world)])
     return out
 
 
-def p15_timed_steps(step, params, opt, batches, mesh, device):
+@contextlib.contextmanager
+def counted_syncs():
+    """Inside, each host sync is recorded: sync-debug "warn" warns once a
+    sync (the backward's too: autograd replays its worker's warnings on
+    the caller), and every warning is kept. Yields the list of the syncs'
+    Python sites (``file:line`` of the call that synchronised), complete
+    when the block ends."""
+    import warnings
+
+    found = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            found.extend(f"{Path(w.filename).name}:{w.lineno}" for w in seen
+                         if "synchroniz" in str(w.message))
+
+
+def p15_timed_steps(step, params, opt, batches, mesh, device, trace=None):
     """Runs ``step`` over ``batches``; per step: losses, ms, the mesh's
-    collectives (tally) and their host-clock ms by phase."""
-    out = {"loss": [], "aux": [], "ms": [], "tally": [], "coll_ms": []}
-    for b in batches:
-        mesh.reset_tally()
+    collectives (tally) and their ms by phase and by (phase, kind)
+    (``RankMesh.kind_seconds``: the host clock on gloo, CUDA events on
+    NCCL, timed in a window opened for each step),
+    and on the card its host syncs and their sites (``counted_syncs``).
+    ``trace``: the last step runs under torch.profiler and its trace goes
+    to that path; ``profile`` holds its device ops, busy ms, NCCL
+    kernels' ms and wall ms."""
+    out = {"loss": [], "aux": [], "ms": [], "tally": [], "coll_ms": [], "kind_ms": [],
+           "syncs": [], "sync_sites": []}
+    syncs = torch.device(device).type == "cuda"
+    for i, b in enumerate(batches):
+        mesh.reset_tally(timing=True)
         sync(device)
-        t = time.perf_counter()
-        params, opt, m = step(params, opt, b)
-        loss = float(m["loss"])        # a host sync: the step has ended
-        out["ms"].append((time.perf_counter() - t) * 1e3)
+        profiled = trace is not None and i == len(batches) - 1
+        with profiler() if profiled else contextlib.nullcontext() as prof:
+            t = time.perf_counter()
+            with counted_syncs() if syncs else contextlib.nullcontext() as found:
+                params, opt, m = step(params, opt, b)
+            loss = float(m["loss"])        # a host sync: the step has ended
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+        if syncs:
+            out["syncs"].append(len(found))
+            out["sync_sites"].append(list(found))
         out["loss"].append(loss)
         out["aux"].append(float(m["aux_loss"]))
         out["tally"].append(mesh.tally())
+        out["kind_ms"].append({f"{ph} {k}": v * 1e3
+                               for (ph, k), v in mesh.kind_seconds.items()})
         out["coll_ms"].append({k: v * 1e3 for k, v in mesh.seconds.items()})
+        if profiled:
+            prof.export_chrome_trace(str(trace))
+            n_ops, busy, by_name = device_time(Path(trace))
+            out["profile"] = {
+                "step": i, "ops": n_ops, "busy_ms": busy / 1e3, "wall_ms": out["ms"][-1],
+                "nccl_ms": sum(v for k, v in by_name.items() if "nccl" in k.lower()) / 1e3}
     return params, opt, out
 
 
+def profiler():
+    """torch.profiler over the card's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, ref=True,
-             bf16=False, repeat=False, compare_at=None, witness=False):
+             bf16=False, repeat=False, compare_at=None, witness=False, trace=None):
     """One part of phase 15 on this rank: the dry run's count and bytes
     for the case; the fp32 sharded steps (TF32 off) from phase 5's seeded
     weights on ``sharded_batches``; with ``ref``, the unsharded step on
@@ -5774,12 +5841,22 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     leaf, ungated), and rank 0 runs the unsharded step a second time from
     its weights perturbed by up to one float32 ulp, in lockstep, against
     the first (``ulp_steps``): the spread that rounding alone grows to;
-    and step 1 runs again in float64 (``float64_math``), sharded and
-    unsharded from the same weights widened, each rank's shards of the
-    two compared (``f64``, gated to ``F64_TOL``: a sharding fault would
-    show at any precision, rounding at float64's), and each float32 step
-    1 against the float64 unsharded one (``f64_sharded``,
-    ``f64_unsharded``): which of the two float32 steps lies nearer."""
+    and the compared steps run again in float64 (``float64_math``),
+    sharded and unsharded from the same weights widened, each rank's
+    shards of the two compared after each of them (``f64``, by step,
+    gated to ``F64_TOL``: a sharding fault would show at any precision,
+    rounding at float64's; step s is run from the weights, s steps, since
+    two float64 copies of a model may not fit one card at once), and the
+    float32 step 1 against the float64 unsharded one (``f64_sharded``,
+    ``f64_unsharded``): which of the two float32 steps lies nearer. The
+    ranks run the unsharded steps one at a time (``p15_turns``) where
+    their groups are gloo (two ranks share one card), else all at once,
+    each on its own card. On the card each step's host syncs are counted, sharded
+    and unsharded (``counted_syncs``). ``trace``: the last step of the
+    last sharded run is profiled there (``p15_timed_steps``). Each of the
+    mesh's groups runs one all-reduce before the first step (an NCCL
+    communicator forms at its first collective), timed apart
+    (``warm_s``)."""
     import datetime
 
     import torch.distributed as dist
@@ -5792,7 +5869,9 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     rules = dict(SH.rules_for(cfg, mesh), mesh=mesh, **(extra or {}))
     dcfg = DP.DataConfig(seq_len=st["seq"], global_batch=st["batch"])
     ocfg = OPT.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10)
-    out = {"shape": shape, "layers": cfg.num_layers}
+    out = {"shape": shape, "layers": cfg.num_layers, "warm_s": warm_groups(mesh, device)}
+    syncs = torch.device(device).type == "cuda"
+    serial = any(pg.name() != "nccl" for pg in mesh.groups.values())
 
     # the dry run of the same case: rank's meta inputs, counted step
     dry = RankMesh.dry(P15_AXES, shape, rank)
@@ -5833,9 +5912,14 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
     with routing(routes):
         step = TR.make_train_step(cfg, ocfg)
         for i, b in enumerate(batches):
+            last = trace if (not bf16 and i + 1 == len(batches)) else None
             with SH.use_rules(rules):
-                params, opt, one = p15_timed_steps(step, params, opt, [b], mesh, device)
+                params, opt, one = p15_timed_steps(step, params, opt, [b], mesh, device,
+                                                   trace=last)
+            profile = one.pop("profile", None)
             run = one if run is None else {key: run[key] + v for key, v in one.items()}
+            if profile:
+                run["profile"] = dict(profile, step=i)
             if i + 1 in snap_at:
                 hosts[i + 1] = {name: {p: t.to("cpu", copy=True)
                                        for p, t in OPT.tree_items(tree)}
@@ -5844,19 +5928,6 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
                            for t in [*tree_leaves(params), *tree_leaves(opt)])
     out.update(run, peak=peak_bytes(device), compared_steps=k)
     del params, opt
-    if witness:   # step 1 again, sharded, in float64
-        with float64_math():
-            full = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED),
-                                 "float32")
-            p64 = SH.shard_params(OPT.tree_map(torch.Tensor.double, full), specs, mesh)
-            del full
-            o64 = OPT.init_opt_state(p64)
-            with SH.use_rules(rules):
-                p64, o64, _ = step(p64, o64, batches[0])
-            hosts64 = {name: {p: t.to("cpu", copy=True) for p, t in OPT.tree_items(tree)}
-                       for name, tree in trees(p64, o64)}
-            del p64, o64
-    del batches
     reset_peak(device)
 
     def rel_errs(p, o, other):
@@ -5875,8 +5946,14 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
         w = max(errs, key=errs.get)
         return w, errs[w]
 
+    def twin_batch(i):   # the unsharded step's global batch i
+        b = DP.synth_batch(cfg, dcfg, 0 if repeat else i, device)
+        if audio:
+            b["frames"] = DP.synth_frames(cfg, dcfg, 0 if repeat else i, device)
+        return b
+
+    spec_of = dict(OPT.tree_items(specs))
     if ref:
-        spec_of = dict(OPT.tree_items(specs))
 
         def against_host(at):
             return lambda name, path, leaf: (
@@ -5896,35 +5973,21 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
                 pp = OPT.tree_from(list(pp), list(pp.values()))
                 oo = OPT.init_opt_state(pp)
             step = TR.make_train_step(cfg, ocfg)
-            losses, ms, errs, ulp, f64 = [], [], {}, {}, {}
-            if witness:   # step 1 in float64 from the same weights
-                with float64_math():
-                    p64 = OPT.tree_map(lambda t: t.to(torch.float64, copy=True), p)
-                    p64, o64, _ = step(p64, OPT.init_opt_state(p64),
-                                       DP.synth_batch(cfg, dcfg, 0, device))
-                f64["f64"] = rel_errs(p64, o64, lambda name, path, leaf: (
-                    SH.shard_leaf(leaf, spec_of[path], mesh),
-                    hosts64[name][path].to(device)))
-                f64["f64_sharded"] = rel_errs(p64, o64, lambda name, path, leaf: (
-                    SH.shard_leaf(leaf, spec_of[path], mesh),
-                    hosts[1][name][path].to(device).double()))
+            losses, ms, errs, ulp, n_syncs, sites = [], [], {}, {}, [], []
             with routing(ref_routes):
                 for i in range(n):
-                    b = DP.synth_batch(cfg, dcfg, 0 if repeat else i, device)
-                    if audio:
-                        b["frames"] = DP.synth_frames(cfg, dcfg, 0 if repeat else i, device)
+                    b = twin_batch(i)
                     sync(device)
                     t = time.perf_counter()
-                    p, o, m = step(p, o, b)
+                    with counted_syncs() if syncs else contextlib.nullcontext() as found:
+                        p, o, m = step(p, o, b)
                     losses.append(float(m["loss"]))
                     ms.append((time.perf_counter() - t) * 1e3)
+                    if syncs:
+                        n_syncs.append(len(found))
+                        sites.append(list(found))
                     if i + 1 in hosts:
                         errs[i + 1] = rel_errs(p, o, against_host(i + 1))
-                    if f64 and i == 0:
-                        mine = {name: dict(OPT.tree_items(tree)) for name, tree in trees(p, o)}
-                        f64["f64_unsharded"] = rel_errs(p64, o64, lambda name, path, leaf: (
-                            leaf, mine[name][path].double()))
-                        del p64, o64, mine
                     if control:
                         pp, oo, _ = step(pp, oo, b)
                         other = {name: dict(OPT.tree_items(tree))
@@ -5935,13 +5998,63 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
             del p, o
             reset_peak(device)
             return {"ref_loss": losses, "ref_ms": ms, "errs": errs[k], "ref_peak": peak,
+                    "ref_syncs": n_syncs, "ref_sync_sites": sites,
                     "errs_steps": {s: worst(e) for s, e in errs.items()} if witness else None,
-                    "ulp_steps": ulp or None, **f64}
+                    "ulp_steps": ulp or None}
 
-        out.update(p15_turns(store, f"{tag}/ref", rank, world, reference))
+        out.update(p15_turns(store, f"{tag}/ref", rank, world, reference, serial))
         out["route_flips"] = [int((a[1][1] != b[1][1]).any(-1).sum())
                               for a, b in zip(routes, ref_routes)]
-    del hosts
+
+    def widened():   # the seeded weights in float64, and them in float32
+        p = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "float32")
+        return OPT.tree_map(lambda t: t.to(torch.float64, copy=True), p), p
+
+    f64 = {}
+    for s in range(1, k + 1) if witness else ():
+        with float64_math():   # s steps sharded, then s unsharded, both in float64
+            p64 = SH.shard_params(widened()[0], specs, mesh)
+            o64 = OPT.init_opt_state(p64)
+            with SH.use_rules(rules):
+                for b in batches[:s]:
+                    p64, o64, _ = step(p64, o64, b)
+            hosts64 = {name: {q: t.to("cpu", copy=True) for q, t in OPT.tree_items(tree)}
+                       for name, tree in trees(p64, o64)}
+            del p64, o64
+        reset_peak(device)
+
+        def unsharded64():
+            got = {}
+            with float64_math():
+                p64, p = widened()
+                if s > 1:
+                    del p
+                o64 = OPT.init_opt_state(p64)
+                for i in range(s):
+                    p64, o64, _ = step(p64, o64, twin_batch(i))
+                got[s] = rel_errs(p64, o64, lambda name, path, leaf: (
+                    SH.shard_leaf(leaf, spec_of[path], mesh), hosts64[name][path].to(device)))
+            if s == 1:   # each float32 step 1 against the float64 unsharded one
+                got["f64_sharded"] = rel_errs(p64, o64, lambda name, path, leaf: (
+                    SH.shard_leaf(leaf, spec_of[path], mesh),
+                    hosts[1][name][path].to(device).double()))
+                p, o, _ = step(p, OPT.init_opt_state(p), twin_batch(0))
+                mine = {name: dict(OPT.tree_items(tree)) for name, tree in trees(p, o)}
+                del p, o
+                got["f64_unsharded"] = rel_errs(p64, o64, lambda name, path, leaf: (
+                    leaf, mine[name][path].double()))
+                del mine
+            del p64, o64
+            reset_peak(device)
+            return got
+
+        got = p15_turns(store, f"{tag}/f64/{s}", rank, world, unsharded64, serial)
+        del hosts64
+        f64[s] = got.pop(s)
+        out.update(got)
+    if witness:
+        out["f64"] = f64
+    del hosts, batches
 
     if bf16:
         full = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), "bfloat16")
@@ -5952,10 +6065,25 @@ def p15_part(mods, st, store, rank, world, device, tag, cfg, shape, extra=None, 
         b = next(DP.sharded_batches(cfg, dcfg, mesh, SH.batch_specs(rules)["tokens"], 1))
         with SH.use_rules(rules):
             params, opt, run = p15_timed_steps(TR.make_train_step(cfg, ocfg), params, opt,
-                                               [b] * st["bf16_steps"], mesh, device)
+                                               [b] * st["bf16_steps"], mesh, device,
+                                               trace=trace)
         out["bf16"] = dict(run, peak=peak_bytes(device))
         del params, opt
         reset_peak(device)
+    return out
+
+
+def warm_groups(mesh, device):
+    """One all-reduce on each of ``mesh``'s groups, each timed (s, host
+    clock, synchronised): an NCCL communicator forms at its group's
+    first collective, which a step should not time."""
+    out = {}
+    for axis, pg in mesh.groups.items():
+        sync(device)
+        t = time.perf_counter()
+        pg.allreduce([torch.zeros(1, device=device)]).wait()
+        sync(device)
+        out[axis] = time.perf_counter() - t
     return out
 
 
@@ -6038,13 +6166,16 @@ def p15_gates(part, r, on_card):
         for got, ref in zip(r["loss"][:k] if r["route_flips"] else r["loss"], r["ref_loss"]):
             if abs(got - ref) > 1e-5 * abs(ref):
                 raise AssertionError(f"{part}: loss {got} against the unsharded {ref}")
-        # a float64 witness gates the shards where it runs: in float32 the
-        # unsharded step alone lies past 1e-4 of the float64 one (15e)
-        errs, tol = (r["f64"], F64_TOL) if "f64" in r else (r["errs"], 1e-4)
-        worst = max(errs, key=errs.get)
-        if errs[worst] > tol:
-            raise AssertionError(f"{part}: {worst} {errs[worst]:.3e} from the unsharded "
-                                 f"step{' in float64' if 'f64' in r else ''} (tol {tol})")
+        # a float64 witness gates the shards after every compared step
+        # where it runs: in float32 the unsharded step alone lies past 1e-4
+        # of the float64 one (15e)
+        for at, errs, tol in ([(at, e, F64_TOL) for at, e in r["f64"].items()] if "f64" in r
+                              else [(k, r["errs"], 1e-4)]):
+            worst = max(errs, key=errs.get)
+            if errs[worst] > tol:
+                raise AssertionError(f"{part}: {worst} {errs[worst]:.3e} from the unsharded "
+                                     f"step after step {at}"
+                                     f"{' in float64' if 'f64' in r else ''} (tol {tol})")
     else:   # the expert-parallel dispatch: no unsharded twin (ROADMAP C3)
         if not (np.isfinite(r["aux"]).all() and r["loss"][-1] < r["loss"][0]):
             raise AssertionError(f"{part}: aux {r['aux']}, loss {r['loss']}")
@@ -6053,6 +6184,45 @@ def p15_gates(part, r, on_card):
         fall = losses[0] - losses[-1]
         if not np.isfinite(losses).all() or fall <= (TRAIN_FALL if on_card else 0.0):
             raise AssertionError(f"{part} bf16: losses {losses}")
+
+
+def witness_lines(what, rs):
+    """The lines of a part's witness (``p15_part(witness=True)``) over
+    its ranks' results ``rs``: the float32 shards against the unsharded
+    step after each step, beside the ulp control (rank 0), then the
+    float64 comparison of each compared step and, by leaf, each float32
+    step 1 against the float64 unsharded one."""
+    if not rs[0].get("errs_steps"):
+        return []
+
+    def fmt(steps):
+        return ", ".join(f"step {i}: {k} {v:.3e}" for i, (k, v) in sorted(steps.items()))
+
+    ranks = list(enumerate(rs))
+    out = [f"[sharded-train] {what}, witness (ungated): the worst shard after each step "
+           f"against the unsharded step, "
+           + "; ".join(f"rank {i}: {fmt(r['errs_steps'])}" for i, r in ranks)
+           + f"; the unsharded step from its weights perturbed by up to one float32 ulp "
+           f"against itself unperturbed: {fmt(rs[0]['ulp_steps'])} (rounding alone, grown "
+           f"by Adam's u = m / (sqrt(v) + eps) where a gradient entry is near eps)"]
+    worst = {}
+    for at in rs[0]["f64"]:
+        w = max(((i, key, v) for i, r in ranks for key, v in r["f64"][at].items()),
+                key=lambda t: t[2])
+        worst[at] = f"{w[1]} {w[2]:.3e} (rank {w[0]})"
+    near = {key: [(f"rank {i}", r["f64_sharded"][key], r["f64_unsharded"][key])
+                  for i, r in ranks]
+            for key in sorted({max(r[x], key=r[x].get) for _, r in ranks
+                               for x in ("errs", "f64_sharded", "f64_unsharded")})}
+    out.append(f"[sharded-train] {what}, float64 witness of steps "
+               f"{', '.join(map(str, worst))} (gate "
+               f"{F64_TOL}): the sharded steps against the unsharded ones, both in float64 "
+               f"from the same weights, worst shard after each step {worst}; the float32 "
+               f"sharded and unsharded step 1 against the float64 unsharded one, by leaf "
+               f"(rank, sharded, unsharded): "
+               + "; ".join(f"{key} " + ", ".join(f"({a}, {b:.3e}, {c:.3e})" for a, b, c in v)
+                           for key, v in near.items()))
+    return out
 
 
 def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
@@ -6134,30 +6304,8 @@ def sharded_train_phase(TR, smi, kernel_fns, device="cuda"):
             line += (f"; losses {[f'{x:.4f}' for x in r0['loss']]} on one repeated batch, aux "
                      f"{[f'{x:.4f}' for x in r0['aux']]} (routes per rank: no unsharded twin)")
         log(line + f"; part {r0['seconds']:.1f} s [{smi}]")
-        if r0.get("errs_steps"):
-            def fmt(steps):
-                return ", ".join(f"step {i}: {k} {v:.3e}" for i, (k, v) in sorted(steps.items()))
-            log(f"[sharded-train] {what}, witness (ungated): the worst shard after each step "
-                f"against the unsharded step, rank 0: {fmt(r0['errs_steps'])}; rank 1: "
-                f"{fmt(r1['errs_steps'])}; the unsharded step from its weights perturbed by up "
-                f"to one float32 ulp against itself unperturbed: {fmt(r0['ulp_steps'])} "
-                f"(rounding alone, grown by Adam's u = m / (sqrt(v) + eps) where a gradient "
-                f"entry is near eps) [{smi}]")
-        if "f64" in r0:
-            both = [(i, r) for i, r in enumerate((r0, r1))]
-            w64 = max(((i, k, v) for i, r in both for k, v in r["f64"].items()),
-                      key=lambda t: t[2])
-            near = {k: [(f"rank {i}", r["f64_sharded"][k], r["f64_unsharded"][k])
-                        for i, r in both]
-                    for k in sorted({max(r[key], key=r[key].get) for _, r in both
-                                     for key in ("errs", "f64_sharded", "f64_unsharded")})}
-            log(f"[sharded-train] {what}, float64 witness of step 1 (gate {F64_TOL}): the "
-                f"sharded step against the unsharded one, both in float64 from the same "
-                f"weights, worst shard {w64[1]} {w64[2]:.3e} (rank {w64[0]}); the float32 "
-                f"sharded and unsharded steps against the float64 unsharded one, by leaf "
-                f"(rank, sharded, unsharded): "
-                + "; ".join(f"{k} " + ", ".join(f"({a}, {b:.3e}, {c:.3e})" for a, b, c in v)
-                            for k, v in near.items()) + f" [{smi}]")
+        for ln in witness_lines(what, [r0, r1]):
+            log(f"{ln} [{smi}]")
         for r in (r0, r1):
             p15_gates(part, r, on_card)
         if part == "tp":   # the dry run's memory prediction of the rank's step

@@ -36,6 +36,15 @@ itself:
   here: the gather and the all-to-all are all-reduces of zero-filled
   buffers with one writer per element, which is exact. ``pmax`` reduces
   with MAX. Nothing falls back: a collective that fails raises.
+* ``kind_seconds``: the time in collectives by (phase, kind) since
+  ``reset_tally``, and ``seconds`` the same by phase. A gloo collective
+  stages through the host and waits for its result, so the host clock
+  around it times it, always. An NCCL collective's ``wait()`` only
+  orders the current stream after it, so it is timed on the device by
+  two CUDA events on that stream, and only where the caller asked:
+  ``reset_tally(timing=True)`` opens the window, reading the seconds
+  (a host sync: read them after the step) closes it, and no event is
+  recorded inside a CUDA-graph capture.
 
 Gradients (``torch.autograd``) follow one convention, Megatron's: a
 tensor that is the same on every rank of an axis (replicated) carries
@@ -79,6 +88,7 @@ back to gloo.
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import time
 import types
@@ -182,13 +192,55 @@ class RankMesh:
         return i
 
     # ---------------------------------------------------------------- tally
-    def reset_tally(self):
-        """Zero the per-phase counts, bytes and seconds (``tally``);
-        ``collectives`` keeps counting."""
+    def reset_tally(self, timing: bool = False):
+        """Zero the per-phase counts, bytes and seconds (``tally``,
+        ``kind_seconds``); ``collectives`` keeps counting. ``timing``:
+        NCCL collectives are timed until the seconds are next read
+        (module docstring)."""
         self._tally = {ph: {"count": collections.Counter(),
                             "bytes": collections.Counter()}
                        for ph in PHASES}
-        self.seconds = collections.Counter()
+        self._seconds = collections.Counter()
+        self._events = []
+        self._timing = timing
+
+    @property
+    def kind_seconds(self) -> collections.Counter:
+        """Seconds in collectives by (phase, kind) since ``reset_tally``;
+        reading them waits for the NCCL ones timed so far and ends the
+        timing window."""
+        for key, start, end in self._events:
+            end.synchronize()
+            self._seconds[key] += start.elapsed_time(end) / 1e3
+        self._events.clear()
+        self._timing = False
+        return self._seconds
+
+    @property
+    def seconds(self) -> collections.Counter:
+        """``kind_seconds`` summed by phase."""
+        out = collections.Counter()
+        for (phase, _), s in self.kind_seconds.items():
+            out[phase] += s
+        return out
+
+    @contextlib.contextmanager
+    def _timed(self, key, nccl: bool):
+        """Times the block into ``kind_seconds[key]``: the host clock on
+        gloo, two CUDA events on NCCL inside a timing window."""
+        if not nccl:
+            t0 = time.perf_counter()
+            yield
+            self._seconds[key] += time.perf_counter() - t0
+        elif self._timing and not torch.cuda.is_current_stream_capturing():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._events.append((key, start, end))
+        else:
+            yield
 
     def tally(self) -> dict:
         """``{phase: {kind: {"count", "bytes"}}}`` since ``reset_tally``
@@ -212,10 +264,11 @@ class RankMesh:
         pg = self.groups[axis]
         opts = dist.AllreduceOptions()
         opts.reduceOp = op
-        staged = self.device.type == "cuda" and pg.name() == "gloo"
-        t0 = time.perf_counter()
-        INS.collective(lambda: pg.allreduce([t], opts).wait(), staged=staged)
-        self.seconds[phase] += time.perf_counter() - t0
+        nccl = pg.name() == "nccl"
+        staged = self.device.type == "cuda" and not nccl
+        with self._timed((phase, kind), nccl):
+            INS.collective(lambda: pg.allreduce([t], opts).wait(),
+                           staged=staged)
         return t
 
     def psum(self, x: torch.Tensor, axis: str, grad: str = "identity"

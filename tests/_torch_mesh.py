@@ -1,6 +1,7 @@
-"""Helpers of the port's sharding tests: meshes of ranks as threads of the
-test process (one gloo group per axis line over one ``HashStore``; no
-process is spawned), the reference's stand-in and Auto meshes."""
+"""Helpers of the port's sharding tests: ranks as threads of the test
+process (``run_threads``; meshes with one gloo group per axis line over
+one ``HashStore``; no process is spawned), the reference's stand-in and
+Auto meshes."""
 import datetime
 import itertools
 import threading
@@ -8,6 +9,7 @@ import types
 
 import jax
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh import RankMesh
@@ -17,19 +19,21 @@ _STORE = dist.HashStore()
 _PREFIX = itertools.count()
 
 
-def run_mesh(shape, fn, axes=AXES, timeout=120):
-    """``fn(mesh)`` on every rank of a mesh ``shape``, each a thread with
-    its own ``RankMesh``; returns the results by rank and re-raises a
-    rank's error."""
-    store = dist.PrefixStore(f"m{next(_PREFIX)}", _STORE)
-    W = int(np.prod(shape))
+def run_threads(W, fn, timeout=120):
+    """``fn(r)`` for r < W, each on a thread of its own; returns the
+    results by rank and re-raises a rank's error. Every rank runs at the
+    caller's intra-op thread count: torch sets OpenMP's and MKL's thread
+    counts per thread, and a new thread takes the process default (every
+    core) until its first parallel op, so ranks that compute the same
+    rows would otherwise split their work differently (and a matmul that
+    splits its inner dimension differently rounds differently)."""
+    n = torch.get_num_threads()
     out, errors = [None] * W, []
 
     def rank(r):
         try:
-            mesh = RankMesh.build(store, axes, shape, r, "cpu",
-                                  datetime.timedelta(seconds=timeout))
-            out[r] = fn(mesh)
+            torch.set_num_threads(n)
+            out[r] = fn(r)
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errors.append(e)
 
@@ -42,6 +46,19 @@ def run_mesh(shape, fn, axes=AXES, timeout=120):
     if errors:
         raise errors[0]
     return out
+
+
+def run_mesh(shape, fn, axes=AXES, timeout=120):
+    """``fn(mesh)`` on every rank of a mesh ``shape``, each a thread
+    (``run_threads``) with its own ``RankMesh``; returns the results by
+    rank and re-raises a rank's error."""
+    store = dist.PrefixStore(f"m{next(_PREFIX)}", _STORE)
+
+    def rank(r):
+        return fn(RankMesh.build(store, axes, shape, r, "cpu",
+                                 datetime.timedelta(seconds=timeout)))
+
+    return run_threads(int(np.prod(shape)), rank, timeout)
 
 
 def fake_mesh(shape, axes=AXES):

@@ -217,8 +217,8 @@ def global_batch(tcfg, dcfg):
 
 def ref_train(jcfg, np_params, batch):
     """The reference's unsharded loss, gradient and one train step on the
-    whole batch, under one jit: {"total", "loss", "grads" (flat),
-    "params" (flat)}."""
+    whole batch, under one jit: {"total", "loss", "grads", "params",
+    "mu", "nu"} (the trees flat; the moments after the step)."""
     jp = jax.tree_util.tree_map(jnp.asarray, np_params)
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
     jocfg = JOPT.OptimizerConfig(**OPT_KW)
@@ -226,14 +226,14 @@ def ref_train(jcfg, np_params, batch):
     def run(p, b):   # make_train_step's body, its gradients kept
         (total, parts), grads = jax.value_and_grad(
             JTR.make_loss_fn(jcfg), has_aux=True)(p, b)
-        new, _, _ = JOPT.apply_updates(jocfg, p, grads,
-                                       JOPT.init_opt_state(p))
-        return total, parts["loss"], grads, new
+        new, state, _ = JOPT.apply_updates(jocfg, p, grads,
+                                           JOPT.init_opt_state(p))
+        return total, parts["loss"], grads, new, state["mu"], state["nu"]
 
-    total, loss, grads, new = jax.tree_util.tree_map(
+    total, loss, grads, new, mu, nu = jax.tree_util.tree_map(
         np.asarray, jax.jit(run)(jp, jb))
     return {"total": float(total), "loss": float(loss), "grads": flat(grads),
-            "params": flat(new)}
+            "params": flat(new), "mu": flat(mu), "nu": flat(nu)}
 
 
 def rank_train(tcfg, np_params, dcfg, mesh, rules):

@@ -12,7 +12,6 @@ whole draw. Ranks are threads of this process (no process is spawned);
 import dataclasses
 import datetime
 import itertools
-import threading
 
 import numpy as np
 import pytest
@@ -30,7 +29,7 @@ from repro_torch.parallel import mesh as M
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.serving.engine import Engine
-from _torch_mesh import run_mesh
+from _torch_mesh import run_mesh, run_threads
 from _torch_parity import jax_solo_streams, specs, tiny_pair
 from _torch_parity import one_torch_thread  # noqa: F401
 from _torch_parity import partitionable_threefry  # noqa: F401
@@ -42,28 +41,6 @@ _PREFIX = itertools.count()
 #: llama2-70b at its reduced widths with 8 query and 4 KV heads, so both
 #: split four ways on (1, 4), as 64 and 8 do at published width
 LLAMA70 = ("llama2-70b", (("num_heads", 8), ("num_kv_heads", 4)))
-
-
-def _threads(W, fn):
-    """``fn(rank)`` on W threads; the results by rank, a rank's error
-    re-raised."""
-    out, errors = [None] * W, []
-
-    def rank(r):
-        try:
-            out[r] = fn(r)
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-
-    threads = [threading.Thread(target=rank, args=(r,)) for r in range(W)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(120)
-    assert not any(t.is_alive() for t in threads), "a rank hung"
-    if errors:
-        raise errors[0]
-    return out
 
 
 class _FakeNCCL:
@@ -122,7 +99,7 @@ def test_mesh_builds_nccl_per_axis_line(fake_nccl):
         return RankMesh.build(store, ("data", "model"), (2, 2), r,
                               f"cuda:{r}", TIMEOUT)
 
-    meshes = _threads(4, rank)
+    meshes = run_threads(4, rank)
     for r, m in enumerate(meshes):
         d, c = m.coords
         assert set(m.groups) == {"data", "model"}
@@ -141,7 +118,7 @@ def test_mesh_builds_nccl_per_axis_line(fake_nccl):
 def test_shared_card_mesh_takes_gloo(fake_nccl):
     """Two ranks on one card (phase 13's layout) keep gloo groups."""
     store = dist.HashStore()
-    meshes = _threads(2, lambda r: RankMesh.build(
+    meshes = run_threads(2, lambda r: RankMesh.build(
         store, ("data", "model"), (1, 2), r, "cuda:0", TIMEOUT))
     assert [m.groups["model"].name() for m in meshes] == ["gloo"] * 2
 
@@ -156,14 +133,14 @@ def test_failing_nccl_raises(monkeypatch):
     monkeypatch.setattr(dist, "ProcessGroupNCCL", Broken, raising=False)
     store = dist.HashStore()
     with pytest.raises(RuntimeError, match="NCCL unavailable"):
-        _threads(2, lambda r: RankMesh.build(store, ("data", "model"), (1, 2),
+        run_threads(2, lambda r: RankMesh.build(store, ("data", "model"), (1, 2),
                                              r, f"cuda:{r}", TIMEOUT))
 
 
 def test_host_mesh_gives_each_rank_its_card(fake_nccl):
     """``make_host_mesh`` on a CUDA device: rank r on ``cuda:r``, NCCL."""
     store = dist.HashStore()
-    meshes = _threads(2, lambda r: LM.make_host_mesh(store, r, "cuda", n=2))
+    meshes = run_threads(2, lambda r: LM.make_host_mesh(store, r, "cuda", n=2))
     assert [str(m.device) for m in meshes] == ["cuda:0", "cuda:1"]
     assert all(isinstance(m.groups["data"], fake_nccl) for m in meshes)
 
@@ -172,14 +149,14 @@ def test_replication_group_build(fake_nccl):
     """``ReplicationGroup.build``: a card each gives NCCL, capturable and
     not staged; the CPU gives gloo, neither."""
     store = dist.HashStore()
-    groups = _threads(4, lambda r: R.ReplicationGroup.build(
+    groups = run_threads(4, lambda r: R.ReplicationGroup.build(
         dist.PrefixStore("card", store), r, 4, f"cuda:{r}", TIMEOUT))
     assert [g.rank for g in groups] == [0, 1, 2, 3]
     for g in groups:
         assert isinstance(g.pg, fake_nccl) and g.pg.size() == 4
         assert g.capturable and not g.staged
     assert store.get("card/pg/made") in (b"0/4", b"1/4", b"2/4", b"3/4")
-    cpu = _threads(2, lambda r: R.ReplicationGroup.build(
+    cpu = run_threads(2, lambda r: R.ReplicationGroup.build(
         dist.PrefixStore("cpu", store), r, 2, "cpu", TIMEOUT))
     assert [g.pg.name() for g in cpu] == ["gloo", "gloo"]
     assert not any(g.capturable for g in cpu)
@@ -251,7 +228,7 @@ def test_engine_routes_replicated_step(engine_pair, capturable):
         return ({q.rid: q.generated for q in out},
                 e.graphs.counts.eager["decode"], keys, gathers)
 
-    res = _threads(2, rank)
+    res = run_threads(2, rank)
     replicated = {(2,) * L, (2,) + (1,) * (L - 1)}
     for streams, eager, keys, gathers in res:
         assert streams == ref

@@ -12,7 +12,6 @@ the ranks' pools bit-equal."""
 import dataclasses
 import datetime
 import itertools
-import threading
 
 import jax
 import numpy as np
@@ -30,6 +29,7 @@ from repro_torch.core import replication as R
 from repro_torch.core.plan import PlacementPlan
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine
+from _torch_mesh import run_threads
 from _torch_parity import jax_solo_streams, jit, specs
 from _torch_parity import one_torch_thread  # noqa: F401
 from _torch_parity import partitionable_threefry  # noqa: F401
@@ -41,28 +41,17 @@ _PREFIX = itertools.count()
 
 
 def run_ranks(W, fn, timeout=120):
-    """``fn(group)`` on W ranks, each a thread with its own gloo process
-    group; returns the W results by rank and re-raises a rank's error."""
+    """``fn(group)`` on W ranks, each a thread (``run_threads``) with its
+    own gloo process group; returns the W results by rank and re-raises a
+    rank's error."""
     prefix = f"g{next(_PREFIX)}"
-    out, errors = [None] * W, []
 
     def rank(r):
-        try:
-            pg = dist.ProcessGroupGloo(dist.PrefixStore(prefix, _STORE), r, W,
-                                       datetime.timedelta(seconds=timeout))
-            out[r] = fn(R.ReplicationGroup.of(pg, "cpu"))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
+        pg = dist.ProcessGroupGloo(dist.PrefixStore(prefix, _STORE), r, W,
+                                   datetime.timedelta(seconds=timeout))
+        return fn(R.ReplicationGroup.of(pg, "cpu"))
 
-    threads = [threading.Thread(target=rank, args=(r,)) for r in range(W)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout)
-    assert not any(t.is_alive() for t in threads), "a rank hung"
-    if errors:
-        raise errors[0]
-    return out
+    return run_threads(W, rank, timeout)
 
 
 def _pair(layers, arch=ARCH):
