@@ -1,7 +1,7 @@
 """The port across four cards of one host over NCCL (card only: four
 H100s joined by NVLink).
 
-    python3 chip_multicard.py [--parts K,M1,M2,M3,M4,T]
+    python3 chip_multicard.py [--parts K,M1,M2,M3,M4,T,S]
 
 ``chip_smoke.py`` stays the one-card script; this one runs the paths
 that exist only across cards, one rank process per card
@@ -93,11 +93,48 @@ T. The sharded train step (``training.train`` under sharding rules), one
    14a's, collective ms by phase (CUDA events around each NCCL
    all-reduce), the logits' all-gather, each group's warm-up, each rank's
    peak, the NCCL kernels' share of one profiled step (rank 0).
+S. The live serving loop over instances that span the four cards
+   (``serving.group.GroupInstance``: an engine-server process a card in
+   one NCCL replication group, the reference's mesh of every device),
+   llama2-13b at published width and depth in bf16. Part S runs in this
+   process, after the rank parts, with two instances of four ranks: eight
+   servers, two a card. S1: ``launch.serve.run(ServeConfig(arch=
+   "llama2-13b", reduced=False, instances=2, requests=24, rps=4,
+   drain=True))`` as a user runs it; gates: 24 finished, ``dropped=0``,
+   every server exits 0. S2: the paper's §5 loop as
+   ``benchmarks/module_scaling_bench.py`` runs it: steady traffic, a burst
+   pinned to instance 0, the controller's scale-up (or, if the card's
+   telemetry does not trip ``t_up``, a vacancy snapshot fed to it, said
+   so), ``[4]*40`` through the handles, instance 0 drained onto 1
+   stop-the-world and 1 onto 0 two-phase with 3 overlap steps; every
+   server checks its imports against their payloads and its steady steps
+   under sync-debug "error", and runs its first steady replicated step
+   eagerly with every paged call held against its plain version. Gates,
+   every rank: a plan reaches every rank of an instance at the same step
+   and every rank's tokens agree at every step (the handle raises
+   otherwise); decode steps replay from graphs (no eager decode step but
+   the checked one, one capture per key); one host sync per replayed
+   steady step; all-gathers per replicated step = ``CS.predicted_gathers``;
+   pools bit-equal after every plan and move; every import read back
+   bit-equal on every rank of the destination; ``dropped`` 0; paged
+   launches = layers x decode steps; the checked step's paged calls within
+   2e-2; the streams equal one unreplicated card's run of the same
+   requests but where both tokens are a tie within ``BF16_TIE`` of the top
+   logit (read by a cache-less forward over the common prefix on that
+   card). Printed beside the cards' name and power limit: step ms per
+   plan against the 7.673 ms weight-read bound, TTFT and tok/s before,
+   during and after the burst, the scale-up's latency (decision to the end
+   of the first step under the new plan, captures included), bytes and
+   ms per moved request beside ``estimate_cost``, each server's bring-up
+   (spawn, group, draw, broadcast) and each card's peak memory.
+   ``--cpu`` rehearses S on eight CPU server processes over gloo at the
+   reduced config (``OMP_NUM_THREADS=1``), without the card-only gates.
 
 """
 from __future__ import annotations
 
 import argparse
+import ast
 import collections
 import contextlib
 import dataclasses
@@ -105,6 +142,7 @@ import datetime
 import functools
 import gc
 import json
+import os
 import queue
 import subprocess
 import sys
@@ -1323,6 +1361,364 @@ def t3_gates(res, on_card, smi, twins):
         t_syncs_gate(res, name, twins[name])
 
 
+# ------------------------------------------------- S: the live loop over groups
+#: S2's workload: steady requests (routed), the burst (pinned to instance
+#: 0), their lengths, and the steps of each phase
+S_BASE, S_BURST, S_PROMPT, S_BASE_NEW, S_BURST_NEW = 4, 8, 12, 16, 40
+S_STEADY_STEPS, S_BURST_STEPS, S_FOUR_STEPS, S_POST_STEPS = 8, 8, 4, 6
+#: the weight-read bound of one llama2-13b decode step (PERF.md §5)
+BOUND_13B_MS = 7.673
+
+
+class _Tee:
+    """Writes to every stream it holds (S1 reads what ``run`` printed)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, x):
+        for st in self.streams:
+            st.write(x)
+        return len(x)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def s_memory():
+    """Each card's used memory as ``nvidia-smi`` reads it (MiB)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return [int(x) for x in out.split()]
+
+
+def s1_part(on_card, smi):
+    """S1: ``launch.serve.run`` as a user runs it (module docstring)."""
+    import io
+
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import group as G
+
+    cfg = S.ServeConfig(arch="llama2-13b", reduced=not on_card, instances=2,
+                        requests=24, rps=4, drain=True,
+                        device="cuda" if on_card else "cpu")
+    width = G.host_width
+    if not on_card:   # the rehearsal: four CPU ranks an instance
+        G.host_width = lambda device, count: WORLD
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+            n = S.run(cfg)
+    finally:
+        G.host_width = width
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    codes = [line for line in out.splitlines() if "exited with codes" in line]
+    if n != 24 or "dropped=0" not in out or "24 requests" not in out:
+        raise AssertionError(f"S1: {n} of 24 finished, or dropped > 0")
+    if not codes or codes[0].split("codes", 1)[1].strip() != str([[0] * WORLD] * 2):
+        raise AssertionError(f"S1: server exit codes {codes}")
+    if f"each a group of {WORLD} cards" not in out:
+        raise AssertionError("S1: the instances do not span the cards")
+    L = sizes(on_card).l13.num_layers
+    steps = [ast.literal_eval(line.split("decode steps ", 1)[1].split(", paged")[0])
+             for line in out.splitlines() if "by rank: decode steps" in line]
+    launches = [ast.literal_eval(line.split("paged launches ", 1)[1].split(", decode graphs")[0])
+                for line in out.splitlines() if "by rank: decode steps" in line]
+    if len(steps) != 2 or (on_card and any(n != L * d for st, ln in zip(steps, launches)
+                                           for d, n in zip(st, ln))):
+        raise AssertionError(f"S1: decode steps {steps}, paged launches {launches}")
+    log(f"[multicard] S1 launch.serve.run(llama2-13b, {'published width, bf16' if on_card else 'reduced'}, "
+        f"2 instances x {WORLD} cards, 24 requests at rps 4, drain): 24 of 24 finished, "
+        f"dropped 0, every server exited 0, paged launches = {L} x decode steps on every "
+        f"rank ({[sum(x) for x in launches]} an instance), {secs:.1f} s [{smi}]")
+    return {"s": secs, "launches": sum(map(sum, launches))}
+
+
+def s_requests(cfg, n, rid0, max_new, seed):
+    from repro_torch.serving.request import RequestSpec
+
+    rng = np.random.default_rng(seed)
+    return [RequestSpec(rid=rid0 + i, prompt=rng.integers(2, cfg.vocab_size, size=S_PROMPT)
+                        .astype(np.int32), max_tokens=max_new) for i in range(n)]
+
+
+def s_steps(orch, n, first, t_sub):
+    """``n`` orchestrator steps; the wall time each stream's first token
+    was seen (``first``) and the tokens per second over the steps."""
+    toks0 = sum(t.total_tokens for t in orch.telemetry)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fin = orch.step()
+        now = time.perf_counter()
+        seen = {rid for rid, toks in orch.stream_view().items() if toks} | {
+            r.rid for r in fin}
+        for rid in seen:
+            if rid in t_sub and rid not in first:
+                first[rid] = now
+    return (sum(t.total_tokens for t in orch.telemetry) - toks0) / (time.perf_counter() - t0)
+
+
+def s_drain(orch, src, dst, overlap):
+    """Instance ``src`` emptied onto ``dst`` as ``drain_instance`` does:
+    the queue handed over, then the active streams moved stop-the-world
+    (``overlap`` None) or two-phase over ``overlap`` steps."""
+    for req in orch.instances[src].drain_queue():
+        orch._home[req.rid] = dst
+        orch.instances[dst].push_queue(req)
+    if overlap is None:
+        return orch.migrate_requests(src, dst)
+    return orch.migrate_requests_overlapped(src, dst, overlap_steps=overlap)
+
+
+def s2_part(on_card, smi):
+    """S2: the §5 loop over two instances of four ranks (module
+    docstring). Returns its measurements; raises where a gate fails."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import migration as MIG
+    from repro_torch.core.monitor import MetricsSnapshot
+    from repro_torch.launch.serve import SERVE_MAX_LEN
+    from repro_torch.serving.group import GroupInstance
+    from repro_torch.serving.orchestrator import Orchestrator
+    from repro_torch.serving.remote_engine import EngineProxy
+
+    cfg = get_config("llama2-13b")
+    cfg, dtype = (cfg, "bfloat16") if on_card else (cfg.reduced(), "float32")
+    dev = "cuda" if on_card else "cpu"
+    L = cfg.num_layers
+    kw = dict(max_batch=4, max_len=SERVE_MAX_LEN, dtype=dtype, device=dev,
+              scheduler="budget", token_budget=128)
+    draw = {"seed": CS.SEED, "dtype": dtype}
+    server = {"sync_debug": on_card, "check_paged": True}
+    t0 = time.perf_counter()
+    handles, errors = [None, None], []
+
+    def up(i):
+        try:
+            handles[i] = GroupInstance(cfg, width=WORLD, draw=draw, label=f"s2-{i}",
+                                       server=server, **kw)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    ups = [threading.Thread(target=up, args=(i,)) for i in range(2)]
+    for t in ups:
+        t.start()
+    for t in ups:
+        t.join()
+    if errors:
+        for h in handles:
+            if h is not None:
+                h.close()
+        raise errors[0]
+    out = {"bringup_s": time.perf_counter() - t0,
+           "bringup": [h.bringup for h in handles],
+           "mem_up": s_memory() if on_card else []}
+    orch = Orchestrator(cfg, None, handles=handles, slo_latency=40.0, telemetry_every=4)
+    decided = []
+    on_change = orch.controller.on_plan_change
+
+    def plan_change(plan, bs):
+        decided.append((time.perf_counter(), list(plan.p)))
+        on_change(plan, bs)
+
+    orch.controller.on_plan_change = plan_change
+    t_sub, first, phases = {}, {}, {}
+    try:
+        base = s_requests(cfg, S_BASE, 0, S_BASE_NEW, 0)
+        burst = s_requests(cfg, S_BURST, 100, S_BURST_NEW, 1)
+        specs = {s.rid: s for s in base + burst}
+        for spec in base:
+            t_sub[spec.rid] = time.perf_counter()
+            orch.submit(spec)
+        phases["before"] = s_steps(orch, S_STEADY_STEPS, first, t_sub)
+        for spec in burst:
+            t_sub[spec.rid] = time.perf_counter()
+            orch.submit_to(0, spec)
+        phases["during"] = s_steps(orch, S_BURST_STEPS, first, t_sub)
+        scaled = [a for a in orch.controller.log if a.startswith("scale-up")]
+        how = "the controller, from the servers' telemetry"
+        if not scaled:
+            # the card's telemetry did not trip t_up: a vacancy snapshot
+            # (instance 1 idle, both pools mostly free), as phase 7 feeds a
+            # violating one
+            how = "the controller, fed a vacancy snapshot"
+            orch.controller._cooldown = 0
+            orch.controller.observe(MetricsSnapshot(
+                t=orch.clock(), device_util=[1.0, 0.0], device_mem_frac=[0.3, 0.1],
+                block_vacancy=[0.7, 0.9]))
+            act = orch.controller.tick()
+            if not (act and act.startswith("scale-up")):
+                raise AssertionError(f"S2: the controller answered {act!r}")
+            scaled = [act]
+        t_dec, plan = decided[-1]
+        orch.step()
+        out["scale_up"] = {"how": how, "action": scaled[0], "plan": plan,
+                           "s": time.perf_counter() - t_dec}
+        for h in orch.instances:
+            h.apply_plan([4] * L)
+        s_steps(orch, S_FOUR_STEPS, first, t_sub)
+        for _ in range(40):   # instance 1 empty, so that it takes 0's streams
+            if not (orch.instances[1].queue_len() or orch.instances[1].active_rids()):
+                break
+            s_steps(orch, 1, first, t_sub)
+        moves = {"stw": s_drain(orch, 0, 1, None)}
+        s_steps(orch, 2, first, t_sub)
+        moves["two-phase"] = s_drain(orch, 1, 0, 3)
+        phases["after"] = s_steps(orch, S_POST_STEPS, first, t_sub)
+        orch.run_until_done()
+        out["mem_end"] = s_memory() if on_card else []
+        infos = [h.rank_infos() for h in handles]
+        out.update(
+            phases=phases, moves={k: [dataclasses.asdict(m) for m in v] for k, v in moves.items()},
+            ttft={rid: first[rid] - t_sub[rid] for rid in first},
+            streams={r.rid: list(r.generated) for r in orch.finished},
+            stats={k: v for k, v in orch.stats().items() if k in ("dropped", "finished", "migrations")},
+            logs=[h.step_logs for h in handles], infos=infos,
+            pool_checks=[h.pool_checks for h in handles],
+            read_backs=[h.read_backs for h in handles], controller=list(orch.controller.log),
+            plan=list(orch.plan.p), estimate=[[MIG.estimate_cost(m.bytes_moved, orch.link_bandwidth)
+                                               for m in v] for v in moves.values()])
+    finally:
+        orch.close()
+    out["exitcodes"] = [h.exitcodes for h in handles]
+    # one unreplicated card: the same requests, greedy, through one server
+    ref = EngineProxy(cfg, None, draw=draw, **dict(kw, device=f"{dev}:0" if on_card else dev))
+    try:
+        for rid in sorted(specs):
+            ref.submit(specs[rid])
+        done = []
+        while ref.queue_len() or ref.active_rids():
+            done += ref.step()
+        one = {r.rid: list(r.generated) for r in done}
+        flips = []
+        for rid, got in out["streams"].items():
+            if got != one[rid]:
+                t = next(i for i, (a, b) in enumerate(zip(got, one[rid])) if a != b)
+                prefix = [int(x) for x in specs[rid].prompt] + got[:t]
+                flips.append((rid, t, got[t], one[rid][t], ref._call("witness_top2", prefix)))
+        out["flips"] = flips
+    finally:
+        ref.close()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def s2_gates(r, on_card, smi, L):
+    """S2's gates and its printed lines (module docstring)."""
+    if r["stats"]["dropped"] or r["stats"]["finished"] != S_BASE + S_BURST:
+        raise AssertionError(f"S2: {r['stats']}")
+    if r["exitcodes"] != [[0] * WORLD] * 2:
+        raise AssertionError(f"S2: server exit codes {r['exitcodes']}")
+    resumed = sum(m["resumed"] for v in r["moves"].values() for m in v)
+    imports = sum((1 if k == "stw" else 2) * m["resumed"] for k, v in r["moves"].items()
+                  for m in v)
+    if not r["moves"]["stw"] or not r["moves"]["two-phase"] or resumed < 2:
+        raise AssertionError(f"S2: moves {r['moves']}")
+    if sum(r["read_backs"]) < imports or min(r["pool_checks"]) < 2:
+        raise AssertionError(f"S2: {r['read_backs']} imports read back of {imports}, "
+                             f"pool checks {r['pool_checks']}")
+    for i, (logs, infos) in enumerate(zip(r["logs"], r["infos"])):
+        for k, info in enumerate(infos):
+            name = f"S2 instance {i} rank {k}"
+            steps = info["decode_steps"]
+            if on_card and info["paged_launches"] != L * steps:
+                raise AssertionError(f"{name}: {info['paged_launches']} paged launches for "
+                                     f"{steps} decode steps")
+            checks = info["paged_checks"]
+            if len(checks) != L or max(checks) > 2e-2 or info["checked_steps"] != 1:
+                raise AssertionError(f"{name}: paged calls of the checked step {checks}")
+            for step in logs:
+                s = step[k]
+                if s["decode"] and s["degrees"] and \
+                        s["gathers"] != CS.predicted_gathers(s["degrees"]):
+                    raise AssertionError(f"{name}: {s['gathers']} all-gathers under "
+                                         f"{s['degrees']}")
+            if on_card:
+                caps = info["graph_captures"].get("decode", 0)
+                reps = info["graph_replays"].get("decode", 0)
+                if info["graph_eager"].get("decode", 0) or caps + reps + 1 != steps or \
+                        not caps <= info["decode_keys"] <= caps + 1:
+                    raise AssertionError(f"{name}: captures {caps}, replays {reps}, eager "
+                                         f"{info['graph_eager']}, keys {info['decode_keys']}, "
+                                         f"{steps} decode steps")
+                if set(info["steady_syncs"]) - {"1"}:
+                    raise AssertionError(f"{name}: host syncs per steady step "
+                                         f"{info['steady_syncs']}")
+    for rid, t, got, one, (vals, ids) in r["flips"]:
+        if not ({got, one} <= set(ids) and vals[0] - vals[1] <= BF16_TIE * max(1.0, abs(vals[0]))):
+            raise AssertionError(f"S2: rid {rid} token {t}: {got} against one card's {one}, "
+                                 f"top-2 {vals} {ids}")
+    for i, infos in enumerate(r["infos"]):
+        x = infos[0]
+        log(f"[multicard] S2 instance {i} rank 0's counters (every rank's equal): "
+            f"{x['decode_steps']} decode steps, {x['decode_keys']} decode keys, captures "
+            f"{x['graph_captures']}, replays {x['graph_replays']}, eager {x['graph_eager']}, "
+            f"1 checked step (worst paged call against its plain version "
+            f"{max(x['paged_checks']):.3e}), paged launches {x['paged_launches']} = {L} x "
+            f"decode steps, host syncs per replayed steady step {x['steady_syncs']} [{smi}]")
+    if any(info[k] != infos[0][k] for infos in r["infos"] for info in infos
+           for k in ("decode_steps", "paged_launches", "graph_captures", "graph_replays")):
+        raise AssertionError("S2: the ranks of an instance counted different steps")
+    sec = r["scale_up"]
+    log(f"[multicard] S2 scale-up by {sec['how']}: {sec['action']}, plan {sec['plan'][:8]}... "
+        f"(degree > 1 on {sum(p > 1 for p in sec['plan'])} of {L} layers), decision to the end "
+        f"of the first step under it {sec['s'] * 1e3:.1f} ms (captures included) [{smi}]")
+    logs0 = [step[0] for step in r["logs"][0] + r["logs"][1]]
+    by = collections.defaultdict(list)
+    for s in logs0:
+        if s["decode"] and s["steady"] and not s["captured"] and not s["checked"]:
+            by[tuple(s["degrees"]) if s["degrees"] else "degree 1"].append(s["ms"])
+    for key, ms in by.items():
+        name = key if key == "degree 1" else (f"[4]*{L}" if set(key) == {4} else
+                                              f"{sum(d > 1 for d in key)} layers at "
+                                              f"{sorted(set(key) - {1})}")
+        log(f"[multicard] S2 {'graph' if on_card else 'eager'} steps at {name}: median {CS.median(ms):.3f} ms over {len(ms)} "
+            f"(server clock, rank 0; weight-read bound {BOUND_13B_MS} ms) [{smi}]")
+    ph, tt = r["phases"], r["ttft"]
+    base = [tt[i] for i in range(S_BASE) if i in tt]
+    burst = [tt[i] for i in range(100, 100 + S_BURST) if i in tt]
+    log(f"[multicard] S2 tok/s before / during / after the burst {ph['before']:.1f} / "
+        f"{ph['during']:.1f} / {ph['after']:.1f}; TTFT median ms steady "
+        f"{CS.median(base) * 1e3:.1f}, burst {CS.median(burst) * 1e3:.1f} [{smi}]")
+    for (kind, ms), est in zip(r["moves"].items(), r["estimate"]):
+        log(f"[multicard] S2 {kind} moves: " + "; ".join(
+            f"rid {m['rid']} {m['src']}->{m['dst']} {m['bytes_moved']} B in "
+            f"{m['seconds'] * 1e3:.1f} ms (stall {m['stall_s'] * 1e3:.1f} ms, estimate_cost "
+            f"{e * 1e3:.1f} ms, resumed {m['resumed']})" for m, e in zip(ms, est)) + f" [{smi}]")
+    for i, b in enumerate(r["bringup"]):
+        log(f"[multicard] S2 instance {i} bring-up s (spawn+connect, group, draw, broadcast, "
+            f"ready) by rank: " + "; ".join(
+                f"{x['connect_s']:.1f}, {x['group_s']:.2f}, {x['draw_s']:.2f}, "
+                f"{x['broadcast_s']:.3f}, {x['ready_s']:.1f}" for x in b) + f" [{smi}]")
+    peaks = [[info["peak_bytes"] / 1e9 for info in infos] for infos in r["infos"]]
+    log(f"[multicard] S2 peak GB a server (instance x rank) {[[round(p, 2) for p in x] for x in peaks]}; "
+        f"a card (two servers) {[round(a + b, 2) for a, b in zip(*peaks)]}; nvidia-smi MiB used "
+        f"after bring-up {r['mem_up']}, at the end {r['mem_end']} [{smi}]")
+    log(f"[multicard] S2: {S_BASE + S_BURST} finished, dropped 0, every server exited 0; tokens "
+        f"equal on every rank at every step, pools bit-equal after {r['pool_checks']} plan and "
+        f"move checks, {sum(r['read_backs'])} imports read back bit-equal on every rank; flips "
+        f"against one card (rid, token, top-2 gap over the top logit) "
+        f"{[(f[0], f[1], round((f[4][0][0] - f[4][0][1]) / abs(f[4][0][0]), 5)) for f in r['flips']]} "
+        f"of {len(r['streams'])} streams; controller {r['controller']}; "
+        f"final plan {r['plan'][:8]}...; {r['s']:.1f} s [{smi}]")
+
+
+def s_part(on_card, smi):
+    """Part S in this process (module docstring)."""
+    res = {}
+    for name, part in (("S1", lambda: s1_part(on_card, smi)),
+                       ("S2", lambda: s2_part(on_card, smi))):
+        t0 = time.perf_counter()
+        res[name] = part()
+        res[f"{name} s"] = time.perf_counter() - t0
+    return res
+
+
 # ------------------------------------------------------------------- the ranks
 def rank_main(rank, port, parts, on_card, out_dir, results):
     """One rank process: its card, the store, the parts in order; puts
@@ -1376,7 +1772,7 @@ def rank_main(rank, port, parts, on_card, out_dir, results):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="K,M1,M2,M3,M4,T")
+    ap.add_argument("--parts", default="K,M1,M2,M3,M4,T,S")
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on four CPU processes over gloo at reduced sizes")
     args = ap.parse_args(argv)
@@ -1403,6 +1799,53 @@ def main(argv=None):
         t = time.perf_counter()
         build.build_all()
         log(f"[build] the kernels in {time.perf_counter() - t:.2f} s")
+    if not on_card:   # CPU processes of the rehearsal: one thread each
+        os.environ["OMP_NUM_THREADS"] = "1"
+    ranked = [p for p in parts if p != "S"]
+    by = run_ranks(ranked, on_card, out_dir) if ranked else {}
+    sz = sizes(on_card)
+    summary = {}
+    if "K" in by and on_card:
+        for what, k in by["K"][0].items():
+            each = [by["K"][r][what] for r in sorted(by["K"])]
+            log(f"[kernel] paged_decode at {what}: max_abs_err against the plain "
+                f"version on cards 0-3 {[float(f'{e['max_abs_err']:.2e}') for e in each]}; "
+                f"card 0: kernel {k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound "
+                f"{k['bound_ms']:.5f} ms ({k['bound_by']}), {k['bound_ms'] / k['ms']:.1%} "
+                f"of bound [{smi}]")
+        summary["paged_decode"] = by["K"][0]
+    gates = {"M1": lambda: m1_gates(by["M1"], on_card, smi),
+             "M2": lambda: m2_gates(by["M2"], on_card, smi, sz.c13.num_layers),
+             "M3": lambda: m3_gates(by["M3"], on_card, smi),
+             "M4": lambda: m4_gates(by["M4"], on_card, smi, sz.c70.num_layers),
+             "T": lambda: t_gates(by["T"], on_card, smi, sz),
+             "S": lambda: s2_gates(by["S"]["S2"], on_card, smi, sz.l13.num_layers)}
+    if "S" in parts:   # in this process, once the rank processes are gone
+        t0 = time.perf_counter()
+        by["S"] = s_part(on_card, smi)
+        log(f"[multicard] part S in {time.perf_counter() - t0:.1f} s (S1 {by['S']['S1 s']:.1f}, "
+            f"S2 {by['S']['S2 s']:.1f})")
+    failed = []
+    for part, gate in gates.items():   # every part gated, then the failures
+        if part in by:
+            try:
+                gate()
+            except AssertionError as e:
+                log(f"[multicard] {part} FAILED: {e}")
+                failed.append(part)
+    if failed:
+        raise AssertionError(f"parts {failed} failed their gates")
+    print(json.dumps({"multicard": summary}))
+    print(json.dumps({"ok": True, "parts": parts, "device": {
+        "platform": "gpu" if on_card else "cpu",
+        "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
+        "count": torch.cuda.device_count() if on_card else WORLD}}))
+    return 0
+
+
+def run_ranks(parts, on_card, out_dir):
+    """The rank parts: one spawned process a card, each running ``parts``
+    in order; returns {part: {rank: measurements}}."""
     import multiprocessing as mp
 
     from repro_torch.serving import transport as TR
@@ -1441,39 +1884,7 @@ def main(argv=None):
         raise AssertionError(f"rank exit codes {[p.exitcode for p in procs]}")
     log(f"[multicard] {WORLD} ranks ran {parts} in {time.perf_counter() - t0:.1f} s; by part "
         f"(rank 0): { {k: round(v, 1) for k, v in got[0].items() if k.endswith(' s')} }")
-    by = {part: {r: got[r][part] for r in got} for part in parts}
-    sz = sizes(on_card)
-    summary = {}
-    if "K" in by and on_card:
-        for what, k in by["K"][0].items():
-            each = [by["K"][r][what] for r in sorted(by["K"])]
-            log(f"[kernel] paged_decode at {what}: max_abs_err against the plain "
-                f"version on cards 0-3 {[float(f'{e['max_abs_err']:.2e}') for e in each]}; "
-                f"card 0: kernel {k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound "
-                f"{k['bound_ms']:.5f} ms ({k['bound_by']}), {k['bound_ms'] / k['ms']:.1%} "
-                f"of bound [{smi}]")
-        summary["paged_decode"] = by["K"][0]
-    gates = {"M1": lambda: m1_gates(by["M1"], on_card, smi),
-             "M2": lambda: m2_gates(by["M2"], on_card, smi, sz.c13.num_layers),
-             "M3": lambda: m3_gates(by["M3"], on_card, smi),
-             "M4": lambda: m4_gates(by["M4"], on_card, smi, sz.c70.num_layers),
-             "T": lambda: t_gates(by["T"], on_card, smi, sz)}
-    failed = []
-    for part, gate in gates.items():   # every part gated, then the failures
-        if part in by:
-            try:
-                gate()
-            except AssertionError as e:
-                log(f"[multicard] {part} FAILED: {e}")
-                failed.append(part)
-    if failed:
-        raise AssertionError(f"parts {failed} failed their gates")
-    print(json.dumps({"multicard": summary}))
-    print(json.dumps({"ok": True, "parts": parts, "device": {
-        "platform": "gpu" if on_card else "cpu",
-        "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-        "count": torch.cuda.device_count() if on_card else WORLD}}))
-    return 0
+    return {part: {r: got[r][part] for r in got} for part in parts}
 
 
 if __name__ == "__main__":

@@ -54,6 +54,16 @@ prefix-affinity routing, SLO-class admission and 429 backpressure; add
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --instances 2 --http --http-port 8080 --scheduler slo
+
+On a host with two or more cards visible, each of ``--instances`` spans
+the largest power of two of them (``serving.group.host_width``: the
+reference's replication mesh) as a ``serving.group.GroupInstance``: an
+engine-server process a card, in one replication group, that draws its
+weights by seed (rank 0 draws, a broadcast replicates) — this process
+draws none. A scale-up the controller decides then splits the
+replicated layers' rows over every card of the instance. With one card
+nothing changes. ``--workers``, ``--inventory`` and ``--elastic`` are
+not ported over such groups yet (ROADMAP A15) and raise.
 """
 from __future__ import annotations
 
@@ -69,6 +79,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
 from repro_torch.serving import scheduler as SCH
 from repro_torch.serving.request import RequestSpec
+
+#: every engine's ``max_len`` (tokens a request may hold), as the
+#: reference's `launch.serve` sets it
+SERVE_MAX_LEN = 128
 
 
 @dataclasses.dataclass
@@ -261,11 +275,20 @@ def run(args: ServeConfig):
     dtype = "float32" if args.reduced else "bfloat16"
     if args.reduced:
         cfg = cfg.reduced()
-    gen = torch.Generator(device=args.device).manual_seed(0)
-    params = T.init_params(cfg, gen, dtype)
     kind = args.cache
     if kind == "auto":  # primary path where the family supports it
         kind = "paged" if cfg.supports_paged_kv else "dense"
+    from repro_torch.serving.group import host_width
+    width = host_width(args.device, torch.cuda.device_count()
+                       if torch.device(args.device).type == "cuda" else 0)
+    grouped = width > 1 and kind == "paged"
+    if grouped and (args.workers or args.inventory or args.elastic):
+        raise NotImplementedError(
+            "--workers, --inventory and --elastic over instances that span "
+            f"{width} cards are not ported (ROADMAP A15)")
+    # group instances draw their own weights, rank 0 of each on its card
+    params = None if grouped else T.init_params(
+        cfg, torch.Generator(device=args.device).manual_seed(0), dtype)
     print(f"[serve] cache_kind={kind} device={args.device} "
           f"{'reduced' if args.reduced else 'full width'} {dtype}")
 
@@ -287,8 +310,9 @@ def run(args: ServeConfig):
 
     if kind == "dense":  # single-engine fallback (no paged pool)
         from repro_torch.serving.engine import Engine
-        eng = Engine(cfg, params, max_batch=args.max_batch, max_len=128,
-                     cache_kind="dense", dtype=dtype, device=args.device)
+        eng = Engine(cfg, params, max_batch=args.max_batch,
+                     max_len=SERVE_MAX_LEN, cache_kind="dense", dtype=dtype,
+                     device=args.device)
         submitted, finished, step = 0, [], 0
         while len(finished) < args.requests and step < 5000:
             while submitted < args.requests and \
@@ -316,7 +340,7 @@ def run(args: ServeConfig):
             from repro_torch.launch.pod import make_worker_factory
             front_kw["worker_factory"] = make_worker_factory(
                 cfg, params, remote=bool(args.workers or args.inventory),
-                max_batch=args.max_batch, max_len=128, **sched_kw)
+                max_batch=args.max_batch, max_len=SERVE_MAX_LEN, **sched_kw)
             front_kw["pod_cfg"] = PodElasticityConfig(
                 max_instances=args.max_pod)
     if args.flightrec_out:
@@ -325,8 +349,8 @@ def run(args: ServeConfig):
         from repro_torch.launch.pod import launch_pod, load_inventory
         nodes = load_inventory(args.inventory)
         handles = launch_pod(cfg, params, nodes,
-                             max_batch=args.max_batch, max_len=128,
-                             **sched_kw)
+                             max_batch=args.max_batch,
+                             max_len=SERVE_MAX_LEN, **sched_kw)
         n_instances = len(handles)
         orch = Orchestrator(cfg, params, handles=handles,
                             slo_latency=args.slo, telemetry_every=4,
@@ -335,10 +359,30 @@ def run(args: ServeConfig):
         print(f"[serve] pod: {n_instances} engine servers over TCP "
               f"({sum(n.spawn for n in nodes)} node(s) spawned, "
               f"{sum(not n.spawn for n in nodes)} attached)")
+    elif grouped:
+        from repro_torch.serving.group import GroupInstance
+        n_instances = args.instances
+        handles = [GroupInstance(cfg, width=width,
+                                 draw={"seed": 0, "dtype": dtype},
+                                 label=f"instance{i}",
+                                 max_batch=args.max_batch,
+                                 max_len=SERVE_MAX_LEN, **sched_kw)
+                   for i in range(n_instances)]
+        orch = Orchestrator(cfg, None, handles=handles,
+                            slo_latency=args.slo, telemetry_every=4,
+                            rpc_deadline=args.rpc_deadline,
+                            respawn_policy=policy, **front_kw)
+        b = handles[0].bringup
+        print(f"[serve] replication: {n_instances} instances, each a group "
+              f"of {width} cards (an engine server a card); instance 0's "
+              f"rank 0 bring-up: spawn {b[0]['connect_s']:.1f} s, group "
+              f"{b[0]['group_s']:.1f} s, draw {b[0]['draw_s']:.1f} s, "
+              f"broadcast {b[0]['broadcast_s']:.2f} s")
     else:
         n_instances = args.workers or args.instances
         orch = Orchestrator(cfg, params, n_instances=n_instances,
-                            max_batch=args.max_batch, max_len=128,
+                            max_batch=args.max_batch,
+                            max_len=SERVE_MAX_LEN,
                             slo_latency=args.slo, telemetry_every=4,
                             remote=bool(args.workers),
                             rpc_deadline=args.rpc_deadline,
@@ -372,7 +416,7 @@ def run(args: ServeConfig):
               f"{c.routed_vacancy}, 429s={c.rejected_429}, "
               f"400s={c.bad_requests}")
         _report(orch.finished, time.time() - t_start)
-        orch.close()
+        _close(orch)
         return len(orch.finished)
 
     submitted, step = 0, 0
@@ -423,8 +467,28 @@ def run(args: ServeConfig):
           f"evictions={ft['evictions']}")
     print(f"[serve] final plan P (first 8): {orch.plan.p[:8]}, "
           f"continuity breaks: {orch.plan.continuity_breaks()}")
-    orch.close()
+    _close(orch)
     return len(orch.finished)
+
+
+def _close(orch):
+    """Close every instance. Group instances first print their ranks'
+    own counters (decode steps, paged-kernel launches, graph captures
+    and replays of decode steps), and after closing their servers' exit
+    codes."""
+    groups = [h for h in orch.instances if hasattr(h, "rank_infos")]
+    for i, h in enumerate(groups):
+        if h.alive():
+            infos = h.rank_infos()
+            print(f"[serve] instance {i}, by rank: decode steps "
+                  f"{[x['decode_steps'] for x in infos]}, paged launches "
+                  f"{[x['paged_launches'] for x in infos]}, decode graphs "
+                  f"captured / replayed "
+                  f"{[(x['graph_captures'].get('decode', 0), x['graph_replays'].get('decode', 0)) for x in infos]}")
+    orch.close()
+    if groups:
+        print(f"[serve] group servers exited with codes "
+              f"{[h.exitcodes for h in groups]}")
 
 
 def _report(finished, wall):

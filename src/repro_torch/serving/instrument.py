@@ -41,7 +41,7 @@ import dataclasses
 import threading
 import time
 from collections import deque
-from typing import Deque, Iterable, Optional
+from typing import Deque, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -410,6 +410,21 @@ def graph_capture():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def bits_checksum(t: torch.Tensor, chunk: int = 1 << 25) -> List[int]:
+    """Two wrapping int64 sums of ``t``'s bits, plain and
+    position-weighted, computed on its device and fetched (one host
+    sync): equal bits give equal sums."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = t.reshape(-1).view(ints[t.element_size()])
+    sums = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for i in range(0, flat.numel(), chunk):
+        x = flat[i:i + chunk].long()
+        w = torch.arange(i, i + x.numel(), device=t.device) % 65521 + 1
+        sums[0] += x.sum()
+        sums[1] += (x * w).sum()
+    return [int(v) for v in fetch(sums)]
 
 
 @contextlib.contextmanager

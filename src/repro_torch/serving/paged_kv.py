@@ -64,7 +64,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import to_device, torch_dtype
-from repro_torch.serving.instrument import fetch, upload
+from repro_torch.serving.instrument import bits_checksum, fetch, upload
 
 
 @dataclasses.dataclass
@@ -568,6 +568,46 @@ def export_blocks(state: PagedState, slot: int,
     if tag is not None:
         payload["kv_dtype"] = tag
     return payload
+
+
+def read_back(state: PagedState, slot: int, payload: Dict
+              ) -> Optional[str]:
+    """Read the blocks an import wrote into ``slot`` at the payload's
+    columns back from the pool and hold them bit for bit against the
+    payload's arrays; a column that aliases a resident block (a shared
+    block, ``import_blocks``' dedupe) is left out. Returns the sha256 of
+    the blocks read, or None where the payload is untagged float32 for a
+    pool of another type (a JAX peer's wire, converted by value). Raises
+    ValueError where a block differs."""
+    k_pay, v_pay = np.asarray(payload["k"]), np.asarray(payload["v"])
+    tagged = payload.get("kv_dtype") is not None
+    if not tagged and state.k.dtype != torch.float32:
+        return None
+    cols = np.asarray(payload["cols"], np.int64)
+    ids = state.block_tables[slot, cols].astype(np.int64)
+    own = np.asarray([int(state.refcount[b]) == 1 for b in ids], bool)
+    h = hashlib.sha256()
+    if own.any():
+        idx = upload(ids[own], state.k.device)
+        for pool, pay, name in ((state.k, k_pay, "k"),
+                                (state.v, v_pay, "v")):
+            got, _ = _to_wire(pool.index_select(1, idx))
+            want = np.ascontiguousarray(pay[:, own])
+            if got.shape != want.shape or \
+                    got.tobytes() != want.tobytes():
+                raise ValueError(
+                    f"slot {slot}: the {name} blocks read back at columns "
+                    f"{cols[own].tolist()} differ from the payload's")
+            h.update(got.tobytes())
+    return h.hexdigest()
+
+
+def pool_checksum(state: PagedState) -> list:
+    """``instrument.bits_checksum`` of the pool's K and V over its real
+    blocks (the scratch block left out): equal pools give equal sums."""
+    nb = state.n_blocks
+    return (bits_checksum(state.k[:, :nb].contiguous())
+            + bits_checksum(state.v[:, :nb].contiguous()))
 
 
 def _write_blocks(state: PagedState, ids, payload: Dict, sel=None):

@@ -37,6 +37,24 @@ admissions, telemetry, plans and the column-keyed block payloads of
 ``wire``: ``"bits"`` between port servers, ``"float32"`` where the
 destination is a JAX peer, whose import converts by value.
 
+**A draw in place of the stream**: the header may name ``draw``
+(``{"seed", "dtype"}``) and carry no tensor frames. The server then
+draws ``models.transformer.init_params(cfg, torch.Generator(device)
+.manual_seed(seed), dtype)`` itself, as ``launch.serve`` does in its
+own process; a stream at 0.2 GB/s over loopback would take minutes at
+llama2-13b's 26 GB.
+
+**A server in a replication group** (``serving.group.GroupInstance``):
+the engine kwargs carry ``group``, a spec of the group's store
+(``host:port`` of a ``TCPStore`` the orchestrator hosts), the prefix, W
+and the rank and device of this server. The server sets its card, joins
+the group (``core.replication.ReplicationGroup.build``: NCCL where each
+rank has a card of its own, gloo on the CPU) and runs its first
+collective before anything is captured; with a draw only rank 0 draws,
+and ``replicate_params_for_plan`` broadcasts the tree to the others. It
+then builds ``Engine(group=...)``. A server that fails to join raises;
+none falls back to a group of one.
+
 Three rendezvous modes share that contract (child dials back; child
 listens at ``endpoint``; attach to a server already running, started
 with ``python -m repro_torch.launch.pod --serve tcp://0.0.0.0:PORT``).
@@ -49,6 +67,9 @@ a surviving instance, token-identically.
 from __future__ import annotations
 
 import collections
+import contextlib
+import datetime
+import gc
 import multiprocessing as mp
 import os
 import time
@@ -56,10 +77,16 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.kernels.paged_decode import paged_decode_attention
+from repro_torch.core import replication as R
+from repro_torch.kernels.paged_decode import (paged_decode_attention,
+                                              paged_decode_attention_ref)
+from repro_torch.models import layers as LY
+from repro_torch.models import transformer as T
 from repro_torch.serving import instrument as INS
 from repro_torch.serving import observe as OBS
+from repro_torch.serving import paged_kv as PK
 from repro_torch.serving import transport as TR
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.graphs import launches_run
@@ -101,17 +128,23 @@ def _wire_dtype(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def send_init(conn: "TR.Connection", cfg, params, engine_kw: dict) -> int:
+def send_init(conn: "TR.Connection", cfg, params, engine_kw: dict,
+              draw: Optional[dict] = None,
+              server: Optional[dict] = None) -> int:
     """Send the init stream (module docstring) over ``conn``: the header,
     then every tensor of ``params`` in slices of at most a quarter of
-    ``conn.max_frame`` bytes. Returns the weight bytes shipped."""
+    ``conn.max_frame`` bytes; or, with ``draw`` (``{"seed", "dtype"}``),
+    the header alone. ``server`` holds ``EngineServer``'s options.
+    Returns the weight bytes shipped."""
     budget = max(1, conn.max_frame // 4)
-    leaves = list(_leaves(params))
+    leaves = [] if draw is not None else list(_leaves(params))
     plan = [(path, t, _slices(t, budget)) for path, t in leaves]
     conn.send({"cfg": cfg, "engine_kw": dict(engine_kw),
                "tensors": [[list(p), list(t.shape), _wire_dtype(t)]
                            for p, t, _ in plan],
-               "frames": sum(len(s) for _, _, s in plan)})
+               "frames": sum(len(s) for _, _, s in plan),
+               "draw": dict(draw) if draw is not None else None,
+               "server": dict(server or {})})
     nbytes = 0
     for path, t, slices in plan:
         host = _host_flat(t)
@@ -170,17 +203,103 @@ def receive_weights(header: dict, frames) -> dict:
     return params
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _sync(device):
+    INS.synchronize(torch.device(device))
+
+
+def join_group(spec: dict) -> R.ReplicationGroup:
+    """Join the replication group of ``spec`` (module docstring): this
+    process's card set first, the group built over a client of the
+    orchestrator's store under the group's prefix, and its first
+    collective run, before any graph is captured. Raises where a rank
+    fails to join or the collective fails."""
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"group rank {spec['rank']} asked for "
+                               f"{device}, and this process sees no CUDA "
+                               "device")
+        torch.cuda.set_device(device)
+    timeout = datetime.timedelta(seconds=float(spec.get("timeout", 300)))
+    host, port = spec["store"].rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), is_master=False, timeout=timeout)
+    group = R.ReplicationGroup.build(dist.PrefixStore(spec["prefix"], store),
+                                     int(spec["rank"]), int(spec["size"]),
+                                     device, timeout)
+    group.all_reduce(torch.zeros(1, device=device))
+    _sync(device)
+    return group
+
+
+def draw_weights(cfg, draw: dict, device, group=None) -> dict:
+    """The parameter tree of ``draw`` (``{"seed", "dtype"}``) on
+    ``device``: ``init_params`` from a generator seeded ``seed`` on this
+    device, bit-equal to the same draw in any other process on the same
+    card type. In a group only rank 0 draws; the other ranks allocate
+    the tree and ``replicate_params_for_plan`` broadcasts rank 0's."""
+    dtype = draw["dtype"]
+    if group is None or group.rank == 0:
+        gen = torch.Generator(device=device).manual_seed(int(draw["seed"]))
+        return T.init_params(cfg, gen, dtype)
+    return _tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                           device=device),
+                     T.init_params_meta(cfg, dtype))
+
+
+@contextlib.contextmanager
+def checked_paged_calls(out: list):
+    """Inside, every paged-decode call through ``models.layers`` is held
+    against ``paged_decode_attention_ref`` on the same inputs: ``out``
+    collects each call's relative L2 distance."""
+    paged = LY.paged_decode_attention
+
+    def checked(q, k_pool, v_pool, tables, lengths):
+        o = paged(q, k_pool, v_pool, tables, lengths)
+        ref = paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths)
+        d = (o.float() - ref.float()).norm() / ref.float().norm().clamp_min(
+            1e-30)
+        out.append(float(d))
+        return o
+
+    LY.paged_decode_attention = checked
+    try:
+        yield out
+    finally:
+        LY.paged_decode_attention = paged
+
+
 # ============================================================ server side
 class EngineServer:
     """Dispatch table around one Engine (runs in the child process).
 
     Beside the reference's gauges, ``info`` carries what a card run
     gates on: the server's device, the paged kernel's launches
-    (``graphs.launches_run``), graph captures and replays, decode steps,
-    and per steady step (no queue, nothing prefilling, no capture) its
-    host syncs and host-clock milliseconds."""
+    (``graphs.launches_run``), graph captures, replays and eager steps,
+    decode steps and keys, per steady step (no queue, nothing
+    prefilling, no capture) its host syncs and host-clock milliseconds,
+    and the server's bring-up seconds. Every step reply carries the
+    step's record (``log``): whether it decoded, the degrees it ran
+    under, its all-gathers and host syncs, whether it was steady or
+    captured.
 
-    def __init__(self, engine):
+    Options (the init header's ``server``): ``sync_debug`` runs each
+    steady step on the card under ``torch.cuda.set_sync_debug_mode(
+    "error")``; ``check_paged`` runs the first steady step whose degrees
+    replicate eagerly with every paged call held against its plain
+    version (``paged_checks``; that step is counted apart, under
+    ``checked_steps``). Every import (``resume_request``,
+    ``prepare_resume``, ``commit_resume``) is read back from the pool
+    and held bit for bit against its payload (``paged_kv.read_back``)."""
+
+    def __init__(self, engine, *, sync_debug: bool = False,
+                 check_paged: bool = False,
+                 bringup: Optional[dict] = None):
         self.engine = engine
         self.telemetry = EngineTelemetry()
         self.recorder = None   # lazy observe.EngineSpanRecorder
@@ -189,6 +308,11 @@ class EngineServer:
         dev = engine.device
         self.device_name = (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu")
+        self.sync_debug = bool(sync_debug) and dev.type == "cuda"
+        self.check_paged = bool(check_paged)
+        self.paged_checks: List[float] = []
+        self.checked_steps = 0
+        self.bringup = dict(bringup or {})
 
     # ---- serving ops
     def submit(self, spec: RequestSpec):
@@ -201,16 +325,40 @@ class EngineServer:
     def step(self):
         e = self.engine
         steady = bool(e.active) and not e.queue and not e.prefilling
+        degrees = getattr(e, "_step_degrees", None)
+        replicated = degrees is not None and max(degrees) > 1
+        check = (self.check_paged and not self.paged_checks and steady
+                 and replicated)
         captures = sum(e.graphs.counts.captures.values())
+        decoded = e._step_count
+        strict = self.sync_debug and steady and not check
         t0 = time.perf_counter()
-        with INS.count_host_syncs() as syncs:
+        with contextlib.ExitStack() as stack:
+            n = stack.enter_context(R.count_collectives(e.group))
+            syncs = stack.enter_context(INS.count_host_syncs())
+            if check:
+                # the checked step runs eagerly: a replay calls no wrapper
+                stack.enter_context(checked_paged_calls(self.paged_checks))
+                stack.callback(setattr, e.graphs, "enabled",
+                               e.graphs.enabled)
+                e.graphs.enabled = False
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+                stack.callback(torch.cuda.set_sync_debug_mode, 0)
             done = INS.timed_step(e, self.telemetry)
         ms = (time.perf_counter() - t0) * 1e3
-        if steady and sum(e.graphs.counts.captures.values()) == captures:
+        captured = sum(e.graphs.counts.captures.values()) != captures
+        self.checked_steps += int(check)
+        if steady and not captured and not check:
             self.steady_syncs[str(syncs.n)] += 1
             self.steady_ms.append(ms)
+        log = {"decode": e._step_count > decoded,
+               "degrees": list(degrees) if replicated else None,
+               "gathers": n.get("all-gather", 0), "syncs": syncs.n,
+               "steady": steady, "captured": captured, "checked": check,
+               "ms": ms}
         out = {"finished": done, "telemetry": self.telemetry.to_state(),
-               "info": self.info(),
+               "info": self.info(), "log": log,
                # full per-stream token lists each step: the ingress
                # streaming feed rides the reply, no extra RPC
                "streams": {int(r): list(t) for r, t
@@ -278,9 +426,40 @@ class EngineServer:
                                                [e.graphs]),
                 "graph_captures": dict(e.graphs.counts.captures),
                 "graph_replays": dict(e.graphs.counts.replays),
+                "graph_eager": dict(e.graphs.counts.eager),
+                "decode_keys": len({k for k in e.graphs.keys
+                                    if k[0] == "decode"}),
+                "checked_steps": self.checked_steps,
+                "paged_checks": list(self.paged_checks),
+                "bringup": self.bringup,
+                "peak_bytes": (torch.cuda.max_memory_allocated(e.device)
+                               if e.device.type == "cuda" else 0),
                 "steady_syncs": dict(self.steady_syncs),
                 "steady_ms": ([ms[len(ms) // 2], ms[0], ms[-1], len(ms)]
                               if ms else [])}
+
+    def pool_checksum(self) -> list:
+        """The pool's bits (``paged_kv.pool_checksum``): equal on every
+        rank of a group whose pools are replicas."""
+        return PK.pool_checksum(self.engine.pstate)
+
+    def params_checksum(self) -> list:
+        """``instrument.bits_checksum`` of every weight, in the tree's
+        order: equal on every rank of a group, and equal to the same
+        draw's anywhere."""
+        return [INS.bits_checksum(t) for _, t in _leaves(self.engine.params)]
+
+    def witness_top2(self, tokens) -> list:
+        """The top-2 logits and ids after ``tokens`` (one sequence, a
+        cache-less forward of the engine's weights): the witness of a
+        greedy tie between two runs."""
+        e = self.engine
+        x = torch.as_tensor(np.asarray(tokens, np.int64)[None],
+                            device=e.device)
+        with torch.no_grad():
+            logits, _, _ = T.forward(e.params, e.cfg, x, mode="train")
+        vals, ids = logits[0, -1, :e.cfg.vocab_size].float().topk(2)
+        return [vals.cpu().tolist(), ids.cpu().tolist()]
 
     # ---- migration (each blocks until device state is real: the reply
     # frame doubles as the transfer-complete barrier, and piggybacks the
@@ -296,6 +475,14 @@ class EngineServer:
                 out["spans"] = spans
         return out
 
+    def _read_back(self, out: dict, slot, kv: dict):
+        """Hold the blocks an import wrote into ``slot`` against the
+        payload ``kv`` (``paged_kv.read_back``); the reply carries their
+        digest."""
+        if slot is not None:
+            out["read_back"] = PK.read_back(self.engine.pstate, slot, kv)
+        return out
+
     def pause_request(self, slot: int, since_epoch=None, wire: str = "bits"):
         payload = self.engine.pause_request(slot, since_epoch=since_epoch,
                                             wire=wire)
@@ -304,7 +491,8 @@ class EngineServer:
     def resume_request(self, payload: dict):
         ok = self.engine.resume_request(payload)
         self._sync()
-        return self._reply(ok)
+        slot = (payload["request"].slot if ok else None)
+        return self._read_back(self._reply(ok), slot, payload["kv"])
 
     def snapshot_request(self, slot: int, wire: str = "bits"):
         return self.engine.snapshot_request(slot, wire=wire)
@@ -312,12 +500,13 @@ class EngineServer:
     def prepare_resume(self, snap: dict):
         slot = self.engine.prepare_resume(snap)
         self._sync()
-        return self._reply(slot)
+        return self._read_back(self._reply(slot), slot, snap["kv"])
 
     def commit_resume(self, slot: int, payload: dict):
         ok = self.engine.commit_resume(slot, payload)
         self._sync()
-        return self._reply(ok)
+        return self._read_back(self._reply(ok), slot if ok else None,
+                               payload["kv"])
 
     def abort_resume(self, slot: int):
         self.engine.abort_resume(slot)
@@ -345,7 +534,8 @@ class EngineServer:
             "drain_queue", "info", "pause_request", "resume_request",
             "snapshot_request", "prepare_resume", "commit_resume",
             "abort_resume", "ping", "heartbeat", "crash",
-            "trace_register", "clock_sync")}
+            "trace_register", "clock_sync", "pool_checksum",
+            "params_checksum", "witness_top2")}
         # not a wire op: transport.serve's hook for trace contexts
         d["_on_trace"] = self._on_trace
         return d
@@ -358,9 +548,30 @@ def _serve_connection(conn: "TR.Connection"):
     header = conn.recv()
     frames = (conn.recv() for _ in range(int(header["frames"])))
     try:
-        params = receive_weights(header, frames)
-        engine = Engine(header["cfg"], params, **header["engine_kw"])
-        server = EngineServer(engine)
+        kw = dict(header["engine_kw"])
+        spec = kw.pop("group", None)
+        bringup, group, t0 = {}, None, time.perf_counter()
+        if spec is not None:
+            group = join_group(spec)
+            kw["device"] = group.device
+            bringup["group_s"] = time.perf_counter() - t0
+        if header.get("draw") is not None:
+            device = server_device(kw)
+            t0 = time.perf_counter()
+            params = draw_weights(header["cfg"], header["draw"], device,
+                                  group)
+            _sync(device)
+            bringup["draw_s"] = time.perf_counter() - t0
+            if group is not None:
+                t0 = time.perf_counter()
+                R.replicate_params_for_plan(params, group)
+                _sync(device)
+                bringup["broadcast_s"] = time.perf_counter() - t0
+        else:
+            params = receive_weights(dict(header, engine_kw=kw), frames)
+        engine = Engine(header["cfg"], params, group=group, **kw)
+        server = EngineServer(engine, bringup=bringup,
+                              **header.get("server", {}))
     except Exception as e:
         for _ in frames:   # the proxy is still streaming: read it out
             pass
@@ -371,6 +582,12 @@ def _serve_connection(conn: "TR.Connection"):
     conn.send({"id": 0, "ok": True, "result": "ready"})
     TR.serve(conn, server.dispatch())
     conn.close()
+    # the engine's graphs go before its group: NCCL's abort of a
+    # communicator that a live graph's collectives hold hangs at exit
+    del server, engine, params
+    gc.collect()
+    if group is not None:
+        _sync(group.device)
 
 
 def engine_server_main(address: str):
@@ -426,13 +643,17 @@ class EngineProxy(InstanceHandle):
     ``engine_kw`` goes to the server's ``Engine`` (``device`` among
     them: without it the server builds on CUDA or raises). ``wire`` is
     the migration wire this proxy's exports ship on (``"bits"`` for a
-    port peer, ``"float32"`` for a JAX peer). ``bringup`` holds the
-    connect, weight-stream and ready seconds and the weight bytes."""
+    port peer, ``"float32"`` for a JAX peer). ``draw`` (``{"seed",
+    "dtype"}``) has the server draw its weights in place of ``params``'
+    stream; ``server`` holds ``EngineServer``'s options. ``bringup``
+    holds the connect, weight-stream and ready seconds and the weight
+    bytes."""
 
     def __init__(self, cfg, params, *, start_timeout: float = 120.0,
                  endpoint: Optional[str] = None, spawn: bool = True,
                  adopt_process=None, peer_label: Optional[str] = None,
-                 wire: str = "bits", **engine_kw):
+                 wire: str = "bits", draw: Optional[dict] = None,
+                 server: Optional[dict] = None, **engine_kw):
         self.telemetry = EngineTelemetry()
         self._inflight: Dict[int, Request] = {}   # rid -> pristine clone
         self._streams: Dict[int, List[int]] = {}  # last step's stream feed
@@ -446,11 +667,12 @@ class EngineProxy(InstanceHandle):
         self.bringup: Dict[str, float] = {}
         # everything respawn() needs to bring up a fresh replacement
         self._spec = {"cfg": cfg, "params": params,
-                      "start_timeout": start_timeout,
-                      "engine_kw": dict(engine_kw)}
+                      "start_timeout": start_timeout, "draw": draw,
+                      "server": server, "engine_kw": dict(engine_kw)}
         self._listen_mode = endpoint is not None
-        self._respawnable = (endpoint is None or spawn
-                             or adopt_process is not None)
+        # a group's rank cannot rejoin its group alone
+        self._respawnable = "group" not in engine_kw and (
+            endpoint is None or spawn or adopt_process is not None)
         self._generation = 0
         try:
             self._start(cfg, params, start_timeout, endpoint, spawn,
@@ -510,7 +732,9 @@ class EngineProxy(InstanceHandle):
         self.rpc = TR.Rpc(self.conn)
         t1 = time.perf_counter()
         nbytes = send_init(self.conn, cfg, params,
-                           dict(engine_kw, cache_kind="paged"))
+                           dict(engine_kw, cache_kind="paged"),
+                           draw=self._spec["draw"],
+                           server=self._spec["server"])
         t2 = time.perf_counter()
         ready = self.conn.recv()          # init ack doubles as ready gate
         if not ready.get("ok"):
@@ -759,7 +983,7 @@ class EngineProxy(InstanceHandle):
                            else start_timeout),
             endpoint=self.endpoint if self._listen_mode else None,
             spawn=True, peer_label=label, wire=self.wire,
-            **spec["engine_kw"])
+            draw=spec["draw"], server=spec["server"], **spec["engine_kw"])
         fresh._generation = self._generation + 1
         fresh.set_rpc_deadline(self.rpc.call_timeout)
         return fresh
