@@ -1,7 +1,7 @@
 """The port across four cards of one host over NCCL (card only: four
 H100s joined by NVLink).
 
-    python3 chip_multicard.py [--parts K,M1,M2,M3,M4,T,S]
+    python3 chip_multicard.py [--parts K,M1,M2,M3,M4,T,S,E]
 
 ``chip_smoke.py`` stays the one-card script; this one runs the paths
 that exist only across cards, one rank process per card
@@ -129,6 +129,36 @@ S. The live serving loop over instances that span the four cards
    (spawn, group, draw, broadcast) and each card's peak memory.
    ``--cpu`` rehearses S on eight CPU server processes over gloo at the
    reduced config (``OMP_NUM_THREADS=1``), without the card-only gates.
+E. The other serving planes over such instances (llama2-13b at published
+   width, bf16, instances of four cards), each brought up by
+   ``launch.serve.build_plane`` and driven by ``serve_workload`` /
+   ``serve_http``, in this process after S. E1: ``--workers 2
+   --supervise --drain``, 24 requests at rps 4, ``[4]*40`` from step
+   ``E1_PLAN_AT``; rank 2 of w1 is SIGKILLed right after a step went out
+   to its ranks (the others wait in the step's collectives); gates: w1
+   fails within 5 s of the kill with no RPC deadline, its streams replay
+   on w0, ``w1~r1`` comes back on cards 0-3 with every rank's weights
+   equal to w0's, card memory after the respawn at most S2's (or, run
+   alone, the figure before the kill) plus ``E_MEMORY_SLACK``, a request
+   pinned to w1~r1 finishes there with one checked replicated step (every
+   paged call within 2e-2 of its plain version), 25 finished, dropped 0,
+   paged launches = layers x decode steps, every server exits 0; printed:
+   the detection time, the downtime, the loop's stall in the step that
+   brought w1~r1 up, the replayed greedy streams against one undisturbed
+   card with each flip's top-2 gap. E2: ``--http --elastic --max-pod 2``
+   from one instance; a client posts ``E2_REQUESTS`` completions,
+   ``E2_CLIENTS`` at once, to the ingress and ends the serve with a
+   Ctrl-C once the pod shrank; the grouped factory's fresh group runs one
+   checked replicated step of a probe request before the pod admits it;
+   gates: the pod log holds one grow and one shrink, every completion 200
+   with its tokens, none dropped, every server (the retired group's
+   within the 60 s its close allows) exits 0, card memory after the
+   shrink within ``E_MEMORY_SLACK`` of one instance's; printed: the
+   grow's wall time and the new communicator's first collective. E3:
+   ``--inventory`` of one spawn node on 127.0.0.1 of capacity 2: two
+   instances of four consecutive endpoints, 12 requests with a drain,
+   dropped 0, every server exits 0. ``--cpu --parts E`` rehearses E on
+   CPU server processes over gloo at the reduced config.
 
 """
 from __future__ import annotations
@@ -1474,18 +1504,43 @@ def s_drain(orch, src, dst, overlap):
     return orch.migrate_requests_overlapped(src, dst, overlap_steps=overlap)
 
 
+def one_card_flips(cfg, kw, draw, specs, streams, on_card):
+    """The requests ``specs`` (rid -> spec), greedy, through one
+    unreplicated server on card 0 with the same draw; for each stream of
+    ``streams`` (rid -> tokens) that leaves that run's: (rid, the first
+    token that differs, it, the one card's, the witness's top-2 logits
+    and ids after the common prefix)."""
+    from repro_torch.serving.remote_engine import EngineProxy
+
+    dev = kw["device"]
+    ref = EngineProxy(cfg, None, draw=draw, **dict(kw, device=f"{dev}:0" if on_card else dev))
+    try:
+        for rid in sorted(specs):
+            ref.submit(specs[rid])
+        done = []
+        while ref.queue_len() or ref.active_rids():
+            done += ref.step()
+        one = {r.rid: list(r.generated) for r in done}
+        flips = []
+        for rid, got in streams.items():
+            if got != one[rid]:
+                t = next(i for i, (a, b) in enumerate(zip(got, one[rid])) if a != b)
+                prefix = [int(x) for x in specs[rid].prompt] + got[:t]
+                flips.append((rid, t, got[t], one[rid][t], ref._call("witness_top2", prefix)))
+        return flips
+    finally:
+        ref.close()
+
+
 def s2_part(on_card, smi):
     """S2: the §5 loop over two instances of four ranks (module
     docstring). Returns its measurements; raises where a gate fails."""
-    import threading
-
     from repro_torch.configs import get_config
     from repro_torch.core import migration as MIG
     from repro_torch.core.monitor import MetricsSnapshot
     from repro_torch.launch.serve import SERVE_MAX_LEN
-    from repro_torch.serving.group import GroupInstance
+    from repro_torch.serving.group import GroupInstance, start_all
     from repro_torch.serving.orchestrator import Orchestrator
-    from repro_torch.serving.remote_engine import EngineProxy
 
     cfg = get_config("llama2-13b")
     cfg, dtype = (cfg, "bfloat16") if on_card else (cfg.reduced(), "float32")
@@ -1496,25 +1551,9 @@ def s2_part(on_card, smi):
     draw = {"seed": CS.SEED, "dtype": dtype}
     server = {"sync_debug": on_card, "check_paged": True}
     t0 = time.perf_counter()
-    handles, errors = [None, None], []
-
-    def up(i):
-        try:
-            handles[i] = GroupInstance(cfg, width=WORLD, draw=draw, label=f"s2-{i}",
-                                       server=server, **kw)
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-
-    ups = [threading.Thread(target=up, args=(i,)) for i in range(2)]
-    for t in ups:
-        t.start()
-    for t in ups:
-        t.join()
-    if errors:
-        for h in handles:
-            if h is not None:
-                h.close()
-        raise errors[0]
+    handles = start_all([lambda i=i: GroupInstance(cfg, width=WORLD, draw=draw,
+                                                   label=f"s2-{i}", server=server, **kw)
+                         for i in range(2)])
     out = {"bringup_s": time.perf_counter() - t0,
            "bringup": [h.bringup for h in handles],
            "mem_up": s_memory() if on_card else []}
@@ -1586,24 +1625,7 @@ def s2_part(on_card, smi):
     finally:
         orch.close()
     out["exitcodes"] = [h.exitcodes for h in handles]
-    # one unreplicated card: the same requests, greedy, through one server
-    ref = EngineProxy(cfg, None, draw=draw, **dict(kw, device=f"{dev}:0" if on_card else dev))
-    try:
-        for rid in sorted(specs):
-            ref.submit(specs[rid])
-        done = []
-        while ref.queue_len() or ref.active_rids():
-            done += ref.step()
-        one = {r.rid: list(r.generated) for r in done}
-        flips = []
-        for rid, got in out["streams"].items():
-            if got != one[rid]:
-                t = next(i for i, (a, b) in enumerate(zip(got, one[rid])) if a != b)
-                prefix = [int(x) for x in specs[rid].prompt] + got[:t]
-                flips.append((rid, t, got[t], one[rid][t], ref._call("witness_top2", prefix)))
-        out["flips"] = flips
-    finally:
-        ref.close()
+    out["flips"] = one_card_flips(cfg, kw, draw, specs, out["streams"], on_card)
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -1719,6 +1741,398 @@ def s_part(on_card, smi):
     return res
 
 
+# --------------------------------------------------------------------- part E
+#: E1: the orchestrator step (from the workload's start) at which every
+#: instance takes [4]*40, and the first step at which rank 2 of w1 is killed
+#: inside a step (the first one from there at which w1 decodes)
+E1_PLAN_AT, E1_KILL_AT = 4, 10
+#: E2: the completions the client posts, how many at once, their new tokens
+#: (10 at once keep more than 4 queued on one instance of 4 rows: the grow;
+#: 8 tokens keep each request's engine-clock latency under the 40-step SLO,
+#: whose violations would press for a grow again after the shrink)
+E2_REQUESTS, E2_CLIENTS, E2_NEW = 24, 10, 8
+#: the card memory gates' slack (MiB, by nvidia-smi)
+E_MEMORY_SLACK = 2048
+#: a server's options in part E: its first steady replicated step checked
+E_SERVER = {"check_paged": True}
+
+
+@contextlib.contextmanager
+def host_cards(on_card):
+    """``launch.serve``'s width rule as the card sees it; the rehearsal
+    forces four CPU ranks an instance."""
+    from repro_torch.serving import group as G
+
+    width = G.host_width
+    if not on_card:
+        G.host_width = lambda device, count: WORLD
+    try:
+        yield
+    finally:
+        G.host_width = width
+
+
+def e_args(on_card, **kw):
+    from repro_torch.launch import serve as S
+
+    return S.ServeConfig(arch="llama2-13b", reduced=not on_card, max_batch=4,
+                         device="cuda" if on_card else "cpu", **kw)
+
+
+def e_checked(infos, L, name):
+    """Every rank of a group ran one checked step: each of its ``L``
+    paged calls within 2e-2 of the plain version."""
+    for k, x in enumerate(infos):
+        c = x["paged_checks"]
+        if x["checked_steps"] != 1 or len(c) != L or max(c) > 2e-2:
+            raise AssertionError(f"{name} rank {k}: checked steps {x['checked_steps']}, "
+                                 f"paged calls against the plain version {c}")
+    return max(max(x["paged_checks"]) for x in infos)
+
+
+def e1_part(on_card, smi, s_mem):
+    """E1: ``--workers 2 --supervise --drain`` (module docstring)."""
+    from repro_torch.launch import serve as S
+
+    args = e_args(on_card, workers=2, supervise=True, drain=True, requests=24, rps=4)
+    t0 = time.perf_counter()
+    with host_cards(on_card):
+        plane = S.build_plane(args, server=E_SERVER)
+    orch, L = plane.orch, plane.cfg.num_layers
+    out = {"bringup_s": time.perf_counter() - t0, "mem_up": s_memory() if on_card else []}
+    ev = {"walls": []}
+
+    def kill_inside_the_step(h):
+        send, fail = h.step_async, h._fail
+
+        def step_async():   # the step is out to every rank: SIGKILL rank 2
+            w = send()
+            h.step_async = send
+            ev["t_kill"] = time.monotonic()
+            h.ranks[2].kill()
+            return w
+
+        def _fail(reason):
+            ev.setdefault("t_fail", time.monotonic())
+            ev.setdefault("reason", reason)
+            fail(reason)
+
+        h.step_async, h._fail = step_async, _fail
+
+    def hook(o, step):
+        now = time.monotonic()
+        if "t_last" in ev:
+            ev["walls"].append((now - ev["t_last"], o.faults.respawns))
+        ev["t_last"] = now
+        if step == E1_PLAN_AT:
+            o._on_plan_change(types.SimpleNamespace(p=[WORLD] * L), args.max_batch)
+        w1 = o.instances[1]
+        if step >= E1_KILL_AT and "armed" not in ev and w1.alive() and w1.active_rids():
+            ev["armed"] = step
+            out["mem_before_kill"] = s_memory() if on_card else []
+            out["killed_rids"] = sorted(w1.active_rids().values())
+            kill_inside_the_step(w1)
+        if o.faults.respawns and "mem_respawned" not in ev:
+            ev["mem_respawned"] = s_memory() if on_card else []
+
+    try:
+        S.serve_workload(args, plane, hook=hook)
+        fresh = orch.instances[1]
+        # re-admitted: a replicated plan, and a request pinned to w1~r1
+        orch._on_plan_change(types.SimpleNamespace(p=[WORLD] * L), args.max_batch)
+        pin = s_requests(plane.cfg, 1, 500, 8, 2)[0]
+        orch.submit_to(1, pin)
+        orch.run_until_done()
+        sums = [h._all("params_checksum") for h in orch.instances]
+        out.update(
+            finished=len(orch.finished), stats={k: v for k, v in orch.stats().items()
+                                                if k in ("dropped", "finished", "recoveries")},
+            recoveries=[{k: r[k] for k in ("instance", "reason", "detect_s", "rids")}
+                        for r in orch.recoveries],
+            respawn_log=list(orch.respawn_log), labels=[h.label for h in orch.instances],
+            rank_labels=[r.peer_label for r in fresh.ranks],
+            sums_equal=all(x == sums[0][0] for h in sums for x in h),
+            pinned_home=orch._home.get(pin.rid),
+            pinned=next(list(r.generated) for r in orch.finished if r.rid == pin.rid),
+            infos=fresh.rank_infos(), w0_infos=orch.instances[0].rank_infos(),
+            streams={r.rid: list(r.generated) for r in orch.finished},
+            mem_respawned=ev.get("mem_respawned", []), walls=ev["walls"],
+            detect_s=ev["t_fail"] - ev["t_kill"], reason=ev["reason"], armed=ev["armed"])
+    finally:
+        S._close(orch)
+    out["exitcodes"] = [h.exitcodes for h in orch.instances]
+    # the replayed streams against one undisturbed, unreplicated card
+    make = S._requests(args, plane.cfg)
+    specs = {r.rid: r for r in (make(i) for i in range(args.requests))}
+    replayed = {rid for rec in out["recoveries"] for rid in rec["rids"]}
+    kw = dict(max_batch=args.max_batch, max_len=S.SERVE_MAX_LEN, dtype=plane.dtype,
+              device=args.device, scheduler=args.scheduler, token_budget=args.token_budget)
+    out["flips"] = one_card_flips(plane.cfg, kw, {"seed": 0, "dtype": plane.dtype},
+                                  {rid: specs[rid] for rid in replayed},
+                                  {rid: out["streams"][rid] for rid in replayed}, on_card)
+    out["replayed"] = sorted(replayed)
+    out["s_mem"] = s_mem
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def e1_gates(r, on_card, smi, L):
+    """E1's gates and lines (module docstring)."""
+    if r["stats"]["dropped"] or r["finished"] != 25:
+        raise AssertionError(f"E1: {r['finished']} of 24 + 1 finished, {r['stats']}")
+    if r["detect_s"] >= 5.0 or "rank 2 closed in step" not in r["reason"]:
+        raise AssertionError(f"E1: w1 failed {r['detect_s']:.3f} s after the kill: {r['reason']}")
+    rec = r["recoveries"]
+    if [x["instance"] for x in rec] != [1] or not set(r["killed_rids"]) <= set(rec[0]["rids"]):
+        raise AssertionError(f"E1: recoveries {rec}, killed inside the step {r['killed_rids']}")
+    spawned = [e for e in r["respawn_log"] if e["event"] == "respawned"]
+    if r["labels"] != ["w0", "w1~r1"] or [e["label"] for e in spawned] != ["w1~r1"] or \
+            r["rank_labels"] != [f"w1~r1/r{k}" for k in range(WORLD)]:
+        raise AssertionError(f"E1: labels {r['labels']}, {r['rank_labels']}, {r['respawn_log']}")
+    if on_card and [x["device"] for x in r["infos"]] != [f"cuda:{k}" for k in range(WORLD)]:
+        raise AssertionError(f"E1: w1~r1 on {[x['device'] for x in r['infos']]}")
+    if not r["sums_equal"]:
+        raise AssertionError("E1: the weights differ between the ranks of w0 and w1~r1")
+    if r["pinned_home"] != 1:
+        raise AssertionError(f"E1: the pinned request finished on instance {r['pinned_home']}")
+    worst = e_checked(r["infos"], L, "E1 w1~r1")
+    if on_card:
+        for name, infos in (("w0", r["w0_infos"]), ("w1~r1", r["infos"])):
+            if any(x["paged_launches"] != L * x["decode_steps"] for x in infos):
+                raise AssertionError(f"E1 {name}: paged launches {[x['paged_launches'] for x in infos]}"
+                                     f" for decode steps {[x['decode_steps'] for x in infos]}")
+        ref = r["s_mem"] or r["mem_before_kill"]
+        if any(a > b + E_MEMORY_SLACK for a, b in zip(r["mem_respawned"], ref)):
+            raise AssertionError(f"E1: MiB used after the respawn {r['mem_respawned']}, two "
+                                 f"instances {ref}")
+    if r["exitcodes"] != [[0] * WORLD] * 2:
+        raise AssertionError(f"E1: server exit codes {r['exitcodes']}")
+    stall = next(w for w, n in r["walls"] if n)   # the step that brought w1~r1 up
+    down = spawned[0]["downtime_s"]
+    log(f"[multicard] E1 launch.serve --workers 2 --supervise --drain (llama2-13b, "
+        f"{'published width, bf16' if on_card else 'reduced'}, 2 instances x {WORLD} cards, "
+        f"24 requests at rps 4): rank 2 of w1 SIGKILLed inside step {r['armed']} under "
+        f"[{WORLD}]*{L}; w1 failed {r['detect_s'] * 1e3:.1f} ms after the kill (no RPC deadline; "
+        f"orchestrator's detect_s {rec[0]['detect_s'] * 1e3:.1f} ms), its streams {rec[0]['rids']} "
+        f"replayed on w0; w1~r1 up on the same cards after {down:.1f} s of downtime, the serving "
+        f"loop stalled {stall:.1f} s in the step that brought it up; 24 + 1 pinned finished, "
+        f"dropped 0; w1~r1's weights equal on its ranks and to w0's; the pinned request finished "
+        f"on w1~r1, its checked step's worst paged call {worst:.3e} from the plain version; every "
+        f"server exited 0 [{smi}]")
+    log(f"[multicard] E1 nvidia-smi MiB used: after bring-up {r['mem_up']}, before the kill "
+        f"{r['mem_before_kill']}, after the respawn {r['mem_respawned']}; part S's two instances "
+        f"{r['s_mem'] or 'not run'} [{smi}]")
+    log(f"[multicard] E1 replayed streams {r['replayed']} against one undisturbed card: flips "
+        f"(rid, token, top-2 gap over the top logit) "
+        f"{[(f[0], f[1], round((f[4][0][0] - f[4][0][1]) / abs(f[4][0][0]), 5)) for f in r['flips']]}"
+        f" [{smi}]")
+
+
+def e2_part(on_card, smi):
+    """E2: ``--http --elastic``, one instance at start, ``--max-pod 2``
+    (module docstring)."""
+    import _thread
+    import threading
+    import urllib.request
+
+    from repro_torch.launch import serve as S
+
+    # ten at once reach one instance before it admits any: an admission
+    # ceiling above them, so that none is shed with a 429
+    args = e_args(on_card, http=True, elastic=True, instances=1, max_pod=2, http_port=0,
+                  requests=0, max_queue=2 * E2_CLIENTS)
+    t0 = time.perf_counter()
+    with host_cards(on_card):
+        plane = S.build_plane(args, server=E_SERVER)
+    orch, L = plane.orch, plane.cfg.num_layers
+    out = {"bringup_s": time.perf_counter() - t0, "statuses": [], "tokens": [], "routed": []}
+    factory = orch.worker_factory
+
+    def grow(idx):
+        """The grouped factory, and one checked replicated step of a probe
+        request on the fresh group before the pod admits it."""
+        out["mem_one"] = s_memory() if on_card else []
+        t = time.perf_counter()
+        h = factory(idx)
+        out["grow_s"] = time.perf_counter() - t
+        out["grown_bringup"] = h.bringup
+        h.apply_plan([WORLD] * L)
+        h.submit(s_requests(plane.cfg, 1, 900 + idx, 8, 3)[0])
+        while h.queue_len() or h.active_rids():
+            h.step()
+        h.apply_plan([1] * L)
+        out["grown_infos"] = h.rank_infos()
+        return h
+
+    orch.worker_factory = grow
+    prompts = s_requests(plane.cfg, E2_REQUESTS, 0, E2_NEW, 4)
+
+    def client():
+        try:
+            while plane.ingress is None:
+                time.sleep(0.05)
+            url = f"http://127.0.0.1:{plane.ingress.port}/v1/completions"
+            left = list(prompts)
+            lock = threading.Lock()
+
+            def worker():
+                while True:
+                    with lock:
+                        if not left:
+                            return
+                        spec = left.pop(0)
+                    body = json.dumps({"prompt": [int(x) for x in spec.prompt],
+                                       "max_tokens": E2_NEW}).encode()
+                    req = urllib.request.Request(url, data=body,
+                                                 headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req, timeout=600) as resp:
+                            body = json.loads(resp.read())
+                            out["statuses"].append(resp.status)
+                            out["tokens"].append(len(body["tokens"]))
+                            out["routed"].append(body["routing"]["instance"])
+                    except urllib.error.HTTPError as e:
+                        out["statuses"].append(e.code)
+
+            ws = [threading.Thread(target=worker) for _ in range(E2_CLIENTS)]
+            for w in ws:
+                w.start()
+            for w in ws:
+                w.join()
+            out["traffic_s"] = time.perf_counter() - t0
+            deadline = time.monotonic() + 180
+            while not any(e["event"] == "shrink" for e in orch.pod_log) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.2)
+            time.sleep(2.0)   # the retired servers' memory freed by the CUDA driver
+            out["mem_shrunk"] = s_memory() if on_card else []
+        except BaseException as e:  # noqa: BLE001 - gated below
+            out["client_error"] = repr(e)
+        finally:
+            _thread.interrupt_main()   # the Ctrl-C serve_http waits for
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        S.serve_http(args, plane)
+    except KeyboardInterrupt:
+        pass
+    th.join()
+    out.update(pod_log=list(orch.pod_log), finished=len(orch.finished),
+               dropped=orch.dropped, retired=sorted(orch._retired),
+               controller=[a for a in orch.controller.log if "pod" in a])
+    S._close(orch)
+    out["exitcodes"] = [h.exitcodes for h in orch.instances]
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def e2_gates(r, on_card, smi, L):
+    """E2's gates and lines (module docstring)."""
+    if "client_error" in r:
+        raise AssertionError(f"E2: the client failed: {r['client_error']}")
+    if [e["event"] for e in r["pod_log"]] != ["grow", "shrink"]:
+        raise AssertionError(f"E2: pod log {r['pod_log']}")
+    if r["statuses"] != [200] * E2_REQUESTS or r["tokens"] != [E2_NEW] * E2_REQUESTS or \
+            r["finished"] != E2_REQUESTS or r["dropped"]:
+        raise AssertionError(f"E2: statuses {r['statuses']}, tokens {r['tokens']}, "
+                             f"{r['finished']} finished, dropped {r['dropped']}")
+    if len(r["retired"]) != 1 or r["exitcodes"] != [[0] * WORLD] * 2:
+        raise AssertionError(f"E2: retired {r['retired']}, server exit codes "
+                             f"{r['exitcodes']} (the retired group's closed within 60 s)")
+    worst = e_checked(r["grown_infos"], L, "E2 g1")
+    if on_card and any(abs(a - b) > E_MEMORY_SLACK for a, b in zip(r["mem_shrunk"], r["mem_one"])):
+        raise AssertionError(f"E2: MiB used after the shrink {r['mem_shrunk']}, one instance "
+                             f"{r['mem_one']}")
+    b = r["grown_bringup"]
+    log(f"[multicard] E2 launch.serve --http --elastic --max-pod 2 (llama2-13b, "
+        f"{'published width, bf16' if on_card else 'reduced'}, 1 instance of {WORLD} cards at "
+        f"start): {E2_REQUESTS} completions from {E2_CLIENTS} clients, all 200 with {E2_NEW} "
+        f"tokens, {r['routed'].count(1)} routed to g1; the controller {r['controller']}; pod log {r['pod_log']}; the grow (g1's "
+        f"bring-up, the loop stalled in it) {r['grow_s']:.1f} s, by rank spawn "
+        f"{[round(x['connect_s'], 1) for x in b]} s, group {[round(x['group_s'], 2) for x in b]} s, "
+        f"the new communicator's first collective {[round(x['first_collective_s'] * 1e3, 1) for x in b]}"
+        f" ms; g1's checked step's worst paged call {worst:.3e} from the plain version; instance "
+        f"{r['retired'][0]} retired, every server exited 0; nvidia-smi MiB used: one instance "
+        f"{r['mem_one']}, after the shrink {r['mem_shrunk']}; {r['s']:.1f} s [{smi}]")
+
+
+def e3_part(on_card, smi, out_dir):
+    """E3: ``--inventory`` of one spawn node, capacity 2 (module
+    docstring)."""
+    import io
+
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import transport as TR
+
+    for _ in range(50):   # eight consecutive free ports
+        base = int(TR.free_tcp_endpoint().rsplit(":", 1)[1])
+        if base + 2 * WORLD < 65536 and all(port_free(base + k) for k in range(2 * WORLD)):
+            break
+    path = Path(out_dir) / "e3_pod.toml"
+    path.write_text(f'[[node]]\nhost = "127.0.0.1"\nport = {base}\ncapacity = 2\n'
+                    'spawn = true\n')
+    args = e_args(on_card, inventory=str(path), drain=True, requests=12, rps=4)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with host_cards(on_card), contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+        plane = S.build_plane(args)
+        eps = [[r.endpoint for r in h.ranks] for h in plane.orch.instances]
+        try:
+            S.serve_workload(args, plane)
+            stats = plane.orch.stats()
+        finally:
+            S._close(plane.orch)
+    return {"n": len(plane.orch.finished), "dropped": stats["dropped"], "eps": eps, "base": base,
+            "exitcodes": [h.exitcodes for h in plane.orch.instances],
+            "pod_line": [x for x in buf.getvalue().splitlines() if "[serve] pod:" in x],
+            "s": time.perf_counter() - t0}
+
+
+def port_free(port):
+    import socket
+
+    s = socket.socket()
+    try:
+        s.bind(("127.0.0.1", port))
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
+
+
+def e3_gates(r, on_card, smi):
+    """E3's gates and line (module docstring)."""
+    want = [[f"tcp://127.0.0.1:{r['base'] + WORLD * i + k}" for k in range(WORLD)]
+            for i in range(2)]
+    if r["n"] != 12 or r["dropped"] or r["eps"] != want or \
+            r["exitcodes"] != [[0] * WORLD] * 2:
+        raise AssertionError(f"E3: {r['n']} of 12 finished, dropped {r['dropped']}, endpoints "
+                             f"{r['eps']}, exit codes {r['exitcodes']}")
+    log(f"[multicard] E3 launch.serve --inventory (one spawn node on 127.0.0.1, capacity 2): "
+        f"{r['pod_line']}, endpoints {r['eps'][0][0]}..{r['eps'][1][-1]}, 12 of 12 finished with "
+        f"a drain, dropped 0, every server exited 0, {r['s']:.1f} s [{smi}]")
+
+
+def e_part(on_card, smi, out_dir, s_mem):
+    """Part E in this process (module docstring)."""
+    res = {}
+    for name, part in (("E1", lambda: e1_part(on_card, smi, s_mem)),
+                       ("E2", lambda: e2_part(on_card, smi)),
+                       ("E3", lambda: e3_part(on_card, smi, out_dir))):
+        t0 = time.perf_counter()
+        res[name] = part()
+        res[f"{name} s"] = time.perf_counter() - t0
+    return res
+
+
+def e_gates(res, on_card, smi, L):
+    e1_gates(res["E1"], on_card, smi, L)
+    e2_gates(res["E2"], on_card, smi, L)
+    e3_gates(res["E3"], on_card, smi)
+
+
 # ------------------------------------------------------------------- the ranks
 def rank_main(rank, port, parts, on_card, out_dir, results):
     """One rank process: its card, the store, the parts in order; puts
@@ -1772,7 +2186,7 @@ def rank_main(rank, port, parts, on_card, out_dir, results):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="K,M1,M2,M3,M4,T,S")
+    ap.add_argument("--parts", default="K,M1,M2,M3,M4,T,S,E")
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on four CPU processes over gloo at reduced sizes")
     args = ap.parse_args(argv)
@@ -1801,7 +2215,7 @@ def main(argv=None):
         log(f"[build] the kernels in {time.perf_counter() - t:.2f} s")
     if not on_card:   # CPU processes of the rehearsal: one thread each
         os.environ["OMP_NUM_THREADS"] = "1"
-    ranked = [p for p in parts if p != "S"]
+    ranked = [p for p in parts if p not in ("S", "E")]
     by = run_ranks(ranked, on_card, out_dir) if ranked else {}
     sz = sizes(on_card)
     summary = {}
@@ -1819,12 +2233,19 @@ def main(argv=None):
              "M3": lambda: m3_gates(by["M3"], on_card, smi),
              "M4": lambda: m4_gates(by["M4"], on_card, smi, sz.c70.num_layers),
              "T": lambda: t_gates(by["T"], on_card, smi, sz),
-             "S": lambda: s2_gates(by["S"]["S2"], on_card, smi, sz.l13.num_layers)}
+             "S": lambda: s2_gates(by["S"]["S2"], on_card, smi, sz.l13.num_layers),
+             "E": lambda: e_gates(by["E"], on_card, smi, sz.l13.num_layers)}
     if "S" in parts:   # in this process, once the rank processes are gone
         t0 = time.perf_counter()
         by["S"] = s_part(on_card, smi)
         log(f"[multicard] part S in {time.perf_counter() - t0:.1f} s (S1 {by['S']['S1 s']:.1f}, "
             f"S2 {by['S']['S2 s']:.1f})")
+    if "E" in parts:   # after S, once its servers have gone
+        t0 = time.perf_counter()
+        s_mem = by["S"]["S2"]["mem_end"] if "S" in by else []
+        by["E"] = e_part(on_card, smi, out_dir, s_mem)
+        log(f"[multicard] part E in {time.perf_counter() - t0:.1f} s (E1 {by['E']['E1 s']:.1f}, "
+            f"E2 {by['E']['E2 s']:.1f}, E3 {by['E']['E3 s']:.1f})")
     failed = []
     for part, gate in gates.items():   # every part gated, then the failures
         if part in by:

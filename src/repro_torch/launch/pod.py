@@ -41,6 +41,11 @@ endpoints must only be reachable from the trusted network segment the
 pod runs on (bind a private interface, not a public one), exactly like
 the intra-cluster RPC planes of mainstream serving stacks.
 
+On a host whose instances span W cards (``launch.serve`` with two or
+more cards visible), a node's ``capacity`` counts group instances, each
+of W consecutive endpoints (``launch_group_pod``); the schema is the
+same.
+
 Counterpart of ``repro.launch.pod`` for the port. The engine kwargs
 (``device`` among them) and the weights travel in each server's init
 stream, so a listening server needs nothing beyond its endpoint; on one
@@ -70,9 +75,14 @@ class Node:
     capacity: int = 1
     spawn: bool = True
 
-    def endpoints(self) -> List[str]:
+    def endpoints(self, width: int = 1) -> List[str]:
+        """The node's endpoints: ``width`` consecutive ports an instance
+        (one engine server a rank of a group instance)."""
         return [f"tcp://{self.host}:{self.port + k}"
-                for k in range(self.capacity)]
+                for k in range(self.capacity * width)]
+
+    def name(self) -> str:
+        return f"{self.host}:{self.port}"
 
 
 def parse_inventory(doc: dict, origin: str = "<inventory>") -> List[Node]:
@@ -100,16 +110,23 @@ def parse_inventory(doc: dict, origin: str = "<inventory>") -> List[Node]:
             raise ValueError(f"{origin}: node #{i} port {node.port} "
                              "out of range")
         nodes.append(node)
+    check_endpoints(nodes, 1, origin)
+    return nodes
+
+
+def check_endpoints(nodes: List[Node], width: int,
+                    origin: str = "<inventory>"):
+    """Raise unless no two nodes share an endpoint at ``width`` ranks an
+    instance, naming the nodes."""
     seen: dict = {}
     for i, node in enumerate(nodes):
-        for ep in node.endpoints():
+        for ep in node.endpoints(width):
             if ep in seen:
                 raise ValueError(
                     f"{origin}: endpoint {ep} appears in both node "
                     f"#{seen[ep]} and node #{i} (overlapping port "
                     "ranges) — two servers cannot share it")
             seen[ep] = i
-    return nodes
 
 
 def load_inventory(path: str) -> List[Node]:
@@ -128,6 +145,7 @@ def load_inventory(path: str) -> List[Node]:
 def launch_pod(cfg, params, nodes: List[Node], *,
                start_timeout: float = 120.0,
                pod_timeout: Optional[float] = None,
+               width: int = 1, draw: Optional[dict] = None,
                **engine_kw) -> list:
     """Bring up one ``EngineProxy`` per inventory endpoint and return
     the handle list for ``Orchestrator(handles=...)``.
@@ -150,9 +168,21 @@ def launch_pod(cfg, params, nodes: List[Node], *,
     Proxies are labeled ``w0..wN-1`` in inventory order — the stable
     per-peer identity the fault-injection plans of
     ``serving/faults.py`` target (free-port inventories keep the same
-    labels run to run, so a seeded chaos plan stays reproducible)."""
+    labels run to run, so a seeded chaos plan stays reproducible).
+
+    With ``width`` above 1 each node holds ``capacity`` group instances
+    (``launch_group_pod``): ``width`` consecutive endpoints each, whose
+    servers draw ``draw`` (or take ``params``' stream)."""
     import multiprocessing as mp
     import time
+
+    if width > 1:
+        return launch_group_pod(cfg, params, nodes, width=width, draw=draw,
+                                start_timeout=(start_timeout
+                                               if pod_timeout is None else
+                                               min(start_timeout,
+                                                   pod_timeout)),
+                                **engine_kw)
 
     from repro_torch.serving.remote_engine import (EngineProxy,
                                                    engine_server_listen)
@@ -201,7 +231,47 @@ def launch_pod(cfg, params, nodes: List[Node], *,
     return handles
 
 
+def launch_group_pod(cfg, params, nodes: List[Node], *, width: int,
+                     draw: Optional[dict] = None, start_timeout: float = 120.0,
+                     **engine_kw) -> list:
+    """One ``serving.group.GroupInstance`` per ``width`` consecutive
+    endpoints of each node (``capacity`` of them a node), labelled
+    ``w0..`` in inventory order, all brought up at once: a ``spawn``
+    node's servers are spawned listening at its endpoints (such an
+    instance respawns), an attach node's are dialled (such an instance
+    does not). A node whose ranks cannot form an instance fails the
+    bring-up, naming the node; the instances that came up are closed."""
+    from repro_torch.serving.group import GroupInstance, start_all
+
+    for i, node in enumerate(nodes):
+        last = node.port + node.capacity * width - 1
+        if last >= 65536:
+            raise ValueError(
+                f"node #{i} ({node.name()}) cannot form {node.capacity} "
+                f"instances of {width} ranks: port {last} out of range")
+    check_endpoints(nodes, width)
+    makers = []
+    for node in nodes:
+        eps = node.endpoints(width)
+        for i in range(node.capacity):
+            def make(node=node, k=len(makers),
+                     ranks=eps[i * width:(i + 1) * width]):
+                try:
+                    return GroupInstance(
+                        cfg, params, width=width, draw=draw, endpoints=ranks,
+                        spawn=node.spawn, label=f"w{k}",
+                        start_timeout=start_timeout, **engine_kw)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"node {node.name()} ({'spawn' if node.spawn else 'attach'}) "
+                        f"could not form instance w{k} of {width} ranks at "
+                        f"{ranks[0]}..{ranks[-1]}: {e}") from e
+            makers.append(make)
+    return start_all(makers)
+
+
 def make_worker_factory(cfg, params, *, remote: bool = False,
+                        width: int = 1, draw: Optional[dict] = None,
                         **engine_kw):
     """Return the ``idx -> InstanceHandle`` callable that arms the
     orchestrator's RUNTIME pod growth (``Orchestrator.grow_pod``): the
@@ -212,10 +282,21 @@ def make_worker_factory(cfg, params, *, remote: bool = False,
     builds an in-process paged ``LocalInstance`` — enough for tests and
     single-host elasticity without process spin-up cost.
 
+    With ``width`` above 1 it builds a ``serving.group.GroupInstance`` of
+    ``width`` spawned engine servers, one a card, whose weights come by
+    ``draw`` (or as ``params``' stream): the instance a host with several
+    cards serves.
+
     Grown workers are labeled ``g<idx>`` — disjoint from the
     launch-time ``w<k>`` namespace, so fault-injection plans and logs
     can tell a runtime spawn from the original fleet."""
-    if remote:
+    if width > 1:
+        from repro_torch.serving.group import GroupInstance
+
+        def factory(idx: int):
+            return GroupInstance(cfg, params, width=width, draw=draw,
+                                 label=f"g{idx}", **engine_kw)
+    elif remote:
         from repro_torch.serving.remote_engine import EngineProxy
 
         def factory(idx: int):

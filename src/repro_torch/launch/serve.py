@@ -55,15 +55,20 @@ prefix-affinity routing, SLO-class admission and 429 backpressure; add
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --instances 2 --http --http-port 8080 --scheduler slo
 
-On a host with two or more cards visible, each of ``--instances`` spans
-the largest power of two of them (``serving.group.host_width``: the
+On a host with two or more cards visible, every instance spans the
+largest power of two of them (``serving.group.host_width``: the
 reference's replication mesh) as a ``serving.group.GroupInstance``: an
 engine-server process a card, in one replication group, that draws its
 weights by seed (rank 0 draws, a broadcast replicates) — this process
 draws none. A scale-up the controller decides then splits the
-replicated layers' rows over every card of the instance. With one card
-nothing changes. ``--workers``, ``--inventory`` and ``--elastic`` are
-not ported over such groups yet (ROADMAP A15) and raise.
+replicated layers' rows over every card of the instance. That holds on
+every plane: ``--instances`` and ``--workers N`` build N such instances
+(``w0 .. wN-1``); an ``--inventory`` node holds ``capacity`` of them, W
+consecutive endpoints each; ``--elastic`` grows and shrinks the pod by
+whole group instances (``g<idx>``); ``--supervise`` respawns a dead one
+on the same cards (``w1~r1``), unless its servers were attached. With one
+card nothing changes. ``build_plane`` brings a plane up and
+``serve_workload`` / ``serve_http`` drive it, as ``run`` does.
 """
 from __future__ import annotations
 
@@ -265,7 +270,44 @@ def main(argv=None):
     return run(ServeConfig.from_args(argv))
 
 
+@dataclasses.dataclass
+class Plane:
+    """What ``build_plane`` brought up: the config, dtype and cache kind
+    served, the cards an instance spans (``width``: 1 but for group
+    instances), and ``orch``, the Orchestrator over the instances (None
+    for the dense fallback, whose one ``engine`` serves alone).
+    ``t_start`` is when the instances' bring-up began; ``ingress`` the
+    front door ``serve_http`` started."""
+    cfg: object
+    dtype: str
+    kind: str
+    width: int
+    t_start: float
+    n_instances: int = 1
+    orch: Optional[object] = None
+    engine: Optional[object] = None
+    ingress: Optional[object] = None
+
+
 def run(args: ServeConfig):
+    plane = build_plane(args)
+    if plane.orch is None:
+        return serve_dense(args, plane)
+    if args.http:
+        serve_http(args, plane)
+    else:
+        serve_workload(args, plane)
+    _close(plane.orch)
+    return len(plane.orch.finished)
+
+
+def build_plane(args: ServeConfig, server: Optional[dict] = None) -> Plane:
+    """Bring up the serving plane ``args`` asks for: the weights, the
+    instances (in-process, ``--workers`` processes, an ``--inventory``
+    pod, or group instances that span this host's cards) and the
+    Orchestrator over them, with the ``--elastic`` worker factory and the
+    ``--supervise`` policy. ``server`` holds the options of every engine
+    server of a group instance (``remote_engine.EngineServer``)."""
     args.validate()
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
@@ -282,26 +324,12 @@ def run(args: ServeConfig):
     width = host_width(args.device, torch.cuda.device_count()
                        if torch.device(args.device).type == "cuda" else 0)
     grouped = width > 1 and kind == "paged"
-    if grouped and (args.workers or args.inventory or args.elastic):
-        raise NotImplementedError(
-            "--workers, --inventory and --elastic over instances that span "
-            f"{width} cards are not ported (ROADMAP A15)")
     # group instances draw their own weights, rank 0 of each on its card
     params = None if grouped else T.init_params(
         cfg, torch.Generator(device=args.device).manual_seed(0), dtype)
     print(f"[serve] cache_kind={kind} device={args.device} "
           f"{'reduced' if args.reduced else 'full width'} {dtype}")
-
-    rng = np.random.default_rng(0)
-
-    def make_request(rid):
-        return RequestSpec(
-            rid=rid,
-            prompt=rng.integers(2, cfg.vocab_size,
-                                size=args.prompt_len).astype(np.int32),
-            max_tokens=args.max_new)
-
-    t_start = time.time()
+    plane = Plane(cfg, dtype, kind, width if grouped else 1, time.time())
 
     if args.http and kind != "paged":
         raise SystemExit("[serve] --http needs a paged-cache family "
@@ -310,25 +338,21 @@ def run(args: ServeConfig):
 
     if kind == "dense":  # single-engine fallback (no paged pool)
         from repro_torch.serving.engine import Engine
-        eng = Engine(cfg, params, max_batch=args.max_batch,
-                     max_len=SERVE_MAX_LEN, cache_kind="dense", dtype=dtype,
-                     device=args.device)
-        submitted, finished, step = 0, [], 0
-        while len(finished) < args.requests and step < 5000:
-            while submitted < args.requests and \
-                    submitted <= eng.clock * args.rps:
-                eng.submit(make_request(submitted))
-                submitted += 1
-            finished.extend(eng.step() or [])
-            step += 1
-        _report(finished, time.time() - t_start)
-        return len(finished)
+        plane.engine = Engine(cfg, params, max_batch=args.max_batch,
+                              max_len=SERVE_MAX_LEN, cache_kind="dense",
+                              dtype=dtype, device=args.device)
+        return plane
 
     from repro_torch.serving.orchestrator import Orchestrator, RespawnPolicy
     policy = RespawnPolicy() if args.supervise else None
     sched_kw = dict(scheduler=args.scheduler,
                     token_budget=args.token_budget, device=args.device,
                     dtype=dtype)
+    engine_kw = dict(max_batch=args.max_batch, max_len=SERVE_MAX_LEN,
+                     **sched_kw)
+    # a group instance's servers: W cards, weights by seed, no stream
+    group_kw = dict(width=width, draw={"seed": 0, "dtype": dtype},
+                    server=server, **engine_kw) if grouped else {}
     front_kw = {}
     if args.http:
         # front-door knobs: admission ceiling (-> 429 at the door) and,
@@ -340,85 +364,116 @@ def run(args: ServeConfig):
             from repro_torch.launch.pod import make_worker_factory
             front_kw["worker_factory"] = make_worker_factory(
                 cfg, params, remote=bool(args.workers or args.inventory),
-                max_batch=args.max_batch, max_len=SERVE_MAX_LEN, **sched_kw)
+                **(group_kw or engine_kw))
             front_kw["pod_cfg"] = PodElasticityConfig(
                 max_instances=args.max_pod)
     if args.flightrec_out:
         front_kw["flightrec_path"] = args.flightrec_out
+    orch_kw = dict(slo_latency=args.slo, telemetry_every=4,
+                   rpc_deadline=args.rpc_deadline, respawn_policy=policy,
+                   **front_kw)
     if args.inventory:
         from repro_torch.launch.pod import launch_pod, load_inventory
         nodes = load_inventory(args.inventory)
-        handles = launch_pod(cfg, params, nodes,
-                             max_batch=args.max_batch,
-                             max_len=SERVE_MAX_LEN, **sched_kw)
-        n_instances = len(handles)
-        orch = Orchestrator(cfg, params, handles=handles,
-                            slo_latency=args.slo, telemetry_every=4,
-                            rpc_deadline=args.rpc_deadline,
-                            respawn_policy=policy, **front_kw)
-        print(f"[serve] pod: {n_instances} engine servers over TCP "
+        handles = launch_pod(cfg, params, nodes, **(group_kw or engine_kw))
+        plane.n_instances = len(handles)
+        plane.orch = Orchestrator(cfg, params, handles=handles, **orch_kw)
+        what = (f"{plane.n_instances} instances of {width} engine servers"
+                if grouped else f"{plane.n_instances} engine servers")
+        print(f"[serve] pod: {what} over TCP "
               f"({sum(n.spawn for n in nodes)} node(s) spawned, "
               f"{sum(not n.spawn for n in nodes)} attached)")
     elif grouped:
-        from repro_torch.serving.group import GroupInstance
-        n_instances = args.instances
-        handles = [GroupInstance(cfg, width=width,
-                                 draw={"seed": 0, "dtype": dtype},
-                                 label=f"instance{i}",
-                                 max_batch=args.max_batch,
-                                 max_len=SERVE_MAX_LEN, **sched_kw)
-                   for i in range(n_instances)]
-        orch = Orchestrator(cfg, None, handles=handles,
-                            slo_latency=args.slo, telemetry_every=4,
-                            rpc_deadline=args.rpc_deadline,
-                            respawn_policy=policy, **front_kw)
+        from repro_torch.serving.group import GroupInstance, start_all
+        plane.n_instances = args.workers or args.instances
+        handles = start_all([
+            lambda i=i: GroupInstance(cfg, label=f"w{i}", **group_kw)
+            for i in range(plane.n_instances)])
+        plane.orch = Orchestrator(cfg, None, handles=handles, **orch_kw)
         b = handles[0].bringup
-        print(f"[serve] replication: {n_instances} instances, each a group "
-              f"of {width} cards (an engine server a card); instance 0's "
-              f"rank 0 bring-up: spawn {b[0]['connect_s']:.1f} s, group "
+        print(f"[serve] replication: {plane.n_instances} instances, each a "
+              f"group of {width} cards (an engine server a card); instance "
+              f"0's rank 0 bring-up: spawn {b[0]['connect_s']:.1f} s, group "
               f"{b[0]['group_s']:.1f} s, draw {b[0]['draw_s']:.1f} s, "
               f"broadcast {b[0]['broadcast_s']:.2f} s")
     else:
-        n_instances = args.workers or args.instances
-        orch = Orchestrator(cfg, params, n_instances=n_instances,
-                            max_batch=args.max_batch,
-                            max_len=SERVE_MAX_LEN,
-                            slo_latency=args.slo, telemetry_every=4,
-                            remote=bool(args.workers),
-                            rpc_deadline=args.rpc_deadline,
-                            respawn_policy=policy, **front_kw,
-                            **sched_kw)
+        plane.n_instances = args.workers or args.instances
+        plane.orch = Orchestrator(cfg, params, n_instances=plane.n_instances,
+                                  remote=bool(args.workers), **orch_kw,
+                                  **engine_kw)
         if args.workers:
             print(f"[serve] distributed plane: {args.workers} "
                   f"engine-server processes over RPC")
-    if args.http:
-        from repro_torch.serving.ingress import Ingress
-        ing = Ingress(orch, host=args.http_host, port=args.http_port,
-                      model_id=args.arch, trace_out=args.trace_out,
-                      govern_budget=args.govern_budget).start()
-        print(f"[serve] http ingress on http://{ing.host}:{ing.port}  "
-              f"(POST /v1/completions; GET /v1/models /healthz /stats "
-              f"/metrics /debug/flightrec)"
-              + ("  [elastic pod]" if args.elastic else ""), flush=True)
-        try:
-            if args.http_seconds is not None:
-                time.sleep(args.http_seconds)
-            else:
-                while True:
-                    time.sleep(1.0)
-        except KeyboardInterrupt:
-            print("\n[serve] interrupt; draining streams", flush=True)
-        ing.close()
-        c = ing.counters
-        print(f"[serve] ingress: {c.requests} requests "
-              f"({c.streamed} streamed), {c.tokens_out} tokens out, "
-              f"routed prefix/vacancy={c.routed_prefix}/"
-              f"{c.routed_vacancy}, 429s={c.rejected_429}, "
-              f"400s={c.bad_requests}")
-        _report(orch.finished, time.time() - t_start)
-        _close(orch)
-        return len(orch.finished)
+    return plane
 
+
+def _requests(args: ServeConfig, cfg):
+    """The synthetic workload's request maker: prompts drawn from a
+    generator seeded 0, in rid order."""
+    rng = np.random.default_rng(0)
+
+    def make_request(rid):
+        return RequestSpec(
+            rid=rid,
+            prompt=rng.integers(2, cfg.vocab_size,
+                                size=args.prompt_len).astype(np.int32),
+            max_tokens=args.max_new)
+    return make_request
+
+
+def serve_dense(args: ServeConfig, plane: Plane) -> int:
+    """The synthetic workload on the one dense-cache engine."""
+    eng, make_request = plane.engine, _requests(args, plane.cfg)
+    submitted, finished, step = 0, [], 0
+    while len(finished) < args.requests and step < 5000:
+        while submitted < args.requests and \
+                submitted <= eng.clock * args.rps:
+            eng.submit(make_request(submitted))
+            submitted += 1
+        finished.extend(eng.step() or [])
+        step += 1
+    _report(finished, time.time() - plane.t_start)
+    return len(finished)
+
+
+def serve_http(args: ServeConfig, plane: Plane):
+    """The HTTP front door over the plane's orchestrator for
+    ``--http-seconds`` (or until Ctrl-C), then its counters."""
+    from repro_torch.serving.ingress import Ingress
+    orch = plane.orch
+    ing = Ingress(orch, host=args.http_host, port=args.http_port,
+                  model_id=args.arch, trace_out=args.trace_out,
+                  govern_budget=args.govern_budget).start()
+    plane.ingress = ing
+    print(f"[serve] http ingress on http://{ing.host}:{ing.port}  "
+          f"(POST /v1/completions; GET /v1/models /healthz /stats "
+          f"/metrics /debug/flightrec)"
+          + ("  [elastic pod]" if args.elastic else ""), flush=True)
+    try:
+        if args.http_seconds is not None:
+            time.sleep(args.http_seconds)
+        else:
+            while True:
+                time.sleep(1.0)
+    except KeyboardInterrupt:
+        print("\n[serve] interrupt; draining streams", flush=True)
+    ing.close()
+    c = ing.counters
+    print(f"[serve] ingress: {c.requests} requests "
+          f"({c.streamed} streamed), {c.tokens_out} tokens out, "
+          f"routed prefix/vacancy={c.routed_prefix}/"
+          f"{c.routed_vacancy}, 429s={c.rejected_429}, "
+          f"400s={c.bad_requests}")
+    _report(orch.finished, time.time() - plane.t_start)
+
+
+def serve_workload(args: ServeConfig, plane: Plane, hook=None):
+    """The synthetic workload through the plane's orchestrator: requests
+    admitted at ``--rps`` on the engine clock, the controller's actions
+    printed, then with ``--drain`` the last instance drained, and the
+    run's stats. ``hook(orch, step)``, where given, runs before every
+    orchestrator step."""
+    orch, make_request = plane.orch, _requests(args, plane.cfg)
     submitted, step = 0, 0
     seen_actions = 0
     while len(orch.finished) < args.requests and step < 5000:
@@ -426,6 +481,8 @@ def run(args: ServeConfig):
         while submitted < args.requests and submitted <= clock * args.rps:
             orch.submit(make_request(submitted))
             submitted += 1
+        if hook is not None:
+            hook(orch, step)
         orch.step()
         step += 1
         log = orch.controller.log
@@ -434,8 +491,8 @@ def run(args: ServeConfig):
                   f"P sum={sum(orch.plan.p)}")
         seen_actions = len(log)
 
-    if args.drain and n_instances > 1:
-        recs = orch.drain_instance(n_instances - 1)
+    if args.drain and plane.n_instances > 1:
+        recs = orch.drain_instance(plane.n_instances - 1)
         for r in recs:
             print(f"[serve] drained rid={r.rid} ({r.mode}) "
                   f"{r.n_blocks} blocks / {r.bytes_moved / 1e6:.2f} MB "
@@ -444,9 +501,9 @@ def run(args: ServeConfig):
                   f"(est {r.est_seconds * 1e3:.0f} ms)")
         orch.run_until_done()
 
-    _report(orch.finished, time.time() - t_start)
+    _report(orch.finished, time.time() - plane.t_start)
     s = orch.stats()
-    print(f"[serve] instances={n_instances} dropped={s['dropped']} "
+    print(f"[serve] instances={plane.n_instances} dropped={s['dropped']} "
           f"migrations={s['migrations']} "
           f"(overlapped={s['overlapped_migrations']}) "
           f"preemptions={s['preemptions']} recoveries={s['recoveries']}")
@@ -467,15 +524,13 @@ def run(args: ServeConfig):
           f"evictions={ft['evictions']}")
     print(f"[serve] final plan P (first 8): {orch.plan.p[:8]}, "
           f"continuity breaks: {orch.plan.continuity_breaks()}")
-    _close(orch)
-    return len(orch.finished)
 
 
 def _close(orch):
     """Close every instance. Group instances first print their ranks'
     own counters (decode steps, paged-kernel launches, graph captures
     and replays of decode steps), and after closing their servers' exit
-    codes."""
+    codes (a retired or failed instance was closed already)."""
     groups = [h for h in orch.instances if hasattr(h, "rank_infos")]
     for i, h in enumerate(groups):
         if h.alive():

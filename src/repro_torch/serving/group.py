@@ -36,20 +36,31 @@ so the same Orchestrator drives an instance that spans W cards::
 * **Failure**: a rank whose RPC finds its connection closed or misses
   its deadline fails the whole instance — the other ranks would wait in
   a collective forever — so the handle severs every rank (killing the
-  processes it owns) and ``alive()`` turns false; the Orchestrator then
-  replays the instance's in-flight streams from the handle's pristine
-  mirror on another instance, token for token, as for one dead server.
-  An instance never drops to fewer ranks.
+  processes it owns) and ``alive()`` turns false. The first such rank
+  ends the wait for the others' replies at once: a rank that dies
+  inside a step leaves its peers in that step's collective, and they
+  never reply. The Orchestrator then replays the instance's in-flight
+  streams from the handle's pristine mirror on another instance, token
+  for token, as for one dead server. An instance never drops to fewer
+  ranks.
+* **Respawn**: a handle that spawned its servers (or was given a
+  ``launcher`` of fresh endpoints) is ``respawnable``: ``respawn``
+  joins the dead group's processes and brings up a fresh instance on
+  the same cards with the same weights, over a new store and group, as
+  ``EngineProxy.respawn`` does for one server. One that attached to
+  servers it does not own is not.
 """
 from __future__ import annotations
 
 import datetime
 import hashlib
+import ipaddress
 import itertools
 import os
+import socket
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -63,6 +74,46 @@ from repro_torch.serving.request import RequestSpec
 _GROUPS = itertools.count()
 #: seconds a server may take to come up, and a rank to join its group
 START_TIMEOUT, GROUP_TIMEOUT = 300.0, 120.0
+
+
+def is_loopback(endpoint: str) -> bool:
+    """Whether ``endpoint`` is reached over this host's loopback: an
+    AF_UNIX path, or a ``tcp://`` host that resolves to a loopback
+    address."""
+    kind, target = TR.parse_endpoint(endpoint)
+    if kind != "tcp":
+        return True
+    try:
+        return ipaddress.ip_address(socket.gethostbyname(target[0])).is_loopback
+    except (OSError, ValueError):
+        return False
+
+
+def start_all(makers: List[Callable[[], "GroupInstance"]]) -> list:
+    """Bring up one instance a maker, all at once (each spawn and group
+    waits on its slowest rank, not on the other instances); when one
+    fails, close the ones that came up and raise its error."""
+    out: list = [None] * len(makers)
+    errors: list = []
+
+    def up(i):
+        try:
+            out[i] = makers[i]()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=up, args=(i,), daemon=True)
+               for i in range(len(makers))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for h in out:
+            if h is not None:
+                h.close()
+        raise min(errors, key=lambda x: x[0])[1]
+    return out
 
 
 def host_width(device, count: int) -> int:
@@ -109,29 +160,52 @@ class GroupInstance(InstanceHandle):
 
     ``params`` streams to every rank, or ``draw`` (``{"seed",
     "dtype"}``) has rank 0 draw and broadcast. Rank r runs on ``cuda:r``
-    when ``engine_kw["device"]`` is CUDA, else on the CPU; ``endpoints``
-    attaches to servers already listening there (one per rank) in place
-    of spawning them. ``server`` holds each ``EngineServer``'s options.
-    ``bringup`` keeps each rank's proxy and server bring-up seconds."""
+    when ``engine_kw["device"]`` is CUDA, else on the CPU. The servers
+    are spawned (dial-back children) unless ``endpoints`` names one per
+    rank: then ``spawn`` starts a listening server at each (an inventory
+    node of this host), else the handle attaches to servers already
+    listening there. ``launcher`` (a callable returning ``width`` fresh
+    endpoints to attach to) stands in for spawning, at bring-up and at
+    every respawn. ``server`` holds each ``EngineServer``'s options;
+    ``group_timeout`` bounds a rank's wait in the group's collectives.
+    ``bringup`` keeps each rank's proxy and server bring-up seconds.
 
-    respawnable = False
+    The group's store listens on every interface (``TCPStore``'s
+    server); ranks reached over loopback are told ``127.0.0.1``, others
+    the local address of the connection over which this handle reached
+    them (``remote_engine.advertise_store``)."""
 
     def __init__(self, cfg, params=None, *, width: int,
                  draw: Optional[dict] = None,
-                 endpoints: Optional[List[str]] = None,
+                 endpoints: Optional[List[str]] = None, spawn: bool = False,
+                 launcher: Optional[Callable[[], List[str]]] = None,
                  server: Optional[dict] = None,
-                 label: Optional[str] = None, **engine_kw):
+                 label: Optional[str] = None,
+                 start_timeout: float = START_TIMEOUT,
+                 group_timeout: float = GROUP_TIMEOUT, **engine_kw):
         if width < 1 or width & (width - 1):
             raise ValueError(f"a group instance needs a power-of-two "
                              f"width, got {width}")
         if (params is None) == (draw is None):
             raise ValueError("give the weights as params or as a draw")
+        if launcher is not None:
+            endpoints, spawn = launcher(), False
         if endpoints is not None and len(endpoints) != width:
             raise ValueError(f"{width} ranks need {width} endpoints")
         cuda = torch.device(engine_kw.get("device") or "cuda").type == "cuda"
         devices = [f"cuda:{r}" if cuda else "cpu" for r in range(width)]
         self.width = width
         self.label = label or f"group{next(_GROUPS)}"
+        # everything respawn() needs to bring up a fresh replacement
+        self._spec = dict(cfg=cfg, params=params, width=width, draw=draw,
+                          endpoints=None if launcher else endpoints,
+                          spawn=spawn, launcher=launcher, server=server,
+                          start_timeout=start_timeout,
+                          group_timeout=group_timeout, **engine_kw)
+        self._respawnable = endpoints is None or spawn or \
+            launcher is not None
+        self._generation = 0
+        self._rpc_deadline: Optional[float] = None
         self._inflight: Dict[int, object] = {}   # rid -> pristine clone
         self._dead = False
         self.failure: Optional[str] = None
@@ -139,22 +213,26 @@ class GroupInstance(InstanceHandle):
         self.step_logs: List[List[dict]] = []    # per step, one per rank
         self.pool_checks = 0
         self.read_backs = 0
-        timeout = datetime.timedelta(seconds=GROUP_TIMEOUT)
+        timeout = datetime.timedelta(seconds=group_timeout)
         self._store = dist.TCPStore("127.0.0.1", 0, is_master=True,
                                     wait_for_workers=False, timeout=timeout)
+        host = ("127.0.0.1" if endpoints is None
+                or all(map(is_loopback, endpoints)) else "")
+        self.store_address = f"{host}:{self._store.port}"
         prefix = f"{self.label}-{os.getpid()}"
         ranks: List[Optional[EngineProxy]] = [None] * width
         errors: list = []
 
         def start(r):
-            spec = {"store": f"127.0.0.1:{self._store.port}", "rank": r,
-                    "size": width, "prefix": prefix, "device": devices[r],
-                    "timeout": GROUP_TIMEOUT}
+            spec = {"store": self.store_address, "rank": r, "size": width,
+                    "prefix": prefix, "device": devices[r],
+                    "timeout": group_timeout}
             try:
                 ranks[r] = EngineProxy(
-                    cfg, params, start_timeout=START_TIMEOUT,
+                    cfg, params, start_timeout=start_timeout,
                     endpoint=endpoints[r] if endpoints else None,
-                    spawn=endpoints is None, peer_label=f"{self.label}/r{r}",
+                    spawn=endpoints is None or spawn,
+                    peer_label=f"{self.label}/r{r}",
                     draw=draw, server=server, **dict(engine_kw, group=spec))
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 errors.append((r, e))
@@ -169,6 +247,7 @@ class GroupInstance(InstanceHandle):
             for p in ranks:
                 if p is not None:
                     p.quarantine()
+            self._store = None
             r, e = min(errors, key=lambda x: x[0])
             raise RuntimeError(f"{self.label}: rank {r} of {width} failed "
                                f"to join its group: {e!r}") from e
@@ -198,11 +277,15 @@ class GroupInstance(InstanceHandle):
         return pendings
 
     def _gather(self, op: str, pendings) -> list:
-        """Every rank's reply to ``op``; a closed or hung rank fails the
-        instance, an error on some ranks only is a mismatch."""
-        res = TR.drain_pendings(pendings)
+        """Every rank's reply to ``op``; an error on some ranks only is a
+        mismatch. The first rank that resolves closed or hung fails the
+        instance at once: its live peers wait in the call's collective
+        for it and would not reply (the poll leaves them, resolved
+        closed)."""
+        res = TR.drain_pendings(pendings, first_failure=True)
         for k, (status, val) in enumerate(res):
-            if status in ("closed", "hung"):
+            if status in ("closed", "hung") and \
+                    not isinstance(val, TR.NotAwaited):
                 self._fail(f"rank {k} {status} in {op}: {val}")
                 raise TR.TransportClosed(
                     f"{self.label}: rank {k} {status} in {op}: {val}")
@@ -441,6 +524,7 @@ class GroupInstance(InstanceHandle):
         self._fail("marked dead")
 
     def set_rpc_deadline(self, seconds: Optional[float]):
+        self._rpc_deadline = seconds
         for r in self.ranks:
             r.set_rpc_deadline(seconds)
 
@@ -459,11 +543,44 @@ class GroupInstance(InstanceHandle):
     def inflight_requests(self) -> List:
         return list(self._inflight.values())
 
+    @property
+    def respawnable(self) -> bool:
+        return self._respawnable
+
+    @property
+    def peer_label(self) -> str:
+        """The instance's label, as a server's proxy carries its own (the
+        supervisor's log reads it)."""
+        return self.label
+
+    def respawn(self, start_timeout: Optional[float] = None
+                ) -> "GroupInstance":
+        """A FRESH instance on the same cards with the same weights (the
+        same draw or stream), as ``EngineProxy.respawn`` brings up one
+        server: every rank process of this group joined first (a card
+        holds no third server's weights), then a new store and a new
+        group under the label ``<label>~r<n>`` (ranks ``<label>~r<n>/r<k>``:
+        a static fault plan never re-targets the replacement). It starts
+        empty; the supervisor re-admits it."""
+        if not self._respawnable:
+            raise RuntimeError(f"{self.label} attaches to servers that are "
+                               "not its own to restart")
+        self.close()
+        spec = dict(self._spec)
+        if start_timeout is not None:
+            spec["start_timeout"] = start_timeout
+        gen = self._generation + 1
+        fresh = GroupInstance(label=f"{self.label.split('~', 1)[0]}~r{gen}",
+                              **spec)
+        fresh._generation = gen
+        fresh.set_rpc_deadline(self._rpc_deadline)
+        return fresh
+
     def close(self):
         """Shut every rank down together (a failed instance's ranks were
-        severed already) and join the processes; ``exitcodes`` holds
-        their exit codes (None for a server this handle did not
-        spawn)."""
+        severed already), join the processes and free the group's store;
+        ``exitcodes`` holds the processes' exit codes (None for a server
+        this handle did not spawn)."""
         if self.exitcodes is not None:
             return
         if not self.alive():
@@ -485,3 +602,4 @@ class GroupInstance(InstanceHandle):
             r.rpc.close()
         self.exitcodes = [r.process.exitcode if r.process is not None
                           else None for r in self.ranks]
+        self._store = None

@@ -213,12 +213,14 @@ def _sync(device):
     INS.synchronize(torch.device(device))
 
 
-def join_group(spec: dict) -> R.ReplicationGroup:
+def join_group(spec: dict):
     """Join the replication group of ``spec`` (module docstring): this
     process's card set first, the group built over a client of the
     orchestrator's store under the group's prefix, and its first
-    collective run, before any graph is captured. Raises where a rank
-    fails to join or the collective fails."""
+    collective run, before any graph is captured (NCCL forms the
+    communicator there). Returns the group and that collective's
+    seconds. Raises where a rank fails to join or the collective
+    fails."""
     device = torch.device(spec["device"])
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -232,9 +234,23 @@ def join_group(spec: dict) -> R.ReplicationGroup:
     group = R.ReplicationGroup.build(dist.PrefixStore(spec["prefix"], store),
                                      int(spec["rank"]), int(spec["size"]),
                                      device, timeout)
+    t0 = time.perf_counter()
     group.all_reduce(torch.zeros(1, device=device))
     _sync(device)
-    return group
+    return group, time.perf_counter() - t0
+
+
+def advertise_store(engine_kw: dict, conn: "TR.Connection") -> dict:
+    """``engine_kw`` with its group's store address completed: a spec
+    whose store names no host (``":port"``, a group whose ranks are not
+    all on loopback) gets the local address of ``conn``, the connection
+    over which the orchestrator reached this rank's node, which that node
+    can reach back."""
+    spec = engine_kw.get("group")
+    if spec is None or not spec["store"].startswith(":"):
+        return engine_kw
+    return dict(engine_kw, group=dict(
+        spec, store=f"{conn.local_host()}{spec['store']}"))
 
 
 def draw_weights(cfg, draw: dict, device, group=None) -> dict:
@@ -552,7 +568,7 @@ def _serve_connection(conn: "TR.Connection"):
         spec = kw.pop("group", None)
         bringup, group, t0 = {}, None, time.perf_counter()
         if spec is not None:
-            group = join_group(spec)
+            group, bringup["first_collective_s"] = join_group(spec)
             kw["device"] = group.device
             bringup["group_s"] = time.perf_counter() - t0
         if header.get("draw") is not None:
@@ -732,7 +748,8 @@ class EngineProxy(InstanceHandle):
         self.rpc = TR.Rpc(self.conn)
         t1 = time.perf_counter()
         nbytes = send_init(self.conn, cfg, params,
-                           dict(engine_kw, cache_kind="paged"),
+                           advertise_store(dict(engine_kw, cache_kind="paged"),
+                                           self.conn),
                            draw=self._spec["draw"],
                            server=self._spec["server"])
         t2 = time.perf_counter()

@@ -109,6 +109,11 @@ class TransportClosed(TransportError):
     on, identical for AF_UNIX children and TCP peers on other hosts."""
 
 
+class NotAwaited(TransportClosed):
+    """A call left unresolved when ``drain_pendings(first_failure=True)``
+    stopped at another peer's failure."""
+
+
 class RpcTimeout(TransportError):
     """A reply missed its per-call deadline with the socket still OPEN —
     the *hung* signal (GC pause, network blackhole, livelocked worker),
@@ -394,6 +399,12 @@ class Connection:
     def has_buffered(self) -> bool:
         return bool(self._rxbuf)
 
+    def local_host(self) -> str:
+        """This end's address on the connection: the address over which
+        the peer reaches this host (loopback for an AF_UNIX socket)."""
+        name = self._sock.getsockname()
+        return name[0] if isinstance(name, tuple) else "127.0.0.1"
+
     def wait_readable(self, timeout: float) -> bool:
         """True once bytes are available (buffered or kernel-side),
         False if ``timeout`` elapses first. The deadline clock of
@@ -560,7 +571,8 @@ class Rpc:
 
 
 def drain_pendings(pendings: List[Any],
-                   timeout: Optional[float] = None) -> List[tuple]:
+                   timeout: Optional[float] = None, *,
+                   first_failure: bool = False) -> List[tuple]:
     """The batched control-plane poll: resolve MANY pipelined calls —
     across any number of connections — in one ``selectors`` wait.
 
@@ -593,8 +605,18 @@ def drain_pendings(pendings: List[Any],
     started arriving, its remaining bytes are read with a blocking
     recv (peers are trusted engine servers that write whole frames via
     sendall — a peer that stalls mid-frame is treated as about to die,
-    and its eventual reset surfaces as ``closed``)."""
+    and its eventual reset surfaces as ``closed``).
+
+    ``first_failure`` ends the wait at the first ``closed`` or ``hung``
+    entry and resolves every entry still outstanding to ``closed``: the
+    poll of one instance's ranks, whose live ranks wait in a collective
+    for the dead one and would never reply. A poll with no failure is
+    the same single wait."""
     results: List[Optional[tuple]] = [None] * len(pendings)
+
+    def failed() -> bool:
+        return first_failure and any(
+            r is not None and r[0] in ("closed", "hung") for r in results)
     groups: Dict[int, list] = {}    # id(rpc) -> [rpc, [(idx, pending)]]
     for idx, p in enumerate(pendings):
         if isinstance(p, Pending):
@@ -674,10 +696,10 @@ def drain_pendings(pendings: List[Any],
 
         deadline = (None if timeout is None
                     else time.monotonic() + timeout)
-        while groups:
+        while groups and not failed():
             now = time.monotonic()
             expire(now)
-            if not groups:
+            if not groups or failed():
                 break
             wake = deadline
             call_dl = earliest_deadline()
@@ -710,6 +732,10 @@ def drain_pendings(pendings: List[Any],
                     del groups[id(rpc)]
     finally:
         sel.close()
+    for idx, r in enumerate(results):
+        if r is None:   # only after a failure under ``first_failure``
+            results[idx] = ("closed", NotAwaited(
+                "not awaited: another peer of this call failed"))
     return results  # type: ignore[return-value]
 
 

@@ -213,20 +213,6 @@ def test_width_rule(device, count, width):
     assert host_width(device, count) == width
 
 
-@pytest.mark.parametrize("flag", [dict(workers=2), dict(inventory="pod.toml"),
-                                  dict(elastic=True, http=True)])
-def test_serve_raises_for_unported_options_over_groups(monkeypatch, flag):
-    """With four cards visible, the options not ported over group
-    instances raise before anything is drawn, naming the ROADMAP item."""
-    from repro_torch.launch import serve as S
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    monkeypatch.setattr(T, "init_params", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        S.run(S.ServeConfig(device="cuda", **flag))
-    assert S.SERVE_MAX_LEN == 128
-
-
 def test_group_needs_power_of_two_and_one_source_of_weights(tiny):
     _, _, tcfg, tp = tiny
     with pytest.raises(ValueError, match="power-of-two"):

@@ -28,6 +28,7 @@ from repro_torch.core import migration as MIG
 from repro_torch.core import replication as R
 from repro_torch.core.plan import PlacementPlan
 from repro_torch.models import transformer as T
+from repro_torch.serving import paged_kv as PK
 from repro_torch.serving.engine import Engine
 from _torch_mesh import run_threads
 from _torch_parity import jax_solo_streams, jit, specs
@@ -244,12 +245,13 @@ def _serve(tcfg, tp, group, max_batch, plans, migrate_at=None):
     """ROWS through a paged engine of ``group``, ``plans[i]`` applied
     before step i, the pool zeroed on ranks above 0 and re-placed from
     rank 0 before step ``migrate_at``. Returns (streams, tokens of every
-    step, the pool's blocks, eager steps, collectives per step)."""
+    step, the pool's blocks, eager steps, collectives per step, the
+    pool's checksum after every step)."""
     e = Engine(tcfg, tp, device="cpu", max_batch=max_batch, max_len=64,
                block_size=8, group=group)
     for spec in specs(ROWS, jax_side=False):
         e.submit(spec)
-    out, steps, per_step = [], [], []
+    out, steps, per_step, sums = [], [], [], []
     for i in range(200):
         if i in plans:
             e.apply_plan(plans[i])
@@ -265,12 +267,31 @@ def _serve(tcfg, tp, group, max_batch, plans, migrate_at=None):
             out += e.step() or []
         per_step.append(sum(n.values()))
         steps.append({r.rid: list(r.generated) for r in e.active.values()})
+        sums.append(PK.pool_checksum(e.pstate))
         if not (e.queue or e.active or e.prefilling):
             break
     nb = e.pstate.k.shape[1] - 1
     pool = (e.pstate.k[:, :nb].clone(), e.pstate.v[:, :nb].clone())
     return ({r.rid: r.generated for r in out}, steps, pool,
-            e.graphs.counts.eager["decode"], per_step)
+            e.graphs.counts.eager["decode"], per_step, sums)
+
+
+def pools_parted(k, pool, pool0, sums, sums0, plans) -> str:
+    """Where rank ``k``'s pool (K, V) left rank 0's: the (layer, block)
+    pairs that differ, and the first step after which the pools'
+    checksums differed, with the plan then in force."""
+    where = {}
+    for name, a, b in zip("KV", pool, pool0):
+        d = (a != b).reshape(a.shape[0], a.shape[1], -1).any(-1)
+        where[name] = d.nonzero().tolist()
+    first = next((i for i, (x, y) in enumerate(zip(sums, sums0)) if x != y),
+                 None)
+    plan = (None if first is None else
+            max((i for i in plans if i <= first), default=None))
+    return (f"rank {k}'s pool differs from rank 0's at (layer, block) "
+            f"{where}; the checksums first parted after step {first}, "
+            f"under the plan applied before step {plan}: "
+            f"{plans.get(plan, 'none')}")
 
 
 @pytest.mark.parametrize("W,max_batch", [(2, 1), (2, 3), (4, 3)])
@@ -288,11 +309,12 @@ def test_apply_plan_mid_decode_matches_reference(tiny4, reference, W,
         return _serve(tcfg, tp, group, max_batch, plans)
 
     res = run_ranks(W, rank)
-    for streams, steps, pool, eager, per_step in res:
+    for k, (streams, steps, pool, eager, per_step, sums) in enumerate(res):
         assert streams == reference
         assert steps == res[0][1]
         for a, b in zip(pool, res[0][2]):
-            assert torch.equal(a, b)
+            assert torch.equal(a, b), pools_parted(k, pool, res[0][2], sums,
+                                                   res[0][5], plans)
         assert eager > 0
         # no plan, then the all-ones plan: no collective
         assert max(per_step) > 0 and per_step[0] == per_step[4] == 0
@@ -309,7 +331,7 @@ def test_migrated_pool_keeps_serving(tiny4, reference):
                       migrate_at=4)
 
     res = run_ranks(2, rank)
-    for streams, _, pool, _, _ in res:
+    for streams, _, pool, _, _, _ in res:
         assert streams == reference
         for a, b in zip(pool, res[0][2]):
             assert torch.equal(a, b)
