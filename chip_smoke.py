@@ -29,7 +29,13 @@ prints no ``ok`` line):
    at 16 of 32 heads and whisper's cross- and self-attention at 8 of 16;
    paged decode at phase 13h's rank shapes: tinyllama's 16 of 32 heads
    and 2 of 4 KV heads, 8 rows, and qwen2-moe's MHA shape at 4 of 8
-   rows),
+   rows; every head and state width the Pallas kernels take: flash at
+   zamba2-7b's D 112 (H = KV = 32) and stablelm-12b's D 160 (H 32, KV 8),
+   causal and not, also through ``ops.flash_attention_bshd``, and at D
+   80, 96, 192, 72 and 100 (bf16: the ``pad_head_dim`` route); the SSD
+   scan at P 128, N 256, P 96 with N 192, P 24 with N 40 and P 20 with N
+   12 (bf16: the ``pad_dims`` route); dense and paged decode at D 100
+   and 98 on ragged lengths with a length-0 row),
    with the count of tensor-core instructions (``cuobjdump -sass``: HGMMA
    in each bf16 flash kernel, HMMA in each bf16 SSD kernel with products)
    and each split-K decode call's grid; then each timed beside its bound,
@@ -38,7 +44,8 @@ prints no ``ok`` line):
    of a call's critical path from the profiler: paged decode at the main
    path's decode shapes (tinyllama-1.1b's heads, and qwen2-moe-a2.7b's
    for phase 9), flash at tinyllama-1.1b and gemma-7b prefill
-   widths (S 2048), dense decode at tinyllama's and zamba2-7b's (B 8,
+   widths (S 2048) and at stablelm-12b's (D 160) and zamba2-7b's (D
+   112), dense decode at tinyllama's and zamba2-7b's (B 8,
    S 1024) and whisper-medium's cross-attention (B 8, S 1500), the SSD
    scan at mamba2-780m's (L 2048 and 768) and
    zamba2-7b's (L 768); and phase 13's rank shapes on model 2: dense
@@ -165,9 +172,9 @@ prints no ``ok`` line):
       once with ``prefill_chunk`` W / 4; the ring wrapped (no row holds
       position 0); first-token and decode logits against the paged
       engine with ``swa=True`` on the same requests (2e-2);
-   c. mamba2-780m and d. zamba2-7b at full width but cut depth (12 of
-      48 layers; 15 of 81: two applications of the shared block and the
-      tail of 3), random bf16 weights from a seeded generator (their
+   c. mamba2-780m and d. zamba2-7b at full width but cut depth (6 of
+      48 layers; 13 of 81: two applications of the shared block, each
+      over its own KV cache, and a tail layer), random bf16 weights from a seeded generator (their
       bytes equal to the reference's ``init_params`` at that depth): the
       kernel routes against the plain ones (the
       SSD kernel against ``ssd_chunked`` on every prompt's first-token
@@ -178,25 +185,26 @@ prints no ``ok`` line):
       steady step beside its weight-read bound (every weight once over
       3.35 TB/s), the cache bytes and the peak device memory.
    The dense-decode and SSD rows of the JSON line add the graph runs'
-   cold launches (a: 22 a step, d: 4; c: 24 a prefill, d: 27) to their
+   cold launches (a: 22 a step, d: 1; c: 6 a prefill, d: 7) to their
    kernel-API launches, with each timed shape in ``shapes``;
 11. MLA and the encoder-decoder on the dense-cache engine, after phase
    10's weights are freed, each model at full width in bf16 (random
    weights from a seeded generator, their bytes and the cache's equal
    to the reference's), phase 5's workload through graphs and eagerly,
    cold then warm, with phase 10's gates:
-   a. minicpm3-4b (62 layers, MLA with q rank 768, kv rank 256, rope
+   a. minicpm3-4b (8 of its 62 layers, MLA with q rank 768, kv rank 256, rope
       32), ``max_len`` 1024: dense-decode launches gated to 0 (MLA
       attends plainly, as the reference does); one decode step of an
       engine's live cache (the absorbed form) against one prefill over
       each prompt plus its token (the expanded form), in fp32 within
       1e-4 relative L2 (bf16 printed); ``prefill_chunk=256`` against one
       shot (last-chunk logits in fp32 1e-4; greedy agreement printed);
-   b. whisper-medium (24 encoder and 24 decoder layers), ``max_len``
+   b. whisper-medium (12 of its 24 encoder and 12 of its 24 decoder
+      layers), ``max_len``
       448 (its decoder's context), prompts capped at 416 tokens, frames
       [1, 1500, 1024] from an ``encoder_input_fn`` drawing them on the
-      card seeded by request id: dense-decode launches = 48 x decode
-      steps (self- and cross-attention); on the first steady step every
+      card seeded by request id: dense-decode launches = 2 x decoder
+      layers x decode steps (self- and cross-attention); on the first steady step every
       kernel call against its plain version (2e-2) and the logits of the
       kernel routes against the gather routes (bf16 2e-2, fp32 1e-4);
    each with the steady step beside its bound (a: every weight once; b:
@@ -287,7 +295,7 @@ prints no ``ok`` line):
    first-step logits over the rows whose experts agree, and the
    expert-parallel prefill's drops; e-g. the ssm, hybrid and audio
    families on (data 1, model 2) under ``rules_for``
-   (``FAMILY13``): mamba2-780m at 12 of 48 layers (a rank's 24 of 48
+   (``FAMILY13``): mamba2-780m at 6 of 48 layers (a rank's 24 of 48
    SSD heads; the gated norm's sum of squares summed across the ranks),
    zamba2-7b at one block of 6 layers and a tail layer (56 of 112 SSD
    heads, the shared block at 16 of 32 attention heads through the
@@ -376,7 +384,7 @@ prints no ``ok`` line):
    ``P15_MOE_LAYERS`` of 24 layers on (2, 1), experts on ``data``, the
    scatter dispatch (2 steps), then the all-to-all dispatch
    (``rules["moe_a2a"]``, 2 steps on one repeated batch); e. mamba2-780m
-   at 13e's 12 layers, head-split on (1, 2), 3 steps; f. whisper-medium
+   at 13e's 6 layers, head-split on (1, 2), 3 steps; f. whisper-medium
    at 13g's depth, data parallel on (2, 1), 3 steps, each rank's rows of
    the frames from ``sharded_batches(..., frames=True)``. Gates: each
    step's collectives by phase (forward, backward, update) and kind equal
@@ -429,6 +437,13 @@ prints no ``ok`` line):
    median decode step). The gelu kernel's launches over the phase (graph
    replays counted through ``launches_run``) are gated above 0: gemma-7b's
    GeGLU runs through it.
+17. the README's first quickstarts on the port, each through its
+   ``main`` in this process: ``examples/torch_quickstart.py
+   --no-reduced`` (tinyllama-1.1b at published width in bf16: a prefill
+   and 5 greedy steps, 3 requests through the paged engine's graphs, a
+   scale-up plan) and ``examples/torch_shared_prefix.py`` (6 streams
+   over one system prompt, sharing off and on, token-identical); gates:
+   the reference's banner lines in their output, which is printed.
 
 Logits are compared over the real vocabulary: a padded vocabulary's
 padding columns hold -2**20, which would swamp any norm of a difference.
@@ -445,6 +460,8 @@ import dataclasses
 import functools
 import gc
 import hashlib
+import importlib.util
+import io
 import json
 import os
 import re
@@ -581,8 +598,10 @@ def check_paged_decode(PD, mid_lens):
     13h's rank shapes (tinyllama's 16 of 32 heads and 2 of 4 KV heads,
     8 rows; qwen2-moe's MHA shape at 4 of 8 rows); and phase 16a's
     (llama2-13b, gemma-7b, stablelm-12b and chameleon-34b at the main
-    path's lengths; D 160 and 256 on ragged lengths too). Returns the max
-    abs error seen."""
+    path's lengths; D 160 and 256 on ragged lengths too); D 100 and 98,
+    rows that are not whole 16-byte vectors in bf16 (8- and 4-byte
+    vectors; D 98 in fp32 8-byte), on ragged lengths with a length-0 row.
+    Returns the max abs error seen."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (B, H, KV, D, bs, lengths, table width or None: just enough + 2)
         (8, 32, 4, 64, 16, [37, 0, 16, 32, 1, 600, 17, 255], None),
@@ -609,6 +628,9 @@ def check_paged_decode(PD, mid_lens):
         (8, 64, 8, 128, 16, mid_lens, 64),
         (8, 16, 16, 256, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
         (8, 32, 8, 160, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
+        # head dims whose rows are not whole 16-byte vectors
+        (8, 8, 2, 100, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
+        (8, 8, 2, 98, 16, [37, 0, 16, 600, 1, 255, 17, 64], None),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
@@ -701,11 +723,29 @@ def compare(name, out, ref, tol, what):
     return err
 
 
-def check_flash(FA):
+def expect_bound(name, fn, *args, **kwargs):
+    """The wrapper raises ValueError, naming ROADMAP B, for a shape past
+    its kernel's bound; the message is printed."""
+    try:
+        fn(*args, **kwargs)
+    except ValueError as e:
+        if "ROADMAP B" not in str(e):
+            raise
+        log(f"[kernel] {name} past its bound raises: {e}")
+        return
+    raise AssertionError(f"{name}: no raise past the kernel's bound")
+
+
+def check_flash(FA, ops):
     """Ragged shapes, GQA and MQA, Sq != Sk both ways, D 64/128/256,
     causal and not, contiguous and transposed-view operands; Sq and Sk of
     1, and of the bf16 kernel's tiles +-1 (128 query rows a block; 128
-    keys a tile at D 64, 64 at D 128 and 256)."""
+    keys a tile at D 64, 64 at wider heads); zamba2-7b's D 112 (H = KV =
+    32) and stablelm-12b's D 160 (H 32, KV 8), causal and not, also
+    through ``ops.flash_attention_bshd``; D 80, 96 and 192 (kernel widths
+    of their own), D 72 (a multiple of 8 run on the width-80 kernel, its
+    columns past 72 zero-filled) and D 100 (in bf16 not a 16-byte row:
+    the wrapper's ``pad_head_dim`` route)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = [  # (B, H, KV, Sq, Sk, D, causal, bshd)
         (1, 8, 2, 200, 200, 64, True, True),
@@ -719,6 +759,17 @@ def check_flash(FA):
         (1, 2, 2, 128, 128, 128, False, True),
         (1, 2, 1, 1, 300, 256, True, False),
         (1, 2, 2, 300, 1, 64, True, True),
+        # the repo's other head dims: zamba2-7b's attention (H = KV = 32,
+        # D 112) and stablelm-12b's (H 32, KV 8, D 160)
+        (1, 32, 32, 200, 200, 112, True, True),
+        (1, 32, 32, 256, 256, 112, False, True),
+        (1, 32, 8, 200, 200, 160, True, True),
+        (1, 32, 8, 256, 256, 160, False, True),
+        (1, 4, 2, 130, 130, 80, True, False),
+        (2, 4, 1, 65, 200, 96, True, True),
+        (1, 4, 2, 129, 127, 192, False, False),
+        (1, 4, 4, 100, 100, 72, True, True),
+        (1, 4, 2, 150, 150, 100, True, True),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -728,8 +779,22 @@ def check_flash(FA):
             v = heads_view(gen, B, Sk, KV, D, dtype, bshd)
             out = FA.flash_attention(q, k, v, causal=causal)
             ref = FA.flash_attention_ref(q, k, v, causal=causal)
-            what = f"{dtype} B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} D={D} causal={causal}"
+            route = " (pad_head_dim)" if dtype == torch.bfloat16 and D % 8 else ""
+            what = (f"{dtype} B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} D={D} "
+                    f"causal={causal}{route}")
             worst = max(worst, compare("flash_attention", out, ref, tol, what))
+        # the kernel API at zamba2-7b's and stablelm-12b's heads, S 300
+        # padded to 384 as the reference pads it
+        for H, KV, D in ((32, 32, 112), (32, 8, 160)):
+            q, k, v = (randn(gen, (1, 300, n, D), dtype) for n in (H, KV, KV))
+            out = ops.flash_attention_bshd(q, k, v)
+            ref = FA.flash_attention_ref(
+                *(ops.pad_time(t, 84).transpose(1, 2) for t in (q, k, v))
+            ).transpose(1, 2)[:, :300]
+            what = f"{dtype} ops.flash_attention_bshd S=300 H={H} KV={KV} D={D}"
+            worst = max(worst, compare("flash_attention", out, ref, tol, what))
+    q = randn(gen, (1, 2, 16, FA.MAX_HEAD_DIM + 32), torch.bfloat16)
+    expect_bound("flash_attention", FA.flash_attention, q, q, q)
     return worst
 
 
@@ -747,7 +812,10 @@ def check_decode(DA, mid_lens):
     rank shapes of phase 13 (tinyllama's and zamba2's heads on model 2,
     whisper's at 8 of 16 heads, qwen2-moe's 4 rows); phase 16b's gemma-7b
     (D 256) and stablelm-12b (D 160) at the main path's lengths and on
-    lengths at split boundaries with a length-0 row."""
+    lengths at split boundaries with a length-0 row; D 100 and 98 (rows
+    that are not whole 16-byte vectors in bf16, and strides of a
+    transposed view that are not either) on ragged lengths with a
+    length-0 row."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [  # (H, KV, S, D, lengths, bshd)
         (32, 4, 1024, 64, [37, 0, 16, 1024, 1, 600, 17, 1500], True),
@@ -777,6 +845,10 @@ def check_decode(DA, mid_lens):
         (32, 8, 1024, 160, list(mid_lens), True),
         (16, 16, 1024, 256, [0, 1, 63, 64, 65, 640, 1023, 1024], True),
         (32, 8, 1024, 160, [0, 1, 63, 64, 65, 640, 1023, 1024], True),
+        # head dims whose rows are not whole 16-byte vectors
+        (8, 2, 300, 100, [0, 1, 63, 64, 65, 200, 299, 300], True),
+        (8, 2, 300, 98, [0, 1, 63, 64, 65, 200, 299, 300], True),
+        (8, 8, 200, 98, [20, 0, 199, 5], False),
     ]
     worst = 0.0
     for dtype, tol in TOLS:
@@ -825,21 +897,25 @@ def tensor_core_counts(lib_path, tag, opcode):
     return counts
 
 
-def hgmma_counts(lib_path):
-    """HGMMA count of each of the three bf16 flash kernels, by head dim."""
+def hgmma_counts(lib_path, widths):
+    """HGMMA count of each bf16 flash kernel, one a kernel width."""
     counts = tensor_core_counts(lib_path, "flash_wgmma_kernel", "HGMMA")
-    if len(counts) != 3:
-        raise AssertionError(f"expected 3 bf16 flash kernels: {counts}")
-    return {f"D={fn.split('ILi')[1].split('E')[0]}": n for fn, n in counts.items()}
+    if len(counts) != len(widths):
+        raise AssertionError(f"expected {len(widths)} bf16 flash kernels: {counts}")
+    return {f"W={fn.split('ILi')[1].split('E')[0]}": n for fn, n in counts.items()}
 
 
 def hmma_counts(lib_path):
-    """HMMA count of each bf16 SSD kernel with products (chunk states and
-    chunk scan; the state passing in between is elementwise fp32)."""
+    """HMMA count of each bf16 SSD kernel with products (chunk states, and
+    the chunk scan built for N up to 128 and up to 256; the state passing
+    in between is elementwise fp32)."""
     counts = tensor_core_counts(lib_path, "_mma_kernel", "HMMA")
-    if len(counts) != 2:
-        raise AssertionError(f"expected 2 bf16 SSD product kernels: {counts}")
-    return {("state" if "state_mma" in fn else "scan"): n for fn, n in counts.items()}
+    if len(counts) != 3:
+        raise AssertionError(f"expected 3 bf16 SSD product kernels: {counts}")
+    return {
+        ("state" if "state_mma" in fn else f"scan N<={fn.split('ILi')[1].split('E')[0]}"): n
+        for fn, n in counts.items()
+    }
 
 
 def kernel_path_ms(fns, reps=3):
@@ -917,9 +993,12 @@ def serving_ssd_shapes(cfg, prompt_lens):
 
 def check_ssd(SS, serving=()):
     """One and several chunks (one chunk of 96: a query tile of 64 rows and
-    one of 32), b 1 and 2, G > 1, P 32/64, N 16-128, chunks 64-256; then
-    the ``serving`` shapes (phase 10's prefills); y and the final state
-    both held."""
+    one of 32), b 1 and 2, G > 1, P 32/64, N 16-128, chunks 64-256; P 128
+    (two slabs of 64 in passes 1 and 3), N 256 (two slabs of 128 in pass
+    1, pass 3's wider build), P 24 with N 40 (zero-filled past them to
+    the products' steps of 16), P 20 with N 12 (in bf16 not whole 16-byte
+    rows: the wrapper's ``pad_dims`` route); then the ``serving`` shapes
+    (phase 10's prefills); y and the final state both held."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     cases = [  # (b, L, H, G, P, N, Q)
         (2, 256, 4, 2, 64, 128, 128),
@@ -928,6 +1007,11 @@ def check_ssd(SS, serving=()):
         (2, 512, 4, 1, 64, 128, 256),
         (1, 96, 2, 1, 32, 16, 128),
         (2, 128, 4, 2, 64, 64, 128),
+        (1, 256, 2, 1, 128, 64, 128),
+        (1, 256, 2, 1, 64, 256, 128),
+        (2, 512, 2, 1, 96, 192, 256),
+        (1, 192, 4, 2, 24, 40, 64),
+        (1, 192, 2, 1, 20, 12, 64),
         *serving,
     ]
     worst = 0.0
@@ -941,6 +1025,8 @@ def check_ssd(SS, serving=()):
             what = f"{dtype} b={b} L={L} H={H} G={G} P={P} N={N} Q={Q}"
             worst = max(worst, compare("ssd_scan", y, yr, tol, what + " y"))
             worst = max(worst, compare("ssd_scan", h, hr, tol, what + " state"))
+    args = ssd_inputs(gen, 1, 64, 2, 1, 64, SS.MAX_N + 16, torch.bfloat16)
+    expect_bound("ssd_scan", SS.ssd_scan, *args, chunk=64)
     return worst
 
 
@@ -2398,21 +2484,28 @@ DENSE_KW = dict(max_batch=8, max_len=1024, dtype="bfloat16", cache_kind="dense")
 MLA_ARCH = "minicpm3-4b"
 AUDIO_ARCH = "whisper-medium"
 #: phase 10 runs the SSM and the hybrid at full width but cut depth, to
-#: keep the script's time: mamba2-780m 12 of its 48 layers, zamba2-7b 15
-#: of its 81 (two applications of the shared block, then the tail of 3);
-#: at 24 and 27 layers the script with phase 15 took 658.9 s on an H100
-PHASE10_LAYERS = {SSM_ARCH: 12, HYBRID_ARCH: 15}
+#: keep the script's time: mamba2-780m 6 of its 48 layers, zamba2-7b 13 of
+#: its 81 (two applications of the shared block, each over its own KV
+#: cache, then a tail layer: the only phase that applies the block more
+#: than once in a forward); cut from 24 and 27, then 12 and 15 (PERF.md §4)
+PHASE10_LAYERS = {SSM_ARCH: 6, HYBRID_ARCH: 13}
+#: phase 11 runs minicpm3-4b and whisper-medium at full width but cut
+#: depth, to keep the script's time: minicpm3-4b 8 of its 62 layers (16
+#: before), whisper-medium 12 of its 24 encoder and 12 of its 24 decoder
+#: layers (PERF.md §4)
+PHASE11_LAYERS = {MLA_ARCH: {"num_layers": 8},
+                  AUDIO_ARCH: {"num_layers": 12, "num_encoder_layers": 12}}
 #: the weight bytes of the reference's init_params at full width in bf16
 #: (jax.eval_shape of repro.models.transformer.init_params), at phase
-#: 10's depth for the SSM and the hybrid
+#: 10's and 11's depths
 REFERENCE_WEIGHT_BYTES = {
-    SSM_ARCH: 506_392_320, HYBRID_ARCH: 2_979_791_296,
-    MLA_ARCH: 8_147_747_840, AUDIO_ARCH: 1_622_646_784,
+    SSM_ARCH: 330_661_248, HYBRID_ARCH: 2_667_877_696,
+    MLA_ARCH: 1_378_964_480, AUDIO_ARCH: 917_757_952,
 }
 #: the dense cache's bytes at phase 11's settings (max_batch 8; max_len
-#: 1024, whisper 448), from the reference's init_cache: minicpm3's
-#: latents, whisper's self K/V and cross K/V of 1500 rows
-REFERENCE_CACHE_BYTES = {MLA_ARCH: 292_585_504, AUDIO_ARCH: 1_531_983_904}
+#: 1024, whisper 448), from the reference's init_cache at phase 11's
+#: depths: minicpm3's latents, whisper's self K/V and cross K/V of 1500 rows
+REFERENCE_CACHE_BYTES = {MLA_ARCH: 37_781_536, AUDIO_ARCH: 765_999_136}
 #: whisper's decoder context, and the longest prompt that leaves room for
 #: 32 new tokens in it
 WHISPER_MAX_LEN, WHISPER_PROMPT = 448, 416
@@ -3127,7 +3220,7 @@ def dense_audio(mods, cfg, work, out_dir, smi):
     """Phase 11 b: whisper-medium at full width in bf16 through the dense
     engine, frames from ``whisper_frames``. Returns the dense-decode
     launches of the graph engine's cold run (self- and cross-attention of
-    every decoder layer, 48 a step)."""
+    every decoder layer, 2 x decoder layers a step)."""
     from repro_torch.core.migration import tree_bytes
 
     Engine, RS, SP, DA, SS, GR, T, PK = mods
@@ -3221,6 +3314,7 @@ def encdec_phase(mods, get_config, out_dir, smi):
     for arch in (MLA_ARCH, AUDIO_ARCH):
         t = time.perf_counter()
         cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, **PHASE11_LAYERS[arch])
         prompts, sampled = workload(cfg)
         warm = workload(cfg, seed=SEED + 1)[0]
         if arch == MLA_ARCH:
@@ -3393,8 +3487,8 @@ def repl_run(c, params, dtype, plans, probe=None, rec=None, migrate_at=None,
 
 
 #: phase 12's re-placement part: llama2-13b at published width, cut to
-#: these of its 40 layers
-REPLACE_LAYERS = 10
+#: these of its 40 layers (cut from 10 for the script's time)
+REPLACE_LAYERS = 6
 #: what rank 1's peak device memory may grow by in step (a) beyond the
 #: shards it receives
 REPLACE_SLACK = 64 << 20
@@ -3899,12 +3993,13 @@ def rank_heads(cfg, m=2):
 #: (launch/dryrun.py: batch 1, window = sliding_window, a ring of that
 #: many slots): a prompt that wraps the ring, then decode steps
 LONG_PROMPT, LONG_STEPS = 8320, 16
-#: 13a's greedy decode steps (cut from 32, then 16, for the script's
+#: 13a's greedy decode steps (cut from 32, 16, then 8, for the script's
 #: time, PERF.md §4); 13d's decode steps and qwen2-moe depth (13h b's
 #: too; cut from 6)
-TP_STEPS, EP_STEPS, EP_LAYERS = 8, 16, 3
-#: 13b's and 13i's tinyllama-1.1b depth (of 22; cut for the script's time)
-LONG13_LAYERS = 11
+TP_STEPS, EP_STEPS, EP_LAYERS = 4, 16, 3
+#: 13b's and 13i's tinyllama-1.1b depth (of 22; cut to 11, then 6, for
+#: the script's time)
+LONG13_LAYERS = 6
 #: 13c's minicpm3-4b depth (of 62), to keep the script's time: cut from
 #: 31, 16 and then 8 as phases 13, 15 and 16 lengthened the script
 #: (PERF.md)
@@ -3913,9 +4008,10 @@ MLA13_LAYERS = 4
 #: 8 for the script's time)
 TIMED_STEPS = 4
 #: 13e-g on (data 1, model 2): part -> (arch, depth on the card): mamba2
-#: at phase 10's 12 of 48 layers, zamba2 at one block of 6 and a tail
-#: layer (7 of 81), whisper at 4 of 24 encoder and 4 of 24 decoder layers
-FAMILY13 = {"ssm": (SSM_ARCH, {"num_layers": 12}),
+#: at phase 10's 6 of 48 layers (15e's too; cut from 12), zamba2 at
+#: one block of 6 and a tail layer (7 of 81), whisper at 4 of 24 encoder
+#: and 4 of 24 decoder layers
+FAMILY13 = {"ssm": (SSM_ARCH, {"num_layers": 6}),
             "hybrid": (HYBRID_ARCH, {"num_layers": 7}),
             "audio": (AUDIO_ARCH, {"num_layers": 4, "num_encoder_layers": 4})}
 FAMILY_STEPS = 16
@@ -5168,8 +5264,9 @@ def family_gates(part, name, r0, r1, on_card, smi):
 
 # ------------------------------------------------- training (phase 14)
 TRAIN_ARCH = "tinyllama-1.1b"
-#: steps of each phase-14a run, the driver's and the timed one
-TRAIN_STEPS = 10
+#: steps of each phase-14a run, the driver's and the timed one, and of
+#: 15a's and 15b's bf16 runs (cut from 10 for the script's time)
+TRAIN_STEPS = 6
 #: the timed run trains on ONE batch repeated; its loss must fall by more
 #: than this many nats over TRAIN_STEPS steps at the driver's lr 1e-3
 TRAIN_FALL = 1.0
@@ -5177,8 +5274,9 @@ TRAIN_FALL = 1.0
 TRAIN_MOE_LAYERS = 4
 #: phases 14d (the checkpoint) and 14e (accumulation) run tinyllama-1.1b
 #: at this many of its 22 layers: at full depth 14d's 11.0 GB file took
-#: 35.6 s to save and load on an H100 machine, past phase 14's time
-TRAIN_CUT_LAYERS = 6
+#: 35.6 s to save and load on an H100 machine, past phase 14's time; at 6
+#: layers 11.2-18.4 s (cut to 2)
+TRAIN_CUT_LAYERS = 2
 #: phase 14c's reduced configs, card against the CPU: one per family but
 #: vlm (chameleon's decoder is the dense one)
 TRAIN_CHECK_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "mamba2-780m",
@@ -5653,8 +5751,9 @@ F64_TOL = 1e-9
 P15_MOE_LAYERS = 1
 #: 15a's and 15b's tinyllama-1.1b depths (of 22), to keep the script's
 #: time: their collectives stage through the host (15b's gradient sums at
-#: ~1 GB/s); cut from 22 and 22, then 22 and 11, then 11 and 6 (PERF.md §4)
-P15_TP_LAYERS, P15_DP_LAYERS = 6, 3
+#: ~1 GB/s); cut from 22 and 22, then 22 and 11, 11 and 6, 6 and 3
+#: (PERF.md §4)
+P15_TP_LAYERS, P15_DP_LAYERS = 3, 2
 P15_AXES = ("data", "model")
 
 
@@ -6345,8 +6444,8 @@ WIDE_DENSE = ("gemma-7b", "stablelm-12b")
 #: the fp32 cut of each model (its first layers widened): an fp32 copy of a
 #: whole model would not fit beside the bf16 one, nor chameleon-34b's cut
 #: beside its 68.6 GB (that cut is widened after the model is freed)
-WIDE_FP32_LAYERS = {"llama2-13b": 8, "gemma-7b": 8, "stablelm-12b": 8,
-                    "chameleon-34b": 6}
+WIDE_FP32_LAYERS = {"llama2-13b": 2, "gemma-7b": 2, "stablelm-12b": 2,
+                    "chameleon-34b": 2}
 #: an init_params peak may exceed the weights by at most this (the draw
 #: holds one fp32 layer slice, <= 0.27 GB, beside its result)
 INIT_SLACK = 2e9
@@ -6756,6 +6855,46 @@ def wide_phase(mods, get_config, out_dir, smi):
     return launches
 
 
+# ------------------------------------------------- phase 17: the examples
+EXAMPLE_BANNERS = {
+    "quickstart": ("greedy tokens:", "paged engine rid=", "scale-up: replicated"),
+    "shared_prefix": ("[sharing OFF]", "[sharing ON ]", "token-identical: True",
+                      " saved, "),
+}
+
+
+def run_example(name, argv):
+    """``examples/torch_<name>.py``'s ``main(argv)`` in this process; its
+    standard output, which must hold the reference's banner lines."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mod.main(argv)
+    text = out.getvalue()
+    missing = [b for b in EXAMPLE_BANNERS[name] if b not in text]
+    if missing:
+        raise AssertionError(f"examples/torch_{name}.py: no {missing} in:\n{text}")
+    return text
+
+
+def examples_phase(smi):
+    """The README's first quickstarts on the port, on the card, each
+    in-process through its ``main``: ``torch_quickstart`` at
+    tinyllama-1.1b's published width in bf16 (``--no-reduced``: the
+    forward, the paged engine's CUDA graphs, the scale-up plan), then
+    ``torch_shared_prefix`` (reduced, fp32); their banners printed."""
+    for name, argv in (("quickstart", ["--no-reduced"]), ("shared_prefix", [])):
+        t = time.perf_counter()
+        text = run_example(name, argv)
+        for line in text.splitlines():
+            log(f"[examples] torch_{name}: {line}")
+        log(f"[examples] torch_{name} {' '.join(argv)} in "
+            f"{time.perf_counter() - t:.1f} s [{smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6827,24 +6966,35 @@ def main():
         for shape in serving_ssd_shapes(c, sorted({len(p) for p in prompts}))
     ]
     errs = {
-        "flash": check_flash(FA),
+        "flash": check_flash(FA, ops),
         "decode": check_decode(DA, mid_lens),
         "ssd": check_ssd(SS, serving_ssd),
     }
     log(
         f"[kernel] flash_attention bf16 tensor-core instructions (cuobjdump -sass "
-        f"HGMMA count per kernel): {hgmma_counts(libs['flash_attention'])}"
+        f"HGMMA count per kernel): "
+        f"{hgmma_counts(libs['flash_attention'], FA.KERNEL_WIDTHS)}"
     )
     log(
         f"[kernel] ssd_scan bf16 tensor-core instructions (cuobjdump -sass HMMA "
         f"count per kernel): {hmma_counts(libs['ssd_scan'])}"
     )
     errs["gelu"] = check_gelu(GK)
-    gemma = get_config("gemma-7b")
+    gemma, stablelm = get_config("gemma-7b"), get_config("stablelm-12b")
     timed = {
         "flash": time_flash(FA, 1, 2048, cfg.num_heads, cfg.num_kv_heads, 64, smi),
         "flash_gemma": time_flash(
             FA, 1, 2048, gemma.num_heads, gemma.num_kv_heads, gemma.head_dim, smi
+        ),
+        # the head dims the kernel took last: stablelm-12b's prefill (H 32,
+        # KV 8, D 160) and zamba2-7b's attention (H = KV = 32, D 112)
+        "flash_stablelm": time_flash(
+            FA, 1, 2048, stablelm.num_heads, stablelm.num_kv_heads,
+            stablelm.resolved_head_dim, smi,
+        ),
+        "flash_zamba": time_flash(
+            FA, 1, 2048, zamba.num_heads, zamba.num_kv_heads, zamba.resolved_head_dim,
+            smi,
         ),
         "decode": time_decode(DA, cfg, mid_lens, 1024, smi),
         "ssd": time_ssd(SS, mamba, 2048, smi),
@@ -7006,6 +7156,18 @@ def main():
                 "library_ms": k_lib,
             }
         )
+    # flash's timed prefill shapes (no serving path calls flash: the
+    # launches are phase 6's kernel API calls, on the first row)
+    kernels[1]["shapes"] = []
+    for model, timed_key in (("tinyllama-1.1b", "flash"), ("gemma-7b", "flash_gemma"),
+                             ("stablelm-12b", "flash_stablelm"),
+                             (HYBRID_ARCH, "flash_zamba")):
+        k_ms, k_plain, k_lib, (k_bound, k_by) = timed[timed_key]
+        kernels[1]["shapes"].append({
+            "model": model, "timed": timed_key, "launches": None, "ms": k_ms,
+            "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+            "library_ms": k_lib,
+        })
     # phase 7: the module-scaling loop at full width
     t = time.perf_counter()
     reference = {r.rid: r.generated for r in reqs}
@@ -7181,6 +7343,13 @@ def main():
                             "phase 16 (gemma-7b's GeGLU, graph replays counted)"))
     kernels.append(gelu_row("gelu_grad", gelu_times["gelu_grad"], grad_launches,
                             errs["gelu"], "phase 14 (14c's whisper-medium train step)"))
+
+    # phase 17: the README's quickstarts on the port, on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    examples_phase(smi)
+    log(f"[examples] phase 17 in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

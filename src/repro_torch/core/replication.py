@@ -89,7 +89,12 @@ class ReplicationGroup:
     ``torch.distributed`` process group (None for the size-1 group);
     ``counts`` the collectives run so far, by the reference's names
     (``count_collectives``); ``bytes_received`` the bytes this rank's
-    all-to-alls (re-placement) brought in from the other ranks."""
+    all-to-alls (re-placement) brought in from the other ranks.
+
+    Ranks that are threads of one process on the CPU share its MKL: set
+    ``MKL_CBWR=COMPATIBLE`` before the process's first GEMM, or two ranks
+    may now and then compute the same rows with other bits (ROADMAP C8;
+    ``examples/torch_migrate_modules.py`` and the port's tests set it)."""
     pg: Optional[object]
     rank: int
     size: int

@@ -27,17 +27,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// 16-byte vector of elements: 4 fp32 or 8 bf16
+// 16-byte vector of 8 bf16 elements
 template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int n = 4;
-  __device__ static void unpack(const uint4& u, float* o) {
-    o[0] = __uint_as_float(u.x);
-    o[1] = __uint_as_float(u.y);
-    o[2] = __uint_as_float(u.z);
-    o[3] = __uint_as_float(u.w);
-  }
-};
 template <> struct Vec16<__nv_bfloat16> {
   static constexpr int n = 8;
   __device__ static void unpack(const uint4& u, float* o) {
@@ -194,8 +185,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 in, fp32 accumulate, for
-// one warpgroup. wgmma_ss_nN: A and B from shared memory through
-// descriptors, both K-major. wgmma_rs_nN: A from registers (the
+// one warpgroup. wgmma_ss_nN (N 64, 128): A and B from shared memory
+// through descriptors, both K-major. wgmma_rs_nN (N 64, 80, 96, 112, 128,
+// 160, 192, 256: flash attention's kernel widths): A from registers (the
 // accumulator layout of a previous product, packed to bf16x2), B through
 // a descriptor, MN-major (transposed). The accumulator layout: warp w of
 // the warpgroup, lane l holds d[4j + e] at row 16 w + l / 4 + 8 (e / 2),
@@ -263,6 +255,77 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
@@ -286,6 +349,71 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
 }
@@ -426,6 +554,62 @@ __device__ __forceinline__ void combine_split_row(const SplitPartials& p,
 
 namespace split_decode {
 
+// A row of D elements is read in vectors of VB bytes (16, 8, 4, or 2 for
+// bf16): the widest that divides the row and every address a row can
+// start at, chosen at launch (row_vec_bytes). A row that is not a whole
+// number of 16-byte vectors thus needs no padded copy of the cache.
+template <int VB> struct VecBits;
+template <> struct VecBits<16> { using type = uint4; };
+template <> struct VecBits<8> { using type = uint2; };
+template <> struct VecBits<4> { using type = uint32_t; };
+template <> struct VecBits<2> { using type = uint16_t; };
+
+// the VB / sizeof(T) elements at p (VB-aligned) as fp32
+template <typename T, int VB>
+__device__ __forceinline__ void load_vec(const T* p, float* f) {
+  using V = typename VecBits<VB>::type;
+  const V u = *reinterpret_cast<const V*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < VB / (int)sizeof(T); ++i) f[i] = to_f(e[i]);
+}
+
+// VB bytes global -> shared: cp.async (16 through L2 only, 8 and 4 through
+// L1), or a plain copy for 2 (cp.async has no 2-byte form); either is
+// visible to the block after cp_async_wait and a barrier
+template <int VB, typename T>
+__device__ __forceinline__ void copy_vec(T* dst, const T* src) {
+  if constexpr (VB == 16) {
+    cp_async16(smem_addr(dst), src);
+  } else if constexpr (VB == 2) {
+    *reinterpret_cast<uint16_t*>(dst) =
+        *reinterpret_cast<const uint16_t*>(src);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(VB)
+                 : "memory");
+  }
+}
+
+// The widest vector (16, 8, 4 or 2 bytes, at least one element of
+// `es` bytes) that divides the row of D elements and each of `n`
+// element strides and byte addresses.
+inline int row_vec_bytes(int D, int es, const long long* strides, int n,
+                         const void* const* ptrs, int n_ptrs) {
+  int vb = 16;
+  auto fits = [&](int b) {
+    if ((long long)D * es % b) return false;
+    for (int i = 0; i < n; ++i)
+      if (strides[i] * es % b) return false;
+    for (int i = 0; i < n_ptrs; ++i)
+      if (reinterpret_cast<uintptr_t>(ptrs[i]) % b) return false;
+    return true;
+  };
+  while (vb > es && !fits(vb)) vb /= 2;
+  return vb;
+}
+
 constexpr int kThreads = 256;  // the split kernel's block
 constexpr int kWarps = kThreads / 32;
 constexpr int kCombineThreads = 128;
@@ -449,27 +633,38 @@ struct SmemLayout {  // byte offsets into dynamic shared memory
 };
 
 // Issue the copies of `nt` tokens starting at position `s0` into stage
-// buffers kd and vd (16 bytes per cp.async); `rows` maps a position to
-// its K and V rows.
-template <typename T, typename Rows>
+// buffers kd and vd (VB bytes a copy); `rows` maps a position to its K
+// and V rows.
+template <typename T, typename Rows, int VB>
 __device__ __forceinline__ void load_chunk(T* kd, T* vd, const Rows& rows,
                                            int s0, int nt, int D, int tid) {
-  constexpr int kVec = Vec16<T>::n;
+  constexpr int kVec = VB / sizeof(T);
   const int row_vecs = D / kVec;
   for (int i = tid; i < nt * row_vecs; i += kThreads) {
     const int t = i / row_vecs;
     const int d = (i - t * row_vecs) * kVec;
-    cp_async16(smem_addr(kd + t * D + d), rows.k_row(s0 + t) + d);
-    cp_async16(smem_addr(vd + t * D + d), rows.v_row(s0 + t) + d);
+    copy_vec<VB>(kd + t * D + d, rows.k_row(s0 + t) + d);
+    copy_vec<VB>(vd + t * D + d, rows.v_row(s0 + t) + d);
   }
   cp_async_commit();
 }
 
-__device__ __forceinline__ float2 pair_f(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// U consecutive elements (U = 2: an aligned pair, U = 1: one) as fp32
+template <int U>
+__device__ __forceinline__ float2 unit_f(const float* p) {
+  if constexpr (U == 2) return *reinterpret_cast<const float2*>(p);
+  else return make_float2(*p, 0.f);
 }
-__device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+template <int U>
+__device__ __forceinline__ float2 unit_f(const __nv_bfloat16* p) {
+  if constexpr (U == 2)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  else return make_float2(__bfloat162float(*p), 0.f);
+}
+template <int U>
+__device__ __forceinline__ void unit_store(float* p, float2 a) {
+  if constexpr (U == 2) *reinterpret_cast<float2*>(p) = a;
+  else *p = a.x;
 }
 
 // Grid (B * KV, n_split): the block of (row, KV head, split) walks
@@ -479,8 +674,8 @@ __device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
 // (row, KV head) and the split's positions, using `ids` (shared memory
 // of `n_ids` ints, which the launch sizes) if it needs to (then with
 // kUsesIds set, and a barrier follows); `k_row(pos)` / `v_row(pos)` give
-// a position's rows.
-template <typename T, typename Rows>
+// a position's rows, read in vectors of VB bytes.
+template <typename T, typename Rows, int VB>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const T* __restrict__ q, Rows rows,
              const int* __restrict__ lengths, float* __restrict__ ws, int B,
@@ -516,7 +711,7 @@ split_kernel(const T* __restrict__ q, Rows rows,
   rows.bind(row, kvh, s0, s1, ids, tid, kThreads);
   if (Rows::kUsesIds) __syncthreads();
   const int n_chunks = (s1 - s0 + Tc - 1) / Tc;
-  load_chunk(k_s, v_s, rows, s0, min(Tc, s1 - s0), D, tid);
+  load_chunk<T, Rows, VB>(k_s, v_s, rows, s0, min(Tc, s1 - s0), D, tid);
 
   const T* q_row = q + head0 * D;
   for (int i = tid; i < R * D; i += kThreads) {
@@ -531,7 +726,10 @@ split_kernel(const T* __restrict__ q, Rows rows,
   const int parts = R >= kWarps ? 1 : kWarps / R;
   const int first = R >= kWarps ? warp : warp / parts;
   const int step = R >= kWarps ? kWarps : R;  // a shared head is one item
-  const int pairs = D / 2;
+  // p @ v runs over units of U elements: aligned pairs where a vector
+  // holds two, else single elements (a row of odd length)
+  constexpr int U = VB >= 2 * (int)sizeof(T) ? 2 : 1;
+  const int pairs = D / U;
   const int part_pairs = (pairs + parts - 1) / parts;
   const int my_part = R >= kWarps ? 0 : warp % parts;
   const bool has_work = R >= kWarps || warp < R * parts;
@@ -542,9 +740,9 @@ split_kernel(const T* __restrict__ q, Rows rows,
     }
 
   // lanes per token in the score phase: a power of two <= 32 that covers
-  // the row's 16-byte vectors in as few passes as possible; lane `sub` of
-  // a token's group takes vectors sub, sub + lpt, ...
-  constexpr int kVec = Vec16<T>::n;
+  // the row's vectors in as few passes as possible; lane `sub` of a
+  // token's group takes vectors sub, sub + lpt, ...
+  constexpr int kVec = VB / sizeof(T);
   const int row_vecs = D / kVec;
   int lpt = 1;
   while (lpt < 32 && lpt < row_vecs) lpt <<= 1;
@@ -558,8 +756,9 @@ split_kernel(const T* __restrict__ q, Rows rows,
     const int c0 = s0 + c * Tc;
     if (c + 1 < n_chunks) {
       const int nx = c0 + Tc;
-      load_chunk(k_s + (st ^ 1) * Tc * D, v_s + (st ^ 1) * Tc * D, rows, nx,
-                 min(Tc, s1 - nx), D, tid);
+      load_chunk<T, Rows, VB>(k_s + (st ^ 1) * Tc * D,
+                              v_s + (st ^ 1) * Tc * D, rows, nx,
+                              min(Tc, s1 - nx), D, tid);
     }
     if (!has_work) continue;
     const int nt = min(Tc, s1 - c0);
@@ -568,7 +767,7 @@ split_kernel(const T* __restrict__ q, Rows rows,
     for (int r = first; r < R; r += step) {
       const float* qr = q_s + r * D;
       // this lane's first kQVecs vectors of q in registers (the rest, for
-      // rows over 32 * kQVecs * 16 bytes, are read from shared memory)
+      // rows over 32 * kQVecs vectors, are read from shared memory)
       float qv[kQVecs][kVec];
 #pragma unroll
       for (int v_ = 0; v_ < kQVecs; ++v_) {
@@ -589,16 +788,14 @@ split_kernel(const T* __restrict__ q, Rows rows,
             const int j = sub + v_ * lpt;
             if (j < row_vecs) {
               float kf[kVec];
-              Vec16<T>::unpack(
-                  *reinterpret_cast<const uint4*>(kr + j * kVec), kf);
+              load_vec<T, VB>(kr + j * kVec, kf);
 #pragma unroll
               for (int u = 0; u < kVec; ++u) s += qv[v_][u] * kf[u];
             }
           }
           for (int j = sub + kQVecs * lpt; j < row_vecs; j += lpt) {
             float kf[kVec];
-            Vec16<T>::unpack(*reinterpret_cast<const uint4*>(kr + j * kVec),
-                             kf);
+            load_vec<T, VB>(kr + j * kVec, kf);
 #pragma unroll
             for (int u = 0; u < kVec; ++u) s += qr[j * kVec + u] * kf[u];
           }
@@ -632,17 +829,17 @@ split_kernel(const T* __restrict__ q, Rows rows,
       // acc = acc * alpha + p @ v over this item's pairs of D
       const int p_end = min(pairs, (my_part + 1) * part_pairs);
       for (int pr = my_part * part_pairs + lane; pr < p_end; pr += 32) {
-        float2 a = pair_f(acc + r * D + 2 * pr);
+        float2 a = unit_f<U>(acc + r * D + U * pr);
         a.x *= alpha;
         a.y *= alpha;
 #pragma unroll 4
         for (int t = 0; t < nt; ++t) {
           const float w = p_w[t];
-          const float2 vv = pair_f(vc + t * D + 2 * pr);
+          const float2 vv = unit_f<U>(vc + t * D + U * pr);
           a.x += w * vv.x;
           a.y += w * vv.y;
         }
-        *reinterpret_cast<float2*>(acc + r * D + 2 * pr) = a;
+        unit_store<U>(acc + r * D + U * pr, a);
       }
       __syncwarp();  // p_w is rewritten by the next item
     }
@@ -654,8 +851,8 @@ split_kernel(const T* __restrict__ q, Rows rows,
     const size_t at = part.at(head0 + r, split);
     const int p_end = min(pairs, (my_part + 1) * part_pairs);
     for (int pr = my_part * part_pairs + lane; pr < p_end; pr += 32)
-      *reinterpret_cast<float2*>(part.acc + at * D + 2 * pr) =
-          pair_f(acc + r * D + 2 * pr);
+      unit_store<U>(part.acc + at * D + U * pr,
+                    unit_f<U>(acc + r * D + U * pr));
     if (my_part == 0 && lane == 0) {
       part.m[at] = m_s[r * parts];
       part.l[at] = l_s[r * parts];
@@ -687,22 +884,25 @@ inline int chunk_tokens(int R, int D, int es, int n_ids) {
 }
 
 // The two launches of a split-K decode call on `stream`: the split kernel
-// over (B * KV, n_split), then the combine over the B * KV * R rows as a
-// programmatic dependent launch, so that its launch and block scheduling
-// overlap the split kernel's run (it waits on griddepcontrol.wait).
-template <typename T, typename Rows>
-cudaError_t launch(const void* q, const Rows& rows, const int* lengths,
-                   void* out, float* ws, int B, int KV, int R, int D, int S,
-                   int n_split, int span, int n_ids, cudaStream_t stream) {
+// over (B * KV, n_split), reading rows in vectors of VB bytes, then the
+// combine over the B * KV * R rows as a programmatic dependent launch, so
+// that its launch and block scheduling overlap the split kernel's run (it
+// waits on griddepcontrol.wait).
+template <typename T, typename Rows, int VB>
+cudaError_t launch_vb(const void* q, const Rows& rows, const int* lengths,
+                      void* out, float* ws, int B, int KV, int R, int D,
+                      int S, int n_split, int span, int n_ids,
+                      cudaStream_t stream) {
   const int Tc = chunk_tokens(R, D, sizeof(T), n_ids);
   const size_t smem = SmemLayout(R, D, Tc, sizeof(T), n_ids).total;
   static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(split_kernel<T, Rows>, smem, &allowed);
+  cudaError_t err = allow_smem(split_kernel<T, Rows, VB>, smem, &allowed);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
-  split_kernel<T, Rows><<<dim3(B * KV, n_split), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), rows, lengths, ws, B, KV, R, D, S, Tc, span,
-      n_split, n_ids, scale);
+  split_kernel<T, Rows, VB>
+      <<<dim3(B * KV, n_split), kThreads, smem, stream>>>(
+          static_cast<const T*>(q), rows, lengths, ws, B, KV, R, D, S, Tc,
+          span, n_split, n_ids, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t w_smem = sizeof(float) * (n_split + 1);
@@ -721,6 +921,30 @@ cudaError_t launch(const void* q, const Rows& rows, const int* lengths,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, combine_kernel<T>, ws,
                             static_cast<T*>(out), B * KV * R, n_split, D);
+}
+
+// launch_vb at the vector width `vb` (row_vec_bytes)
+template <typename T, typename Rows>
+cudaError_t launch(const void* q, const Rows& rows, const int* lengths,
+                   void* out, float* ws, int B, int KV, int R, int D, int S,
+                   int n_split, int span, int n_ids, int vb,
+                   cudaStream_t stream) {
+  switch (vb) {
+    case 16:
+      return launch_vb<T, Rows, 16>(q, rows, lengths, out, ws, B, KV, R, D,
+                                    S, n_split, span, n_ids, stream);
+    case 8:
+      return launch_vb<T, Rows, 8>(q, rows, lengths, out, ws, B, KV, R, D, S,
+                                   n_split, span, n_ids, stream);
+    case 4:
+      return launch_vb<T, Rows, 4>(q, rows, lengths, out, ws, B, KV, R, D, S,
+                                   n_split, span, n_ids, stream);
+    case 2:
+      if constexpr (sizeof(T) == 2)
+        return launch_vb<T, Rows, 2>(q, rows, lengths, out, ws, B, KV, R, D,
+                                     S, n_split, span, n_ids, stream);
+  }
+  return cudaErrorMisalignedAddress;
 }
 
 }  // namespace split_decode

@@ -33,7 +33,9 @@
 //    stopping gives the same result); a range that starts past the row's
 //    length writes an empty partial (m = -inf, l = 0) and exits. K/V go
 //    through a two-stage ring of Tc-token chunks filled by 16-byte cp.async
-//    copies, so chunk c + 1 loads while chunk c computes, with one block
+//    copies (8, 4 or 2 bytes where a row or stride is not a whole number
+//    of 16-byte vectors: any D, as the Pallas kernel takes), so chunk
+//    c + 1 loads while chunk c computes, with one block
 //    barrier per chunk. Each K/V row is shared across the R = H / KV query
 //    heads. Of the block's 8 warps, warp w owns heads w, w + 8, ... (or,
 //    when R < 8, a part of D of one head): it computes that head's scores
@@ -86,8 +88,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int n_split, int span, cudaStream_t stream) {
   const DenseRows<T> rows{static_cast<const T*>(k), static_cast<const T*>(v),
                           ks, vs};
+  const long long strides[6] = {ks.b, ks.s, ks.h, vs.b, vs.s, vs.h};
+  const void* ptrs[2] = {k, v};
+  const int vb =
+      split_decode::row_vec_bytes(D, sizeof(T), strides, 6, ptrs, 2);
   return split_decode::launch<T>(q, rows, lengths, out, ws, B, KV, R, D, S,
-                                 n_split, span, 0, stream);
+                                 n_split, span, 0, vb, stream);
 }
 
 }  // namespace
@@ -108,12 +114,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (KV <= 0 || H % KV != 0 || D <= 0 || S <= 0 || n_split <= 0 ||
       span <= 0 || span % 64 != 0 || (long long)n_split * span < S)
     return (int)cudaErrorInvalidValue;
-  const int vec = dtype == 0 ? 4 : 8;  // elements per 16-byte load
-  if (D % vec != 0 || k_sb % vec || k_ss % vec || k_sh % vec || v_sb % vec ||
-      v_ss % vec || v_sh % vec ||
-      reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+  if (reinterpret_cast<uintptr_t>(ws) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const int R = H / KV;

@@ -14,6 +14,16 @@
 // here (the Pallas kernel needs block multiples; the kernel API pads
 // exactly as the reference does before calling either).
 //
+// Head dims: every D up to 256 (the Pallas kernel takes any D). The kernels
+// are instantiated at the widths W of kWidths (64, 80, 96, 112, 128, 160,
+// 192, 256: the repo's head dims 64, 112, 128, 160 and 256 among them), and
+// a D runs on the smallest W >= D, its columns from D up to W zero-filled in
+// the loads and never stored; 1/sqrt(D) is taken from the caller's head dim
+// (scale_dim), never from W. bf16 also needs D a multiple of 8 (16-byte
+// rows); the wrapper copies other operands into zero-padded rows
+// (flash_attention.py: pad_head_dim). D above 256 is the kernels' bound: O
+// lives in registers (W / 2 fp32 a thread in the bf16 kernel).
+//
 // Bound on an H100 SXM: at prefill lengths this is compute-bound. The
 // least work is 4 * D flops per unmasked (q, k) pair and head, about
 // B * H * Sq * Sk / 2 pairs when causal, against the input type's peak
@@ -24,7 +34,7 @@
 // specialisation. A thread block holds two consumer warpgroups of 128
 // threads; each owns 64 query rows of one (batch, head), so a block covers
 // 128 rows. The Q tile is copied once into shared memory; K and V tiles
-// (TK = 128 keys at D 64, 64 at D 128 and 256) go through a two-stage ring
+// (TK = 128 keys at W 64, 64 at the wider W) go through a two-stage ring
 // in shared memory, filled by 16-byte cp.async copies, so tile j + 1 loads
 // while tile j computes. Every tile is stored in the 128-byte swizzled
 // layout the wgmma descriptors read. S = Q K^T is one wgmma m64nTKk16 per
@@ -58,6 +68,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -72,37 +84,40 @@ struct Strides {  // in elements: batch, head, sequence
   long long b, h, s;
 };
 
-template <int D>
+// the kernels' widths, ascending; a head dim runs on the first W >= D
+constexpr int kWidths[] = {64, 80, 96, 112, 128, 160, 192, 256};
+
+template <int W>
 __host__ __device__ constexpr int key_tile() {
-  return D <= 128 ? 64 : 32;
+  return W <= 128 ? 64 : 32;
 }
 
-template <int D>
+template <int W>
 __host__ __device__ constexpr size_t smem_floats() {
-  constexpr int TK = key_tile<D>();
-  return (size_t)D * LQ + (size_t)D * (TK + 1) + (size_t)TK * D +
+  constexpr int TK = key_tile<W>();
+  return (size_t)W * LQ + (size_t)W * (TK + 1) + (size_t)TK * W +
          (size_t)TK * LQ;
 }
 
-// Shared memory, fp32:
-//   qt[D][LQ]   (q tile transposed, pre-scaled)
-//   kt[D][TK+1] (k tile transposed)
-//   vs[TK][D]
+// Shared memory, fp32 (columns D .. W zero):
+//   qt[W][LQ]   (q tile transposed, pre-scaled)
+//   kt[W][TK+1] (k tile transposed)
+//   vs[TK][W]
 //   pt[TK][LQ]  (probabilities, transposed)
-template <typename T, int D>
+template <typename T, int W>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, Strides qs,
-             Strides ks, Strides vs, Strides os, int H, int KV, int Sq,
-             int Sk, int causal, float scale) {
-  constexpr int TK = key_tile<D>();
+             Strides ks, Strides vs, Strides os, int H, int KV, int D,
+             int Sq, int Sk, int causal, float scale) {
+  constexpr int TK = key_tile<W>();
   constexpr int LK = TK + 1;
-  constexpr int TM = TQ / 16, TN = TK / 16, TD = D / 16;
+  constexpr int TM = TQ / 16, TN = TK / 16, TD = W / 16;
   extern __shared__ float smem[];
   float* qt = smem;
-  float* kt = qt + D * LQ;
-  float* vt = kt + D * LK;
-  float* pt = vt + TK * D;
+  float* kt = qt + W * LQ;
+  float* vt = kt + W * LK;
+  float* pt = vt + TK * W;
 
   const int q0 = blockIdx.x * TQ;
   const int b = blockIdx.y / H;
@@ -112,9 +127,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15, ty = tid >> 4;
 
   const T* q_bh = q + b * qs.b + h * qs.h;
-  for (int i = tid; i < TQ * D; i += kThreads) {
-    const int r = i / D, d = i - (i / D) * D;
-    const float x = q0 + r < Sq ? to_f(q_bh[(q0 + r) * qs.s + d]) : 0.f;
+  for (int i = tid; i < TQ * W; i += kThreads) {
+    const int r = i / W, d = i - (i / W) * W;
+    const float x =
+        q0 + r < Sq && d < D ? to_f(q_bh[(q0 + r) * qs.s + d]) : 0.f;
     qt[d * LQ + r] = x * scale;
   }
 
@@ -134,11 +150,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* v_b = v + b * vs.b + kvh * vs.h;
   for (int k0 = 0; k0 < k_end; k0 += TK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < TK * D; i += kThreads) {
-      const int r = i / D, d = i - (i / D) * D;
-      const bool in = k0 + r < Sk;
+    for (int i = tid; i < TK * W; i += kThreads) {
+      const int r = i / W, d = i - (i / W) * W;
+      const bool in = k0 + r < Sk && d < D;
       kt[d * LK + r] = in ? to_f(k_b[(k0 + r) * ks.s + d]) : 0.f;
-      vt[r * D + d] = in ? to_f(v_b[(k0 + r) * vs.s + d]) : 0.f;
+      vt[r * W + d] = in ? to_f(v_b[(k0 + r) * vs.s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -179,7 +195,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < TD; ++j) o[i][j] *= alpha;
     }
     __syncthreads();
-    tile_fma<TM, TD>(pt, LQ, vt, D, TK, ty, tx, o);
+    tile_fma<TM, TD>(pt, LQ, vt, W, TK, ty, tx, o);
   }
 
   T* o_bh = out + b * os.b + h * os.h;
@@ -190,54 +206,58 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
     for (int j = 0; j < TD; ++j)
-      o_bh[r * os.s + tx + 16 * j] = from_f<T>(o[i][j] * inv);
+      if (tx + 16 * j < D)
+        o_bh[r * os.s + tx + 16 * j] = from_f<T>(o[i][j] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    Strides qs, Strides ks, Strides vs, Strides os, int B,
-                   int H, int KV, int Sq, int Sk, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
+                   int H, int KV, int D, int Sq, int Sk, int causal,
+                   int scale_dim, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats<W>();
   static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(flash_kernel<T, D>, smem, &allowed);
+  cudaError_t err = allow_smem(flash_kernel<T, W>, smem, &allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + TQ - 1) / TQ, B * H);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<T, W><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, H, KV,
-      Sq, Sk, causal, 1.0f / sqrtf((float)D));
+      D, Sq, Sk, causal, 1.0f / sqrtf((float)scale_dim));
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ bf16: wgmma
 using bf16 = __nv_bfloat16;
 
-template <int D>
+template <int W>
 struct WgTiles {
   static constexpr int kWG = 2;             // consumer warpgroups
   static constexpr int kThreads = 128 * kWG;
   static constexpr int TQ = 64 * kWG;       // query rows per thread block
-  static constexpr int TK = D == 64 ? 128 : 64;  // keys per tile
-  static constexpr uint32_t q_bytes = TQ * D * 2;
-  static constexpr uint32_t kv_bytes = TK * D * 2;  // one K or V tile
+  static constexpr int TK = W == 64 ? 128 : 64;  // keys per tile
+  // a tile row is W columns in whole 64-column (128-byte) swizzle blocks
+  static constexpr int DP = (W + 63) / 64 * 64;
+  static constexpr uint32_t q_bytes = TQ * DP * 2;
+  static constexpr uint32_t kv_bytes = TK * DP * 2;  // one K or V tile
   // 1024 bytes of slack align the tiles to the swizzle's 1024-byte atoms
   static constexpr size_t smem = 1024 + q_bytes + 4 * kv_bytes;
 };
 
-// Copy rows [row0, row0 + ROWS) of a [*, D] bf16 operand (row stride
-// `ld` elements) into the swizzled tile at shared address `dst`, 16 bytes
-// per cp.async; rows at or past `n_rows` are zero-filled.
-template <int ROWS, int D, int NT>
+// Copy rows [row0, row0 + ROWS) of a [*, D] bf16 operand (row stride `ld`
+// elements, D a multiple of 8) into the first W columns of the swizzled
+// tile at shared address `dst`, 16 bytes per cp.async; rows at or past
+// `n_rows` and columns at or past D are zero-filled.
+template <int ROWS, int W, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long ld, int row0, int n_rows,
-                                          int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
+                                          int D, int tid) {
+  constexpr int CPR = W / 8;  // 16-byte chunks per row
 #pragma unroll 4
   for (int i = tid; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
-    const bool in = row0 + r < n_rows;
+    const bool in = row0 + r < n_rows && c * 8 < D;
     const bf16* g = in ? src + (row0 + r) * ld + c * 8 : src;
     cp_async16(dst + (c >> 3) * (ROWS * 128) + sw128_offset(r, c & 7), g,
                in ? 16 : 0);
@@ -255,17 +275,23 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db, 1);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db, 1);
+  else if constexpr (N == 112) wgmma_rs_n112(d, a, db, 1);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  else if constexpr (N == 160) wgmma_rs_n160(d, a, db, 1);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db, 1);
   else wgmma_rs_n256(d, a, db, 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(WgTiles<D>::kThreads, 1)
+template <int W>
+__global__ void __launch_bounds__(WgTiles<W>::kThreads, 1)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out,
                    Strides qs, Strides ks, Strides vs, Strides os, int H,
-                   int KV, int Sq, int Sk, int causal, float scale_log2) {
-  using Tl = WgTiles<D>;
+                   int KV, int D, int Sq, int Sk, int causal,
+                   float scale_log2) {
+  using Tl = WgTiles<W>;
   constexpr int TQ = Tl::TQ, TK = Tl::TK, NT = Tl::kThreads;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -283,9 +309,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // row, so their tiles are not loaded
   const int k_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_tiles = (k_end + TK - 1) / TK;
-  load_tile<TQ, D, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, tid);
-  load_tile<TK, D, NT>(sK, k_b, ks.s, 0, Sk, tid);
-  load_tile<TK, D, NT>(sV, v_b, vs.s, 0, Sk, tid);
+  load_tile<TQ, W, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, tid);
+  load_tile<TK, W, NT>(sK, k_b, ks.s, 0, Sk, D, tid);
+  load_tile<TK, W, NT>(sV, v_b, vs.s, 0, Sk, D, tid);
   cp_async_commit();
 
   // this warpgroup's rows, and this thread's two rows of each fragment
@@ -295,9 +321,11 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wk_end = causal ? min(Sk, wq0 + 64) : Sk;
   const bool rows_live = wq0 < Sq;
 
-  float o[D / 2];
+  // Q K^T runs over the k16 steps that hold columns below D only
+  const int k_steps = (D + 15) / 16;
+  float o[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -307,10 +335,10 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();      // everyone's have; tile j - 1's readers are done
     if (j + 1 < n_tiles) {
       const int nk = (j + 1) * TK;
-      load_tile<TK, D, NT>(sK + (st ^ 1) * Tl::kv_bytes, k_b, ks.s, nk, Sk,
-                           tid);
-      load_tile<TK, D, NT>(sV + (st ^ 1) * Tl::kv_bytes, v_b, vs.s, nk, Sk,
-                           tid);
+      load_tile<TK, W, NT>(sK + (st ^ 1) * Tl::kv_bytes, k_b, ks.s, nk, Sk,
+                           D, tid);
+      load_tile<TK, W, NT>(sV + (st ^ 1) * Tl::kv_bytes, v_b, vs.s, nk, Sk,
+                           D, tid);
       cp_async_commit();
     }
     const int k0 = j * TK;
@@ -323,7 +351,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
+      if (kk >= k_steps) break;
       const uint32_t qa = sQ + (kk >> 2) * (TQ * 128) + wg * (64 * 128) +
                           (kk & 3) * 32;
       const uint32_t ka = kt + (kk >> 2) * (TK * 128) + (kk & 3) * 32;
@@ -383,17 +412,18 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? alpha_b : alpha_a;
+    for (int i = 0; i < W / 2; ++i) o[i] *= (i & 2) ? alpha_b : alpha_a;
 
-    // O += P V over the tile's keys in steps of 16: V is [TK][D] row-major
-    // in its tile, which is B = V read MN-major; a step is 16 rows (2048
-    // bytes) on, 64-column blocks TK * 128 bytes apart (leading offset)
+    // O += P V over the tile's keys in steps of 16, N = W columns (those
+    // from D on are zero and not stored): V is [TK][W] row-major in its
+    // tile, which is B = V read MN-major; a step is 16 rows (2048 bytes)
+    // on, 64-column blocks TK * 128 bytes apart (leading offset)
     const uint32_t vt = sV + st * Tl::kv_bytes;
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk)
-      wgmma_rs<D>(o, p[kk], sw128_desc(vt + kk * 2048, TK * 128, 1024));
+      wgmma_rs<W>(o, p[kk], sw128_desc(vt + kk * 2048, TK * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -404,74 +434,76 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int row = (i & 2) ? row_b : row_a;
-    if (row >= Sq) continue;
+    const int col = 8 * (i >> 2) + col0;  // even, so col + 1 < D too
+    if (row >= Sq || col >= D) continue;
     const float inv = (i & 2) ? inv_b : inv_a;
-    const int col = 8 * (i >> 2) + col0;
     *reinterpret_cast<uint32_t*>(o_bh + row * os.s + col) =
         pack_bf16x2(o[i] * inv, o[i + 1] * inv);
   }
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, Strides qs, Strides ks, Strides vs,
-                         Strides os, int B, int H, int KV, int Sq, int Sk,
-                         int causal, cudaStream_t stream) {
-  using Tl = WgTiles<D>;
+                         Strides os, int B, int H, int KV, int D, int Sq,
+                         int Sk, int causal, int scale_dim,
+                         cudaStream_t stream) {
+  using Tl = WgTiles<W>;
   static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(flash_wgmma_kernel<D>, Tl::smem, &allowed);
+  cudaError_t err = allow_smem(flash_wgmma_kernel<W>, Tl::smem, &allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + Tl::TQ - 1) / Tl::TQ, B * H);
-  flash_wgmma_kernel<D><<<grid, Tl::kThreads, Tl::smem, stream>>>(
+  flash_wgmma_kernel<W><<<grid, Tl::kThreads, Tl::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os, H,
-      KV, Sq, Sk, causal, 1.4426950408889634f / sqrtf((float)D));
+      KV, D, Sq, Sk, causal, 1.4426950408889634f / sqrtf((float)scale_dim));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     Strides qs, Strides ks, Strides vs, Strides os, int B,
-                     int H, int KV, int D, int Sq, int Sk, int causal,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Sk,
-                           causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Sk,
-                            causal, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, qs, ks, vs, os, B, H, KV, Sq, Sk,
-                            causal, stream);
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+
+// f(std::integral_constant<int, W>{}) for the smallest width W >= D
+template <int I = 0, typename F>
+cudaError_t by_width(int D, F f) {
+  if constexpr (I == kNumWidths) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (D <= kWidths[I]) return f(std::integral_constant<int, kWidths[I]>{});
+    return by_width<I + 1>(D, f);
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D one of 64, 128, 256. Strides are in
-// elements (batch, head, sequence); the head dim is contiguous. bf16 needs
-// 16-byte rows: base pointers 16-byte aligned and strides multiples of 8
-// elements. Returns the cudaError_t of the launch (0 on success). Launches
-// on `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16; 0 < D <= 256 (the widest of kWidths),
+// a multiple of 8 in bf16; the softmax scale is 1 / sqrt(scale_dim). Strides
+// are in elements (batch, head, sequence); the head dim is contiguous.
+// bf16 needs 16-byte rows: base pointers 16-byte aligned and strides
+// multiples of 8 elements. Returns the cudaError_t of the launch (0 on
+// success). Launches on `stream` and does not synchronise.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int dtype, int B, int H, int KV,
-                               int D, int Sq, int Sk, int causal,
-                               const long long* strides, void* stream) {
+                               int D, int scale_dim, int Sq, int Sk,
+                               int causal, const long long* strides,
+                               void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || Sk < 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || Sk < 0 || D <= 0 || scale_dim <= 0)
+    return (int)cudaErrorInvalidValue;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_d<float>(q, k, v, out, qs, ks, vs, os, B, H, KV, D,
-                                Sq, Sk, causal, s);
+    return (int)by_width(D, [&](auto w) {
+      return launch<float, decltype(w)::value>(q, k, v, out, qs, ks, vs, os,
+                                               B, H, KV, D, Sq, Sk, causal,
+                                               scale_dim, s);
+    });
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0) return (int)cudaErrorMisalignedAddress;
   for (int i = 0; i < 12; ++i)
     if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -479,16 +511,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
           16 !=
       0)
     return (int)cudaErrorMisalignedAddress;
-  switch (D) {
-    case 64:
-      return (int)launch_wgmma<64>(q, k, v, out, qs, ks, vs, os, B, H, KV,
-                                   Sq, Sk, causal, s);
-    case 128:
-      return (int)launch_wgmma<128>(q, k, v, out, qs, ks, vs, os, B, H, KV,
-                                    Sq, Sk, causal, s);
-    case 256:
-      return (int)launch_wgmma<256>(q, k, v, out, qs, ks, vs, os, B, H, KV,
-                                    Sq, Sk, causal, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)by_width(D, [&](auto w) {
+    return launch_wgmma<decltype(w)::value>(q, k, v, out, qs, ks, vs, os, B,
+                                            H, KV, D, Sq, Sk, causal,
+                                            scale_dim, s);
+  });
 }

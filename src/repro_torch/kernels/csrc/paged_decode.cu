@@ -100,10 +100,14 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   PagedRows<T> rows{bs, static_cast<const T*>(k_pool),
                     static_cast<const T*>(v_pool), tables, KV, max_blocks,
                     n_blocks, D};
+  // every row starts a whole number of rows into its pool
+  const void* ptrs[2] = {k_pool, v_pool};
+  const int vb =
+      split_decode::row_vec_bytes(D, sizeof(T), nullptr, 0, ptrs, 2);
   // a range of `span` positions reads span / bs table entries
   return split_decode::launch<T>(q, rows, lengths, out, ws, B, KV, R, D,
                                  max_blocks * bs, n_split, span, span / bs,
-                                 stream);
+                                 vb, stream);
 }
 
 }  // namespace
@@ -124,10 +128,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool,
       n_blocks <= 0 || n_split <= 0 || span <= 0 || span % 64 != 0 ||
       span % bs != 0 || (long long)n_split * span < (long long)max_blocks * bs)
     return (int)cudaErrorInvalidValue;
-  const int vec = dtype == 0 ? 4 : 8;  // elements per 16-byte load
-  if (D % vec != 0 || reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+  if (reinterpret_cast<uintptr_t>(ws) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   const int R = H / KV;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

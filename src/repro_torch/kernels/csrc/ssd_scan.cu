@@ -18,6 +18,19 @@
 // The wrapper passes L as a multiple of the chunk, as the Pallas kernel
 // requires; a ragged last chunk would be masked here all the same.
 //
+// Widths: any P, and N up to 256 (the Pallas kernel takes any P and N), in
+// whole 16-byte rows (P and N multiples of 8 in bf16, of 4 in fp32; the
+// wrapper zero-pads others, which is exact: zero x columns give y columns
+// that are dropped, zero B and C columns add nothing). y's columns and the
+// state's rows are independent in p, so P runs in slabs of 64 over the
+// grids of passes 1 and 3; the state's columns are independent in n, so
+// pass 1 runs N in slabs of 128, and pass 3, whose C_i . B_j and C_i . h_c
+// sum over all of N, is built for N up to 128 and up to 256 (its key and
+// query tiles hold whole rows of N). Columns past P or N up to the next
+// multiple of 16 (the products' k16 and n16 steps) are zero-filled in the
+// loads and never stored. N above 256 and chunks above kMaxChunk are the
+// kernels' bounds.
+//
 // What bounds it on an H100 SXM: bytes. At mamba2-780m's widths (H 48,
 // P 64, G 1, N 128, Q 256, b 1, L 2048) reading x, B, C, dt and writing
 // y and the state once is 27.4 MB, 8.2 us at 3.35 TB/s; the least work
@@ -97,8 +110,9 @@ using namespace repro;
 using bf16 = __nv_bfloat16;
 
 constexpr int TI = 64;          // token rows per tile
-constexpr int PT = 64;          // largest head dim P
-constexpr int NT = 128;         // largest state dim N
+constexpr int PT = 64;          // P slab: head-dim columns a block holds
+constexpr int NT = 128;         // N slab of pass 1; pass 3's narrower build
+constexpr int kMaxN = 256;      // pass 3's wider build: the largest N
 constexpr int kMaxChunk = 1024;  // the chunk's dt and cs sit in shared memory
 constexpr int kMmaThreads = 128;   // bf16 pass 1: 4 warps x 16 state rows
 constexpr int kFmaThreads = 256;   // fp32 passes 1 and 3: 16 x 16 (tile_fma)
@@ -108,6 +122,12 @@ constexpr int kScanThreads = kQRows * 2;
 constexpr int kHLoads = 8;  // 16-byte loads of h_c in flight a thread (pass 3)
 constexpr int LDN = NT + 8;     // bf16 row of a [.][N] tile: 272 bytes
 constexpr int LDP = PT + 8;     // bf16 row of a [.][P] tile: 144 bytes
+// bf16 row of pass 3's [.][N] tiles for N up to NTL (528 bytes at 256)
+template <int NTL>
+__host__ __device__ constexpr int ldn() {
+  return NTL + 8;
+}
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 constexpr int LI = TI + 1;      // fp32 row of a token-major tile, padded
 
 // ------------------------------------------------ tensor-core building blocks
@@ -171,6 +191,8 @@ __device__ __forceinline__ void chunk_cumsum(const float* dt, int stride,
 struct Dims {
   int b, L, H, G, P, N, Q, nc;
   __device__ int group(int h) const { return h / (H / G); }
+  __host__ __device__ int p_slabs() const { return (P + PT - 1) / PT; }
+  __host__ __device__ int n_slabs() const { return (N + NT - 1) / NT; }
   // element offsets of token t's rows
   __device__ size_t x_at(int bi, int t, int h) const {
     return (((size_t)bi * L + t) * H + h) * P;
@@ -190,23 +212,39 @@ struct Dims {
   }
 };
 
-// rows r0.. of a [rows][cols] bf16 operand (row stride `gstride` elements)
-// into shared memory rows of `ld` elements, 16 bytes per cp.async; rows
-// at or past `valid` are zero-filled
+// rows r0.. of a [rows][vcols] bf16 operand (row stride `gstride`
+// elements, vcols a multiple of 8) into the first `cols` columns of shared
+// memory rows of `ld` elements, 16 bytes per cp.async; rows at or past
+// `valid` and columns at or past vcols are zero-filled
 __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
                                            size_t gstride, int rows, int valid,
-                                           int cols, int tid, int nthreads) {
-  const int vecs = cols / 8;
+                                           int cols, int vcols, int tid,
+                                           int nthreads) {
+  const int vecs = cols / 8, vvecs = vcols / 8;
   for (int i = tid; i < rows * vecs; i += nthreads) {
     const int r = i / vecs, v = i - r * vecs;
-    const bool ok = r < valid;
+    const bool ok = r < valid && v < vvecs;
     cp_async16(smem_addr(dst + r * ld + v * 8),
                ok ? src + r * gstride + v * 8 : src, ok ? 16 : 0);
   }
 }
 
 // ============================================================== pass 1
-// bf16: warp w owns state rows p in [16 w, 16 w + 16), all N columns. The
+// A block computes the state's slab of rows [p0, p0 + PT) and columns
+// [n0, n0 + NT), blockIdx.z = p slab * n_slabs + n slab; slab 0 writes
+// cs_last. Pv and Nv are the slab's real rows and columns.
+struct StateSlab {
+  int p0, n0, Pv, Nv;
+  __device__ explicit StateSlab(const Dims& d) {
+    const int ns = d.n_slabs();
+    p0 = (blockIdx.z / ns) * PT;
+    n0 = (blockIdx.z % ns) * NT;
+    Pv = min(PT, d.P - p0);
+    Nv = min(NT, d.N - n0);
+  }
+};
+
+// bf16: warp w owns slab rows p in [16 w, 16 w + 16), all its columns. The
 // chunk's B and x go through a two-stage ring of 64-token slabs (raw
 // cp.async copies), so slab s + 1 loads while slab s is weighted and
 // multiplied.
@@ -226,22 +264,25 @@ state_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int g = d.group(h);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = c * d.Q, qn = min(d.Q, d.L - t0);
+  const StateSlab sb(d);
+  const int Pc = round16(sb.Pv), Nc = round16(sb.Nv);  // columns staged
   const size_t bc_stride = (size_t)d.G * d.N, x_stride = (size_t)d.H * d.P;
-  const bf16* b_src = Bm + d.bc_at(bi, t0, g);
-  const bf16* x_src = x + d.x_at(bi, t0, h);
-  stage_rows(b_s, LDN, b_src, bc_stride, TI, qn, d.N, tid, kMmaThreads);
-  stage_rows(x_s, LDP, x_src, x_stride, TI, qn, d.P, tid, kMmaThreads);
+  const bf16* b_src = Bm + d.bc_at(bi, t0, g) + sb.n0;
+  const bf16* x_src = x + d.x_at(bi, t0, h) + sb.p0;
+  stage_rows(b_s, LDN, b_src, bc_stride, TI, qn, Nc, sb.Nv, tid,
+             kMmaThreads);
+  stage_rows(x_s, LDP, x_src, x_stride, TI, qn, Pc, sb.Pv, tid, kMmaThreads);
   cp_async_commit();
   chunk_cumsum(dt + d.dt_at(bi, t0, h), d.H, A[h], qn, dts, cs, tid,
                kMmaThreads);
   const float cl = cs[qn - 1];
-  if (tid == 0) ws[d.last_at(bi, h, c)] = cl;
+  if (tid == 0 && blockIdx.z == 0) ws[d.last_at(bi, h, c)] = cl;
 
   float acc[NT / 8][4] = {};
   const int p0 = 16 * warp;
-  const int n_pairs = d.N / 16;
+  const int n_pairs = Nc / 16;
   const int n_slabs = (qn + TI - 1) / TI;
-  const int vecs = d.P / 8;
+  const int vecs = Pc / 8;
   for (int sl = 0; sl < n_slabs; ++sl) {
     const int st = sl & 1, j0 = sl * TI;
     cp_async_wait<0>();
@@ -249,9 +290,9 @@ state_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (sl + 1 < n_slabs) {
       const int j1 = j0 + TI;
       stage_rows(b_s + (st ^ 1) * TI * LDN, LDN, b_src + j1 * bc_stride,
-                 bc_stride, TI, qn - j1, d.N, tid, kMmaThreads);
+                 bc_stride, TI, qn - j1, Nc, sb.Nv, tid, kMmaThreads);
       stage_rows(x_s + (st ^ 1) * TI * LDP, LDP, x_src + j1 * x_stride,
-                 x_stride, TI, qn - j1, d.P, tid, kMmaThreads);
+                 x_stride, TI, qn - j1, Pc, sb.Pv, tid, kMmaThreads);
       cp_async_commit();
     }
     // weighted x: exp(cs_last - cs_j) dt_j x_j, rounded to bf16 (rows past
@@ -271,7 +312,7 @@ state_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                      pack_bf16x2(f[6] * w, f[7] * w));
     }
     __syncthreads();
-    if (p0 < d.P) {
+    if (p0 < Pc) {
       const bf16* bs = b_s + st * TI * LDN;
 #pragma unroll
       for (int kk = 0; kk < TI / 16; ++kk) {
@@ -294,17 +335,20 @@ state_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
     }
   }
-  if (p0 >= d.P) return;
-  float* sto = ws + d.state_at(bi, h, c);
+  if (p0 >= Pc) return;
+  // the slab's origin; Nv is even, so n < Nv gives n + 1 < Nv too
+  float* sto = ws + d.state_at(bi, h, c) + (size_t)sb.p0 * d.N + sb.n0;
   const int p = p0 + (lane >> 2), q2 = (lane & 3) * 2;
 #pragma unroll
   for (int nt = 0; nt < NT / 8; ++nt) {
-    if (nt < 2 * n_pairs) {
-      const int n = nt * 8 + q2;
-      *reinterpret_cast<float2*>(sto + (size_t)p * d.N + n) =
-          make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(sto + (size_t)(p + 8) * d.N + n) =
-          make_float2(acc[nt][2], acc[nt][3]);
+    const int n = nt * 8 + q2;
+    if (nt < 2 * n_pairs && n < sb.Nv) {
+      if (p < sb.Pv)
+        *reinterpret_cast<float2*>(sto + (size_t)p * d.N + n) =
+            make_float2(acc[nt][0], acc[nt][1]);
+      if (p + 8 < sb.Pv)
+        *reinterpret_cast<float2*>(sto + (size_t)(p + 8) * d.N + n) =
+            make_float2(acc[nt][2], acc[nt][3]);
     }
   }
 }
@@ -325,23 +369,24 @@ state_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int g = d.group(h);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int t0 = c * d.Q, qn = min(d.Q, d.L - t0);
+  const StateSlab sb(d);
   chunk_cumsum(dt + d.dt_at(bi, t0, h), d.H, A[h], qn, dts, cs, tid,
                kFmaThreads);
   const float cl = cs[qn - 1];
-  if (tid == 0) ws[d.last_at(bi, h, c)] = cl;
+  if (tid == 0 && blockIdx.z == 0) ws[d.last_at(bi, h, c)] = cl;
 
   float acc[4][8] = {};
   for (int j0 = 0; j0 < qn; j0 += TI) {
     for (int e = tid; e < TI * NT; e += kFmaThreads) {
       const int j = e / NT, n = e - j * NT;
-      b_s[e] = (j0 + j < qn && n < d.N)
-                   ? Bm[d.bc_at(bi, t0 + j0 + j, g) + n] : 0.f;
+      b_s[e] = (j0 + j < qn && n < sb.Nv)
+                   ? Bm[d.bc_at(bi, t0 + j0 + j, g) + sb.n0 + n] : 0.f;
     }
     for (int e = tid; e < TI * PT; e += kFmaThreads) {
       const int j = e / PT, p = e - j * PT;
       float v = 0.f;
-      if (j0 + j < qn && p < d.P)
-        v = x[d.x_at(bi, t0 + j0 + j, h) + p] *
+      if (j0 + j < qn && p < sb.Pv)
+        v = x[d.x_at(bi, t0 + j0 + j, h) + sb.p0 + p] *
             (expf(cl - cs[j0 + j]) * dts[j0 + j]);
       w_s[e] = v;
     }
@@ -349,13 +394,13 @@ state_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     tile_fma<4, 8>(w_s, PT, b_s, NT, TI, ty, tx, acc);
     __syncthreads();
   }
-  float* st = ws + d.state_at(bi, h, c);
+  float* st = ws + d.state_at(bi, h, c) + (size_t)sb.p0 * d.N + sb.n0;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc) {
       const int p = ty + 16 * a, n = tx + 16 * cc;
-      if (p < d.P && n < d.N) st[(size_t)p * d.N + n] = acc[a][cc];
+      if (p < sb.Pv && n < sb.Nv) st[(size_t)p * d.N + n] = acc[a][cc];
     }
 }
 
@@ -403,10 +448,11 @@ state_pass_kernel(float* __restrict__ ws, T* __restrict__ h_out, Dims d,
 }
 
 // ============================================================== pass 3
-// The block of (chunk, head, query tile, batch); blockIdx.x is
-// (c * H + h) * n_qt + qt.
+// The block of (chunk, head, query tile, batch, P slab); blockIdx.x is
+// (c * H + h) * n_qt + qt, blockIdx.z the slab of y's columns [p0, p0 +
+// Pv).
 struct ScanBlock {
-  int c, h, qt, bi, t0, qn, i0;
+  int c, h, qt, bi, t0, qn, i0, p0, Pv;
   __device__ ScanBlock(const Dims& d, int n_qt, int rows) {
     qt = blockIdx.x % n_qt;
     const int ch = blockIdx.x / n_qt;
@@ -416,16 +462,21 @@ struct ScanBlock {
     t0 = c * d.Q;
     qn = min(d.Q, d.L - t0);
     i0 = qt * rows;
+    p0 = blockIdx.z * PT;
+    Pv = min(PT, d.P - p0);
   }
 };
 
 // bf16: a block of kQRows query rows, warp w owning rows i0 + 16 w .. + 15
-// and all P columns; a warp skips the key tiles wholly above its rows.
+// and the slab's P columns; a warp skips the key tiles wholly above its
+// rows. Built for N up to NTL.
+template <int NTL>
 __global__ void __launch_bounds__(kScanThreads)
 scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const bf16* __restrict__ Bm,
                 const bf16* __restrict__ Cm, const float* __restrict__ ws,
                 bf16* __restrict__ y, Dims d, int n_qt) {
+  constexpr int LDN = ldn<NTL>();
   extern __shared__ __align__(16) uint8_t smem[];
   bf16* c_s = reinterpret_cast<bf16*>(smem);  // [kQRows][LDN]: C, queries
   bf16* b_s = c_s + kQRows * LDN;             // [2][TI][LDN]: B, key rows
@@ -444,12 +495,15 @@ scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   // causal: the key tiles up to the block's last row
   const int n_kt = (min(blk.i0 + kQRows, blk.qn) + TI - 1) / TI;
   const size_t bc_stride = (size_t)d.G * d.N, x_stride = (size_t)d.H * d.P;
+  const int Nc = round16(d.N), Pc = round16(blk.Pv);  // columns staged
   const bf16* b_src = Bm + d.bc_at(blk.bi, blk.t0, g);
-  const bf16* x_src = x + d.x_at(blk.bi, blk.t0, blk.h);
+  const bf16* x_src = x + d.x_at(blk.bi, blk.t0, blk.h) + blk.p0;
   stage_rows(c_s, LDN, Cm + d.bc_at(blk.bi, blk.t0 + blk.i0, g), bc_stride,
-             kQRows, blk.qn - blk.i0, d.N, tid, kScanThreads);
-  stage_rows(b_s, LDN, b_src, bc_stride, TI, blk.qn, d.N, tid, kScanThreads);
-  stage_rows(x_s, LDP, x_src, x_stride, TI, blk.qn, d.P, tid, kScanThreads);
+             kQRows, blk.qn - blk.i0, Nc, d.N, tid, kScanThreads);
+  stage_rows(b_s, LDN, b_src, bc_stride, TI, blk.qn, Nc, d.N, tid,
+             kScanThreads);
+  stage_rows(x_s, LDP, x_src, x_stride, TI, blk.qn, Pc, blk.Pv, tid,
+             kScanThreads);
   cp_async_commit();
   chunk_cumsum(dt + d.dt_at(blk.bi, blk.t0, blk.h), d.H, A[blk.h], blk.qn,
                dts, cs, tid, kScanThreads);
@@ -461,7 +515,7 @@ scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const float cs_hi = i_hi < blk.qn ? cs[i_hi] : 0.f;
   const int warp_last = blk.i0 + warp * 16 + 15;  // this warp's last row
   const bool warp_rows = blk.i0 + warp * 16 < blk.qn;
-  const int k_steps = d.N / 16, p_pairs = d.P / 16;
+  const int k_steps = Nc / 16, p_pairs = Pc / 16;
   float yacc[PT / 8][4] = {};
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -469,9 +523,9 @@ scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (kt + 1 < n_kt) {
       const int j1 = (kt + 1) * TI;
       stage_rows(b_s + (st ^ 1) * TI * LDN, LDN, b_src + j1 * bc_stride,
-                 bc_stride, TI, blk.qn - j1, d.N, tid, kScanThreads);
+                 bc_stride, TI, blk.qn - j1, Nc, d.N, tid, kScanThreads);
       stage_rows(x_s + (st ^ 1) * TI * LDP, LDP, x_src + j1 * x_stride,
-                 x_stride, TI, blk.qn - j1, d.P, tid, kScanThreads);
+                 x_stride, TI, blk.qn - j1, Pc, blk.Pv, tid, kScanThreads);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -539,9 +593,11 @@ scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   // the carried state: wait for pass 2, then y += exp(cs_i) C_i . h_c
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (blk.c > 0) {
-    // h_c to bf16 in shared memory, kHLoads 16-byte loads in flight a thread
-    const float* hc = ws + d.state_at(blk.bi, blk.h, blk.c);
-    const int n4 = d.N / 4, total = d.P * n4;
+    // h_c to bf16 in shared memory (the slab's rows), kHLoads 16-byte
+    // loads in flight a thread; columns N .. Nc zero
+    const float* hc = ws + d.state_at(blk.bi, blk.h, blk.c) +
+                      (size_t)blk.p0 * d.N;
+    const int n4 = Nc / 4, total = blk.Pv * n4;
     for (int base = 0; base < total; base += kHLoads * kScanThreads) {
       float4 v[kHLoads];
 #pragma unroll
@@ -549,7 +605,9 @@ scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const int i = base + k * kScanThreads + tid;
         if (i < total) {
           const int p = i / n4, n = (i - p * n4) * 4;
-          v[k] = *reinterpret_cast<const float4*>(hc + (size_t)p * d.N + n);
+          v[k] = n < d.N ? *reinterpret_cast<const float4*>(
+                               hc + (size_t)p * d.N + n)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
       }
 #pragma unroll
@@ -588,35 +646,41 @@ scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       yacc[nt][3] += e_hi * off[nt][3];
     }
   }
+  // Pv is even, so p < Pv gives p + 1 < Pv too
 #pragma unroll
   for (int nt = 0; nt < PT / 8; ++nt) {
-    if (nt >= 2 * p_pairs) continue;
     const int p = nt * 8 + q2;
+    if (nt >= 2 * p_pairs || p >= blk.Pv) continue;
+    bf16* y_p = y + blk.p0 + p;
     if (i_lo < blk.qn)
-      *reinterpret_cast<uint32_t*>(y + d.x_at(blk.bi, blk.t0 + i_lo, blk.h) +
-                                   p) = pack_bf16x2(yacc[nt][0], yacc[nt][1]);
+      *reinterpret_cast<uint32_t*>(y_p + d.x_at(blk.bi, blk.t0 + i_lo,
+                                                blk.h)) =
+          pack_bf16x2(yacc[nt][0], yacc[nt][1]);
     if (i_hi < blk.qn)
-      *reinterpret_cast<uint32_t*>(y + d.x_at(blk.bi, blk.t0 + i_hi, blk.h) +
-                                   p) = pack_bf16x2(yacc[nt][2], yacc[nt][3]);
+      *reinterpret_cast<uint32_t*>(y_p + d.x_at(blk.bi, blk.t0 + i_hi,
+                                                blk.h)) =
+          pack_bf16x2(yacc[nt][2], yacc[nt][3]);
   }
 }
 
-// fp32: thread (ty, tx) owns query rows i0 + ty + 16 a, columns
+// fp32: thread (ty, tx) owns query rows i0 + ty + 16 a, slab columns
 // p = tx + 16 c. Operands are stored k-major for tile_fma: C^T [n][i],
-// B^T [n][j], the masked scores S^T [j][i], x [j][p], h_c^T [n][p].
+// B^T [n][j], the masked scores S^T [j][i], x [j][p], h_c^T [n][p]. Built
+// for N up to NTL.
+template <int NTL>
 __global__ void __launch_bounds__(kFmaThreads)
 scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ ws,
                 float* __restrict__ y, Dims d, int n_qt) {
   extern __shared__ __align__(16) uint8_t smem[];
-  float* ct = reinterpret_cast<float*>(smem);  // [NT][LI]
-  float* bt = ct + NT * LI;                    // [NT][LI]
-  float* xs = bt + NT * LI;                    // [TI][PT]
+  float* ct = reinterpret_cast<float*>(smem);  // [NTL][LI]
+  float* bt = ct + NTL * LI;                   // [NTL][LI]
+  float* xs = bt + NTL * LI;                   // [TI][PT]
   float* st = xs + TI * PT;                    // [TI][LI]
   float* dts = st + TI * LI;
   float* cs = dts + d.Q;
-  float* ht = bt;  // [NT][PT]: h_c^T (after the key tiles are done)
+  float* ht = bt;  // [NTL][PT]: h_c^T (after the key tiles are done)
 
   const ScanBlock blk(d, n_qt, TI);
   if (blk.i0 >= blk.qn) {  // a query tile past a ragged last chunk
@@ -627,8 +691,8 @@ scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int g = d.group(blk.h);
   chunk_cumsum(dt + d.dt_at(blk.bi, blk.t0, blk.h), d.H, A[blk.h], blk.qn,
                dts, cs, tid, kFmaThreads);
-  for (int e = tid; e < TI * NT; e += kFmaThreads) {
-    const int i = e / NT, n = e - i * NT;
+  for (int e = tid; e < TI * NTL; e += kFmaThreads) {
+    const int i = e / NTL, n = e - i * NTL;
     const int gi = blk.i0 + i;
     ct[n * LI + i] = (gi < blk.qn && n < d.N)
                          ? Cm[d.bc_at(blk.bi, blk.t0 + gi, g) + n] : 0.f;
@@ -636,15 +700,16 @@ scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float yacc[4][4] = {};
   for (int j0 = 0; j0 <= blk.i0; j0 += TI) {
     __syncthreads();  // the previous tile's readers of bt / xs / st are done
-    for (int e = tid; e < TI * NT; e += kFmaThreads) {
-      const int j = e / NT, n = e - j * NT;
+    for (int e = tid; e < TI * NTL; e += kFmaThreads) {
+      const int j = e / NTL, n = e - j * NTL;
       bt[n * LI + j] = (j0 + j < blk.qn && n < d.N)
                            ? Bm[d.bc_at(blk.bi, blk.t0 + j0 + j, g) + n] : 0.f;
     }
     for (int e = tid; e < TI * PT; e += kFmaThreads) {
       const int j = e / PT, p = e - j * PT;
-      xs[e] = (j0 + j < blk.qn && p < d.P)
-                  ? x[d.x_at(blk.bi, blk.t0 + j0 + j, blk.h) + p] : 0.f;
+      xs[e] = (j0 + j < blk.qn && p < blk.Pv)
+                  ? x[d.x_at(blk.bi, blk.t0 + j0 + j, blk.h) + blk.p0 + p]
+                  : 0.f;
     }
     __syncthreads();
     float s[4][4] = {};
@@ -667,8 +732,9 @@ scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (blk.c > 0) {
     __syncthreads();  // all readers of bt are done: ht takes its place
-    const float* hc = ws + d.state_at(blk.bi, blk.h, blk.c);
-    for (int e = tid; e < d.P * d.N; e += kFmaThreads) {
+    const float* hc = ws + d.state_at(blk.bi, blk.h, blk.c) +
+                      (size_t)blk.p0 * d.N;
+    for (int e = tid; e < blk.Pv * d.N; e += kFmaThreads) {
       const int p = e / d.N, n = e - p * d.N;
       ht[n * PT + p] = hc[e];
     }
@@ -687,11 +753,11 @@ scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   for (int a = 0; a < 4; ++a) {
     const int gi = blk.i0 + ty + 16 * a;
     if (gi >= blk.qn) continue;
-    float* y_row = y + d.x_at(blk.bi, blk.t0 + gi, blk.h);
+    float* y_row = y + d.x_at(blk.bi, blk.t0 + gi, blk.h) + blk.p0;
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       const int p = tx + 16 * cc;
-      if (p < d.P) y_row[p] = yacc[a][cc];
+      if (p < blk.Pv) y_row[p] = yacc[a][cc];
     }
   }
 }
@@ -703,10 +769,12 @@ size_t state_smem(int es, int Q) {
   return tiles + sizeof(float) * 2 * Q;
 }
 
+template <int NTL>
 size_t scan_smem(int es, int Q) {
   const size_t tiles =
-      es == 2 ? (size_t)(kQRows + 2 * TI) * LDN * 2 + (size_t)TI * LDP * 2 * 2
-              : sizeof(float) * ((size_t)2 * NT * LI + TI * PT + TI * LI);
+      es == 2 ? (size_t)(kQRows + 2 * TI) * ldn<NTL>() * 2 +
+                    (size_t)TI * LDP * 2 * 2
+              : sizeof(float) * ((size_t)2 * NTL * LI + TI * PT + TI * LI);
   return tiles + sizeof(float) * 2 * Q;
 }
 
@@ -735,14 +803,32 @@ template <> struct Passes<float> {
   static constexpr int threads = kFmaThreads, scan_threads = kFmaThreads;
   static constexpr int scan_rows = TI;
   static auto state() { return state_fma_kernel; }
-  static auto scan() { return scan_fma_kernel; }
+  template <int NTL> static auto scan() { return scan_fma_kernel<NTL>; }
 };
 template <> struct Passes<bf16> {
   static constexpr int threads = kMmaThreads, scan_threads = kScanThreads;
   static constexpr int scan_rows = kQRows;
   static auto state() { return state_mma_kernel; }
-  static auto scan() { return scan_mma_kernel; }
+  template <int NTL> static auto scan() { return scan_mma_kernel<NTL>; }
 };
+
+// pass 3, built for N up to NTL, as a dependent of pass 2
+template <typename T, int NTL>
+cudaError_t launch_scan(const T* xt, const float* dt, const float* A,
+                        const T* bt, const void* Cm, void* y, float* ws,
+                        const Dims& d, cudaStream_t stream) {
+  const auto scan_k = Passes<T>::template scan<NTL>();
+  const size_t s3 = scan_smem<NTL>(sizeof(T), d.Q);
+  static size_t allowed3 = 48 * 1024;
+  const cudaError_t err = allow_smem(scan_k, s3, &allowed3);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (d.Q + Passes<T>::scan_rows - 1) / Passes<T>::scan_rows;
+  return launch_dependent(scan_k, dim3(d.nc * d.H * n_qt, d.b, d.p_slabs()),
+                          Passes<T>::scan_threads, s3,
+                          stream, xt, dt, A, bt, static_cast<const T*>(Cm),
+                          static_cast<const float*>(ws), static_cast<T*>(y),
+                          d, n_qt);
+}
 
 template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A,
@@ -750,17 +836,14 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
                    float* ws, const Dims& d, cudaStream_t stream) {
   constexpr int threads = Passes<T>::threads;
   const auto state_k = Passes<T>::state();
-  const auto scan_k = Passes<T>::scan();
-  const size_t s1 = state_smem(sizeof(T), d.Q), s3 = scan_smem(sizeof(T), d.Q);
-  static size_t allowed1 = 48 * 1024, allowed3 = 48 * 1024;
+  const size_t s1 = state_smem(sizeof(T), d.Q);
+  static size_t allowed1 = 48 * 1024;
   cudaError_t err = allow_smem(state_k, s1, &allowed1);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(scan_k, s3, &allowed3);
   if (err != cudaSuccess) return err;
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bm);
-  state_k<<<dim3(d.nc * d.H, d.b), threads, s1, stream>>>(xt, dt, A, bt, ws,
-                                                          d);
+  const dim3 grid1(d.nc * d.H, d.b, d.p_slabs() * d.n_slabs());
+  state_k<<<grid1, threads, s1, stream>>>(xt, dt, A, bt, ws, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int tiles = (d.P * d.N / 4 + kPassThreads - 1) / kPassThreads;
@@ -768,12 +851,9 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
                          kPassThreads, 0, stream, ws, static_cast<T*>(h_out),
                          d, tiles);
   if (err != cudaSuccess) return err;
-  const int n_qt = (d.Q + Passes<T>::scan_rows - 1) / Passes<T>::scan_rows;
-  return launch_dependent(scan_k, dim3(d.nc * d.H * n_qt, d.b),
-                          Passes<T>::scan_threads, s3,
-                          stream, xt, dt, A, bt, static_cast<const T*>(Cm),
-                          static_cast<const float*>(ws), static_cast<T*>(y),
-                          d, n_qt);
+  if (d.N <= NT)
+    return launch_scan<T, NT>(xt, dt, A, bt, Cm, y, ws, d, stream);
+  return launch_scan<T, kMaxN>(xt, dt, A, bt, Cm, y, ws, d, stream);
 }
 
 }  // namespace
@@ -782,8 +862,9 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
 // in shared memory beside fixed tiles.
 extern "C" int ssd_max_chunk() { return kMaxChunk; }
 
-// dtype: 0 = float32, 1 = bfloat16; P <= 64 and N <= 128, both multiples
-// of 16; G divides H; Q <= ssd_max_chunk(). `ws` holds
+// dtype: 0 = float32, 1 = bfloat16; P and N in whole 16-byte rows
+// (multiples of 8 in bf16, of 4 in fp32), N <= 256 (kMaxN); G divides
+// H; Q <= ssd_max_chunk(). `ws` holds
 // b * H * nc * (P * N + 1) floats (nc = ceil(L / Q)), 16-byte aligned: the
 // chunk states [b][H][nc][P][N], then cs_last [b][H][nc]. Returns the
 // cudaError_t of the launches (0 on success). Launches on `stream` and
@@ -793,9 +874,10 @@ extern "C" int ssd_scan(const void* x, const float* dt, const float* A,
                         float* ws, int dtype, int b, int L, int H, int G,
                         int P, int N, int Q, void* stream) {
   if (b == 0 || H == 0) return (int)cudaSuccess;
-  if (G <= 0 || H % G != 0 || P <= 0 || P > PT || P % 16 != 0 || N <= 0 ||
-      N > NT || N % 16 != 0 || Q <= 0 || Q > kMaxChunk || L <= 0 ||
-      b > 65535)
+  const int vec = dtype == 1 ? 8 : 4;  // elements in a 16-byte vector
+  if (G <= 0 || H % G != 0 || P <= 0 || P % vec != 0 || N <= 0 ||
+      N > kMaxN || N % vec != 0 || Q <= 0 || Q > kMaxChunk || L <= 0 ||
+      b > 65535 || (P + PT - 1) / PT * ((N + NT - 1) / NT) > 65535)
     return (int)cudaErrorInvalidValue;
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
                           reinterpret_cast<uintptr_t>(Bm) |

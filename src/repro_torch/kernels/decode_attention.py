@@ -14,6 +14,11 @@ The kernel cuts the sequence into ``n_split`` ranges (``plan_splits``, a
 pure function of the shapes and the SM count) and merges their partial
 softmax states in a second pass. ``decode_attention_split_ref`` is that
 algorithm in plain PyTorch, for the tests.
+
+Any head dim and any strides with a contiguous last dim run on the
+kernel: it reads cache rows in the widest vectors (16, 8, 4 or 2 bytes)
+that divide the row, the strides and the base addresses, chosen at launch
+(``common.cuh``: row_vec_bytes).
 """
 from __future__ import annotations
 
@@ -176,13 +181,6 @@ def decode_attention(q, k, v, lengths):
     build.check_no_grad("decode_attention", q, k, v)
     B, H, D = q.shape
     KV, S = k.shape[1], k.shape[2]
-    # the kernel copies cache rows in 16-byte vectors
-    vec = 16 // k.element_size()
-    if D % vec or any(st % vec for st in (*k.stride()[:3], *v.stride()[:3])) \
-            or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"k/v rows must be 16-byte aligned for the kernel "
-                         f"(head dim {D}, strides {k.stride()}, "
-                         f"{v.stride()} in {k.dtype})")
     out = torch.empty_like(q)
     n_split, span = plan_splits(B, KV, S, sm_count(q.device.index))
     # partials: acc [B*H, n_split, D], then m and l [B*H, n_split], fp32

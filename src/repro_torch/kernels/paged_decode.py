@@ -20,6 +20,10 @@ with spans a multiple of 64 and of the block size, a pure function of
 the shapes and the SM count) and merges their partial softmax states in
 a second pass. ``paged_decode_attention_split_ref`` is that algorithm in
 plain PyTorch, for the tests.
+
+Any head dim runs on the kernel: it reads pool rows in the widest
+vectors (16, 8, 4 or 2 bytes) that divide the row, chosen at launch, so
+the pool, which the engine updates in place, is never copied or padded.
 """
 from __future__ import annotations
 
@@ -153,11 +157,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     build.check_no_grad("paged_decode_attention", q, k_pool, v_pool)
     B, H, D = q.shape
     n_blocks, KV, bs, _ = k_pool.shape
-    # the kernel copies pool tiles in 16-byte vectors
-    if (D * k_pool.element_size()) % 16 or k_pool.data_ptr() % 16 \
-            or v_pool.data_ptr() % 16:
-        raise ValueError(f"pool rows must be 16-byte aligned for the kernel "
-                         f"(head dim {D} in {k_pool.dtype})")
     out = torch.empty_like(q)
     mb = block_tables.shape[1]
     n_split, span = plan_paged_splits(B, KV, mb, bs,

@@ -14,6 +14,12 @@ The kernel computes each chunk's own state contribution in parallel,
 passes the states along the chunks, then each chunk's outputs in
 parallel. ``ssd_scan_chunked_ref`` is that algorithm in plain PyTorch,
 rounding to bf16 where the bf16 kernel rounds, for the tests.
+
+The kernel takes any head dim P and state dims N up to ``MAX_N`` (256),
+in whole 16-byte rows; the wrapper zero-pads a P or N that is not
+(``pad_dims``), which is exact. Above N 256 or a chunk of
+``ssd_max_chunk()`` (1024) it raises: those are the kernel's bounds
+(ROADMAP B).
 """
 from __future__ import annotations
 
@@ -25,8 +31,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_P, MAX_N = 64, 128   # the kernel's largest head and state dims
-DIM_MULTIPLE = 16        # P and N: multiples of this (tensor-core tiles)
+MAX_N = 256   # the kernel's largest state dim (csrc/ssd_scan.cu: kMaxN)
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -163,6 +168,18 @@ def _lib():
     return lib
 
 
+def pad_dims(x, B, C, multiple):
+    """x with P, and B and C with N, zero-padded to multiples of
+    ``multiple`` (a 16-byte row), contiguous. Exact: zero x columns give
+    y and state rows that the caller drops, and zero B and C columns add
+    nothing to C . B or to the state's other columns."""
+    def pad(t):
+        n = t.shape[-1]
+        extra = -n % multiple
+        return torch.nn.functional.pad(t, (0, extra)) if extra else t
+    return pad(x), pad(B), pad(C)
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """x: [b,L,H,P]; dt: [b,L,H] (softplus'd); A: [H] (negative); B, C:
     [b,L,G,N] in x's type, G dividing H; L a multiple of min(chunk, L).
@@ -170,7 +187,8 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     Pallas kernel gives them), starting from h = 0.
 
     On CUDA this is three launches (chunk states, state passing, chunk
-    scan) into a workspace allocated here; no host sync."""
+    scan) into a workspace allocated here; no host sync. P or N that is
+    not a whole 16-byte row runs on zero-padded copies (``pad_dims``)."""
     _check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk)
@@ -181,11 +199,21 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     G, N = B.shape[2], B.shape[3]
     Q = min(chunk, L)
     lib = _lib()
-    if P > MAX_P or N > MAX_N or P % DIM_MULTIPLE or N % DIM_MULTIPLE \
-            or Q > lib.ssd_max_chunk():
-        raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
-                         f"multiples of {DIM_MULTIPLE}, and chunks up to "
-                         f"{lib.ssd_max_chunk()}; got P={P}, N={N}, chunk {Q}")
+    if N > MAX_N or Q > lib.ssd_max_chunk():
+        raise ValueError(f"the kernel takes state dims up to {MAX_N} and "
+                         f"chunks up to {lib.ssd_max_chunk()} (ROADMAP B); "
+                         f"got N={N}, chunk {Q}")
+    vec = 16 // x.element_size()
+    if P % vec or N % vec:
+        xp, Bp, Cp = pad_dims(x, B, C, vec)
+        y, h = _launch(lib, xp, dt, A, Bp, Cp, Q)
+        return y[..., :P].contiguous(), h[:, :, :P, :N].contiguous()
+    return _launch(lib, x, dt, A, B, C, Q)
+
+
+def _launch(lib, x, dt, A, B, C, Q):
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
     dt32 = dt.float().contiguous()
     A32 = A.float().contiguous()
     y = torch.empty_like(x)

@@ -1,7 +1,41 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py)."""
-import jax
-import pytest
-import torch
+import os
+
+# MKL's reproducible mode for this process. MKL reads the variable at its
+# first call, so it is set before torch is imported here, and every test
+# module is imported before a test runs; ``mkl_branch`` reads back the
+# branch MKL took (``test_torch_replication.py::
+# test_mkl_runs_its_reproducible_branch``). In MKL's default mode, ranks
+# that are threads of one process now and then computed the same rows of
+# a layer differently (an attention output 1.6e-4 off its peer rank's),
+# failing the 1e-4 gates against the reference; single-threaded MKL, a
+# fixed AVX-512 branch and "AUTO,STRICT" did not prevent it (ROADMAP C8).
+os.environ.setdefault("MKL_CBWR", "COMPATIBLE")
+
+import ctypes  # noqa: E402
+
+import jax  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+#: ``MKL_CBWR_BRANCH`` (mkl_service.h): the option that asks for the branch
+MKL_CBWR_BRANCH = 1
+#: ``MKL_CBWR_COMPATIBLE`` (mkl_service.h): the branch ``MKL_CBWR=COMPATIBLE``
+#: selects; ``MKL_CBWR_BRANCH_OFF`` (1) where the mode is off
+MKL_CBWR_COMPATIBLE = 3
+
+
+def mkl_branch():
+    """The branch of MKL's reproducible mode this process runs, read with
+    ``mkl_serv_cbwr_get`` from torch's CPU library (it links MKL in and
+    exports MKL's service functions), or None where torch has no MKL."""
+    if not torch.backends.mkl.is_available():
+        return None
+    lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib",
+                                   "libtorch_cpu.so"))
+    get = lib.mkl_serv_cbwr_get
+    get.restype, get.argtypes = ctypes.c_int, [ctypes.c_int]
+    return get(MKL_CBWR_BRANCH)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -8,6 +8,8 @@ the reference's, and the wrappers' input checks. The CUDA kernels run
 only on the card: chip_smoke.py holds them to the plain versions there.
 Tolerances: fp32 3e-5 (attention), 4e-4 (SSD, as the reference's own
 SSD test), bf16 2e-2."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,6 +58,10 @@ FLASH_CASES = [  # (B, H, KV, Sq, Sk, D, dtype): test_kernels.py:21-25
     (1, 2, 2, 512, 512, 256, "bfloat16"),   # gemma-wide heads
     (1, 4, 2, 128, 256, 64, "float32"),     # Sq < Sk
     (1, 4, 2, 256, 128, 64, "bfloat16"),    # Sq > Sk
+    (1, 4, 4, 128, 128, 112, "float32"),    # zamba2-7b's head dim
+    (1, 4, 2, 128, 128, 160, "bfloat16"),   # stablelm-12b's
+    (1, 2, 2, 128, 128, 80, "float32"),     # a kernel width of its own
+    (1, 4, 2, 128, 128, 100, "bfloat16"),   # the padded route on the card
 ]
 
 
@@ -90,6 +96,8 @@ DECODE_CASES = [  # (B, H, KV, S, D, dtype): test_kernels.py:38-41
     (3, 4, 4, 128, 128, "bfloat16"),
     (1, 16, 1, 384, 64, "float32"),
     (2, 8, 2, 256, 64, "bfloat16"),
+    (2, 4, 2, 128, 100, "bfloat16"),   # rows of 8-byte vectors on the card
+    (2, 4, 2, 128, 98, "float32"),     # rows of 8-byte vectors in fp32
 ]
 
 
@@ -144,6 +152,9 @@ SSD_CASES = [  # (b, L, H, G, P, N, Q, dtype): test_kernels.py:54-58
     (2, 512, 4, 4, 64, 64, 256, "float32"),    # per-head groups
     (1, 256, 2, 1, 64, 128, 128, "float32"),   # mamba2-780m-like state
     (1, 256, 4, 2, 32, 16, 64, "bfloat16"),
+    (1, 128, 2, 1, 128, 32, 64, "float32"),    # two P slabs on the card
+    (1, 128, 2, 1, 32, 256, 64, "float32"),    # N 256: the wider pass 3
+    (1, 128, 2, 1, 24, 40, 64, "bfloat16"),    # zero-filled to 32 and 48
 ]
 
 
@@ -164,6 +175,38 @@ def test_ssd_plain_matches_pallas(case):
     assert tuple(h.shape) == (b, H, P, N)
     _close(y, wy, SSD_TOL[dtype])
     _close(h, wh, SSD_TOL[dtype])
+
+
+def test_padded_routes_give_the_plain_result():
+    """The routes the card takes for rows that are not whole 16-byte
+    vectors, with the plain versions standing in for the launches: flash
+    on ``pad_head_dim`` copies (D 100 -> 104) with the true head dim's
+    scale (the stand-in widens q and rescales it from the padded dim's
+    scale to the true one's: 1e-3 holds that to within an fp32 rounding
+    of the scores, where the padded dim's scale is 3.5e-2 off), and the
+    SSD scan on ``pad_dims`` copies (P 20, N 12 -> 24, 16 in bf16), sliced
+    back; both equal the plain versions on the unpadded operands."""
+    def launch(q, k, v, causal, scale_dim):
+        rescale = math.sqrt(q.shape[-1] / scale_dim)
+        return FA.flash_attention_ref(q.float() * rescale, k, v, causal=causal)
+
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, n, 64, 100)).to(torch.bfloat16)
+               for n in (4, 2, 2))
+    qp, kp, vp = FA.pad_head_dim(q, k, v)
+    assert qp.shape[-1] == 104 and bool((qp[..., 100:] == 0).all())
+    got = FA.padded_call(launch, q, k, v, True)
+    assert got.shape == q.shape and got.stride() == q.stride()
+    _close(got, FA.flash_attention_ref(q, k, v), 1e-3)
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in
+                        _ssd_inputs(rng, 1, 64, 2, 1, 20, 12))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    xp, Bp, Cp = SS.pad_dims(x, Bm, Cm, 8)
+    assert xp.shape[-1] == 24 and Bp.shape[-1] == Cp.shape[-1] == 16
+    y, h = SS.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=32)
+    yp, hp = SS.ssd_scan_ref(xp, dt, A, Bp, Cp, chunk=32)
+    _close(yp[..., :20], y, 0.0)
+    _close(hp[:, :, :20, :12], h, 0.0)
 
 
 def test_ref_ssd_matches_reference_oracle():

@@ -58,18 +58,20 @@ def _jax_ref(q, pool, tables, lens, dtype):
         jnp.asarray(q, jd), st, list(range(len(lens))), layer=0), np.float32)
 
 
-CASES = {  # name: (lens, H, KV, dtype, tol)
-    "reduced": ([20, 7, 33], 4, 4, "float32", 3e-5),
-    "gqa_fp32": ([20, 7, 33], 8, 2, "float32", 3e-5),
-    "gqa_bf16": ([20, 7, 33], 8, 2, "bfloat16", 2e-2),
-    "block_boundaries": ([8, 16, 1, 17], 4, 4, "float32", 3e-5),
+CASES = {  # name: (lens, H, KV, head dim, dtype, tol)
+    "reduced": ([20, 7, 33], 4, 4, 64, "float32", 3e-5),
+    "gqa_fp32": ([20, 7, 33], 8, 2, 64, "float32", 3e-5),
+    "gqa_bf16": ([20, 7, 33], 8, 2, 64, "bfloat16", 2e-2),
+    "block_boundaries": ([8, 16, 1, 17], 4, 4, 64, "float32", 3e-5),
+    # a bf16 row of 200 bytes: the kernel reads it in 8-byte vectors
+    "head_dim_100": ([20, 7, 33], 8, 2, 100, "bfloat16", 2e-2),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_matches_pallas_and_reference(name):
-    lens, H, KV, dtype, tol = CASES[name]
-    q, pool, tables, ln = _case(lens, H=H, KV=KV)
+    lens, H, KV, hd, dtype, tol = CASES[name]
+    q, pool, tables, ln = _case(lens, H=H, KV=KV, hd=hd)
     got = PD.paged_decode_attention(*_torch(q, pool, tables, ln, dtype))
     assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
     got = got.float().numpy()

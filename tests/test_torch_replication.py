@@ -31,7 +31,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import paged_kv as PK
 from repro_torch.serving.engine import Engine
 from _torch_mesh import run_threads
-from _torch_parity import jax_solo_streams, jit, specs
+from _torch_parity import MKL_CBWR_COMPATIBLE, jax_solo_streams, jit, mkl_branch, specs
 from _torch_parity import one_torch_thread  # noqa: F401
 from _torch_parity import partitionable_threefry  # noqa: F401
 
@@ -73,6 +73,16 @@ def tiny():
 @pytest.fixture(scope="module")
 def tiny4():
     return _pair(4)
+
+
+def test_mkl_runs_its_reproducible_branch():
+    """The thread ranks' GEMMs run in MKL's reproducible mode: the
+    ``MKL_CBWR=COMPATIBLE`` that ``_torch_parity`` sets before torch's
+    first GEMM in this process took effect (ROADMAP C8)."""
+    if mkl_branch() is None:
+        pytest.skip("torch is built without MKL: no MKL branch to check")
+    torch.ones(64, 64) @ torch.ones(64, 64)
+    assert mkl_branch() == MKL_CBWR_COMPATIBLE
 
 
 def test_group_axes_and_shards():
